@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (libfm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # config #3: ML-10M shape, k=64
+    python3 chip_smoke.py            # configs #3, #1 and #4b; the table probes
 
 What it does, in order (any failed phase exits non-zero):
 
 1. Checks for a CUDA device and prints the card's name and power limit.
 2. Builds the port's CUDA kernels from libfm_tpu_torch/csrc (nvcc, sm_90a)
    and prints the build seconds.
-3. Builds config #3's data (movielens_like(71567, 10681, 10M, seed=1):
-   9M train rows, 82,248 features) and, at the shapes the main path gives
-   each kernel, runs every kernel and its plain PyTorch version on the
-   same seeded inputs, checks the difference against a stated tolerance
-   and times kernel, plain version and (where one exists) the one PyTorch
-   library call that computes the same function, with CUDA events.
-4. Resets the launch counters and drives the main path through the
-   port's entry points — ALSVectorLearner (3 iterations), then
-   MCMCVectorLearner (4 iterations), k=64 — each run with a refresh and a
-   non-refresh iteration; checks that every kernel was launched in each
-   run, that the RMSEs are finite, that no draw was rejected and that
+3. Kernel phase. At the shapes the main paths give each kernel, runs every
+   kernel and its plain PyTorch version on the same seeded inputs, checks
+   the difference against a stated tolerance and times kernel, plain
+   version and (where one exists) the one PyTorch library call that
+   computes the same function, with CUDA events:
+   - config #3 (movielens_like(71567, 10681, 10M, seed=1): 9M train rows,
+     82,248 features, k=64): fm_refresh, slot_stats, schur_draw,
+     dense_update;
+   - SGD: one whole epoch (sgd_step + table_scatter + the w0 update) from
+     the same table, kernels against plain versions (table and w0), at
+     config #1 (the same ML data, k=8, B=32768, "pair" mode), config #4b
+     (ctr_like(13, 5000, 2M, seed=1), k=16, B=8192, "onehot") and #4b's
+     data with values from N(1, 0.25) ("general"); each kernel also timed
+     alone over an epoch's batches (table_scatter against index_add_);
+   - table_scatter at probe P4's shape (against index_add_) and
+     table_read at probes P1 (scale 8) and P3 (scale 1).
+4. Path phase. Resets the launch counters before each run and reads them
+   after it; each run must launch its own kernels: ALSVectorLearner (3
+   iterations) and MCMCVectorLearner (4) at config #3; SGDLearner for 3
+   epochs at config #1 (regression) and config #4b (classification).
+   Checks that every metric is finite, that no draw was rejected and that
    the ALS train RMSE falls.
-5. Prints one {"kernels": [...]} line, the per-iteration seconds, and as
-   the last line {"ok": true, "device": {...}}.
+5. Probe phase. The ported table probes (libfm_tpu_torch.studies
+   pallas_gather.main and pallas_scatter.main) at the studies' shapes,
+   each against its plain version; prints ns/row.
+6. Prints each phase's seconds, one {"kernels": [...]} line (launches on
+   every path that runs each kernel), the per-iteration and per-epoch
+   seconds, and as the last line {"ok": true, "device": {...}}.
 
 It runs on one card: the first that CUDA_VISIBLE_DEVICES names (card 0
 when it is unset), and it hides the others. It imports nothing of jax
@@ -35,11 +49,11 @@ import argparse
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 # one card, set before CUDA starts: torch.cuda.device_count() is then 1
 CARD = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
 os.environ["CUDA_VISIBLE_DEVICES"] = CARD
@@ -51,6 +65,22 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 # config #3 (BASELINE.json): MCMC FM, k=64, ML-10M-shaped one-hot data
 USERS, ITEMS, RATINGS, FACTORS, SEED = 71567, 10681, 10_000_000, 64, 1
 ALS_ITERS, MCMC_ITERS = 3, 4  # refresh_every=8: both include a non-refresh step
+# the SGD configurations of bench.py: #1 (bench_sgd, :90-109) on the ML
+# data above, #4b (bench_sgdc, :279-309) on ctr_like(13, 5000, 2M, seed=1)
+SGD_CONFIGS = {
+    "sgd_1": dict(k=8, task=0, lr=0.003, batch=32768, regw=0.0, regv=0.01),
+    "sgd_4b": dict(k=16, task=1, lr=1e-4, batch=8192, regw=0.01, regv=0.01),
+}
+SGD_EPOCHS = 3
+CTR_FIELDS, CTR_CARD, CTR_EXAMPLES = 13, 5000, 2_000_000
+# the kernels each path must launch
+EXPECTED = {
+    "als": {"fm_refresh", "slot_stats", "schur_draw", "dense_update"},
+    "mcmc": {"fm_refresh", "slot_stats", "schur_draw", "dense_update"},
+    "sgd_1": {"sgd_step", "table_scatter", "fm_refresh"},
+    "sgd_4b": {"sgd_step", "table_scatter", "fm_refresh"},
+    "probes": {"table_read", "table_scatter"},
+}
 
 
 def fail(msg: str) -> None:
@@ -59,21 +89,9 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of `fn` over `reps` runs, each timed with CUDA
-    events after `warmup` untimed runs."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    from libfm_tpu_torch.utils.timers import device_ms
+
+    return device_ms(fn, reps, warmup)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -82,8 +100,32 @@ def bound_ms(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def kernel_row(name, replaces, err, tol, ms, plain_ms, nbytes, flops, lib_ms,
+               timed, label=""):
+    """One row of the kernels line: fails when `err` exceeds `tol`."""
+    bms, by = bound_ms(nbytes, flops)
+    print(f"{name}{label}: err={err:.3g} (tol {tol:g}) ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
+          f"library_ms={lib_ms}")
+    if not err <= tol:
+        fail(f"{name}{label} disagrees with its plain version: {err} > {tol}")
+    return dict(
+        name=name, route="cuda", source=f"libfm_tpu_torch/csrc/{name}.cu",
+        replaces=replaces, launches=0, max_abs_err=err, tolerance=tol,
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=lib_ms, timed=timed,
+    )
+
+
+def col_rel_err(a, b):
+    """Largest difference per column over the column's largest value (a
+    0-dim tensor)."""
+    return ((a - b).abs().amax(dim=0) / b.abs().amax(dim=0).clamp_min(1e-12)).max()
+
+
 def kernel_checks(args, rec, dev):
-    """Phase 3: every kernel against its plain version at config #3."""
+    """Phase 3: every kernel of the vector engine against its plain
+    version at config #3."""
     import numpy as np
 
     from libfm_tpu_torch.data.batching import conflict_free_blocks
@@ -140,21 +182,8 @@ def kernel_checks(args, rec, dev):
     w0 = torch.tensor(3.5, device=dev)
     out = []
 
-    def entry(name, replaces, err, tol, ms, plain_ms, nbytes, flops, lib_ms,
-              timed="one iteration's launches: one per block"):
-        bms, by = bound_ms(nbytes, flops)
-        ok = err <= tol
-        print(f"{name}: max_err={err:.3g} (tol {tol:g}) ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
-              f"library_ms={lib_ms}")
-        if not ok:
-            fail(f"{name} disagrees with its plain version: {err} > {tol}")
-        out.append(dict(
-            name=name, route="cuda", source=f"libfm_tpu_torch/csrc/{name}.cu",
-            replaces=replaces, launches=0, max_abs_err=err, tolerance=tol,
-            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            library_ms=lib_ms, timed=timed,
-        ))
+    def entry(*a, timed="one iteration's launches: one per block", **kw):
+        out.append(kernel_row(*a, timed=timed, **kw))
 
     # ---- A. fm_refresh (train mode; test mode checked alongside)
     A_k = torch.empty(nc, d, device=dev)
@@ -297,22 +326,363 @@ def kernel_checks(args, rec, dev):
     return out, (train, test)
 
 
-def profile_summary(prof, out_dir, rec):
-    """From a torch.profiler run of a learner: per iteration (the
-    learner's "iteration N" ranges) the wall time, the device-busy time
-    (union of the device activities inside the range) and the device time
-    by name; for the first iteration also its longest host events."""
+def ctr_data():
+    """Config #4b's data (bench.py:279-309): targets binarized to +-1."""
+    from libfm_tpu_torch.data.synth import ctr_like
+
+    train, test, _ = ctr_like(num_fields=CTR_FIELDS, field_cardinality=CTR_CARD,
+                              num_examples=CTR_EXAMPLES, seed=SEED)
+    train.binarize_targets()
+    test.binarize_targets()
+    return train, test
+
+
+def lockstep_err(P0, w0, batches, kw, lr0, reg0):
+    """An SGD epoch in which every batch's kernels and plain versions start
+    from the same state (the kernels'): the largest difference, relative
+    per column, of the update rows, of the table after the scatter (the
+    plain scatter adds the same rows) and of the batch sums."""
+    from libfm_tpu_torch.kernels import sgd_step as sg
+    from libfm_tpu_torch.kernels import table_scatter as ts
+
+    P, errs = P0.clone(), []
+    for ids, vals, y, m, sids, perm in batches:
+        u_k, r_k = sg.sgd_step(P, ids, vals, y, m, w0, **kw)
+        u_p, r_p = sg.sgd_step_plain(P, ids, vals, y, m, w0, **kw)
+        P_p = ts.table_scatter_plain(P.clone(), sids, perm, u_k)
+        ts.table_scatter(P, sids, perm, u_k)
+        errs.append(torch.stack([
+            col_rel_err(u_k, u_p), col_rel_err(P, P_p),
+            ((r_k - r_p).abs() / r_p.abs().clamp_min(1.0)).max(),
+        ]))
+        w0 = w0 - lr0 * (r_k[0] + r_k[1] * reg0 * w0)
+    return torch.stack(errs).max().item()
+
+
+def plain_epoch(P0, w0, batches, kw, lr0, reg0, sums=None):
+    """The plain versions' SGD epoch from (P0, w0), in P0's dtype: the
+    learner's loop (step, scatter, w0 line) with sgd_step_plain and
+    table_scatter_plain. With `sums` (a step function), w0 moves by the
+    batch sums that `sums` takes on the same state instead. Returns
+    (P, w0)."""
+    from libfm_tpu_torch.kernels import sgd_step as sg
+    from libfm_tpu_torch.kernels import table_scatter as ts
+
+    P = P0.clone()
+    for ids, vals, y, m, sids, perm in batches:
+        upd, red = sg.sgd_step_plain(P, ids, vals, y, m, w0, **kw)
+        if sums is not None:
+            red = sums(P, ids, vals, y, m, w0, **kw)[1]
+        ts.table_scatter_plain(P, sids, perm, upd)
+        w0 = w0 - lr0 * (red[0] + red[1] * reg0 * w0)
+    return P, w0
+
+
+def rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def sgd_kernel_checks(args, rec, dev, ml, ctr):
+    """Phase 3, SGD: one whole epoch, kernels against plain versions from
+    the same table, at config #1 ("pair"), config #4b ("onehot") and
+    #4b's data with valued entries ("general"): held batch by batch in
+    lockstep, and free-running to the epoch's end, table and w0 (beside
+    the plain version's own run-to-run spread, the plain epoch with the
+    kernel's batch sums and the plain epoch in float64); then each kernel
+    alone over an epoch's batches. Returns the rows of sgd_step and
+    table_scatter (config #1's numbers, every case under "cases")."""
+    import numpy as np
+
+    from libfm_tpu_torch.data.batching import batch_dataset
+    from libfm_tpu_torch.data.dataset import Dataset
+    from libfm_tpu_torch.kernels import sgd_step as sg
+    from libfm_tpu_torch.kernels import table_scatter as ts
+    from libfm_tpu_torch.learners.sgd import (
+        _epoch_mode, _packed, make_epoch_fn, sorted_scatter_order,
+    )
+    from libfm_tpu_torch.models.fm import FMConfig, FMParams
+
+    valued = Dataset(ctr.indptr, ctr.cols,
+                     np.random.default_rng(SEED).normal(1.0, 0.25, ctr.nnz)
+                     .astype(np.float32), ctr.target, ctr.num_features)
+    # the last field: whether w0 after the free-running epoch is held to
+    # the plain epoch's at 1e-4. At config #1 each batch moves w0 by
+    # 0.003 x a sum over 32,768 rows (98x the mean multiplier), so
+    # rounding alone moves the end of the epoch's w0 by more (the plain
+    # epoch against itself, index_add_'s atomics, does it too): there the
+    # kernel's w0 is held to the plain epoch run with the kernel's batch
+    # sums, and the float64 epoch is recorded beside it
+    cases = [("config #1 pair", "sgd_1", ml, "pair", False),
+             ("config #4b onehot", "sgd_4b", ctr, "onehot", True),
+             ("config #4b general", "sgd_4b", valued, "general", True)]
+    reps = max(3, args.reps // 3)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = {"sgd_step": [], "table_scatter": []}
+    orders = {}  # the scatter order by config: #4b's two cases share their ids
+    for label, cname, ds, mode, gate_w0 in cases:
+        t0 = time.perf_counter()
+        c = SGD_CONFIGS[cname]
+        k, d = c["k"], c["k"] + 1
+        tb = batch_dataset(ds, c["batch"])
+        if _epoch_mode(ds, tb) != mode:
+            fail(f"{label}: the learner would pick mode {_epoch_mode(ds, tb)}")
+        if cname not in orders:
+            orders[cname] = sorted_scatter_order(tb.ids)
+        sids_np, perm_np = orders[cname]
+        arrs = [torch.as_tensor(x, device=dev) for x in
+                (tb.ids, tb.vals, tb.y, tb.row_mask, sids_np, perm_np)]
+        nb, B, L = tb.ids.shape
+        E = nb * B * L
+        uniq = int(nb + np.count_nonzero(np.diff(sids_np, axis=1)))
+        n = ds.num_features
+        cfg = FMConfig(num_features=n, num_factors=k, regw=c["regw"], regv=c["regv"])
+        params = FMParams(torch.tensor(0.1, device=dev),
+                          0.01 * torch.randn(n, generator=g, device=dev),
+                          0.1 * torch.randn(n, k, generator=g, device=dev))
+        lrs, lims = (c["lr"],) * 3, (float(ds.min_target), float(ds.max_target))
+        ep_k = make_epoch_fn(cfg, c["task"], mode)
+        P0 = _packed(params)
+        batches = list(zip(*(a.unbind(0) for a in arrs)))
+        kw = dict(mode=mode, task=c["task"], lr1=c["lr"], lr2=c["lr"], regw=c["regw"],
+                  regv=c["regv"], min_target=lims[0], max_target=lims[1])
+        t1 = time.perf_counter()
+        secs = {"set-up": t1 - t0}
+        err = lockstep_err(P0, params.w0, batches, kw, c["lr"], cfg.reg0)
+
+        def ep_p(P_, w0_, sums=None):
+            return plain_epoch(P_, w0_, batches, kw, c["lr"], cfg.reg0, sums)
+
+        # free-running from the same table: the kernels' epoch (the
+        # learner's), the plain epoch twice (index_add_'s atomics add in no
+        # fixed order), the plain epoch with the kernel's batch sums, and
+        # the plain epoch in float64
+        r_k = ep_k(params, *arrs, lrs, *lims)
+        P_k, w0_k = _packed(r_k), r_k.w0.item()
+        (P_p, w0_p), (P_p2, w0_p2) = ep_p(P0, params.w0), ep_p(P0, params.w0)
+        w0_ks = ep_p(P0, params.w0, sums=sg.sgd_step)[1].item()
+        w0_64 = ep_p(P0.double(), params.w0.double())[1].item()
+        w0_p, w0_p2 = w0_p.item(), w0_p2.item()
+        free = [col_rel_err(P_k, P_p).item(), col_rel_err(P_p2, P_p).item()]
+        w0_err, w0_sums_err = rel(w0_k, w0_p), rel(w0_k, w0_ks)
+        t2 = time.perf_counter()
+        secs["lockstep and free-running epochs"] = t2 - t1
+        epoch_ms = cuda_ms(lambda: ep_k(params, *arrs, lrs, *lims), reps)
+        epoch_plain_ms = cuda_ms(lambda: ep_p(P0, params.w0), 1, warmup=0)
+        print(f"SGD epoch, {label}: {nb} batches of {B}x{L}; kernels against plain "
+              f"in lockstep (every batch from the same state): {err:.3g} (tol 1e-4, "
+              f"relative per column); free-running after one epoch: table, kernels "
+              f"against plain {free[0]:.3g} (tol 1e-4), plain against plain "
+              f"{free[1]:.3g}; w0 kernels {w0_k!r}, plain {w0_p!r} and {w0_p2!r}, "
+              f"plain with the kernel's sums {w0_ks!r}, plain float64 {w0_64!r}; "
+              f"w0 kernels against plain {w0_err:.3g} "
+              f"({'tol 1e-4' if gate_w0 else 'recorded'}), against plain with the "
+              f"kernel's sums {w0_sums_err:.3g} (tol 1e-4); "
+              f"epoch ms {epoch_ms:.3f}, plain {epoch_plain_ms:.3f}")
+        if not max(err, free[0], w0_sums_err, w0_err if gate_w0 else 0.0) <= 1e-4:
+            fail(f"SGD epoch at {label}: kernels and plain versions differ by "
+                 f"{err} (lockstep), {free[0]} (free-running table), {w0_err} "
+                 f"(w0), {w0_sums_err} (w0 against the plain epoch with the "
+                 f"kernel's sums)")
+        # each kernel alone over the epoch's batches, from the initial table
+        def steps(fn):
+            return lambda: [fn(P0, i, v, y, m, params.w0, **kw)
+                            for i, v, y, m, _, _ in batches]
+
+        upds = [u for u, _ in steps(sg.sgd_step)()]
+        P_s = P0.clone()
+        flat = [i.reshape(-1).long() for i, *_ in batches]
+
+        def scatters(fn):
+            return lambda: [fn(P_s, s, p, u) for (*_, s, p), u in zip(batches, upds)]
+
+        def library():
+            for f, u in zip(flat, upds):
+                P_s.index_add_(0, f, u)
+
+        timed = f"one epoch's launches ({nb}), {label}"
+        row = kernel_row(
+            "sgd_step", "libfm_tpu/learners/sgd.py:128", err, 1e-4,
+            cuda_ms(steps(sg.sgd_step), reps),
+            cuda_ms(steps(sg.sgd_step_plain), 1, warmup=0),
+            nbytes=E * 4 * (2 if mode == "general" else 1) + nb * B * 5
+            + uniq * d * 4 + E * d * 4 + nb * 8,
+            flops=E * 10 * d, lib_ms=None, timed=timed, label=f" ({label})")
+        row["also_replaces"] = ["libfm_tpu/learners/sgd.py:160"]
+        rows["sgd_step"].append(row)
+        row = kernel_row(
+            "table_scatter", "studies/probes/pallas_scatter.py:35", err, 1e-4,
+            cuda_ms(scatters(ts.table_scatter), reps),
+            cuda_ms(scatters(ts.table_scatter_plain), 1, warmup=0),
+            nbytes=E * 8 + E * d * 4 + uniq * d * 8, flops=E * d,
+            lib_ms=cuda_ms(library, reps), timed=timed,
+            label=f" ({label})")
+        row["also_replaces"] = ["studies/pallas_gather.py:112",
+                                "libfm_tpu/learners/sgd.py:157,212"]
+        rows["table_scatter"].append(row)
+        rec.setdefault("sgd_epoch", {})[label] = dict(
+            kernels_ms=epoch_ms, plain_ms=epoch_plain_ms, batches=nb, entries=E,
+            unique_rows=uniq, lockstep_err=err, free_running_err=free[0],
+            plain_repeat_err=free[1], w0_kernels=w0_k, w0_plain=[w0_p, w0_p2],
+            w0_plain_kernel_sums=w0_ks, w0_plain_f64=w0_64, w0_err=w0_err,
+            w0_err_gated=gate_w0, w0_kernel_sums_err=w0_sums_err)
+        secs["timing"] = time.perf_counter() - t2
+        rec["sgd_epoch"][label]["check_seconds"] = secs
+        print(f"SGD check seconds, {label}: {secs}")
+        del upds, P_s, arrs, batches, flat
+        torch.cuda.empty_cache()
+    out = []
+    for name, rs in rows.items():
+        main_row = dict(rs[0])
+        main_row["cases"] = {r["timed"]: {key: r[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for r in rs}
+        out.append(main_row)
+    return out
+
+
+def table_checks(args, rec, dev, scatter_row):
+    """Phase 3, the probes' shapes: table_scatter at P4's (against
+    index_add_, added to the table_scatter row under "p4"), table_read at
+    P1's (scale 8) and P3's (scale 1). Returns the table_read row."""
+    from libfm_tpu_torch.kernels import table_read as tr
+    from libfm_tpu_torch.kernels import table_scatter as ts
+    from libfm_tpu_torch.studies import pallas_gather as pg
+    from libfm_tpu_torch.studies import pallas_scatter as ps
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ids = torch.randint(0, ps.N, (ps.E,), generator=g, device=dev, dtype=torch.int32)
+    upd = torch.randn(ps.E, ps.W, generator=g, device=dev)
+    sids, perm = ps.sorted_order(ids)
+    T_k = torch.zeros(ps.N, ps.W, device=dev)
+    T_p = torch.zeros(ps.N, ps.W, device=dev)
+    ts.table_scatter(T_k, sids, perm, upd)
+    ts.table_scatter_plain(T_p, sids, perm, upd)
+    err = (T_k - T_p).abs().max().item()
+    uniq = int(torch.unique(ids).numel())
+    p4 = kernel_row(
+        "table_scatter", "studies/probes/pallas_scatter.py:35", err, 1e-5,
+        cuda_ms(lambda: ts.table_scatter(T_k, sids, perm, upd), args.reps),
+        cuda_ms(lambda: ts.table_scatter_plain(T_p, sids, perm, upd), args.reps),
+        nbytes=ps.E * 8 + ps.E * ps.W * 4 + uniq * ps.W * 8, flops=ps.E * ps.W,
+        lib_ms=cuda_ms(lambda: T_p.index_add_(0, ids.long(), upd), args.reps),
+        timed="one launch at P4's shape (E=65536, W=16)", label=" (P4)")
+    scatter_row["p4"] = {key: p4[key] for key in (
+        "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "timed")}
+
+    T = torch.randn(pg.NSUB, 128, generator=g, device=dev)
+    ids = torch.randint(0, pg.NSUB, (pg.NIDS,), generator=g, device=dev,
+                        dtype=torch.int32)
+    rows = []
+    for probe, scale, n_used, site in (
+        ("P1", float(pg.UNROLL), pg.NIDS // pg.UNROLL * pg.UNROLL,
+         "studies/pallas_gather.py:79"),
+        ("P3", 1.0, pg.NIDS // pg.CHUNK * pg.CHUNK, "studies/pallas_gather.py:147"),
+    ):
+        o_k = tr.table_read(T, ids, pg.REPS, scale, n_used)
+        o_p = tr.table_read_plain(T, ids, pg.REPS, scale, n_used)
+        err = ((o_k - o_p).abs().max() / o_p.abs().max()).item()
+        rows.append(kernel_row(
+            "table_read", site, err, 1e-5,
+            cuda_ms(lambda: tr.table_read(T, ids, pg.REPS, scale, n_used), args.reps),
+            cuda_ms(lambda: tr.table_read_plain(T, ids, pg.REPS, scale, n_used),
+                    args.reps),
+            nbytes=pg.NSUB * 128 * 4 + n_used * 4 + 128 * 4,
+            flops=pg.REPS * n_used * 128, lib_ms=None,
+            timed=f"one call at {probe}'s shape ({pg.REPS} reps of {n_used} ids, "
+                  f"scale {scale:g}); error relative to the largest lane",
+            label=f" ({probe})"))
+    read_row = dict(rows[0])
+    read_row["p3"] = {key: rows[1][key] for key in (
+        "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "timed")}
+    return read_row
+
+
+def check_launches(name, counts):
+    for kname in sorted(EXPECTED[name]):
+        if counts.get(kname, 0) <= 0:
+            fail(f"{name}: kernel {kname} was not launched on the path")
+
+
+def run_sgd(name, data, args, rec):
+    """Path phase: SGDLearner for SGD_EPOCHS epochs at one config."""
+    from libfm_tpu_torch import kernels
+    from libfm_tpu_torch.learners.sgd import SGDLearner
+    from libfm_tpu_torch.models.fm import FMConfig
+
+    c = SGD_CONFIGS[name]
+    train, test = data
+    cfg = FMConfig(num_features=train.num_features, num_factors=c["k"],
+                   regw=c["regw"], regv=c["regv"])
+    learner = SGDLearner(cfg, task=c["task"], num_iter=SGD_EPOCHS,
+                         learn_rate=c["lr"], batch_size=c["batch"], seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    prof = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    t0 = time.perf_counter()
+    hist = learner.learn(train, test)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.stop()
+        profile_summary(prof, args.profile, rec, name)
+    counts = kernels.launch_counts()
+    secs = [h[2] for h in hist]
+    rec[name] = dict(history=hist, launches=counts, learn_seconds=wall,
+                     setup_seconds=wall - sum(secs),
+                     peak_mem_bytes=torch.cuda.max_memory_allocated())
+    print(f"{name}: launches {counts}; learn() {wall:.2f} s, of which set-up and "
+          f"evaluation {wall - sum(secs):.2f} s; per-epoch s {secs}")
+    check_launches(name, counts)
+    for it, (tr, te, _) in enumerate(hist):
+        if not (math.isfinite(tr) and math.isfinite(te)):
+            fail(f"{name}: non-finite metric at epoch {it}: {tr}, {te}")
+    return counts
+
+
+def run_probes(rec):
+    """Probe phase: the ported table probes at the studies' shapes."""
+    from libfm_tpu_torch import kernels
+    from libfm_tpu_torch.studies import pallas_gather, pallas_scatter
+
+    kernels.reset_launch_counts()
+    try:
+        print("probes (libfm_tpu_torch/studies/pallas_gather.py):")
+        gather = pallas_gather.main()
+        print("probe (libfm_tpu_torch/studies/pallas_scatter.py):")
+        scatter = pallas_scatter.main()
+    except AssertionError as e:
+        fail(f"probes: {e}")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    rec["probes"] = dict(gather=gather, scatter=scatter, launches=counts)
+    check_launches("probes", counts)
+    return counts
+
+
+def profile_summary(prof, out_dir, rec, name):
+    """From a torch.profiler run of learner `name`: per iteration or
+    epoch (the learners' "iteration N" / "epoch N" ranges) the wall time,
+    the device-busy time (union of the device activities inside the
+    range) and the device time by name; for the first one also its
+    longest host events. Writes DIR/trace_<name>.json."""
     from torch.autograd import DeviceType
 
+    ranges = ("iteration ", "epoch ")
     evs = prof.events()
     iters = sorted(
         (e for e in evs if e.device_type == DeviceType.CPU
-         and e.name.startswith("iteration ")),
+         and e.name.startswith(ranges)),
         key=lambda e: e.time_range.start,
     )
     on_dev = sorted(
         (e.time_range.start, e.time_range.end, e.name) for e in evs
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("iteration ")
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(ranges)
     )
     rows = []
     for ev in iters:
@@ -332,7 +702,7 @@ def profile_summary(prof, out_dir, rec):
                    device_ms_by_name=dict(sorted(by_name.items(),
                                                  key=lambda kv: -kv[1])[:10]))
         rows.append(row)
-        print(f"profile {ev.name}: wall {wall:.3f} ms, device busy "
+        print(f"profile {name} {ev.name}: wall {wall:.3f} ms, device busy "
               f"{row['device_busy_ms']:.3f} ms, idle share {row['idle_share']:.4f}")
         for nm, ms in list(row["device_ms_by_name"].items())[:8]:
             print(f"    {ms:9.3f} ms  {nm}")
@@ -344,9 +714,9 @@ def profile_summary(prof, out_dir, rec):
             and lo <= e.time_range.start and e.time_range.end <= hi
         )[::-1][:8]
         rows[0]["longest_host_events_ms"] = host
-        print(f"profile {iters[0].name}: longest host events (ms): {host}")
-    rec["profile"] = rows
-    prof.export_chrome_trace(f"{out_dir}/trace.json")
+        print(f"profile {name} {iters[0].name}: longest host events (ms): {host}")
+    rec.setdefault("profile", {})[name] = rows
+    prof.export_chrome_trace(f"{out_dir}/trace_{name}.json")
 
 
 def run_learner(cls, name, data, args, rec, **cfg_kw):
@@ -371,7 +741,7 @@ def run_learner(cls, name, data, args, rec, **cfg_kw):
     wall = time.perf_counter() - t0
     if prof is not None:
         prof.stop()
-        profile_summary(prof, args.profile, rec)
+        profile_summary(prof, args.profile, rec, name)
     counts = kernels.launch_counts()
     rec[name] = dict(
         history=hist, launches=counts, learn_seconds=wall,
@@ -381,9 +751,7 @@ def run_learner(cls, name, data, args, rec, **cfg_kw):
     rec[name]["setup_seconds"] = wall - sum(secs)
     print(f"{name}: launches {counts}; learn() {wall:.2f} s, of which set-up "
           f"{wall - sum(secs):.2f} s; per-iteration s {secs}")
-    for kname, c in counts.items():
-        if c <= 0:
-            fail(f"{name}: kernel {kname} was not launched on the main path")
+    check_launches(name, counts)
     for h in hist:
         for key in ("train", "test_this", "test_all"):
             if not math.isfinite(h[key]):
@@ -399,10 +767,13 @@ def main(argv=None) -> int:
                     help="timed runs per kernel, plain version and library call")
     ap.add_argument("--out", default=None, help="also write the results here")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="run the MCMC learner under torch.profiler: print each "
-                    "iteration's device-busy time and write DIR/trace.json "
-                    "(its per-iteration seconds then include the profiler's cost)")
+                    help="run the MCMC and SGD learners under torch.profiler: "
+                    "print each iteration's or epoch's device-busy time and write "
+                    "DIR/trace_<run>.json (their per-iteration seconds then "
+                    "include the profiler's cost)")
     args = ap.parse_args(argv)
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -425,23 +796,55 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     rec = dict(card=smi, kind=kind, torch=torch.__version__, args=vars(args))
 
+    phase = {}
+
+    def done(name, t0):
+        phase[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
     t0 = time.perf_counter()
     kernels.build(verbose=True)
     kernels.library()
     rec["build_seconds"] = time.perf_counter() - t0
     print(f"build: {rec['build_seconds']:.1f} s")
     kernels.import_all()
+    t0 = done("build", t0)
 
-    table, data = kernel_checks(args, rec, torch.device("cuda"))
-    _, als_counts = run_learner(ALSVectorLearner, "als", data, args, rec,
-                                regw=5.0, regv=5.0)
+    dev = torch.device("cuda")
+    table, data = kernel_checks(args, rec, dev)
+    t0 = done("config #3 data and kernel checks", t0)
+    ctr = ctr_data()
+    print(f"config #4b data: {ctr[0].num_rows} train rows, {ctr[1].num_rows} test "
+          f"rows, {ctr[0].num_features} features ({time.perf_counter() - t0:.1f} s)")
+    t0 = done("config #4b data", t0)
+    table += sgd_kernel_checks(args, rec, dev, data[0], ctr[0])
+    t0 = done("SGD kernel checks", t0)
+    table.append(table_checks(args, rec, dev, table[-1]))
+    t0 = done("probe-shape kernel checks", t0)
+
+    counts = {}
+    _, counts["als"] = run_learner(ALSVectorLearner, "als", data, args, rec,
+                                   regw=5.0, regv=5.0)
     als = rec["als"]["history"]
     if not als[-1]["train"] < als[0]["train"]:
         fail(f"ALS train RMSE did not fall: {[h['train'] for h in als]}")
-    _, mcmc_counts = run_learner(MCMCVectorLearner, "mcmc", data, args, rec)
+    t0 = done("ALS path", t0)
+    _, counts["mcmc"] = run_learner(MCMCVectorLearner, "mcmc", data, args, rec)
+    t0 = done("MCMC path", t0)
+    counts["sgd_1"] = run_sgd("sgd_1", data, args, rec)
+    t0 = done("SGD #1 path", t0)
+    counts["sgd_4b"] = run_sgd("sgd_4b", ctr, args, rec)
+    t0 = done("SGD #4b path", t0)
+    counts["probes"] = run_probes(rec)
+    done("probe path", t0)
+    phase["total, from the script's start"] = time.perf_counter() - T_START
+    rec["phase_seconds"] = phase
+    print(f"phase seconds on {smi}: "
+          f"{ {key: round(v, 2) for key, v in phase.items()} }")
     for row in table:
-        row["launches"] = mcmc_counts[row["name"]]
-        row["launches_als"] = als_counts[row["name"]]
+        by_path = {p: c[row["name"]] for p, c in counts.items() if c[row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     rec["kernels"] = table
     if args.out:
         with open(args.out, "w") as f:
@@ -450,6 +853,9 @@ def main(argv=None) -> int:
     for name in ("als", "mcmc"):
         print(f"{name} per-iteration seconds on {smi}: "
               f"{[round(h['time'], 6) for h in rec[name]['history']]}")
+    for name in SGD_CONFIGS:
+        print(f"{name} per-epoch seconds on {smi}: "
+              f"{[round(h[2], 6) for h in rec[name]['history']]}")
     print(smi)  # the card, as nvidia-smi names it, on the line before the last
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -2,8 +2,9 @@
 
 The same factorization machine learners as `libfm_tpu`, with the same
 module layout and names, written in PyTorch for one NVIDIA H100. Plain
-tensor code is PyTorch; the vector engine's hot loops are CUDA C++
-kernels written by hand for sm_90a (`csrc/`, bound in `kernels/`).
+tensor code is PyTorch; the vector engine's and the SGD step's hot loops
+are CUDA C++ kernels written by hand for sm_90a (`csrc/`, bound in
+`kernels/`).
 
 The port imports neither jax nor any module of `libfm_tpu`: it keeps its
 own copies of the host-side data code.
@@ -27,6 +28,7 @@ from libfm_tpu_torch.learners.mcmc_vector import (  # noqa: E402
     ALSVectorLearner,
     MCMCVectorLearner,
 )
+from libfm_tpu_torch.learners.sgd import SGDLearner  # noqa: E402
 from libfm_tpu_torch.models.fm import (  # noqa: E402
     FMConfig,
     FMParams,
@@ -46,6 +48,7 @@ __all__ = [
     "fm_batch_predict",
     "MCMCVectorLearner",
     "ALSVectorLearner",
+    "SGDLearner",
     "resolve_device",
     "TASK_REGRESSION",
     "TASK_CLASSIFICATION",

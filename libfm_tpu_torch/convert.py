@@ -2,7 +2,8 @@
 
 `params_from_jax` takes plain numpy arrays — such as the JAX learner's
 `get_params()` fields or its initial draw, converted with `np.asarray`
-— and returns the port's tensors. It never imports jax.
+— and returns the port's tensors; `packed_from_jax` returns them as the
+SGD step's packed table. Neither imports jax.
 """
 
 from __future__ import annotations
@@ -27,3 +28,9 @@ def params_from_jax(w0, w, V, device=None):
         torch.tensor(w, dtype=torch.float32, device=dev),
         torch.tensor(V, dtype=torch.float32, device=dev),
     )
+
+
+def packed_from_jax(w0, w, V, device=None):
+    """(w0 0-dim, P = [w | V] [n, 1+k]) tensors on `device` (default CUDA)."""
+    w0, w, V = params_from_jax(w0, w, V, device)
+    return w0, torch.cat([w[:, None], V], dim=1).contiguous()

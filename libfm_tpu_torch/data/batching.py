@@ -1,11 +1,17 @@
-"""Conflict-free feature blocks for the ALS/MCMC sweeps (numpy).
+"""Batch layouts (numpy): padded mini-batches for SGD, conflict-free
+feature blocks for the ALS/MCMC sweeps.
 
-The port's copy of `libfm_tpu.data.batching.conflict_free_blocks`: a CSC
-ordering (entries sorted by feature) cut into blocks of features that no
-training row shares, so every feature of a block can be drawn in
-parallel from one cache snapshot with the result of a sequential scan.
-This restates libFM's transpose iteration
-(src/libfm/src/fm_learn_mcmc.h:176-305).
+The port's copy of `libfm_tpu.data.batching`:
+
+1. `BatchedCSR` / `batch_dataset` — padded row-major batches
+   `(ids[B, L], vals[B, L], y[B])` for the SGD path. Padding entries use
+   feature id 0 with value 0.0, so every contribution they make to the
+   model vanishes; padded rows carry row_mask False.
+2. `conflict_free_blocks` — a CSC ordering (entries sorted by feature)
+   cut into blocks of features that no training row shares, so every
+   feature of a block can be drawn in parallel from one cache snapshot
+   with the result of a sequential scan. This restates libFM's transpose
+   iteration (src/libfm/src/fm_learn_mcmc.h:176-305).
 
 `feature_slots` and `case_columns` give a block the two forms the port's
 kernels read: one slot list per feature, and one (feature, value) pair
@@ -19,6 +25,96 @@ from dataclasses import dataclass
 import numpy as np
 
 from libfm_tpu_torch.data.dataset import Dataset
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass
+class BatchedCSR:
+    """Padded row-major batches. ids/vals have shape [num_batches, B, L]."""
+
+    ids: np.ndarray  # int32
+    vals: np.ndarray  # float32
+    y: np.ndarray  # float32 [num_batches, B]
+    row_mask: np.ndarray  # bool [num_batches, B] — False for padded rows
+    num_rows: int  # true number of examples
+    num_features: int
+
+    @property
+    def num_batches(self) -> int:
+        return self.ids.shape[0]
+
+    @property
+    def batch_size(self) -> int:
+        return self.ids.shape[1]
+
+    @property
+    def max_nnz(self) -> int:
+        return self.ids.shape[2]
+
+
+def pad_rows(ds: Dataset, max_nnz: int | None = None, align: int = 8):
+    """Pad every row to a common length. Returns (ids[n, L], vals[n, L]).
+
+    Rows longer than an explicit max_nnz are truncated to their first
+    max_nnz entries (the cut is at the requested max_nnz, not at the
+    align-rounded width)."""
+    lengths = np.diff(ds.indptr).astype(np.int64)
+    L = int(lengths.max()) if max_nnz is None and len(lengths) else (max_nnz or 1)
+    L = max(1, _round_up(L, align))
+    cut = L if max_nnz is None else max(1, min(max_nnz, L))
+    n = ds.num_rows
+    ids = np.zeros((n, L), dtype=np.int32)
+    vals = np.zeros((n, L), dtype=np.float32)
+    row = np.repeat(np.arange(n, dtype=np.int64), lengths)
+    offs = np.arange(ds.nnz, dtype=np.int64) - np.repeat(ds.indptr[:-1], lengths)
+    keep = offs < cut
+    ids[row[keep], offs[keep]] = ds.cols[keep]
+    vals[row[keep], offs[keep]] = ds.vals[keep]
+    return ids, vals
+
+
+def batch_dataset(
+    ds: Dataset,
+    batch_size: int,
+    max_nnz: int | None = None,
+    align: int = 1,
+    drop_remainder: bool = False,
+) -> BatchedCSR:
+    """Batch a dataset into padded [num_batches, B, L] arrays.
+
+    The final partial batch is padded with zero rows (row_mask False,
+    target 0). align=1 (the default) pads L to the true max row nnz:
+    padded entries are inert but still cost a gather and a scatter row
+    each in the SGD epoch."""
+    ids, vals = pad_rows(ds, max_nnz=max_nnz, align=align)
+    n = ds.num_rows
+    if drop_remainder:
+        nb = n // batch_size
+        n_used = nb * batch_size
+        ids, vals = ids[:n_used], vals[:n_used]
+        y = ds.target[:n_used]
+        mask = np.ones(n_used, dtype=bool)
+    else:
+        nb = max(1, (n + batch_size - 1) // batch_size)
+        n_pad = nb * batch_size
+        pad = n_pad - n
+        ids = np.pad(ids, ((0, pad), (0, 0)))
+        vals = np.pad(vals, ((0, pad), (0, 0)))
+        y = np.pad(ds.target, (0, pad))
+        mask = np.zeros(n_pad, dtype=bool)
+        mask[:n] = True
+    L = ids.shape[1]
+    return BatchedCSR(
+        ids.reshape(nb, batch_size, L),
+        vals.reshape(nb, batch_size, L),
+        y.reshape(nb, batch_size).astype(np.float32),
+        mask.reshape(nb, batch_size),
+        num_rows=n,
+        num_features=ds.num_features,
+    )
 
 
 @dataclass

@@ -101,6 +101,45 @@ class Dataset:
             np.asarray(self.vals)[order].astype(np.float32),
         )
 
+    def shuffled(self, seed: int = 0) -> "Dataset":
+        """The rows in a random order drawn from `seed` (libFM's SGD
+        expects shuffled input, fm_learn_sgd_element.h:51)."""
+        rng = np.random.default_rng(seed)
+        return self.permuted(rng.permutation(self.num_rows))
+
+    def permuted(self, perm) -> "Dataset":
+        """The rows in the order `perm`; the clamp range is kept. Relation
+        blocks are permuted with the rows (the port carries none yet)."""
+        lengths = np.diff(self.indptr)
+        new_indptr = np.zeros(self.num_rows + 1, dtype=np.int64)
+        np.cumsum(lengths[perm], out=new_indptr[1:])
+        if self.nnz:
+            lp = lengths[perm].astype(np.int64)
+            starts = self.indptr[perm].astype(np.int64)
+            order = np.repeat(starts, lp) + (
+                np.arange(int(lp.sum()), dtype=np.int64)
+                - np.repeat(new_indptr[:-1], lp)
+            )
+        else:
+            order = np.empty(0, dtype=np.int64)
+        ds = Dataset(
+            new_indptr,
+            self.cols[order],
+            self.vals[order],
+            self.target[perm],
+            self.num_features,
+        )
+        ds.min_target = self.min_target
+        ds.max_target = self.max_target
+        ds.relations = [r.permuted(perm) for r in self.relations]
+        return ds
+
+    def binarize_targets(self) -> None:
+        """Map targets to +-1 for classification (libFM libfm.cpp:302-305)."""
+        self.target = np.where(self.target > 0.0, 1.0, -1.0).astype(np.float32)
+        self.min_target = float(self.target.min()) if len(self.target) else 0.0
+        self.max_target = float(self.target.max()) if len(self.target) else 0.0
+
 
 def stable_argsort(keys: np.ndarray) -> np.ndarray:
     """`np.argsort(keys, kind="stable")` for non-negative integer keys, as

@@ -1,8 +1,9 @@
 """Synthetic dataset generators (numpy).
 
-The port's copy of `libfm_tpu.data.synth.movielens_like`: the same numpy
-calls in the same order, so the same seed gives bit-identical data in
-both packages. Ground truth comes from a planted MF model.
+The port's copies of `libfm_tpu.data.synth.movielens_like` and
+`ctr_like`: the same numpy calls in the same order, so the same seed
+gives bit-identical data in both packages. Ground truth comes from a
+planted MF / FM model.
 """
 
 from __future__ import annotations
@@ -66,3 +67,58 @@ def movielens_like(
         num_users + num_items,
     )
     return train, test
+
+
+def ctr_like(
+    num_fields: int = 13,
+    field_cardinality: int = 1000,
+    num_examples: int = 100_000,
+    rank: int = 4,
+    seed: int = 0,
+    power: float = 1.2,
+):
+    """Criteo-style multi-field one-hot binary-classification data with a
+    Zipf-ish feature popularity and a planted FM scorer. Returns (train,
+    test, attr_group) with +-1 targets; the first tenth of the examples is
+    the test set."""
+    rng = np.random.default_rng(seed)
+    n = num_examples
+    raw = rng.zipf(power, size=(n, num_fields))
+    ids_in_field = np.minimum(raw - 1, field_cardinality - 1).astype(np.int32)
+    offsets = np.arange(num_fields, dtype=np.int32) * field_cardinality
+    cols = (ids_in_field + offsets[None, :]).reshape(-1).astype(np.int32)
+    num_features = num_fields * field_cardinality
+
+    v = rng.normal(0, 0.3, (num_features, rank))
+    w = rng.normal(0, 0.2, num_features)
+    rows_v = v[cols].reshape(n, num_fields, rank)
+    s = rows_v.sum(axis=1)
+    s2 = (rows_v**2).sum(axis=1)
+    score = (
+        w[cols].reshape(n, num_fields).sum(axis=1)
+        + 0.5 * (s**2 - s2).sum(axis=1)
+        - 0.1
+    )
+    p = 1.0 / (1.0 + np.exp(-score))
+    y = np.where(rng.uniform(size=n) < p, 1.0, -1.0).astype(np.float32)
+
+    indptr = np.arange(0, num_fields * n + 1, num_fields, dtype=np.int64)
+    vals = np.ones(num_fields * n, dtype=np.float32)
+
+    n_test = n // 10
+    test = Dataset(
+        indptr[: n_test + 1],
+        cols[: num_fields * n_test],
+        vals[: num_fields * n_test],
+        y[:n_test],
+        num_features,
+    )
+    train = Dataset(
+        indptr[: n - n_test + 1],
+        cols[num_fields * n_test :],
+        vals[num_fields * n_test :],
+        y[n_test:],
+        num_features,
+    )
+    attr_group = np.repeat(np.arange(num_fields, dtype=np.int32), field_cardinality)
+    return train, test, attr_group

@@ -1,1 +1,2 @@
-"""Learners: the MCMC/ALS vector engine (regression, one device)."""
+"""Learners: the MCMC/ALS vector engine (regression) and mini-batch SGD,
+one device."""

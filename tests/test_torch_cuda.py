@@ -5,11 +5,13 @@ GPU machine (no jax there, so skip the jax-configuring conftest):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-chip_smoke.py holds the kernels at config #3's shapes (k=64, one-hot);
-these tests cover the other widths and options: k from 1 to 128,
+chip_smoke.py holds the kernels at the shapes of configs #1, #3 and
+#4b; these tests cover the other widths and options: k from 1 to 128,
 skewed slot counts, valued (not one-hot) entries, the linear and bias
-terms switched off, and the reject guard. Tolerances as in
-chip_smoke.py: fp32 sums taken in another order.
+terms switched off, the reject guard; for SGD rows of L = 1, 2 and 13,
+heavy duplicate ids in a batch, a padded final batch and table widths 9,
+16, 17 and 128. Tolerances as in chip_smoke.py: fp32 sums taken in
+another order.
 """
 
 import numpy as np
@@ -22,9 +24,13 @@ from libfm_tpu_torch.data.synth import movielens_like
 from libfm_tpu_torch.kernels import dense_update as du
 from libfm_tpu_torch.kernels import fm_refresh as fr
 from libfm_tpu_torch.kernels import schur_draw as sd
+from libfm_tpu_torch.kernels import sgd_step as sg
 from libfm_tpu_torch.kernels import slot_stats as ss
+from libfm_tpu_torch.kernels import table_read as tr
+from libfm_tpu_torch.kernels import table_scatter as ts
+from libfm_tpu_torch.learners import sgd as tsgd
 from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner
-from libfm_tpu_torch.models.fm import FMConfig
+from libfm_tpu_torch.models.fm import FMConfig, FMParams
 
 pytestmark = pytest.mark.cuda
 
@@ -176,3 +182,150 @@ def test_als_on_cuda_follows_the_cpu_trajectory(cuda):
     for hc, hg in zip(runs["cpu"], runs["cuda"]):
         assert abs(hc["test_this"] - hg["test_this"]) < 1e-4
         assert abs(hc["train"] - hg["train"]) < 1e-4
+
+
+def _col_rel_err(a, b):
+    """Largest difference per column over the column's largest value."""
+    return ((a - b).abs().amax(dim=0) / b.abs().amax(dim=0).clamp_min(1e-6)).max().item()
+
+
+def _sgd_batch(dev, rng, n, B, L, mode, pad=7):
+    """A batch with heavy duplicate ids (Zipf over n features) whose last
+    `pad` rows are padding (id 0, value 0, row_mask False)."""
+    ids = np.minimum(rng.zipf(1.3, (B, L)) - 1, n - 1).astype(np.int32)
+    if mode == "general":
+        vals = (rng.normal(1, 0.5, (B, L)) * (rng.random((B, L)) < 0.8)).astype(np.float32)
+    else:
+        vals = np.ones((B, L), np.float32)
+    mask = np.ones(B, bool)
+    mask[B - pad:] = False
+    ids[~mask] = 0
+    vals[~mask] = 0.0
+    y = rng.choice([-1.0, 1.0], B).astype(np.float32)
+    return _to(dev, ids, vals, y, mask)
+
+
+SGD_KS = [1, 8, 16, 32]
+SGD_SHAPES = [("pair", 2), ("onehot", 1), ("onehot", 13), ("general", 1),
+              ("general", 2), ("general", 13)]
+
+
+@pytest.mark.parametrize("k", SGD_KS)
+@pytest.mark.parametrize("mode,L", SGD_SHAPES)
+@pytest.mark.parametrize("task", [0, 1])
+def test_sgd_step_kernel_matches_plain(cuda, k, mode, L, task):
+    rng = np.random.default_rng(400 + k + L)
+    n, B = 300, 1000
+    P = torch.as_tensor(rng.normal(0, 0.3, (n, k + 1)), dtype=torch.float32, device=cuda)
+    ids, vals, y, mask = _sgd_batch(cuda, rng, n, B, L, mode)
+    if task == 0:
+        y = 3.0 + y
+    w0 = torch.tensor(0.2, device=cuda)
+    kw = dict(mode=mode, task=task, lr1=0.01, lr2=0.02, regw=0.05, regv=0.03,
+              min_target=1.0, max_target=5.0)
+    before = kernels.launch_counts()["sgd_step"]
+    u_k, r_k = sg.sgd_step(P, ids, vals, y, mask, w0, **kw)
+    u_p, r_p = sg.sgd_step_plain(P, ids, vals, y, mask, w0, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sgd_step"] == before + 1
+    assert u_k.shape == (B * L, k + 1)
+    assert _col_rel_err(u_k, u_p) < 1e-4
+    assert r_k[1].item() == B - 7
+    assert abs(r_k[0].item() - r_p[0].item()) <= 1e-4 * max(1.0, r_p[0].abs().item())
+    pad = u_k.reshape(B, L, k + 1)[B - 7:]
+    assert (pad == 0).all()
+
+
+@pytest.mark.parametrize("mode,L", [("pair", 2), ("onehot", 13), ("general", 13)])
+@pytest.mark.parametrize("use_linear,use_bias", [(False, True), (True, False), (False, False)])
+def test_sgd_step_options_match_plain(cuda, mode, L, use_linear, use_bias):
+    rng = np.random.default_rng(7)
+    n, B, k = 200, 513, 8
+    P = torch.as_tensor(rng.normal(0, 0.3, (n, k + 1)), dtype=torch.float32, device=cuda)
+    ids, vals, y, mask = _sgd_batch(cuda, rng, n, B, L, mode)
+    w0 = torch.tensor(0.7, device=cuda)
+    kw = dict(mode=mode, task=1, lr1=0.01, lr2=0.02, regw=0.05, regv=0.03,
+              min_target=-1.0, max_target=1.0, use_linear=use_linear, use_bias=use_bias)
+    u_k, r_k = sg.sgd_step(P, ids, vals, y, mask, w0, **kw)
+    u_p, r_p = sg.sgd_step_plain(P, ids, vals, y, mask, w0, **kw)
+    torch.cuda.synchronize()
+    assert _col_rel_err(u_k, u_p) < 1e-4
+    if not use_linear:
+        assert (u_k[:, 0] == 0).all()
+    assert abs(r_k[0].item() - r_p[0].item()) <= 1e-4 * max(1.0, r_p[0].abs().item())
+
+
+@pytest.mark.parametrize("W", [9, 16, 17, 128])
+@pytest.mark.parametrize("heavy", [False, True])
+def test_table_scatter_kernel_matches_np_add_at(cuda, W, heavy):
+    """np.add.at (a sequential scatter) within f32 rounding of sums over
+    up to ~15,000 rows (heavy), and the same bits on every launch: every
+    sum is taken in a fixed order."""
+    rng = np.random.default_rng(500 + W + heavy)
+    n, E = 5000, 70000
+    ids = (np.minimum(rng.zipf(1.2, E) - 1, n - 1) if heavy
+           else rng.integers(0, n, E)).astype(np.int32)
+    upd = rng.standard_normal((E, W)).astype(np.float32)
+    T0 = rng.standard_normal((n, W)).astype(np.float32)
+    want = T0.copy()
+    np.add.at(want, ids, upd)
+    perm = np.argsort(ids, kind="stable").astype(np.int32)
+    sids, permt, updt, T = _to(cuda, ids[perm], perm, upd, T0.copy())
+    T2 = T.clone()
+    ts.table_scatter(T, sids, permt, updt)
+    ts.table_scatter(T2, sids, permt, updt)
+    T_p = ts.table_scatter_plain(torch.as_tensor(T0, device=cuda), sids, permt, updt)
+    torch.cuda.synchronize()
+    assert torch.equal(T, T2)
+    assert _col_rel_err(T, torch.as_tensor(want, device=cuda)) < 1e-5
+    assert _col_rel_err(T, T_p) < 1e-5
+
+
+@pytest.mark.parametrize("W", [16, 128, 200])
+@pytest.mark.parametrize("scale,reps", [(1.0, 1), (1.0, 5), (8.0, 5)])
+def test_table_read_kernel_matches_plain(cuda, W, scale, reps):
+    rng = np.random.default_rng(600 + W + reps)
+    nsub, nids = 1000, 5000
+    T, ids = _to(cuda, rng.standard_normal((nsub, W)).astype(np.float32),
+                 rng.integers(0, nsub, nids).astype(np.int32))
+    out_k = tr.table_read(T, ids, reps, scale, n_used=nids - 8)
+    out_p = tr.table_read_plain(T, ids, reps, scale, n_used=nids - 8)
+    again = tr.table_read(T, ids, reps, scale, n_used=nids - 8)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, again)  # deterministic
+    assert ((out_k - out_p).abs().max() / out_p.abs().max()).item() < 1e-5
+
+
+@pytest.mark.parametrize("which", ["ml", "ctr"])
+def test_sgd_on_cuda_follows_the_cpu_trajectory(cuda, which):
+    """The SGD learner on the card (kernels) against the CPU (plain
+    versions) from the same parameters; the card's epoch is also
+    deterministic run to run. The steps are small enough (sum-reduced
+    over 1000 rows) that f32 rounding differences do not grow."""
+    from libfm_tpu_torch.data.synth import ctr_like
+
+    if which == "ml":
+        train, test = movielens_like(300, 200, 30000, seed=5)
+        task, lr, k = 0, 1e-4, 8
+    else:
+        train, test, _ = ctr_like(13, 300, 20000, seed=5)
+        task, lr, k = 1, 2e-4, 16
+    n = train.num_features
+    rng = np.random.default_rng(0)
+    init = (np.float32(0.0), np.zeros(n, np.float32),
+            rng.normal(0, 0.1, (n, k)).astype(np.float32))
+    cfg = FMConfig(num_features=n, num_factors=k, regw=0.01, regv=0.01)
+    runs = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        learner = tsgd.SGDLearner(cfg, task=task, num_iter=3, learn_rate=lr,
+                                  batch_size=1000, verbose=False, device=dev)
+        learner.init_params(FMParams(*(torch.as_tensor(x) for x in init)))
+        hist = learner.learn(train, test)
+        if dev in runs:
+            assert [h[:2] for h in hist] == [h[:2] for h in runs[dev][0]]
+            assert torch.equal(learner.params.v.cpu(), runs[dev][1])
+        runs[dev] = (hist, learner.params.v.cpu())
+    tol = 1e-4 if task == 0 else 1.0 / test.num_rows + 1e-9
+    for hc, hg in zip(runs["cpu"][0], runs["cuda"][0]):
+        assert abs(hc[0] - hg[0]) <= tol and abs(hc[1] - hg[1]) <= tol
+    assert (runs["cpu"][1] - runs["cuda"][1]).abs().max().item() < 1e-3

@@ -1,6 +1,8 @@
 """The port's host-side data code against the JAX package's, on the
-same inputs: libFM text IO, the block partition, the slot layouts and
-the padded row layout must agree exactly (all numpy, no tolerance)."""
+same inputs: libFM text IO, the synthetic generators, shuffling and
+target binarization, the SGD mini-batches, the block partition, the slot
+layouts and the padded row layout must agree exactly (all numpy, no
+tolerance)."""
 
 import numpy as np
 import pytest
@@ -111,3 +113,59 @@ def test_padded_rows_layout_matches_jax():
     b = jlay.padded_rows_layout(indptr, cols, vals)
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_ctr_like_matches_jax():
+    from libfm_tpu.data.synth import ctr_like as jax_ctr_like
+    from libfm_tpu_torch.data.synth import ctr_like
+
+    a, b = ctr_like(5, 50, 3000, seed=4), jax_ctr_like(5, 50, 3000, seed=4)
+    np.testing.assert_array_equal(a[2], b[2])
+    for x, y in zip(a[:2], b[:2]):
+        for f in ("indptr", "cols", "vals", "target"):
+            np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
+        assert (x.num_features, x.min_target, x.max_target) == (
+            y.num_features, y.min_target, y.max_target)
+
+
+@pytest.mark.parametrize("which", ["movielens", "skewed"])
+def test_shuffled_permuted_binarize_match_jax(which):
+    if which == "movielens":
+        t, _ = movielens_like(30, 20, 500, seed=6)
+        j, _ = jax_movielens_like(30, 20, 500, seed=6)
+    else:
+        arrs = _skewed(4)
+        t, j = Dataset.from_arrays(*arrs), JaxDataset.from_arrays(*arrs)
+    perm = np.random.default_rng(1).permutation(t.num_rows)
+    for a, b in ((t.shuffled(3), j.shuffled(3)), (t.permuted(perm), j.permuted(perm))):
+        for f in ("indptr", "cols", "vals", "target"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        assert (a.min_target, a.max_target, a.relations) == (
+            b.min_target, b.max_target, b.relations)
+    t.target = t.target - 3.0
+    j.target = j.target - 3.0
+    t.binarize_targets()
+    j.binarize_targets()
+    np.testing.assert_array_equal(t.target, j.target)
+    assert t.target.dtype == j.target.dtype
+    assert (t.min_target, t.max_target) == (j.min_target, j.max_target)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(batch_size=64),
+    dict(batch_size=50, align=8),
+    dict(batch_size=64, max_nnz=2),
+    dict(batch_size=64, max_nnz=2, align=8),
+    dict(batch_size=37, drop_remainder=True),
+])
+def test_batch_dataset_matches_jax(kw):
+    arrs = _skewed(5)
+    a = tbat.batch_dataset(Dataset.from_arrays(*arrs), **kw)
+    b = jbat.batch_dataset(JaxDataset.from_arrays(*arrs), **kw)
+    for f in ("ids", "vals", "y", "row_mask"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+    assert (a.num_rows, a.num_features, a.num_batches, a.batch_size, a.max_nnz) == (
+        b.num_rows, b.num_features, b.num_batches, b.batch_size, b.max_nnz)
+    assert tbat._round_up(13, 8) == jbat._round_up(13, 8) == 16

@@ -1,7 +1,7 @@
 """Port hygiene, on the CPU:
 
-- no file of libfm_tpu_torch/, nor chip_smoke.py, imports jax, jaxlib or
-  any module of the JAX package;
+- no file of libfm_tpu_torch/, nor chip_smoke.py, imports jax, jaxlib,
+  any module of the JAX package or the JAX studies;
 - entry points default to CUDA and raise when it is absent (never a
   silent CPU fall-back);
 - a kernel wrapper given CPU tensors runs its plain version and leaves
@@ -22,6 +22,7 @@ from libfm_tpu_torch import kernels
 from libfm_tpu_torch.convert import params_from_jax
 from libfm_tpu_torch.device import resolve_device
 from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner, MCMCVectorLearner
+from libfm_tpu_torch.learners.sgd import SGDLearner
 from libfm_tpu_torch.models.fm import FMConfig
 
 REPO = Path(__file__).resolve().parent.parent
@@ -45,13 +46,16 @@ def _imported_modules(path):
 def test_port_imports_no_jax(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "libfm_tpu"), f"{path}: imports {mod}"
+        assert top not in ("jax", "jaxlib", "libfm_tpu", "studies"), (
+            f"{path}: imports {mod}")
 
 
 def test_port_file_list_is_complete():
     names = {p.name for p in PORT_FILES}
     assert {"mcmc_vector.py", "fm_refresh.py", "slot_stats.py", "schur_draw.py",
-            "dense_update.py", "chip_smoke.py"} <= names
+            "dense_update.py", "sgd.py", "sgd_step.py", "table_scatter.py",
+            "table_read.py", "pallas_gather.py", "pallas_scatter.py",
+            "chip_smoke.py"} <= names
 
 
 def test_tf32_is_off_at_import():
@@ -70,6 +74,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ALSVectorLearner(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
+        SGDLearner(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SGDLearner(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax(0.0, np.zeros(3), np.zeros((3, 2)))
     assert resolve_device("cpu") == torch.device("cpu")
 
@@ -77,17 +85,22 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_importing_kernels_builds_nothing():
     assert kernels._lib is None
     reg = kernels.import_all()
-    assert set(reg) == {"fm_refresh", "slot_stats", "schur_draw", "dense_update"}
+    assert set(reg) == {"fm_refresh", "slot_stats", "schur_draw", "dense_update",
+                        "sgd_step", "table_scatter", "table_read"}
     assert kernels._lib is None
     assert sorted(p.name for p in kernels.CSRC_DIR.glob("*.cu")) == [
-        "dense_update.cu", "fm_refresh.cu", "schur_draw.cu", "slot_stats.cu"]
+        "dense_update.cu", "fm_refresh.cu", "schur_draw.cu", "sgd_step.cu",
+        "slot_stats.cu", "table_read.cu", "table_scatter.cu"]
 
 
 def _cpu_calls():
     from libfm_tpu_torch.kernels import dense_update as du
     from libfm_tpu_torch.kernels import fm_refresh as fr
     from libfm_tpu_torch.kernels import schur_draw as sd
+    from libfm_tpu_torch.kernels import sgd_step as sg
     from libfm_tpu_torch.kernels import slot_stats as ss
+    from libfm_tpu_torch.kernels import table_read as tr
+    from libfm_tpu_torch.kernels import table_scatter as ts
 
     g = torch.Generator().manual_seed(0)
     n, k, nc = 12, 3, 20
@@ -114,10 +127,19 @@ def _cpu_calls():
         "schur_draw": lambda: sd.schur_draw(GG, th, lam, th, None, torch.tensor(1.0),
                                             do_sample=False, bound=1e6),
         "dense_update": lambda: du.dense_update(A, col, None, tab),
+        "sgd_step": lambda: sg.sgd_step(
+            P, ids, vals, torch.ones(nc), torch.ones(nc, dtype=torch.bool), w0,
+            mode="pair", task=0, lr1=0.1, lr2=0.1, regw=0.0, regv=0.01,
+            min_target=1.0, max_target=5.0),
+        "table_scatter": lambda: ts.table_scatter(
+            P, torch.tensor([1, 1, 3], dtype=torch.int32),
+            torch.tensor([2, 0, 1], dtype=torch.int32), torch.ones(3, k + 1)),
+        "table_read": lambda: tr.table_read(P, ids[:, 0].contiguous(), 3, 8.0),
     }
 
 
-@pytest.mark.parametrize("name", ["fm_refresh", "slot_stats", "schur_draw", "dense_update"])
+@pytest.mark.parametrize("name", ["fm_refresh", "slot_stats", "schur_draw", "dense_update",
+                                  "sgd_step", "table_scatter", "table_read"])
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(name):
     kernels.import_all()
     before = kernels.launch_counts()
