@@ -15,7 +15,9 @@ What it does, in order (any failed phase exits non-zero):
    computes the same function, with CUDA events:
    - config #3 (movielens_like(71567, 10681, 10M, seed=1): 9M train rows,
      82,248 features, k=64): fm_refresh, slot_stats, schur_draw,
-     dense_update;
+     dense_update; schur_draw also on both blocks with every 4th
+     feature's system made not positive definite (its reject flags must
+     equal the plain version's, and every such draw must be rejected);
    - SGD: one whole epoch (sgd_step + table_scatter + the w0 update) from
      the same table, kernels against plain versions (table and w0), at
      config #1 (the same ML data, k=8, B=32768, "pair" mode), config #4b
@@ -265,6 +267,29 @@ def kernel_checks(args, rec, dev):
             if not torch.equal(rk, rp):
                 fail("schur_draw reject flags differ from the plain version")
             nrej += int(rk.sum().item())
+    # the reject path at full size: every 4th feature gets a prior
+    # precision far below minus its Gram's largest diagonal, so S is not
+    # positive definite there; flags must equal the plain version's
+    diag = torch.as_tensor([k * i - i * (i - 1) // 2 for i in range(k)], device=dev)
+    npd = []
+    for G, theta, lam, mu, z in sys_in:
+        bad_lam = lam.clone()
+        bad_lam[::4, 1:] = -10.0 * (alpha * G[:, diag].max() + 1.0)
+        tk, rk = sd.schur_draw(G, theta, bad_lam, mu, z, alpha, do_sample=True, bound=bound)
+        tp, rp = sd.schur_draw_plain(G, theta, bad_lam, mu, z, alpha, do_sample=True,
+                                     bound=bound)
+        torch.cuda.synchronize()
+        errs.append(((tk - tp).abs().max() / tp.abs().max().clamp_min(1.0)).item())
+        if not torch.equal(rk, rp):
+            fail("schur_draw reject flags differ from the plain version on the "
+                 "batch that is not positive definite")
+        npd.append((int(rk.sum().item()), int(rk[::4].sum().item()), G.shape[0]))
+    print(f"schur_draw, systems not positive definite on every 4th feature: "
+          f"rejected (all, of those) / systems per block {npd}; flags equal the plain "
+          f"version's")
+    if any(of_those != (F + 3) // 4 for _, of_those, F in npd):
+        fail(f"schur_draw kept a draw from a system that is not positive definite: {npd}")
+    rec["schur_draw_not_pd_rejected"] = npd
 
     def run_draw(fn):
         def go():

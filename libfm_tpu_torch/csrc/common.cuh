@@ -2,16 +2,18 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace libfm {
 
 // Largest number of latent factors the kernels take (k <= 128, d <= 129).
 constexpr int kMaxK = 128;
 constexpr int kWarp = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
   return v;
 }
 
@@ -19,6 +21,72 @@ __device__ __forceinline__ float warp_sum(float v) {
 // upper triangle of the per-feature Gram in a GG row.
 __host__ __device__ __forceinline__ int tri_index(int i, int j, int k) {
   return i * k - (i * (i - 1)) / 2 + (j - i);
+}
+
+// Floats in one GG row: [Qq upper triangle | qa | qe | aa | ae].
+__host__ __device__ __forceinline__ int gg_width(int k) {
+  return k * (k + 1) / 2 + 2 * k + 2;
+}
+
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+// ---- cp.async (sm_80+): global -> shared copies that bypass registers.
+// A thread's copies are visible to it after cp_async_wait; other threads
+// see them after a barrier (__syncwarp / __syncthreads) that follows.
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes; src_bytes == 0 reads nothing and writes a zero.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 16 bytes; both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One warp copies n floats from src (4-byte aligned) to shared memory at
+// base16 (16-byte aligned, room for n + 3 floats) with cp.async: 16-byte
+// pieces where the source is aligned, 4-byte pieces at either end. The
+// row keeps its source's offset within 16 bytes; returns where element 0
+// lands. Every lane of the warp calls it.
+__device__ __forceinline__ float* warp_copy_row(float* base16, const float* src, int n,
+                                                int lane) {
+  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  float* dst = base16 + mis;
+  const int head = min((4 - mis) & 3, n);
+  const int nbody = (n - head) >> 2;
+  const int tail = head + 4 * nbody;
+  if (lane < head) cp_async4(dst + lane, src + lane);
+  for (int c = lane; c < nbody; c += kWarp)
+    cp_async16(dst + head + 4 * c, src + head + 4 * c);
+  if (lane < n - tail) cp_async4(dst + tail + lane, src + tail + lane);
+  return dst;
+}
+
+// The compile-time widths the kernels are built for; the launchers take
+// the one chosen on the host (kernels.padded_width) and check it.
+__host__ __forceinline__ bool valid_padded_width(int kp, int k) {
+  return (kp == 16 || kp == 32 || kp == 64 || kp == 128) && k >= 1 && k <= kp &&
+         (kp == 16 || k > kp / 2);
 }
 
 }  // namespace libfm

@@ -15,17 +15,40 @@
 // sets the feature's reject flag. The noise z comes from the caller's
 // generator, so the kernel is deterministic.
 //
-// Bound on the H100 at ML-10M (k=64): bytes, 0.83 GB per iteration (the
-// GG rows, theta/lam/mu/z in and theta out), against ~1.1e5 fp32 FLOP per
-// feature (the k^3/3 factorisation dominates), 9.2 GFLOP per iteration;
-// chip_smoke.py counts both.
-// Design: one CTA per feature; S lives in shared memory (k x (k+1) floats,
-// padded against bank conflicts; dynamic shared memory above 48 KB). The
-// factorisation is right-looking, one column per step with the trailing
-// update spread over the CTA; the solves run one pivot per step with the
-// row updates spread over the CTA. Simple and exact in fp32; the GPU's
-// batched-small-system tricks (one warp per system, registers) are later
-// work.
+// Bound on the H100 at ML-10M (k=64, 82,248 systems an iteration): bytes,
+// 0.83 GB (the GG rows, theta/lam/mu/z in, theta out) = 0.25 ms, against
+// ~1.1e5 fp32 FLOP per system (k^3/3 for the factorisation), 9.2 GFLOP =
+// 0.14 ms at 67 TFLOP/s; chip_smoke.py counts both.
+//
+// Design (Hopper, fp32 FMA on the CUDA cores):
+// - The width is a template parameter KP in {16, 32, 64, 128}, k <= KP.
+//   Each system is padded to S' = [[S, 0], [0, I]] with zero rhs and noise
+//   in the pad: the same leading factor and x, and the pad is never
+//   written out. S is indexed with KP alone (constants and shifts); only
+//   the reads of the staged row use k.
+// - One warp per system; a CTA holds several warps, each with its own
+//   shared memory, and the warps never wait for each other: inside a
+//   system there are only __syncwarp and shuffles.
+// - S is kept as a column-major packed lower triangle (KP(KP+1)/2
+//   floats). A column read is contiguous; a row read steps by the
+//   triangular numbers, which fall in 32 distinct banks.
+// - Cholesky by panels of 8 columns: the warp factors a panel in
+//   registers (each lane holds its rows of the 8 columns; the pivot and
+//   the L[c][j] it needs come by shuffle), writes it back, then updates
+//   the trailing lower triangle in 4x4 register tiles (one tile a lane,
+//   32 FMAs per 16 floats read), touching only tiles on or below the
+//   diagonal. Pivots are inverted once and multiplied.
+// - Both solves go by the same panels: every lane solves the panel's 8x8
+//   diagonal block from the pivots' rhs (fetched by shuffle), and each
+//   lane updates the rhs of the rows it owns (row lane + 32q, held in
+//   registers) with 8 FMAs a panel.
+// - Persistent grid, about one wave of CTAs; each warp walks systems
+//   f, f + stride, ... While it factors system f, cp.async brings system
+//   f + stride's GG row, theta, lam, mu and z into the warp's staging
+//   area (16-byte pieces where the source is aligned: a GG row is 8,840 B
+//   at k=64, so odd rows start 8 B off; 4-byte pieces at the ends). The
+//   packed triangle is read in row order, coalesced, and S is formed from
+//   it in shared memory.
 
 #include <math.h>
 
@@ -33,154 +56,394 @@
 
 namespace {
 
-using libfm::kMaxK;
-constexpr int kThreads = 128;
+using libfm::kFullMask;
+using libfm::kWarp;
+using libfm::round4;
+constexpr int kPanel = 8;  // columns per Cholesky / solve panel
+constexpr int kTile = 4;   // edge of a lane's trailing-update register tile
 
-__device__ float block_sum(float v, float* scratch) {
-  v = libfm::warp_sum(v);
-  const int lane = threadIdx.x % libfm::kWarp, warp = threadIdx.x / libfm::kWarp;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float s = 0.0f;
-  for (int w = 0; w < (int)(blockDim.x / libfm::kWarp); ++w) s += scratch[w];
+// Offset of column j in the column-major packed lower triangle of a
+// KP x KP matrix: element (i, j), i >= j, is at col_base<KP>(j) + i.
+template <int KP>
+__device__ __forceinline__ int col_base(int j) {
+  return j * KP - ((j * (j - 1)) >> 1) - j;
+}
+
+// Floats of one warp's staging area: the GG row, then theta, lam, mu and
+// z, each with 3 floats of room to keep its source's 16-byte offset.
+__host__ __device__ __forceinline__ int stage_floats(int k) {
+  return round4(libfm::gg_width(k) + 3) + 4 * round4(k + 1 + 3);
+}
+
+// Floats of one warp's working area: S, then col, thv and 1 / diag(L).
+template <int KP>
+__host__ __device__ constexpr int work_floats() {
+  return ((KP * (KP + 1) / 2 + 3) & ~3) + 3 * KP;
+}
+
+template <int KP>
+constexpr int warps_per_cta() {
+  return KP >= 128 ? 2 : 4;  // KP=128 takes 70 KB of shared memory a warp
+}
+
+// r[q] (or r[q][c]) for a q known only at run time, without local memory.
+template <int R>
+__device__ __forceinline__ float pick(const float (&r)[R], int q) {
+  float v = r[0];
+#pragma unroll
+  for (int p = 1; p < R; ++p)
+    if (q == p) v = r[p];
+  return v;
+}
+
+template <int R, int C>
+__device__ __forceinline__ float pick(const float (&r)[R][C], int q, int c) {
+  float v = r[0][c];
+#pragma unroll
+  for (int p = 1; p < R; ++p)
+    if (q == p) v = r[p][c];
+  return v;
+}
+
+struct Staged {
+  const float *g, *th, *la, *mu, *z;
+};
+
+// Start the copies of system f's inputs into the staging area (one
+// cp.async group per lane).
+__device__ __forceinline__ Staged stage_system(float* stage, int f, const float* GG,
+                                               const float* theta, const float* lam,
+                                               const float* mu, const float* z, int k,
+                                               bool sample, int lane) {
+  const int d = k + 1, GW = libfm::gg_width(k), ds = round4(d + 3);
+  const long long fd = (long long)f * d;
+  Staged s;
+  s.g = libfm::warp_copy_row(stage, GG + (long long)f * GW, GW, lane);
+  float* p = stage + round4(GW + 3);
+  s.th = libfm::warp_copy_row(p, theta + fd, d, lane);
+  s.la = libfm::warp_copy_row(p + ds, lam + fd, d, lane);
+  s.mu = libfm::warp_copy_row(p + 2 * ds, mu + fd, d, lane);
+  s.z = sample ? libfm::warp_copy_row(p + 3 * ds, z + fd, d, lane) : nullptr;
+  libfm::cp_async_commit();
   return s;
 }
 
-__global__ void __launch_bounds__(kThreads)
-schur_draw_kernel(const float* __restrict__ GG, const float* __restrict__ theta,
-                  const float* __restrict__ lam, const float* __restrict__ mu,
-                  const float* __restrict__ z, const float* __restrict__ alphap,
-                  float* __restrict__ theta_out, int* __restrict__ rej, int k,
-                  int do_sample, float bound) {
-  extern __shared__ float smem[];
-  const int ld = k + 1;  // row stride of S (padding against bank conflicts)
-  float* S = smem;                 // [k][k+1]
-  float* thv = S + k * ld;         // [k]
-  float* col = thv + k;            // [k]
-  float* rhs = col + k;            // [k]  bv, then the forward-solve rhs
-  float* yv = rhs + k;             // [k]
-  float* xv = yv + k;              // [k]
-  float* qa = xv + k;              // [k]
-  float* red = qa + k;             // [kThreads / 32] reduction scratch
-  const int f = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int d = k + 1;
-  const int T = k * (k + 1) / 2;
-  const int GW = T + 2 * k + 2;
-  const float* g = GG + (long long)f * GW;
-  const float* th = theta + (long long)f * d;
-  const float* la = lam + (long long)f * d;
-  const float* m = mu + (long long)f * d;
+template <int KP, int kWarps>
+__global__ void __launch_bounds__(kWarps* kWarp)
+    schur_draw_kernel(const float* __restrict__ GG, const float* __restrict__ theta,
+                      const float* __restrict__ lam, const float* __restrict__ mu,
+                      const float* __restrict__ z, const float* __restrict__ alphap,
+                      float* __restrict__ theta_out, int* __restrict__ rej,
+                      int num_feats, int k, int do_sample, float bound) {
+  constexpr int R = (KP + kWarp - 1) / kWarp;  // rows a lane owns: lane + 32q
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int d = k + 1, T = k * (k + 1) / 2;
+  const int sf = stage_floats(k);
+  float* stage = smem + (size_t)warp * (sf + work_floats<KP>());
+  float* S = stage + sf;
+  float* colS = S + (work_floats<KP>() - 3 * KP);
+  float* thvS = colS + KP;
+  float* invD = thvS + KP;  // 1 / L[j][j]
+  const bool sample = do_sample != 0;
   const float alpha = *alphap;
-  const float aa = g[T + 2 * k], ae = g[T + 2 * k + 1];
-  const float th0 = th[0], lam0 = la[0], mu0 = m[0];
+  const int stride = gridDim.x * kWarps;
 
-  for (int i = tid; i < k; i += nt) {
-    thv[i] = th[1 + i];
-    qa[i] = g[T + i];
-  }
-  for (int e = tid; e < k * k; e += nt) {  // unpack the symmetric Qq
-    const int i = e / k, jj = e % k;
-    S[i * ld + jj] = g[i <= jj ? libfm::tri_index(i, jj, k) : libfm::tri_index(jj, i, k)];
-  }
-  __syncthreads();
-  const float s0 = sqrtf(alpha * aa + lam0);
-  for (int i = tid; i < k; i += nt) {
-    float acc = 0.0f;
-    for (int jj = 0; jj < k; ++jj) acc += S[i * ld + jj] * thv[jj];
-    rhs[i] = alpha * (qa[i] * th0 + acc) - alpha * g[T + k + i] + la[1 + i] * m[1 + i];
-    col[i] = alpha * qa[i] / s0;
-  }
-  // qa . thv (k <= kMaxK == kThreads: one element per thread)
-  const float qath = block_sum(tid < k ? qa[tid] * thv[tid] : 0.0f, red);
-  __syncthreads();
-  for (int e = tid; e < k * k; e += nt) {
-    const int i = e / k, jj = e % k;
-    if (jj <= i)
-      S[i * ld + jj] = alpha * S[i * ld + jj] + (i == jj ? la[1 + i] : 0.0f) -
-                       col[i] * col[jj];
-  }
-  __syncthreads();
-  // right-looking Cholesky, lower triangle in place
-  for (int j = 0; j < k; ++j) {
-    const float djj = sqrtf(S[j * ld + j]);
-    for (int i = j + 1 + tid; i < k; i += nt) S[i * ld + j] /= djj;
-    __syncthreads();
-    if (tid == 0) S[j * ld + j] = djj;
-    const int mm = k - j - 1;
-    for (int e = tid; e < mm * mm; e += nt) {
-      const int ii = e / mm, ll = e % mm;
-      if (ll <= ii) {
-        const int i = j + 1 + ii, l = j + 1 + ll;
-        S[i * ld + l] -= S[i * ld + j] * S[l * ld + j];
+  int f = blockIdx.x * kWarps + warp;
+  Staged cur{};
+  if (f < num_feats) cur = stage_system(stage, f, GG, theta, lam, mu, z, k, sample, lane);
+  for (; f < num_feats; f += stride) {
+    libfm::cp_async_wait<0>();
+    __syncwarp();
+
+    // ---- 1. take this system out of the staging area
+    const float th0 = cur.th[0], lam0 = cur.la[0], mu0 = cur.mu[0];
+    const float aa = cur.g[T + 2 * k], ae = cur.g[T + 2 * k + 1];
+    const float z0 = sample ? cur.z[0] : 0.0f;
+    float thv[R], qa[R], qe[R], lm[R], zv[R], col[R];
+    float qath = 0.0f;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = lane + kWarp * q;
+      const bool real = i < k;
+      thv[q] = real ? cur.th[1 + i] : 0.0f;
+      qa[q] = real ? cur.g[T + i] : 0.0f;
+      qe[q] = real ? cur.g[T + k + i] : 0.0f;
+      lm[q] = real ? cur.la[1 + i] * cur.mu[1 + i] : 0.0f;
+      zv[q] = real && sample ? cur.z[1 + i] : 0.0f;
+      qath += qa[q] * thv[q];
+    }
+    const float s0 = sqrtf(alpha * aa + lam0);
+    qath = libfm::warp_sum(qath);
+    const float b0 = alpha * (aa * th0 + qath) - alpha * ae + lam0 * mu0;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = lane + kWarp * q;
+      col[q] = alpha * qa[q] / s0;
+      if (i < KP) {
+        thvS[i] = thv[q];
+        colS[i] = col[q];
       }
     }
-    __syncthreads();
+    __syncwarp();
+
+    // ---- 2. S = alpha Qq + diag(lamv) - col col^T from the staged row:
+    // Qq's packed upper row j (Qq[j][j..k-1]) is column j of the lower
+    // triangle, contiguous on both sides
+#pragma unroll 4
+    for (int j = 0; j < KP; ++j) {
+      float* colj = S + col_base<KP>(j);
+      const float* src = cur.g + (j < k ? libfm::tri_index(j, j, k) - j : 0);
+      const float cj = colS[j], dj = j < k ? cur.la[1 + j] : 1.0f;
+      for (int i = j + lane; i < KP; i += kWarp)
+        colj[i] = (i < k ? alpha * src[i] : 0.0f) + (i == j ? dj : 0.0f) - colS[i] * cj;
+    }
+    // bv = alpha (qa th0 + Qq thv) - alpha qe + lamv mu_v, Qq read from the
+    // staged row; this lane's rows
+    float r[R];  // rhs of the rows this lane owns: bv, then y, then x
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = lane + kWarp * q;
+      float acc = 0.0f;
+      if (i < k) {
+        const int ci = libfm::tri_index(i, i, k) - i;  // Qq[i][j] = g[ci + j], j >= i
+        int cj = 0;                                    // Qq[j][i] = g[cj + i], j <= i
+#pragma unroll 4
+        for (int j = 0; j < k; ++j) {
+          acc += cur.g[j <= i ? cj + i : ci + j] * thvS[j];
+          cj += k - j - 1;
+        }
+      }
+      r[q] = alpha * (qa[q] * th0 + acc) - alpha * qe[q] + lm[q];
+    }
+    __syncwarp();
+
+    // ---- 3. the next system's inputs come in while this one is solved
+    if (f + stride < num_feats)
+      cur = stage_system(stage, f + stride, GG, theta, lam, mu, z, k, sample, lane);
+
+    // ---- 4. Cholesky S = L L^T by panels of kPanel columns
+    for (int j0 = 0; j0 < KP; j0 += kPanel) {
+      // the panel's columns in registers: pn[q][c] = L[i][j0 + c] for the
+      // rows i = lane + 32q on or below the diagonal (0 elsewhere); the
+      // panel's own rows are held at q = j0 / 32
+      const int qj = j0 / kWarp;
+      float pn[R][kPanel], inv[kPanel];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int i = lane + kWarp * q;
+#pragma unroll
+        for (int c = 0; c < kPanel; ++c)
+          pn[q][c] = i >= j0 + c && i < KP ? S[col_base<KP>(j0 + c) + i] : 0.0f;
+      }
+#pragma unroll
+      for (int jj = 0; jj < kPanel; ++jj) {
+        const int j = j0 + jj;
+        // NaN when S is not positive definite
+        const float djj = sqrtf(__shfl_sync(kFullMask, pick(pn, qj, jj), j % kWarp));
+        inv[jj] = 1.0f / djj;
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          const int i = lane + kWarp * q;
+          if (i == j) pn[q][jj] = djj;
+          else if (i > j) pn[q][jj] *= inv[jj];
+        }
+        // the panel's later columns: S[i][c] -= L[i][j] L[c][j], c <= i
+#pragma unroll
+        for (int c = jj + 1; c < kPanel; ++c) {
+          const float lcj = __shfl_sync(kFullMask, pick(pn, qj, jj), (j0 + c) % kWarp);
+#pragma unroll
+          for (int q = 0; q < R; ++q)
+            if (lane + kWarp * q >= j0 + c) pn[q][c] -= pn[q][jj] * lcj;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int i = lane + kWarp * q;
+#pragma unroll
+        for (int c = 0; c < kPanel; ++c)
+          if (i >= j0 + c && i < KP) S[col_base<KP>(j0 + c) + i] = pn[q][c];
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int c = 0; c < kPanel; ++c) invD[j0 + c] = inv[c];
+      }
+      __syncwarp();
+      // trailing update of rows/columns >= t0, lower 4x4 tiles, one a lane
+      const int t0 = j0 + kPanel;
+      const int nb = (KP - t0) / kTile, ntile = nb * (nb + 1) / 2;
+      for (int t = lane; t < ntile; t += kWarp) {
+        int bi = (int)((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
+        while (bi * (bi + 1) / 2 > t) --bi;
+        while ((bi + 1) * (bi + 2) / 2 <= t) ++bi;
+        const int bj = t - bi * (bi + 1) / 2;
+        const int i0 = t0 + kTile * bi, c0 = t0 + kTile * bj;
+        float acc[kTile][kTile];
+#pragma unroll
+        for (int a = 0; a < kTile; ++a)
+#pragma unroll
+          for (int b = 0; b < kTile; ++b) acc[a][b] = 0.0f;
+#pragma unroll
+        for (int p = 0; p < kPanel; ++p) {
+          const float* colp = S + col_base<KP>(j0 + p);
+          float u[kTile], w[kTile];
+#pragma unroll
+          for (int a = 0; a < kTile; ++a) {
+            u[a] = colp[i0 + a];
+            w[a] = colp[c0 + a];
+          }
+#pragma unroll
+          for (int a = 0; a < kTile; ++a)
+#pragma unroll
+            for (int b = 0; b < kTile; ++b) acc[a][b] += u[a] * w[b];
+        }
+#pragma unroll
+        for (int b = 0; b < kTile; ++b) {
+          float* colc = S + col_base<KP>(c0 + b);
+#pragma unroll
+          for (int a = 0; a < kTile; ++a)
+            if (bi != bj || b <= a) colc[i0 + a] -= acc[a][b];
+        }
+      }
+      __syncwarp();
+    }
+
+    // ---- 5. forward solve L y = bv - col y0, by the same panels
+    float y0 = b0 / s0;
+#pragma unroll
+    for (int q = 0; q < R; ++q) r[q] -= col[q] * y0;
+    for (int j0 = 0; j0 < KP; j0 += kPanel) {
+      const float rq = pick(r, j0 / kWarp);
+      float y[kPanel];
+#pragma unroll
+      for (int p = 0; p < kPanel; ++p) y[p] = __shfl_sync(kFullMask, rq, (j0 % kWarp) + p);
+#pragma unroll
+      for (int p = 0; p < kPanel; ++p) {
+#pragma unroll
+        for (int s = 0; s < p; ++s) y[p] -= S[col_base<KP>(j0 + s) + j0 + p] * y[s];
+        y[p] *= invD[j0 + p];
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int i = lane + kWarp * q;
+        if (i >= j0 + kPanel && i < KP) {
+#pragma unroll
+          for (int p = 0; p < kPanel; ++p) r[q] -= S[col_base<KP>(j0 + p) + i] * y[p];
+        } else {
+#pragma unroll
+          for (int p = 0; p < kPanel; ++p)
+            if (i == j0 + p) r[q] = y[p];
+        }
+      }
+    }
+    if (sample) {
+      y0 += z0;
+#pragma unroll
+      for (int q = 0; q < R; ++q) r[q] += zv[q];
+    }
+
+    // ---- 6. back solve L^T x = y, panels from the last
+    for (int j0 = KP - kPanel; j0 >= 0; j0 -= kPanel) {
+      const float rq = pick(r, j0 / kWarp);
+      float xp[kPanel];
+#pragma unroll
+      for (int p = 0; p < kPanel; ++p) xp[p] = __shfl_sync(kFullMask, rq, (j0 % kWarp) + p);
+#pragma unroll
+      for (int p = kPanel - 1; p >= 0; --p) {
+#pragma unroll
+        for (int s = kPanel - 1; s > p; --s) xp[p] -= S[col_base<KP>(j0 + p) + j0 + s] * xp[s];
+        xp[p] *= invD[j0 + p];
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int i = lane + kWarp * q;
+        if (i < j0) {
+#pragma unroll
+          for (int p = kPanel - 1; p >= 0; --p) r[q] -= S[col_base<KP>(i) + j0 + p] * xp[p];
+        } else {
+#pragma unroll
+          for (int p = 0; p < kPanel; ++p)
+            if (i == j0 + p) r[q] = xp[p];
+        }
+      }
+    }
+
+    // ---- 7. x0, the guard and the output
+    float cx = 0.0f;
+    bool bad = false;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = lane + kWarp * q;
+      if (i < k) {
+        cx += col[q] * r[q];
+        bad |= !(fabsf(r[q]) <= bound);
+      }
+    }
+    cx = libfm::warp_sum(cx);
+    const float x0 = (y0 - cx) / s0;
+    bad = __any_sync(kFullMask, bad) || !(fabsf(x0) <= bound);
+    float* out = theta_out + (long long)f * d;
+    if (lane == 0) {
+      out[0] = bad ? th0 : x0;
+      rej[f] = bad;
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = lane + kWarp * q;
+      if (i < k) out[1 + i] = bad ? thv[q] : r[q];
+    }
   }
-  // b0 and y0 (b0 uses qa.thv, summed over the CTA above)
-  const float b0 = alpha * (aa * th0 + qath) - alpha * ae + lam0 * mu0;
-  float y0 = b0 / s0;
-  for (int i = tid; i < k; i += nt) rhs[i] -= col[i] * y0;
-  __syncthreads();
-  // forward solve L y = rhs
-  for (int j = 0; j < k; ++j) {
-    const float yj = rhs[j] / S[j * ld + j];
-    for (int i = j + 1 + tid; i < k; i += nt) rhs[i] -= S[i * ld + j] * yj;
-    if (tid == 0) yv[j] = yj;
-    __syncthreads();
-  }
-  if (do_sample) {
-    const float* zz = z + (long long)f * d;
-    y0 += zz[0];
-    for (int i = tid; i < k; i += nt) yv[i] += zz[1 + i];
-  }
-  __syncthreads();
-  // back solve L^T x = y
-  for (int j = k - 1; j >= 0; --j) {
-    const float xj = yv[j] / S[j * ld + j];
-    for (int i = tid; i < j; i += nt) yv[i] -= S[j * ld + i] * xj;
-    if (tid == 0) xv[j] = xj;
-    __syncthreads();
-  }
-  float cx = 0.0f;
-  for (int i = tid; i < k; i += nt) cx += col[i] * xv[i];
-  cx = block_sum(cx, red);
-  const float x0 = (y0 - cx) / s0;
-  // guard: every component finite and within the bound
-  int bad = 0;
-  for (int i = tid; i < k; i += nt) bad |= !(fabsf(xv[i]) <= bound);
-  if (tid == 0) bad |= !(fabsf(x0) <= bound);
-  bad = __syncthreads_or(bad);
-  float* out = theta_out + (long long)f * d;
-  if (tid == 0) {
-    out[0] = bad ? th0 : x0;
-    rej[f] = bad;
-  }
-  for (int i = tid; i < k; i += nt) out[1 + i] = bad ? thv[i] : xv[i];
+}
+
+template <int KP>
+int launch(const float* GG, const float* theta, const float* lam, const float* mu,
+           const float* z, const float* alphap, float* theta_out, int* rej, int num_feats,
+           int k, int do_sample, float bound, cudaStream_t stream) {
+  constexpr int kWarps = warps_per_cta<KP>();
+  constexpr int kThreads = kWarps * kWarp;
+  const size_t smem = sizeof(float) * kWarps * (size_t)(stage_floats(k) + work_floats<KP>());
+  auto kern = schur_draw_kernel<KP, kWarps>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int need = (num_feats + kWarps - 1) / kWarps;
+  const int grid = need < sms * per_sm ? need : sms * per_sm;
+  kern<<<grid, kThreads, smem, stream>>>(GG, theta, lam, mu, z, alphap, theta_out, rej,
+                                         num_feats, k, do_sample, bound);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One CTA per feature. GG [num_feats, T+2k+2]; theta/lam/mu/z/theta_out
-// [num_feats, k+1]; rej [num_feats] (1 = draw rejected); alphap points at
-// the device scalar alpha. z is read only when do_sample != 0.
-extern "C" int schur_draw_launch(const float* GG, const float* theta,
-                                 const float* lam, const float* mu,
-                                 const float* z, const float* alphap,
-                                 float* theta_out, int* rej, int num_feats,
-                                 int k, int do_sample, float bound,
-                                 cudaStream_t stream) {
-  if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+// Persistent grid of warps, one system at a time each. GG [num_feats,
+// T+2k+2]; theta/lam/mu/z/theta_out [num_feats, k+1]; rej [num_feats] (1
+// = draw rejected); alphap points at the device scalar alpha. z is read
+// only when do_sample != 0. kp is the padded width (kernels.padded_width).
+extern "C" int schur_draw_launch(const float* GG, const float* theta, const float* lam,
+                                 const float* mu, const float* z, const float* alphap,
+                                 float* theta_out, int* rej, int num_feats, int k, int kp,
+                                 int do_sample, float bound, cudaStream_t stream) {
+  if (!libfm::valid_padded_width(kp, k)) return (int)cudaErrorInvalidValue;
   if (num_feats == 0) return (int)cudaSuccess;
-  const size_t smem =
-      sizeof(float) * ((size_t)k * (k + 1) + 6 * (size_t)k + kThreads / libfm::kWarp);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        schur_draw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  switch (kp) {
+    case 16:
+      return launch<16>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
+                        do_sample, bound, stream);
+    case 32:
+      return launch<32>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
+                        do_sample, bound, stream);
+    case 64:
+      return launch<64>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
+                        do_sample, bound, stream);
+    default:
+      return launch<128>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
+                         do_sample, bound, stream);
   }
-  schur_draw_kernel<<<num_feats, kThreads, smem, stream>>>(
-      GG, theta, lam, mu, z, alphap, theta_out, rej, k, do_sample, bound);
-  return (int)cudaGetLastError();
 }

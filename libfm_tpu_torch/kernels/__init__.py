@@ -184,6 +184,19 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+#: the widths `slot_stats` and `schur_draw` are compiled for
+PADDED_WIDTHS = (16, 32, 64, 128)
+
+
+def padded_width(k: int) -> int:
+    """The compile-time width a k-factor system runs at in `slot_stats`
+    and `schur_draw`: the smallest of PADDED_WIDTHS that holds k."""
+    for kp in PADDED_WIDTHS:
+        if 1 <= k <= kp:
+            return kp
+    raise ValueError(f"k={k}: the CUDA kernels take 1 <= k <= {PADDED_WIDTHS[-1]}")
+
+
 def import_all() -> dict:
     """Import every kernel module so REGISTRY lists them all."""
     from libfm_tpu_torch.kernels import (  # noqa: F401

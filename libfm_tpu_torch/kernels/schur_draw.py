@@ -13,7 +13,7 @@ import ctypes
 import numpy as np
 import torch
 
-from libfm_tpu_torch.kernels import Kernel, check, on_cuda, ptr
+from libfm_tpu_torch.kernels import Kernel, check, on_cuda, padded_width, ptr
 from libfm_tpu_torch.kernels.slot_stats import gg_width
 from libfm_tpu_torch.ops.lane_chol import (
     cholesky_lanes,
@@ -24,7 +24,7 @@ from libfm_tpu_torch.ops.lane_chol import (
 KERNEL = Kernel(
     "schur_draw", "schur_draw_launch",
     [ctypes.c_void_p] * 8
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float],
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float],
 )
 # features per step of the plain version (bounds its [C, k, k] temps)
 _PLAIN_CHUNK = 8192
@@ -119,7 +119,7 @@ def schur_draw(GG, theta, lam, mu, z, alpha, *, do_sample, bound):
     rej = torch.empty(Fd, dtype=torch.int32, device=theta.device)
     KERNEL.launch(
         ptr(GG), ptr(theta), ptr(lam), ptr(mu), ptr(z) if do_sample else None,
-        ptr(alpha), ptr(out), ptr(rej), Fd, k, int(bool(do_sample)),
+        ptr(alpha), ptr(out), ptr(rej), Fd, k, padded_width(k), int(bool(do_sample)),
         float(bound),
     )
     return out, rej

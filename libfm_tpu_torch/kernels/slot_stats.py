@@ -15,12 +15,12 @@ import ctypes
 import numpy as np
 import torch
 
-from libfm_tpu_torch.kernels import Kernel, check, on_cuda, ptr
+from libfm_tpu_torch.kernels import Kernel, check, on_cuda, padded_width, ptr
 
 KERNEL = Kernel(
     "slot_stats", "slot_stats_launch",
     [ctypes.c_void_p] * 7
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
 )
 # bound on the [chunk, Wmax, k] temporaries of the plain version
 _PLAIN_BUDGET = 1 << 26
@@ -127,6 +127,7 @@ def slot_stats(A, P, feat_off, slot_case, slot_val, feat_id, *,
         raise ValueError(f"GG: shape {tuple(GG.shape)} cannot hold {Fd} rows")
     KERNEL.launch(
         ptr(A), ptr(P), ptr(feat_off), ptr(slot_case), ptr(slot_val),
-        ptr(feat_id), ptr(GG), Fd, k, A.shape[0], int(use_linear),
+        ptr(feat_id), ptr(GG), Fd, k, padded_width(k), A.shape[0],
+        int(use_linear),
     )
     return GG[:Fd]

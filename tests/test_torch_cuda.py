@@ -7,8 +7,11 @@ GPU machine (no jax there, so skip the jax-configuring conftest):
 
 chip_smoke.py holds the kernels at the shapes of configs #1, #3 and
 #4b; these tests cover the other widths and options: k from 1 to 128,
-skewed slot counts, valued (not one-hot) entries, the linear and bias
-terms switched off, the reject guard; for SGD rows of L = 1, 2 and 13,
+skewed slot counts, features with no slots, padding slots and slot lists
+of many tiles, valued (not one-hot) entries, the linear and bias terms
+switched off, the reject guard on systems that are not positive
+definite, more systems than one persistent wave and rows that start off
+16-byte boundaries; for SGD rows of L = 1, 2 and 13,
 heavy duplicate ids in a batch, a padded final batch and table widths 9,
 16, 17 and 128. Tolerances as in chip_smoke.py: fp32 sums taken in
 another order.
@@ -34,7 +37,7 @@ from libfm_tpu_torch.models.fm import FMConfig, FMParams
 
 pytestmark = pytest.mark.cuda
 
-KS = [1, 5, 8, 32, 128]
+KS = [1, 5, 8, 32, 64, 128]
 
 
 @pytest.fixture
@@ -111,22 +114,38 @@ def test_slot_stats_kernel_matches_plain(cuda, k, skewed, use_linear):
     assert ss.gg_rel_err(G_k, G_p, k) < 1e-4
 
 
+def _gg_rows(dev, rng, F, k, W):
+    """GG rows [F, T+2k+2] of consistent statistics: H^T H and H^T e of
+    random [W, k+1] slot matrices H and residuals e."""
+    H = torch.as_tensor(rng.normal(0, 1, (F, W, k + 1)), device=dev, dtype=torch.float32)
+    Et = torch.as_tensor(rng.normal(0, 1, (F, W)), device=dev, dtype=torch.float32)
+    HtH = torch.einsum("fwi,fwj->fij", H, H)
+    Hte = torch.einsum("fwi,fw->fi", H, Et)
+    iu0, iu1 = np.triu_indices(k)
+    return torch.cat([
+        HtH[:, 1:, 1:][:, iu0, iu1], HtH[:, 1:, 0], Hte[:, 1:],
+        HtH[:, 0, :1], Hte[:, :1],
+    ], dim=1).contiguous()
+
+
+def _draw_both(GG, theta, lam, mu, z, alpha, do_sample, bound):
+    """schur_draw and its plain version on the same inputs; checks that
+    the reject flags agree and that a rejected draw keeps the old theta."""
+    t_k, r_k = sd.schur_draw(GG, theta, lam, mu, z, alpha, do_sample=do_sample, bound=bound)
+    t_p, r_p = sd.schur_draw_plain(GG, theta, lam, mu, z, alpha, do_sample=do_sample,
+                                   bound=bound)
+    torch.cuda.synchronize()
+    assert torch.equal(r_k, r_p)
+    assert torch.equal(t_k[r_k == 1], theta[r_k == 1])
+    return t_k, r_k, t_p
+
+
 @pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("do_sample", [True, False])
 def test_schur_draw_kernel_matches_plain(cuda, k, do_sample):
     rng = np.random.default_rng(200 + k)
     F, W, d = 300, 3 * k + 8, k + 1
-    h = rng.normal(0, 1, (F, W, d))
-    e = rng.normal(0, 1, (F, W))
-    H = torch.as_tensor(h, device=cuda, dtype=torch.float32)
-    Et = torch.as_tensor(e, device=cuda, dtype=torch.float32)
-    HtH = torch.einsum("fwi,fwj->fij", H, H)
-    Hte = torch.einsum("fwi,fw->fi", H, Et)
-    iu0, iu1 = np.triu_indices(k)
-    GG = torch.cat([
-        HtH[:, 1:, 1:][:, iu0, iu1], HtH[:, 1:, 0], Hte[:, 1:],
-        HtH[:, 0, :1], Hte[:, :1],
-    ], dim=1).contiguous()
+    GG = _gg_rows(cuda, rng, F, k, W)
     theta, lam, mu, z = _to(
         cuda,
         rng.normal(0, 0.1, (F, d)).astype(np.float32),
@@ -144,6 +163,115 @@ def test_schur_draw_kernel_matches_plain(cuda, k, do_sample):
     assert r_k[0].item() == 1 and r_k[1].item() == 1
     assert torch.equal(t_k[:2], theta[:2])
     assert ((t_k - t_p).abs().max() / t_p.abs().max().clamp_min(1.0)).item() < 1e-3
+
+
+@pytest.mark.parametrize("k", [8, 64, 100])
+def test_schur_draw_kernel_rejects_what_plain_rejects(cuda, k):
+    """Systems that are not positive definite (a large negative lam on a
+    third of the features) are rejected exactly where the plain version
+    rejects them, in both modes."""
+    rng = np.random.default_rng(250 + k)
+    F, d = 900, k + 1
+    GG = _gg_rows(cuda, rng, F, k, 2 * k + 8)
+    theta, lam, mu, z = _to(
+        cuda,
+        rng.normal(0, 0.1, (F, d)).astype(np.float32),
+        rng.uniform(0.5, 5, (F, d)).astype(np.float32),
+        rng.normal(0, 0.1, (F, d)).astype(np.float32),
+        rng.normal(size=(F, d)).astype(np.float32),
+    )
+    lam[::3, 1:] = -1e4  # far past the Gram's diagonal (~2k + 8)
+    alpha = torch.tensor(1.0, device=cuda)
+    for do_sample in (True, False):
+        t_k, r_k, t_p = _draw_both(GG, theta, lam, mu, z, alpha, do_sample, 1e6)
+        assert r_k[::3].all() and int(r_k.sum()) >= F // 3
+        assert ((t_k - t_p).abs().max() / t_p.abs().max().clamp_min(1.0)).item() < 1e-3
+
+
+@pytest.mark.parametrize("k", [5, 64])
+def test_schur_draw_kernel_frozen_linear_term(cuda, k):
+    """lam0 = 1e30 and mu0 = 0, as the learner sets them with
+    use_linear=False: w stays 0 and nothing is rejected."""
+    rng = np.random.default_rng(260 + k)
+    F, d = 400, k + 1
+    GG = _gg_rows(cuda, rng, F, k, 2 * k + 8)
+    theta, lam, mu, z = _to(
+        cuda,
+        rng.normal(0, 0.1, (F, d)).astype(np.float32),
+        rng.uniform(0.5, 5, (F, d)).astype(np.float32),
+        rng.normal(0, 0.1, (F, d)).astype(np.float32),
+        rng.normal(size=(F, d)).astype(np.float32),
+    )
+    theta[:, 0] = 0.0
+    lam[:, 0] = 1e30
+    mu[:, 0] = 0.0
+    alpha = torch.tensor(2.0, device=cuda)
+    for do_sample in (True, False):
+        t_k, r_k, t_p = _draw_both(GG, theta, lam, mu, z, alpha, do_sample, 1e6)
+        assert int(r_k.sum()) == 0
+        assert t_k[:, 0].abs().max().item() < 1e-6
+        assert ((t_k - t_p).abs().max() / t_p.abs().max().clamp_min(1.0)).item() < 1e-3
+
+
+@pytest.mark.parametrize("k", [32, 64])
+def test_schur_draw_kernel_many_systems_unaligned_rows(cuda, k):
+    """More systems than one persistent wave of warps holds (the warps
+    walk several systems each), with every input a view that starts one
+    row into its buffer, so GG rows and theta rows start off 16-byte
+    boundaries."""
+    rng = np.random.default_rng(270 + k)
+    F, d = 20000, k + 1
+    GG = _gg_rows(cuda, rng, F + 1, k, k + 8)[1:]
+    theta, lam, mu, z = (
+        torch.as_tensor(a, device=cuda)[1:] for a in (
+            rng.normal(0, 0.1, (F + 1, d)).astype(np.float32),
+            rng.uniform(0.5, 5, (F + 1, d)).astype(np.float32),
+            rng.normal(0, 0.1, (F + 1, d)).astype(np.float32),
+            rng.normal(size=(F + 1, d)).astype(np.float32),
+        )
+    )
+    assert GG.data_ptr() % 16 != 0 and theta.data_ptr() % 16 != 0
+    alpha = torch.tensor(1.5, device=cuda)
+    t_k, r_k, t_p = _draw_both(GG, theta, lam, mu, z, alpha, True, 1e6)
+    assert int(r_k.sum()) == 0
+    assert ((t_k - t_p).abs().max() / t_p.abs().max().clamp_min(1.0)).item() < 1e-3
+
+
+def _slots(rng, nc, counts, pad_share=0.0):
+    """Per-feature slot lists with the given counts; a share of the slots
+    are padding (case == nc)."""
+    off = np.zeros(len(counts) + 1, np.int64)
+    off[1:] = np.cumsum(counts)
+    sc = np.concatenate([rng.choice(nc, c, replace=False) for c in counts]
+                        + [np.zeros(0, np.int64)]).astype(np.int32)
+    sc[rng.random(len(sc)) < pad_share] = nc
+    sv = rng.normal(1.0, 0.5, len(sc)).astype(np.float32)
+    return off, sc, sv
+
+
+@pytest.mark.parametrize("k", [5, 64, 128])
+def test_slot_stats_kernel_edge_lists(cuda, k):
+    """A feature with no slots (its row is all zero), padding slots (a
+    fifth of them), and features that span many 32-slot tiles."""
+    rng = np.random.default_rng(150 + k)
+    nc, n = 5000, 300
+    counts = np.array([0, 1, 31, 32, 33, 0, 2000, 97, 4000, 64, 3])
+    off, sc, sv = _slots(rng, nc, counts, pad_share=0.2)
+    fid = rng.choice(n, len(counts), replace=False).astype(np.int32)
+    A, P, off, sc, sv, fid = _to(
+        cuda,
+        rng.normal(0, 1, (nc, k + 1)).astype(np.float32),
+        rng.normal(0, 0.3, (n, k + 1)).astype(np.float32),
+        off, sc, sv, fid,
+    )
+    for use_linear in (True, False):
+        G_k = ss.slot_stats(A, P, off, sc, sv, fid, use_linear=use_linear)
+        G_p = ss.slot_stats_plain(A, P, off, sc, sv, fid, use_linear=use_linear)
+        torch.cuda.synchronize()
+        assert ss.gg_rel_err(G_k, G_p, k) < 1e-4
+        assert (G_k[0] == 0).all() and (G_k[5] == 0).all()
+        again = ss.slot_stats(A, P, off, sc, sv, fid, use_linear=use_linear)
+        assert torch.equal(G_k, again)  # deterministic
 
 
 @pytest.mark.parametrize("k", KS)

@@ -3,9 +3,12 @@ reference or a direct numpy computation:
 
 - schur_draw against JAX `mcmc_rel_vector.blocked_theta_draw` (the same
   blocked draw on the full k x k statistic) with the same noise z, in
-  both sample modes; atol 1e-4 (fp32 Cholesky in another order);
+  both sample modes, at k = 4, 8 and 64 (config #3's width); atol 1e-4
+  (fp32 Cholesky in another order);
 - slot_stats against numpy H^T H, H^T e with H = [x, x qp] per feature,
-  at near-uniform and skewed slot counts; rtol 1e-4 / atol 1e-4;
+  at near-uniform and skewed slot counts, k = 6 and 64; rtol 1e-4 /
+  atol 1e-4;
+- the padded width the two CUDA kernels are compiled for;
 - dense_update against numpy, one-hot and valued; atol 1e-5.
 
 The CUDA kernels are held to these plain versions by chip_smoke.py.
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from libfm_tpu.learners.mcmc_rel_vector import blocked_theta_draw
+from libfm_tpu_torch import kernels as kmod
 from libfm_tpu_torch.data.batching import FeatureBlock, feature_slots
 from libfm_tpu_torch.kernels import dense_update as kdu
 from libfm_tpu_torch.kernels import schur_draw as ksd
@@ -42,7 +46,7 @@ def _stats(rng, F, k, W):
 
 
 @pytest.mark.parametrize("do_sample", [False, True])
-@pytest.mark.parametrize("k", [4, 8])
+@pytest.mark.parametrize("k", [4, 8, 64])
 def test_schur_draw_plain_matches_blocked_theta_draw(do_sample, k):
     rng = np.random.default_rng(10 + k + do_sample)
     F, W, d = 37, 24, k + 1
@@ -105,11 +109,12 @@ def _numpy_stats(A, P, features, off, sc, sv, use_linear):
     return np.asarray(rows)
 
 
+@pytest.mark.parametrize("k", [6, 64])
 @pytest.mark.parametrize("use_linear", [True, False])
 @pytest.mark.parametrize("skewed", [False, True])
-def test_slot_stats_plain_matches_numpy(use_linear, skewed):
+def test_slot_stats_plain_matches_numpy(use_linear, skewed, k):
     rng = np.random.default_rng(20 + skewed)
-    nc, F, n, k = 600, 25, 40, 6
+    nc, F, n = 600, 25, 40
     if skewed:  # counts far from uniform
         counts = np.minimum(rng.zipf(1.6, F), 90)
     else:
@@ -133,6 +138,21 @@ def test_slot_stats_plain_matches_numpy(use_linear, skewed):
                        off, sc, sv, use_linear)
     assert GG.shape == (F, kss.gg_width(k))
     np.testing.assert_allclose(GG.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+
+def test_padded_width_is_the_smallest_compiled_width_that_holds_k():
+    """slot_stats and schur_draw run a k-factor system at this width."""
+    for k in range(1, kmod.PADDED_WIDTHS[-1] + 1):
+        kp = kmod.padded_width(k)
+        assert kp in kmod.PADDED_WIDTHS and k <= kp
+        assert all(w < k for w in kmod.PADDED_WIDTHS if w < kp)
+    assert [kmod.padded_width(k) for k in (1, 16, 17, 33, 64, 65)] == [16, 16, 32, 64, 64, 128]
+
+
+@pytest.mark.parametrize("k", [0, 129])
+def test_padded_width_refuses_what_the_kernels_do_not_take(k):
+    with pytest.raises(ValueError):
+        kmod.padded_width(k)
 
 
 @pytest.mark.parametrize("onehot", [True, False])
