@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (libfm_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # configs #3, #1 and #4b; the table probes
+    python3 chip_smoke.py --config3-kernels   # config #3's kernel checks only
 
 What it does, in order (any failed phase exits non-zero):
 
@@ -14,10 +15,15 @@ What it does, in order (any failed phase exits non-zero):
    version and (where one exists) the one PyTorch library call that
    computes the same function, with CUDA events:
    - config #3 (movielens_like(71567, 10681, 10M, seed=1): 9M train rows,
-     82,248 features, k=64): fm_refresh, slot_stats, schur_draw,
-     dense_update; schur_draw also on both blocks with every 4th
-     feature's system made not positive definite (its reject flags must
-     equal the plain version's, and every such draw must be rejected);
+     82,248 features, k=64): fm_refresh (train and test mode),
+     slot_stats, schur_draw, dense_update; schur_draw also on both blocks
+     with every 4th feature's system made not positive definite (its
+     reject flags must equal the plain version's, and every such draw
+     must be rejected); fm_refresh and dense_update also timed with every
+     id on table row 0 or on the first 1,024 rows, beside the real ids
+     (gather against streaming), and dense_update with skewed ids: every
+     covered case on one of 4 rows, or on Zipf(1.2) ranks as ctr_like
+     draws a field's values;
    - SGD: one whole epoch (sgd_step + table_scatter + the w0 update) from
      the same table, kernels against plain versions (table and w0), at
      config #1 (the same ML data, k=8, B=32768, "pair" mode), config #4b
@@ -42,7 +48,10 @@ What it does, in order (any failed phase exits non-zero):
 It runs on one card: the first that CUDA_VISIBLE_DEVICES names (card 0
 when it is unset), and it hides the others. It imports nothing of jax
 or of the JAX package. `--out PATH` also writes every number to a JSON
-file.
+file. `--config3-kernels` builds the kernels and runs config #3's kernel
+checks alone, and prints their rows as one JSON line; it uses only the
+wrappers' public calls, so it also times another version of the package
+(a checkout of an earlier commit) when copied into that checkout's root.
 """
 
 from __future__ import annotations
@@ -75,6 +84,9 @@ SGD_CONFIGS = {
 }
 SGD_EPOCHS = 3
 CTR_FIELDS, CTR_CARD, CTR_EXAMPLES = 13, 5000, 2_000_000
+HOT_ROWS = 1024  # the gather-against-streaming line's small table
+FEW_ROWS = 4  # a field of few values (the skewed line)
+ZIPF = 1.2  # ctr_like's default power of a field's values
 # the kernels each path must launch
 EXPECTED = {
     "als": {"fm_refresh", "slot_stats", "schur_draw", "dense_update"},
@@ -216,6 +228,19 @@ def kernel_checks(args, rec, dev):
     out[-1]["test_mode_bound_ms"] = bound_ms(nt * Lt * 8 + nt * 4 + n * d * 4, 0)[0]
     print(f"fm_refresh test mode: ms={out[-1]['test_mode_ms']:.4f} "
           f"bound_ms={out[-1]['test_mode_bound_ms']:.4f} (bytes)")
+    # gather against streaming: every id on table row 0 (hot in L1), or
+    # on the first HOT_ROWS rows (hot in L2), beside the real ids
+    hot = {"fm_refresh train, real ids": out[-1]["ms"],
+           "fm_refresh test, real ids": out[-1]["test_mode_ms"]}
+    for label, few in (("row 0", lambda i: torch.zeros_like(i)),
+                       (f"{HOT_ROWS} rows", lambda i: i % HOT_ROWS)):
+        ids0, te_ids0 = few(ids), few(te_ids)
+        hot[f"fm_refresh train, {label}"] = cuda_ms(
+            lambda: fr.fm_refresh(P, ids0, vals, w0, y, A_k, **kw), args.reps)
+        hot[f"fm_refresh test, {label}"] = cuda_ms(
+            lambda: fr.fm_refresh(P, te_ids0, te_vals, w0), args.reps)
+    del ids0, te_ids0
+    fr.fm_refresh(P, ids, vals, w0, y, A_k, **kw)
     A = A_k
     del A_p
 
@@ -346,7 +371,36 @@ def kernel_checks(args, rec, dev):
         flops=covered * (4 * k + 6),
         lib_ms=None,
     )
-    del A, A_k, A_p, GG_k, sys_in, tabs, blocks
+    hot["dense_update, real ids"] = out[-1]["ms"]
+    # the skewed blocks of CTR data: a field's few values put many cases
+    # of a tile on one table row
+    zipf = torch.as_tensor(np.random.default_rng(SEED).zipf(ZIPF, nc) - 1, device=dev)
+    for label, few in (("row 0", lambda c, F: torch.zeros_like(c)),
+                       (f"{FEW_ROWS} rows", lambda c, F: c % FEW_ROWS),
+                       (f"Zipf({ZIPF}) ranks", lambda c, F: zipf % F),
+                       (f"{HOT_ROWS} rows", lambda c, F: c % HOT_ROWS)):
+        cols0 = [torch.where(b.up_col != b.F, few(b.up_col, b.F), b.F).to(torch.int32)
+                 for b in blocks]
+        A0, A0_p = A.clone(), A.clone()
+        for b, c0, tab in zip(blocks, cols0, tabs):
+            du.dense_update(A0, c0, b.up_val, tab)
+            du.dense_update_plain(A0_p, c0, b.up_val, tab)
+        skew_err = (A0 - A0_p).abs().max().item()
+        if not skew_err <= 1e-4:
+            fail(f"dense_update with every covered case on {label} disagrees with "
+                 f"its plain version: {skew_err} > 0.0001")
+        del A0, A0_p
+
+        def run_few():
+            for b, c0, tab in zip(blocks, cols0, tabs):
+                du.dense_update(A_k, c0, b.up_val, tab)
+
+        hot[f"dense_update, {label}"] = cuda_ms(run_few, args.reps)
+    rec["table_row0_against_real_ids_ms"] = hot
+    print(f"gather against streaming on {rec['card']}, ms: every id on table row 0, "
+          f"on {FEW_ROWS} rows, on Zipf({ZIPF}) ranks (dense_update) or on {HOT_ROWS} "
+          f"rows against the real ids {hot}")
+    del A, A_k, A_p, GG_k, sys_in, tabs, blocks, cols0, zipf
     torch.cuda.empty_cache()
     return out, (train, test)
 
@@ -796,6 +850,9 @@ def main(argv=None) -> int:
                     "print each iteration's or epoch's device-busy time and write "
                     "DIR/trace_<run>.json (their per-iteration seconds then "
                     "include the profiler's cost)")
+    ap.add_argument("--config3-kernels", action="store_true",
+                    help="only build the kernels and run config #3's kernel checks; "
+                    "print their rows as one JSON line")
     args = ap.parse_args(argv)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
@@ -838,6 +895,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     table, data = kernel_checks(args, rec, dev)
     t0 = done("config #3 data and kernel checks", t0)
+    if args.config3_kernels:
+        print(json.dumps({"card": smi, "kernels": table,
+                          "gather_against_streaming_ms": rec[
+                              "table_row0_against_real_ids_ms"]}))
+        return 0
     ctr = ctr_data()
     print(f"config #4b data: {ctr[0].num_rows} train rows, {ctr[1].num_rows} test "
           f"rows, {ctr[0].num_features} features ({time.perf_counter() - t0:.1f} s)")

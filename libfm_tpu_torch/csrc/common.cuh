@@ -82,6 +82,112 @@ __device__ __forceinline__ float* warp_copy_row(float* base16, const float* src,
   return dst;
 }
 
+// ---- Hopper bulk copies (TMA without a tensor map) and mbarriers.
+// A bulk copy moves `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) between global and shared memory; loads complete on an
+// mbarrier's transaction count, stores in bulk groups of the issuing
+// thread. Shared-memory writes by ordinary stores must be fenced
+// (fence_proxy_async) before a bulk store reads them.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Arrive and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The L2 policy for the .L2::cache_hint forms of data read or written
+// once: evict first.
+__device__ __forceinline__ uint64_t policy_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+// The L2 policy of data read again and again: evict last.
+__device__ __forceinline__ uint64_t policy_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+// Global -> shared, completing on `bar`, under L2 policy `pol`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar, uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(pol)
+      : "memory");
+}
+
+// Shared -> global, in this thread's current bulk group, under L2 policy `pol`.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes,
+                                           uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0], [%1], %2, %3;\n" ::"l"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "l"(pol)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are unfinished.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (0 is __syncthreads) over `threads` threads, a
+// multiple of 32, of the CTA.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // The compile-time widths the kernels are built for; the launchers take
 // the one chosen on the host (kernels.padded_width) and check it.
 __host__ __forceinline__ bool valid_padded_width(int kp, int k) {

@@ -180,6 +180,16 @@ def check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """Raise unless `t` starts on a 16-byte boundary: the bulk copies
+    (TMA) of `dense_update` and `fm_refresh` move whole 16-byte pieces."""
+    if t.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: data starts {t.data_ptr() % 16} bytes past a 16-byte "
+            f"boundary (a view at an offset); pass a fresh tensor"
+        )
+
+
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 

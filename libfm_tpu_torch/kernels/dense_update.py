@@ -10,24 +10,33 @@ import ctypes
 
 import torch
 
-from libfm_tpu_torch.kernels import Kernel, check, on_cuda, ptr
+from libfm_tpu_torch.kernels import Kernel, check, check_aligned, on_cuda, ptr
 
 KERNEL = Kernel(
     "dense_update", "dense_update_launch",
     [ctypes.c_void_p] * 4
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
 )
-_WARPS_PER_BLOCK = 8
-_MAX_GRID = 132 * 16
+
+
+def table_stride(width: int) -> int:
+    """Floats between the rows of a `width`-wide update table: `width`
+    rounded up to whole 16-byte pieces, so the kernel copies each row it
+    gathers as one bulk copy."""
+    return -(-width // 4) * 4
 
 
 def update_table(theta_old: torch.Tensor, theta_new: torch.Tensor) -> torch.Tensor:
     """[F+1, k+2] table [dw | dv | s = v_old . dv] with a zero row F (the
-    sentinel for cases outside the block), built from the PRE-draw theta."""
+    sentinel for cases outside the block), built from the PRE-draw theta.
+    A view of a zeroed [F+1, table_stride(k+2)] buffer: its rows lie
+    table_stride(k+2) floats apart."""
+    F, d = theta_old.shape
     delta = theta_new - theta_old
-    s = (theta_old[:, 1:] * delta[:, 1:]).sum(dim=1)
-    tab = torch.cat([delta, s[:, None]], dim=1)
-    return torch.cat([tab, tab.new_zeros(1, tab.shape[1])], dim=0)
+    buf = theta_old.new_zeros(F + 1, table_stride(d + 1))
+    buf[:F, :d] = delta
+    buf[:F, d] = (theta_old[:, 1:] * delta[:, 1:]).sum(dim=1)
+    return buf[:, :d + 1]
 
 
 def dense_update_plain(A, col, val, tab):
@@ -49,19 +58,30 @@ def dense_update(A, col, val, tab):
     A[c, 0] += x (t0 + A[c,1:] . t[1:k+1]) - x^2 t[k+1];
     A[c, 1:] += x t[1:k+1]. Returns A.
 
-    A [nc, k+1] float32; col int32 [nc] (F = no feature of the block);
-    val float32 [nc] or None; tab [F+1, k+2] from `update_table`."""
+    A [nc, k+1] float32, contiguous and 16-byte aligned (the kernel moves
+    it by bulk copies); col int32 [nc] (F = no feature of the block);
+    val float32 [nc] or None; tab [F+1, k+2] from `update_table` (on the
+    card: 16-byte aligned, rows table_stride(k+2) floats apart)."""
     tensors = [A, col, tab] + ([val] if val is not None else [])
     if not on_cuda(*tensors):
         return dense_update_plain(A, col, val, tab)
     nc, d = A.shape
     check(A, "A", torch.float32)
+    check_aligned(A, "A")
     check(col, "col", torch.int32, (nc,))
     if val is not None:
         check(val, "val", torch.float32, (nc,))
-    check(tab, "tab", torch.float32, (tab.shape[0], d + 1))
-    grid = max(1, min(_MAX_GRID, -(-nc // _WARPS_PER_BLOCK)))
+    if tab.dtype != torch.float32:
+        raise TypeError(f"tab: dtype {tab.dtype}, expected {torch.float32}")
+    if tab.dim() != 2 or tab.shape[1] != d + 1 or tab.stride() != (table_stride(d + 1), 1):
+        raise ValueError(
+            f"tab: shape {tuple(tab.shape)}, strides {tab.stride()}; expected "
+            f"[F+1, {d + 1}] with rows {table_stride(d + 1)} floats apart (update_table)"
+        )
+    check_aligned(tab, "tab")
+    if nc == 0:
+        return A
     KERNEL.launch(
-        ptr(A), ptr(col), ptr(val), ptr(tab), nc, tab.shape[0] - 1, d - 1, grid,
+        ptr(A), ptr(col), ptr(val), ptr(tab), nc, tab.shape[0] - 1, d - 1,
     )
     return A

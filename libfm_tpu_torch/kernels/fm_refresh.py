@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-from libfm_tpu_torch.kernels import Kernel, check, on_cuda, ptr
+from libfm_tpu_torch.kernels import Kernel, check, check_aligned, on_cuda, ptr
 
 KERNEL = Kernel(
     "fm_refresh", "fm_refresh_launch",
@@ -19,8 +19,9 @@ KERNEL = Kernel(
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int],
 )
-_WARPS_PER_BLOCK = 8
-_MAX_GRID = 132 * 16
+#: length of the per-CTA error partials (the kernel's grid is at most
+#: this; it writes 0 past its grid, so the sum is over a fixed length)
+_PARTS = 4096
 
 
 def fm_refresh_plain(P, ids, vals, w0, y=None, A=None, *, use_linear=True,
@@ -54,6 +55,8 @@ def fm_refresh(P, ids, vals, w0, y=None, A=None, *, use_linear=True,
     Train mode (A [nr, k+1] and y [nr] given): writes A[r] = [pred - y | Q]
     in place and returns the clipped squared error summed over the rows
     (0-dim tensor), with predictions clipped to [min_target, max_target].
+    On the card A must be 16-byte aligned (the kernel stores it by bulk
+    copies).
     """
     train = A is not None
     tensors = [P, ids, vals, w0] + ([y, A] if train else [])
@@ -71,9 +74,12 @@ def fm_refresh(P, ids, vals, w0, y=None, A=None, *, use_linear=True,
     if train:
         check(y, "y", torch.float32, (nr,))
         check(A, "A", torch.float32, (nr, d))
-    grid = max(1, min(_MAX_GRID, -(-nr // _WARPS_PER_BLOCK)))
+        check_aligned(A, "A")
+    if nr == 0:
+        return (torch.zeros((), dtype=torch.float32, device=P.device) if train
+                else torch.empty(0, dtype=torch.float32, device=P.device))
     if train:
-        part = torch.empty(grid, dtype=torch.float32, device=P.device)
+        part = torch.empty(_PARTS, dtype=torch.float32, device=P.device)
         pred = None
     else:
         part = None
@@ -81,6 +87,6 @@ def fm_refresh(P, ids, vals, w0, y=None, A=None, *, use_linear=True,
     KERNEL.launch(
         ptr(P), ptr(ids), ptr(vals), ptr(y), ptr(w0), ptr(A), ptr(pred),
         ptr(part), nr, L, d - 1, int(use_linear), int(use_bias),
-        float(min_target), float(max_target), grid,
+        float(min_target), float(max_target), _PARTS,
     )
     return part.sum() if train else pred

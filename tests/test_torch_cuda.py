@@ -13,8 +13,12 @@ switched off, the reject guard on systems that are not positive
 definite, more systems than one persistent wave and rows that start off
 16-byte boundaries; for SGD rows of L = 1, 2 and 13,
 heavy duplicate ids in a batch, a padded final batch and table widths 9,
-16, 17 and 128. Tolerances as in chip_smoke.py: fp32 sums taken in
-another order.
+16, 17 and 128. The tiled kernels (dense_update, fm_refresh) at no rows,
+part of a tile, ragged tails and many tiles a CTA, L = 1, 2, 5 and 13,
+blocks that cover no case or few tiles, the same bits on a second
+launch, and the inputs they refuse (A off 16 bytes, a table whose rows
+are not update_table's 16-byte pieces). Tolerances as in chip_smoke.py:
+fp32 sums taken in another order.
 """
 
 import numpy as np
@@ -290,6 +294,169 @@ def test_dense_update_kernel_matches_plain(cuda, k, onehot):
     torch.cuda.synchronize()
     assert (A_k - A_p).abs().max().item() < 1e-4
     assert torch.equal(A_k[colt == F], A[colt == F])  # cases outside the block
+
+
+DU_TILE = 32  # cases in a dense_update tile (csrc/dense_update.cu kTile)
+
+
+def _dense_update_inputs(dev, rng, nc, k, F, covered=None):
+    """A, col, val and the update table of a block of F features; with
+    `covered` (a bool mask over the cases), the other cases get col == F."""
+    col = rng.integers(0, F + 1, nc).astype(np.int32)
+    if covered is not None:
+        col[~covered] = F
+    val = np.where(col != F, rng.normal(1, 0.5, nc), 0).astype(np.float32)
+    A, colt, valt = _to(dev, rng.normal(0, 1, (nc, k + 1)).astype(np.float32), col, val)
+    th_old = torch.as_tensor(rng.normal(0, 0.3, (F, k + 1)), dtype=torch.float32,
+                             device=dev)
+    tab = du.update_table(th_old, th_old + 0.1 * torch.randn_like(th_old))
+    return A, colt, valt, tab
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("nc", [0, 1, DU_TILE - 3, 5 * DU_TILE, 7 * DU_TILE + 13,
+                                40000 * DU_TILE + 9])
+def test_dense_update_kernel_tiles(cuda, k, nc):
+    """Case counts of no tile, part of one, whole tiles, a ragged tail and
+    many tiles a CTA (cases valued); the same bits on a second launch."""
+    if nc > 1_000_000 and k > 32:
+        nc = 2000 * DU_TILE + 9  # keep A small at the wide rows
+    rng = np.random.default_rng(700 + k + nc % 97)
+    A, col, val, tab = _dense_update_inputs(cuda, rng, nc, k, 70)
+    before = kernels.launch_counts()["dense_update"]
+    A_k = du.dense_update(A.clone(), col, val, tab)
+    A_k2 = du.dense_update(A.clone(), col, val, tab)
+    A_p = du.dense_update_plain(A.clone(), col, val, tab)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["dense_update"] == before + (2 if nc else 0)
+    assert torch.equal(A_k, A_k2)  # deterministic
+    if nc:
+        assert (A_k - A_p).abs().max().item() < 1e-4
+    outside = col == 70
+    assert torch.equal(A_k[outside], A[outside])
+
+
+@pytest.mark.parametrize("k", [8, 64])
+@pytest.mark.parametrize("onehot", [True, False])
+def test_dense_update_kernel_tiles_outside_the_block(cuda, k, onehot):
+    """A block that covers no case leaves A bitwise as it was; one that
+    covers a case in every 50th tile only (long runs of tiles that move
+    no bytes between stored ones) updates exactly those cases."""
+    rng = np.random.default_rng(750 + k)
+    nc = 3000 * DU_TILE + 21
+    for covered in (np.zeros(nc, bool), np.arange(nc) % (50 * DU_TILE) == 5):
+        A, col, val, tab = _dense_update_inputs(cuda, rng, nc, k, 40, covered)
+        v = None if onehot else val
+        A_k = du.dense_update(A.clone(), col, v, tab)
+        A_p = du.dense_update_plain(A.clone(), col, v, tab)
+        torch.cuda.synchronize()
+        keep = torch.as_tensor(~covered, device=cuda)
+        assert torch.equal(A_k[keep], A[keep])
+        assert (A_k - A_p).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("k", [8, 33, 64])
+@pytest.mark.parametrize("skew", ["row 0", "4 rows", "zipf"])
+def test_dense_update_kernel_skewed_rows(cuda, k, skew):
+    """Many cases of a tile on one table row (the kernel copies each
+    distinct row of a tile once and its cases share it), beside cases
+    outside the block; the same bits on a second launch."""
+    rng = np.random.default_rng(780 + k)
+    nc, F = 900 * DU_TILE + 11, 50
+    A, col, val, tab = _dense_update_inputs(cuda, rng, nc, k, F)
+    rows = {"row 0": np.zeros(nc, np.int64), "4 rows": rng.integers(0, 4, nc),
+            "zipf": (rng.zipf(1.2, nc) - 1) % F}[skew]
+    col = torch.where(col != F, torch.as_tensor(rows, device=cuda), F).to(torch.int32)
+    A_k = du.dense_update(A.clone(), col, val, tab)
+    A_k2 = du.dense_update(A.clone(), col, val, tab)
+    A_p = du.dense_update_plain(A.clone(), col, val, tab)
+    torch.cuda.synchronize()
+    assert torch.equal(A_k, A_k2)
+    assert (A_k - A_p).abs().max().item() < 1e-4
+    assert torch.equal(A_k[col == F], A[col == F])
+
+
+def test_dense_update_kernel_rejects_unaligned_A(cuda):
+    """A contiguous A that starts 4 bytes off a 16-byte boundary raises:
+    the kernel moves A by bulk copies and has no other path."""
+    rng = np.random.default_rng(760)
+    nc, k = 500, 8
+    A, col, val, tab = _dense_update_inputs(cuda, rng, nc, k, 30)
+    buf = torch.zeros(nc * (k + 1) + 4, device=cuda)
+    A_off = buf[1:1 + nc * (k + 1)].view(nc, k + 1)
+    A_off.copy_(A)
+    assert A_off.is_contiguous() and A_off.data_ptr() % 16 == 4
+    before = kernels.launch_counts()["dense_update"]
+    with pytest.raises(ValueError, match="16-byte"):
+        du.dense_update(A_off, col, val, tab)
+    assert kernels.launch_counts()["dense_update"] == before
+    assert torch.equal(A_off, A)
+
+
+def test_dense_update_kernel_rejects_unpadded_table(cuda):
+    """A table whose rows lie k+2 floats apart (not update_table's
+    16-byte pieces) raises: the kernel copies each row as one bulk copy."""
+    rng = np.random.default_rng(770)
+    A, col, val, tab = _dense_update_inputs(cuda, rng, 300, 8, 30)
+    with pytest.raises(ValueError, match="update_table"):
+        du.dense_update(A, col, val, tab.contiguous())
+
+
+FR_ROWS = [0, 7, 1003, 20011]
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("L", [1, 2, 5, 13])
+def test_fm_refresh_kernel_tiles(cuda, k, L):
+    """Row counts of none, part of one tile, ragged tails and many tiles a
+    CTA, in both modes, against the plain version; a second launch gives
+    the same bits (A, the error sum and the predictions)."""
+    rng = np.random.default_rng(800 + k + L)
+    n = 700
+    P = torch.as_tensor(rng.normal(0, 0.3, (n, k + 1)), dtype=torch.float32, device=cuda)
+    w0 = torch.tensor(2.5, device=cuda)
+    kw = dict(min_target=1.0, max_target=5.0)
+    for nr in FR_ROWS:
+        ids, vals, y = _to(
+            cuda,
+            rng.integers(0, n, (nr, L)).astype(np.int32),
+            (rng.normal(1, 0.5, (nr, L)) * (rng.random((nr, L)) < 0.8)).astype(np.float32),
+            rng.uniform(1, 5, nr).astype(np.float32),
+        )
+        A_k, A_k2, A_p = (torch.full((nr, k + 1), 7.0, device=cuda) for _ in range(3))
+        s_k = fr.fm_refresh(P, ids, vals, w0, y, A_k, **kw)
+        s_k2 = fr.fm_refresh(P, ids, vals, w0, y, A_k2, **kw)
+        s_p = fr.fm_refresh_plain(P, ids, vals, w0, y, A_p, **kw)
+        p_k = fr.fm_refresh(P, ids, vals, w0, **kw)
+        p_k2 = fr.fm_refresh(P, ids, vals, w0, **kw)
+        p_p = fr.fm_refresh_plain(P, ids, vals, w0, **kw)
+        torch.cuda.synchronize()
+        assert p_k.shape == (nr,) and s_k.shape == ()
+        assert torch.equal(A_k, A_k2) and torch.equal(s_k, s_k2) and torch.equal(p_k, p_k2)
+        if nr:
+            assert (A_k - A_p).abs().max().item() < 1e-4
+            assert (p_k - p_p).abs().max().item() < 1e-4
+        assert abs(s_k.item() - s_p.item()) <= 1e-4 * max(1.0, s_p.item())
+
+
+def test_fm_refresh_kernel_rejects_unaligned_A(cuda):
+    rng = np.random.default_rng(850)
+    n, nr, L, k = 100, 300, 2, 16
+    P, ids, vals, y = _to(
+        cuda,
+        rng.normal(0, 0.3, (n, k + 1)).astype(np.float32),
+        rng.integers(0, n, (nr, L)).astype(np.int32),
+        np.ones((nr, L), np.float32),
+        rng.uniform(1, 5, nr).astype(np.float32),
+    )
+    buf = torch.zeros(nr * (k + 1) + 4, device=cuda)
+    A_off = buf[1:1 + nr * (k + 1)].view(nr, k + 1)
+    assert A_off.is_contiguous() and A_off.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte"):
+        fr.fm_refresh(P, ids, vals, torch.tensor(0.0, device=cuda), y, A_off)
+    with pytest.raises(ValueError, match="contiguous"):
+        fr.fm_refresh(P, ids, vals, torch.tensor(0.0, device=cuda), y,
+                      torch.zeros(k + 1, nr, device=cuda).t())
 
 
 def test_als_on_cuda_follows_the_cpu_trajectory(cuda):

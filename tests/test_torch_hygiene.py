@@ -5,7 +5,8 @@
 - entry points default to CUDA and raise when it is absent (never a
   silent CPU fall-back);
 - a kernel wrapper given CPU tensors runs its plain version and leaves
-  its launch counter unchanged; importing the kernels builds nothing.
+  its launch counter unchanged; importing the kernels builds nothing;
+- chip_smoke.py without a CUDA device fails and prints no result.
 """
 
 import ast
@@ -56,6 +57,19 @@ def test_port_file_list_is_complete():
             "dense_update.py", "sgd.py", "sgd_step.py", "table_scatter.py",
             "table_read.py", "pallas_gather.py", "pallas_scatter.py",
             "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("args", [[], ["--config3-kernels"]])
+def test_chip_smoke_without_cuda_fails_and_prints_no_result(args):
+    """Without a CUDA device chip_smoke.py exits non-zero before it
+    builds or runs anything, and prints nothing on its standard output."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    run = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), *args],
+                         capture_output=True, text=True, cwd=REPO, timeout=120)
+    assert run.returncode != 0
+    assert run.stdout == ""
+    assert "no CUDA device" in run.stderr
 
 
 def test_tf32_is_off_at_import():

@@ -179,3 +179,62 @@ def test_dense_update_plain_matches_numpy(onehot):
         ref[c, 0] += x[c] * (dv[0] + qp @ dv[1:])
         ref[c, 1:] += x[c] * dv[1:]
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+def test_check_aligned_refuses_views_off_16_bytes(offset):
+    """The alignment check of the bulk-copy kernels (dense_update's A,
+    fm_refresh's train-mode A): a view `offset` floats into a fresh
+    buffer passes only on a 16-byte boundary."""
+    buf = torch.zeros(64 + 8)
+    assert buf.data_ptr() % 16 == 0
+    view = buf[offset:offset + 64].view(8, 8)
+    if offset % 4 == 0:
+        kmod.check_aligned(view, "A")
+    else:
+        with pytest.raises(ValueError, match=f"{4 * offset} bytes past a 16-byte"):
+            kmod.check_aligned(view, "A")
+
+
+def test_wrappers_take_unaligned_cpu_views_and_empty_inputs_by_plain_versions():
+    """On CPU tensors the wrappers run the plain versions, whatever the
+    alignment; no rows at all give an empty result and a zero error sum."""
+    from libfm_tpu_torch.kernels import fm_refresh as kfr
+
+    rng = np.random.default_rng(40)
+    nc, F, k = 50, 6, 3
+    A = torch.tensor(rng.normal(0, 1, (nc, k + 1)).astype(np.float32))
+    buf = torch.zeros(nc * (k + 1) + 1)
+    A_off = buf[1:].view(nc, k + 1)
+    A_off.copy_(A)
+    col = torch.tensor(rng.integers(0, F + 1, nc).astype(np.int32))
+    th = torch.tensor(rng.normal(0, 0.3, (F, k + 1)).astype(np.float32))
+    tab = kdu.update_table(th, th + 0.1)
+    assert torch.equal(kdu.dense_update(A_off, col, None, tab),
+                       kdu.dense_update(A.clone(), col, None, tab))
+    P = torch.tensor(rng.normal(0, 0.3, (9, k + 1)).astype(np.float32))
+    ids = torch.zeros(0, 2, dtype=torch.int32)
+    vals = torch.zeros(0, 2)
+    w0 = torch.tensor(1.0)
+    assert kfr.fm_refresh(P, ids, vals, w0).shape == (0,)
+    sse = kfr.fm_refresh(P, ids, vals, w0, torch.zeros(0), torch.zeros(0, k + 1))
+    assert sse.shape == () and float(sse) == 0.0
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 64])
+def test_update_table_rows_lie_whole_16_byte_pieces_apart(k):
+    """dense_update's kernel copies each table row it gathers as one bulk
+    copy: the rows of update_table lie k+2 rounded up to 4 floats apart,
+    and the values are [dw | dv | v_old . dv] with a zero row F."""
+    rng = np.random.default_rng(50 + k)
+    F = 9
+    th_old = torch.tensor(rng.normal(0, 0.3, (F, k + 1)).astype(np.float32))
+    th_new = th_old + torch.tensor(rng.normal(0, 0.1, (F, k + 1)).astype(np.float32))
+    tab = kdu.update_table(th_old, th_new)
+    assert tab.shape == (F + 1, k + 2)
+    assert tab.stride() == (kdu.table_stride(k + 2), 1)
+    assert kdu.table_stride(k + 2) % 4 == 0 and 0 <= kdu.table_stride(k + 2) - (k + 2) < 4
+    delta = th_new - th_old
+    assert torch.equal(tab[:F, :k + 1], delta)
+    torch.testing.assert_close(tab[:F, k + 1], (th_old[:, 1:] * delta[:, 1:]).sum(1))
+    assert float(tab[F].abs().max()) == 0.0
