@@ -24,12 +24,16 @@ What it does, in order (any failed phase exits non-zero):
      (gather against streaming), and dense_update with skewed ids: every
      covered case on one of 4 rows, or on Zipf(1.2) ranks as ctr_like
      draws a field's values;
-   - SGD: one whole epoch (sgd_step + table_scatter + the w0 update) from
-     the same table, kernels against plain versions (table and w0), at
-     config #1 (the same ML data, k=8, B=32768, "pair" mode), config #4b
-     (ctr_like(13, 5000, 2M, seed=1), k=16, B=8192, "onehot") and #4b's
-     data with values from N(1, 0.25) ("general"); each kernel also timed
-     alone over an epoch's batches (table_scatter against index_add_);
+   - SGD: one whole epoch (sgd_step with the w0 update + table_scatter)
+     from the same table, kernels against plain versions (table and w0;
+     each batch's in-kernel w0 bitwise against the torch line on its
+     sums), at config #1 (the same ML data, k=8, B=32768, "pair" mode),
+     config #4b (ctr_like(13, 5000, 2M, seed=1), k=16, B=8192, "onehot")
+     and #4b's data with values from N(1, 0.25) ("general"); each kernel
+     also timed alone over an epoch's batches in the learner's form
+     (update rows at their sorted positions, read in order; table_scatter
+     against index_add_ of the same rows); at #1 and #4b one batch whose
+     ids are all equal through table_scatter;
    - table_scatter at probe P4's shape (against index_add_) and
      table_read at probes P1 (scale 8) and P3 (scale 1).
 4. Path phase. Resets the launch counters before each run and reads them
@@ -418,47 +422,99 @@ def ctr_data():
 
 def lockstep_err(P0, w0, batches, kw, lr0, reg0):
     """An SGD epoch in which every batch's kernels and plain versions start
-    from the same state (the kernels'): the largest difference, relative
-    per column, of the update rows, of the table after the scatter (the
-    plain scatter adds the same rows) and of the batch sums."""
+    from the same state (the kernels'), in the learner's form (update rows
+    in the sorted order, w0 moved inside sgd_step): the largest difference,
+    relative per column, of the update rows, of the table after the
+    scatter (the plain scatter adds the same rows) and of the batch sums.
+    Fails unless every batch's w0 equals, bit for bit, the torch line
+    `w0 - lr0 * (red[0] + red[1] * reg0 * w0)` on the kernel's sums."""
     from libfm_tpu_torch.kernels import sgd_step as sg
     from libfm_tpu_torch.kernels import table_scatter as ts
 
-    P, errs = P0.clone(), []
-    for ids, vals, y, m, sids, perm in batches:
-        u_k, r_k = sg.sgd_step(P, ids, vals, y, m, w0, **kw)
-        u_p, r_p = sg.sgd_step_plain(P, ids, vals, y, m, w0, **kw)
-        P_p = ts.table_scatter_plain(P.clone(), sids, perm, u_k)
-        ts.table_scatter(P, sids, perm, u_k)
+    P, errs, w0_bits = P0.clone(), [], []
+    w0 = w0.clone()
+    for ids, vals, y, m, sids, _perm, order, run in batches:
+        w0_was = w0.clone()
+        u_k, r_k = sg.sgd_step(P, ids, vals, y, m, w0, order=order, lr0=lr0, reg0=reg0,
+                               **kw)
+        u_p, r_p = sg.sgd_step_plain(P, ids, vals, y, m, w0_was.clone(), order=order,
+                                     lr0=lr0, reg0=reg0, **kw)
+        P_p = ts.table_scatter_plain(P.clone(), sids, None, u_k)
+        ts.table_scatter(P, sids, None, u_k, max_run=run)
         errs.append(torch.stack([
             col_rel_err(u_k, u_p), col_rel_err(P, P_p),
             ((r_k - r_p).abs() / r_p.abs().clamp_min(1.0)).max(),
         ]))
-        w0 = w0 - lr0 * (r_k[0] + r_k[1] * reg0 * w0)
+        w0_bits.append(torch.equal(w0, w0_was - lr0 * (r_k[0] + r_k[1] * reg0 * w0_was)))
+    if not all(w0_bits):
+        fail(f"sgd_step's w0 differs from the torch line on its sums in "
+             f"{w0_bits.count(False)} of {len(w0_bits)} batches")
     return torch.stack(errs).max().item()
 
 
 def plain_epoch(P0, w0, batches, kw, lr0, reg0, sums=None):
     """The plain versions' SGD epoch from (P0, w0), in P0's dtype: the
-    learner's loop (step, scatter, w0 line) with sgd_step_plain and
-    table_scatter_plain. With `sums` (a step function), w0 moves by the
-    batch sums that `sums` takes on the same state instead. Returns
-    (P, w0)."""
+    learner's loop (step with the w0 line, scatter of the sorted rows)
+    with sgd_step_plain and table_scatter_plain. With `sums` (a step
+    function), w0 moves by the batch sums that `sums` takes on the same
+    state instead. Returns (P, w0)."""
     from libfm_tpu_torch.kernels import sgd_step as sg
     from libfm_tpu_torch.kernels import table_scatter as ts
 
-    P = P0.clone()
-    for ids, vals, y, m, sids, perm in batches:
-        upd, red = sg.sgd_step_plain(P, ids, vals, y, m, w0, **kw)
-        if sums is not None:
+    P, w0 = P0.clone(), w0.clone()
+    for ids, vals, y, m, sids, _perm, order, _run in batches:
+        if sums is None:
+            upd, _ = sg.sgd_step_plain(P, ids, vals, y, m, w0, order=order, lr0=lr0,
+                                       reg0=reg0, **kw)
+        else:
+            upd, _ = sg.sgd_step_plain(P, ids, vals, y, m, w0, order=order, **kw)
             red = sums(P, ids, vals, y, m, w0, **kw)[1]
-        ts.table_scatter_plain(P, sids, perm, upd)
-        w0 = w0 - lr0 * (red[0] + red[1] * reg0 * w0)
+            w0 = w0 - lr0 * (red[0] + red[1] * reg0 * w0)
+        ts.table_scatter_plain(P, sids, None, upd)
     return P, w0
 
 
 def rel(a, b):
     return abs(a - b) / max(abs(b), 1e-12)
+
+
+def one_run_batch(args, dev, g, P0, E, label):
+    """A batch of E update rows whose ids are all equal (one run over the
+    whole batch, the scatter's longest chain) through table_scatter
+    against the plain version in float64 and index_add_, on a copy of the
+    table P0. The error is a summation's: the largest difference per
+    column over the column's largest sum of magnitudes (|P0| + sum |upd|),
+    tol 1e-5 (a sum of 65,536 random signs cancels, so the final sum is no
+    scale for it; the plain version in float32, recorded beside, errs by
+    more than 1e-5 itself, so the reference is the float64 sum)."""
+    from libfm_tpu_torch.kernels import table_scatter as ts
+
+    d = P0.shape[1]
+    upd = torch.randn(E, d, generator=g, device=dev)
+    sids = torch.full((E,), 7, dtype=torch.int32, device=dev)
+    T_k, T_p = P0.clone(), P0.clone()
+    ts.table_scatter(T_k, sids, None, upd, max_run=E)
+    ts.table_scatter_plain(T_p, sids, None, upd)
+    T_64 = ts.table_scatter_plain(P0.double(), sids, None, upd.double())
+    scale = ts.table_scatter_plain(P0.abs().double(), sids, None, upd.abs().double())
+    err, err32 = (((T.double() - T_64).abs().amax(dim=0) / scale.amax(dim=0)).max().item()
+                  for T in (T_k, T_p))
+    out = dict(entries=E, width=d, max_rel_err=err, tolerance=1e-5,
+               plain_f32_rel_err=err32,
+               ms=cuda_ms(lambda: ts.table_scatter(T_k, sids, None, upd, max_run=E),
+                          args.reps),
+               plain_ms=cuda_ms(lambda: ts.table_scatter_plain(T_p, sids, None, upd),
+                                args.reps),
+               library_ms=cuda_ms(lambda: T_p.index_add_(0, sids.long(), upd), args.reps))
+    print(f"table_scatter, one run of {E} equal ids ({label}, W={d}): err={err:.3g} "
+          f"against the plain version in float64, over the sum of magnitudes (tol "
+          f"1e-05, {1e-5 / max(err, 1e-30):.3g}x the error; the plain version in "
+          f"float32: {err32:.3g}) ms={out['ms']:.4f} plain_ms={out['plain_ms']:.4f} "
+          f"index_add_ ms={out['library_ms']:.4f}")
+    if not err <= 1e-5:
+        fail(f"table_scatter on one run of {E} equal ids ({label}) disagrees with its "
+             f"plain version: {err} > 1e-05")
+    return out
 
 
 def sgd_kernel_checks(args, rec, dev, ml, ctr):
@@ -498,6 +554,7 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = {"sgd_step": [], "table_scatter": []}
     orders = {}  # the scatter order by config: #4b's two cases share their ids
+    equal_ids = {}  # the one-run batch by config
     for label, cname, ds, mode, gate_w0 in cases:
         t0 = time.perf_counter()
         c = SGD_CONFIGS[cname]
@@ -506,8 +563,9 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
         if _epoch_mode(ds, tb) != mode:
             fail(f"{label}: the learner would pick mode {_epoch_mode(ds, tb)}")
         if cname not in orders:
-            orders[cname] = sorted_scatter_order(tb.ids)
-        sids_np, perm_np = orders[cname]
+            sids_np, perm_np = sorted_scatter_order(tb.ids)
+            orders[cname] = (sids_np, perm_np, ts.longest_runs(sids_np))
+        sids_np, perm_np, max_runs = orders[cname]
         arrs = [torch.as_tensor(x, device=dev) for x in
                 (tb.ids, tb.vals, tb.y, tb.row_mask, sids_np, perm_np)]
         nb, B, L = tb.ids.shape
@@ -521,7 +579,13 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
         lrs, lims = (c["lr"],) * 3, (float(ds.min_target), float(ds.max_target))
         ep_k = make_epoch_fn(cfg, c["task"], mode)
         P0 = _packed(params)
-        batches = list(zip(*(a.unbind(0) for a in arrs)))
+        # each entry's sorted position, as the learner's epoch inverts perm
+        perm_t = arrs[5].long()
+        order = torch.empty_like(perm_t).scatter_(
+            1, perm_t, torch.arange(B * L, device=dev).expand(nb, -1))
+        order = order.to(torch.int32).reshape(nb, B, L)
+        batches = list(zip(*(a.unbind(0) for a in arrs), order.unbind(0),
+                           (int(r) for r in max_runs)))
         kw = dict(mode=mode, task=c["task"], lr1=c["lr"], lr2=c["lr"], regw=c["regw"],
                   regv=c["regv"], min_target=lims[0], max_target=lims[1])
         t1 = time.perf_counter()
@@ -535,7 +599,7 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
         # learner's), the plain epoch twice (index_add_'s atomics add in no
         # fixed order), the plain epoch with the kernel's batch sums, and
         # the plain epoch in float64
-        r_k = ep_k(params, *arrs, lrs, *lims)
+        r_k = ep_k(params, *arrs, lrs, *lims, max_runs)
         P_k, w0_k = _packed(r_k), r_k.w0.item()
         (P_p, w0_p), (P_p2, w0_p2) = ep_p(P0, params.w0), ep_p(P0, params.w0)
         w0_ks = ep_p(P0, params.w0, sums=sg.sgd_step)[1].item()
@@ -545,7 +609,7 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
         w0_err, w0_sums_err = rel(w0_k, w0_p), rel(w0_k, w0_ks)
         t2 = time.perf_counter()
         secs["lockstep and free-running epochs"] = t2 - t1
-        epoch_ms = cuda_ms(lambda: ep_k(params, *arrs, lrs, *lims), reps)
+        epoch_ms = cuda_ms(lambda: ep_k(params, *arrs, lrs, *lims, max_runs), reps)
         epoch_plain_ms = cuda_ms(lambda: ep_p(P0, params.w0), 1, warmup=0)
         print(f"SGD epoch, {label}: {nb} batches of {B}x{L}; kernels against plain "
               f"in lockstep (every batch from the same state): {err:.3g} (tol 1e-4, "
@@ -562,20 +626,32 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
                  f"{err} (lockstep), {free[0]} (free-running table), {w0_err} "
                  f"(w0), {w0_sums_err} (w0 against the plain epoch with the "
                  f"kernel's sums)")
-        # each kernel alone over the epoch's batches, from the initial table
-        def steps(fn):
-            return lambda: [fn(P0, i, v, y, m, params.w0, **kw)
-                            for i, v, y, m, _, _ in batches]
+        # each kernel alone over the epoch's batches, from the initial table,
+        # in the learner's form: sgd_step writes the rows in the sorted
+        # order and moves w0, table_scatter reads them in order, buffers and
+        # scratch allocated once (the entry-order form through perm lost:
+        # PERF.md)
+        w0_t = params.w0.clone()
+        bufs = dict(upd=torch.empty(B * L, d, device=dev), red=torch.empty(2, device=dev),
+                    scratch=sg.sgd_step_scratch(dev))
 
-        upds = [u for u, _ in steps(sg.sgd_step)()]
+        def steps(fn):
+            return lambda: [fn(P0, i, v, y, m, w0_t, order=o, lr0=c["lr"], reg0=cfg.reg0,
+                               **bufs, **kw)
+                            for i, v, y, m, _, _, o, _ in batches]
+
+        upds = [sg.sgd_step(P0, i, v, y, m, params.w0, order=o, **kw)[0]
+                for i, v, y, m, _, _, o, _ in batches]
         P_s = P0.clone()
-        flat = [i.reshape(-1).long() for i, *_ in batches]
+        sids_l = [b[4].long() for b in batches]
+        sc_ts = ts.ScatterScratch(B * L, d, dev)
 
         def scatters(fn):
-            return lambda: [fn(P_s, s, p, u) for (*_, s, p), u in zip(batches, upds)]
+            return lambda: [fn(P_s, b[4], None, u, scratch=sc_ts, max_run=b[7])
+                            for b, u in zip(batches, upds)]
 
-        def library():
-            for f, u in zip(flat, upds):
+        def library():  # the same sorted rows at the same sorted ids
+            for f, u in zip(sids_l, upds):
                 P_s.index_add_(0, f, u)
 
         timed = f"one epoch's launches ({nb}), {label}"
@@ -583,7 +659,7 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
             "sgd_step", "libfm_tpu/learners/sgd.py:128", err, 1e-4,
             cuda_ms(steps(sg.sgd_step), reps),
             cuda_ms(steps(sg.sgd_step_plain), 1, warmup=0),
-            nbytes=E * 4 * (2 if mode == "general" else 1) + nb * B * 5
+            nbytes=E * 4 * (3 if mode == "general" else 2) + nb * B * 5
             + uniq * d * 4 + E * d * 4 + nb * 8,
             flops=E * 10 * d, lib_ms=None, timed=timed, label=f" ({label})")
         row["also_replaces"] = ["libfm_tpu/learners/sgd.py:160"]
@@ -592,12 +668,19 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
             "table_scatter", "studies/probes/pallas_scatter.py:35", err, 1e-4,
             cuda_ms(scatters(ts.table_scatter), reps),
             cuda_ms(scatters(ts.table_scatter_plain), 1, warmup=0),
-            nbytes=E * 8 + E * d * 4 + uniq * d * 8, flops=E * d,
+            nbytes=E * 4 + E * d * 4 + uniq * d * 8, flops=E * d,
             lib_ms=cuda_ms(library, reps), timed=timed,
             label=f" ({label})")
+        row["longest_runs"] = dict(min=int(max_runs.min()), median=float(np.median(max_runs)),
+                                   max=int(max_runs.max()),
+                                   over_long_run=int((max_runs > ts.LONG_RUN).sum()))
+        print(f"{label}: each batch's longest run of equal ids {row['longest_runs']} "
+              f"(at W <= 16 the batches with one over {ts.LONG_RUN} take the long form)")
         row["also_replaces"] = ["studies/pallas_gather.py:112",
                                 "libfm_tpu/learners/sgd.py:157,212"]
         rows["table_scatter"].append(row)
+        if cname not in equal_ids:
+            equal_ids[cname] = one_run_batch(args, dev, g, P0, B * L, label)
         rec.setdefault("sgd_epoch", {})[label] = dict(
             kernels_ms=epoch_ms, plain_ms=epoch_plain_ms, batches=nb, entries=E,
             unique_rows=uniq, lockstep_err=err, free_running_err=free[0],
@@ -607,14 +690,18 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
         secs["timing"] = time.perf_counter() - t2
         rec["sgd_epoch"][label]["check_seconds"] = secs
         print(f"SGD check seconds, {label}: {secs}")
-        del upds, P_s, arrs, batches, flat
+        del upds, P_s, arrs, batches, sids_l, order, perm_t, bufs
         torch.cuda.empty_cache()
+    rec["one_run_batch"] = equal_ids
     out = []
     for name, rs in rows.items():
         main_row = dict(rs[0])
         main_row["cases"] = {r["timed"]: {key: r[key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "longest_runs") if key in r}
             for r in rs}
+        if name == "table_scatter":
+            main_row["one_run_batch"] = equal_ids
         out.append(main_row)
     return out
 
@@ -632,15 +719,16 @@ def table_checks(args, rec, dev, scatter_row):
     ids = torch.randint(0, ps.N, (ps.E,), generator=g, device=dev, dtype=torch.int32)
     upd = torch.randn(ps.E, ps.W, generator=g, device=dev)
     sids, perm = ps.sorted_order(ids)
+    run = int(ts.longest_runs(sids))
     T_k = torch.zeros(ps.N, ps.W, device=dev)
     T_p = torch.zeros(ps.N, ps.W, device=dev)
-    ts.table_scatter(T_k, sids, perm, upd)
+    ts.table_scatter(T_k, sids, perm, upd, max_run=run)
     ts.table_scatter_plain(T_p, sids, perm, upd)
     err = (T_k - T_p).abs().max().item()
     uniq = int(torch.unique(ids).numel())
     p4 = kernel_row(
         "table_scatter", "studies/probes/pallas_scatter.py:35", err, 1e-5,
-        cuda_ms(lambda: ts.table_scatter(T_k, sids, perm, upd), args.reps),
+        cuda_ms(lambda: ts.table_scatter(T_k, sids, perm, upd, max_run=run), args.reps),
         cuda_ms(lambda: ts.table_scatter_plain(T_p, sids, perm, upd), args.reps),
         nbytes=ps.E * 8 + ps.E * ps.W * 4 + uniq * ps.W * 8, flops=ps.E * ps.W,
         lib_ms=cuda_ms(lambda: T_p.index_add_(0, ids.long(), upd), args.reps),
@@ -707,10 +795,11 @@ def run_sgd(name, data, args, rec):
     hist = learner.learn(train, test)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
     if prof is not None:
         prof.stop()
-        profile_summary(prof, args.profile, rec, name)
-    counts = kernels.launch_counts()
+        profile_summary(prof, args.profile, rec, name,
+                        batches=counts["sgd_step"] // SGD_EPOCHS)
     secs = [h[2] for h in hist]
     rec[name] = dict(history=hist, launches=counts, learn_seconds=wall,
                      setup_seconds=wall - sum(secs),
@@ -744,12 +833,19 @@ def run_probes(rec):
     return counts
 
 
-def profile_summary(prof, out_dir, rec, name):
+# the device names of the SGD batch loop's two kernels
+BATCH_KERNELS = ("sgd_step_kernel", "scatter_narrow", "scatter_wide")
+
+
+def profile_summary(prof, out_dir, rec, name, batches=None):
     """From a torch.profiler run of learner `name`: per iteration or
     epoch (the learners' "iteration N" / "epoch N" ranges) the wall time,
     the device-busy time (union of the device activities inside the
     range) and the device time by name; for the first one also its
-    longest host events. Writes DIR/trace_<name>.json."""
+    longest host events. For an SGD run (`batches` a epoch) also the
+    device activities an epoch, the batch loop's kernels a batch, and the
+    torch ops an epoch with those run at least once a batch. Writes
+    DIR/trace_<name>.json."""
     from torch.autograd import DeviceType
 
     ranges = ("iteration ", "epoch ")
@@ -780,6 +876,22 @@ def profile_summary(prof, out_dir, rec, name):
                    idle_share=1.0 - busy / 1e3 / wall,
                    device_ms_by_name=dict(sorted(by_name.items(),
                                                  key=lambda kv: -kv[1])[:10]))
+        if batches:
+            inside = [nm for s, t, nm in on_dev if lo <= s and t <= hi]
+            loop = sum(1 for nm in inside if any(b in nm for b in BATCH_KERNELS))
+            ops = {}
+            for e in evs:
+                if (e.device_type == DeviceType.CPU and e.name.startswith("aten::")
+                        and lo <= e.time_range.start and e.time_range.end <= hi):
+                    ops[e.name] = ops.get(e.name, 0) + 1
+            row.update(batches=batches, device_activities=len(inside),
+                       batch_loop_kernels=loop, kernels_a_batch=loop / batches,
+                       other_device_activities=len(inside) - loop, torch_ops=ops,
+                       torch_ops_once_a_batch_or_more={
+                           k: v for k, v in ops.items() if v >= batches})
+            print(f"profile {name} {ev.name}: {batches} batches, {loop} launches of "
+                  f"sgd_step/table_scatter ({loop / batches:g} a batch), "
+                  f"{len(inside) - loop} other device activities; torch ops {ops}")
         rows.append(row)
         print(f"profile {name} {ev.name}: wall {wall:.3f} ms, device busy "
               f"{row['device_busy_ms']:.3f} ms, idle share {row['idle_share']:.4f}")

@@ -188,6 +188,67 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ---- Programmatic dependent launch (sm_90). A grid launched with
+// launch_pdl may start while the grid before it on the stream still runs;
+// grid_dep_wait blocks until that grid has finished and its writes are
+// visible, so every thread calls it before it touches what an earlier
+// grid wrote. grid_dep_launch lets the next grid start launching; it does
+// so once every CTA of this grid has called it (or exited), that is once
+// all of this grid's CTAs are resident.
+
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+inline cudaError_t launch_pdl(void (*kernel)(Params...), unsigned grid, unsigned block,
+                              cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The grid of `kKernel` (`threads` a CTA, no dynamic shared memory) for
+// `wanted` CTAs, capped at one wave: the CTAs resident on the current
+// device at once. A grid whose CTAs wait on one another (table_scatter's
+// look-back) needs the cap, or a waiting CTA could hold the SM that the
+// CTA it waits for needs. The occupancy is asked once a device.
+template <auto kKernel>
+inline cudaError_t one_wave_grid(int threads, long long wanted, unsigned* grid) {
+  constexpr int kDevices = 64;
+  static int sms[kDevices], resident[kDevices];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int n = 0, occ = 0;
+    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) !=
+        cudaSuccess)
+      return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kKernel, threads, 0)) !=
+        cudaSuccess)
+      return err;
+    sms[dev] = n;
+    resident[dev] = occ > 0 ? occ : 1;
+  }
+  const long long wave = (long long)sms[dev] * resident[dev];
+  *grid = (unsigned)(wanted < 1 ? 1 : wanted < wave ? wanted : wave);
+  return cudaSuccess;
+}
+
 // The compile-time widths the kernels are built for; the launchers take
 // the one chosen on the host (kernels.padded_width) and check it.
 __host__ __forceinline__ bool valid_padded_width(int kp, int k) {

@@ -8,11 +8,12 @@ scatter-added. With batch_size=1 this is the reference's sequential
 algorithm; with larger batches it is sum-reduced mini-batch SGD.
 
 An epoch works on the packed table P = [w | V] [n, 1+k]. Per batch:
-  sgd_step       (CUDA kernel: gather, prediction, multiplier, update rows),
-  table_scatter  (CUDA kernel: the rows added in the host-presorted order),
-  one line of torch for w0, which stays a device scalar.
-The batches run as a Python loop of launches; nothing is copied to the
-host inside an epoch. Evaluation and prediction use the fm_refresh kernel
+  sgd_step       (CUDA kernel: gather, prediction, multiplier, update rows
+                  in the presorted order, batch sums, w0 in place),
+  table_scatter  (CUDA kernel: the rows added in the host-presorted order).
+The batches run as a Python loop of two launches each, on buffers and
+scratch allocated once an epoch; nothing is copied to the host inside an
+epoch. Evaluation and prediction use the fm_refresh kernel
 in test mode. On CPU tensors every kernel wrapper runs its plain PyTorch
 version.
 
@@ -30,8 +31,8 @@ from libfm_tpu_torch.data.batching import BatchedCSR, batch_dataset
 from libfm_tpu_torch.data.dataset import Dataset
 from libfm_tpu_torch.device import resolve_device
 from libfm_tpu_torch.kernels.fm_refresh import fm_refresh
-from libfm_tpu_torch.kernels.sgd_step import sgd_multiplier, sgd_step
-from libfm_tpu_torch.kernels.table_scatter import table_scatter
+from libfm_tpu_torch.kernels.sgd_step import sgd_multiplier, sgd_step, sgd_step_scratch
+from libfm_tpu_torch.kernels.table_scatter import ScatterScratch, longest_runs, table_scatter
 from libfm_tpu_torch.learners import base
 from libfm_tpu_torch.models.fm import FMConfig, FMParams, fm_batch_terms, init_fm
 from libfm_tpu_torch.tasks import TASK_REGRESSION
@@ -85,30 +86,50 @@ def _packed(params: FMParams):
 def make_epoch_fn(cfg: FMConfig, task: int, mode: str = "general"):
     """An epoch function over a stack of batches on the packed table.
 
-    epoch(params, ids, vals, y, row_mask, sids, perm, lrs, min_t, max_t)
-    takes the stacked batch tensors ([NB, B, L], [NB, B], and the
-    presorted scatter order [NB, B*L]), concatenates P = [w | V], runs one
-    sgd_step + table_scatter per batch and the w0 update, and returns the
-    new FMParams (w and V split back out of P).
+    epoch(params, ids, vals, y, row_mask, sids, perm, lrs, min_t, max_t,
+    max_runs=None) takes the stacked batch tensors ([NB, B, L], [NB, B],
+    and the presorted scatter order [NB, B*L]), concatenates P = [w | V],
+    runs one sgd_step (with the w0 update) + table_scatter per batch, and
+    returns the new FMParams (w and V split back out of P). `max_runs`
+    [NB] is each batch's longest run of equal ids (`longest_runs(sids)`,
+    which the learner takes once at set-up); when None the epoch takes it
+    from sids, a copy to the host.
+
+    Once an epoch it clones w0, inverts the scatter order (`order`, each
+    entry's sorted position, so sgd_step writes the update rows in the
+    order table_scatter reads them) and allocates the buffers and
+    scratch; a batch then costs two wrapper calls and nothing else.
 
     `mode` ("pair", "onehot", "general") is chosen by `_epoch_mode` from
     the static batch stack."""
     kw = dict(mode=mode, task=task, regw=cfg.regw, regv=cfg.regv,
-              use_linear=cfg.use_linear, use_bias=cfg.use_bias)
+              use_linear=cfg.use_linear, use_bias=cfg.use_bias, reg0=cfg.reg0)
 
-    def epoch(params, ids, vals, y, row_mask, sids, perm, lrs, min_t, max_t):
+    def epoch(params, ids, vals, y, row_mask, sids, perm, lrs, min_t, max_t,
+              max_runs=None):
         lr0, lr1, lr2 = (float(x) for x in lrs)
+        if max_runs is None:
+            max_runs = longest_runs(sids)
+        runs = [int(r) for r in max_runs]
         P = _packed(params)
-        w0 = params.w0
-        for b_ids, b_vals, b_y, b_mask, b_sids, b_perm in zip(
-            ids.unbind(0), vals.unbind(0), y.unbind(0), row_mask.unbind(0),
-            sids.unbind(0), perm.unbind(0),
-        ):
-            upd, red = sgd_step(P, b_ids, b_vals, b_y, b_mask, w0, lr1=lr1, lr2=lr2,
-                                min_target=min_t, max_target=max_t, **kw)
-            table_scatter(P, b_sids, b_perm, upd)
-            if cfg.use_bias:
-                w0 = w0 - lr0 * (red[0] + red[1] * cfg.reg0 * w0)
+        w0 = params.w0.clone()
+        nb, B, L = ids.shape
+        dev, dt = P.device, P.dtype
+        order = torch.empty_like(perm).scatter_(
+            1, perm.long(), torch.arange(B * L, dtype=perm.dtype, device=dev).expand(nb, -1))
+        upd = torch.empty(B * L, P.shape[1], dtype=dt, device=dev)
+        red = torch.empty(2, dtype=dt, device=dev)
+        step_scratch = sgd_step_scratch(dev)
+        scatter_scratch = ScatterScratch(B * L, P.shape[1], dev)
+        batches = list(zip(ids.unbind(0), vals.unbind(0), y.unbind(0),
+                           row_mask.unbind(0), sids.unbind(0),
+                           order.reshape(nb, B, L).unbind(0), runs))
+        for b_ids, b_vals, b_y, b_mask, b_sids, b_order, b_run in batches:
+            sgd_step(P, b_ids, b_vals, b_y, b_mask, w0, lr1=lr1, lr2=lr2,
+                     min_target=min_t, max_target=max_t, order=b_order,
+                     lr0=lr0 if cfg.use_bias else None, upd=upd, red=red,
+                     scratch=step_scratch, **kw)
+            table_scatter(P, b_sids, None, upd, scratch=scatter_scratch, max_run=b_run)
         return FMParams(w0=w0, w=P[:, 0].contiguous(), v=P[:, 1:].contiguous())
 
     return epoch
@@ -249,6 +270,7 @@ class SGDLearner:
         e_arrs = self._arrays(eb)
         sids, perm = sorted_scatter_order(tb.ids)
         t_scatter = (torch.as_tensor(sids, device=dev), torch.as_tensor(perm, device=dev))
+        max_runs = longest_runs(sids)
         min_t, max_t = float(self.min_target), float(self.max_target)
 
         history = []
@@ -259,7 +281,7 @@ class SGDLearner:
             # covers the epoch's device work
             with torch.profiler.record_function(f"epoch {it}"):
                 self.params = epoch(self.params, *t_arrs, *t_scatter, self.lrs,
-                                    min_t, max_t)
+                                    min_t, max_t, max_runs)
                 c1 = iter_clocks(dev)
             dt = c1[2] - c0[2]
             m_train = self._eval(self.params, *t_arrs, min_t, max_t)

@@ -68,6 +68,17 @@ def rmw_scatters(T, orders, scatter=table_scatter):
     return scratch[0].sum()
 
 
+def rmw_index_add(T, orders):
+    """P2 after the sorts by one library call a rep: index_add_ of the
+    rows of ones at every id of every rep's order (the yardstick of
+    `rmw_scatters`); returns the sum of its row 0."""
+    scratch = T.clone()
+    ones = torch.ones(orders[0][0].shape[0], T.shape[1], dtype=T.dtype, device=T.device)
+    for sids, _perm in orders:
+        scratch.index_add_(0, sids.long(), ones)
+    return scratch[0].sum()
+
+
 def make_rmw_kernel(nsub, nids, reps):
     def run(ids, T):
         return rmw_scatters(T, rmw_orders(ids[:nids], nsub, reps))
@@ -123,14 +134,16 @@ def main(nsub=NSUB, nids=NIDS, reps=REPS, rtol=1e-5):
         if name == "rmw":
             rec["ms"] = device_ms(lambda: rmw_scatters(T, orders))
             rec["with_sorts_ms"] = device_ms(lambda: run(ids, T))
+            rec["library_ms"] = device_ms(lambda: rmw_index_add(T, orders))
         else:
             rec["ms"] = device_ms(lambda: run(ids, T))
         rec["plain_ms"] = device_ms(plain[name])
         rec["ns_per_row"] = rec["ms"] * 1e6 / (reps * nids)
         rec["plain_ns_per_row"] = rec["plain_ms"] * 1e6 / (reps * nids)
+        lib = f"; index_add_ {rec['library_ms']:.4f} ms" if "library_ms" in rec else ""
         print(f"  {name:10s} {rec['ms']:9.4f} ms  {rec['ns_per_row']:7.3f} ns/row"
               f"  (plain {rec['plain_ns_per_row']:.3f} ns/row; bound "
-              f"{rec['bound_ms']:.4f} ms)  rel_err {err:.2e}", flush=True)
+              f"{rec['bound_ms']:.4f} ms{lib})  rel_err {err:.2e}", flush=True)
         if err > tol:
             raise AssertionError(f"{name}: kernel {got} against plain {want}")
         results.append(rec)

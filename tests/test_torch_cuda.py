@@ -624,3 +624,168 @@ def test_sgd_on_cuda_follows_the_cpu_trajectory(cuda, which):
     for hc, hg in zip(runs["cpu"][0], runs["cuda"][0]):
         assert abs(hc[0] - hg[0]) <= tol and abs(hc[1] - hg[1]) <= tol
     assert (runs["cpu"][1] - runs["cuda"][1]).abs().max().item() < 1e-3
+
+
+SCATTER_WIDTHS = [1, 9, 16, 17, 33, 64, 128, 129]
+
+
+def _sum_err(T, want, mag):
+    """A scatter's error against a float64 reference `want`: the largest
+    difference per column over the column's largest sum of magnitudes
+    `mag` (a long run of random signs cancels, so its sum is no scale)."""
+    diff = np.abs(T.double().cpu().numpy() - want).max(axis=0)
+    return float((diff / np.maximum(mag.max(axis=0), 1e-12)).max())
+
+
+def _scatter_ids(rng, layout, E, n):
+    """Sorted-order test ids: every id equal (one run over E), runs of 100
+    (each spans 2 windows), runs of 5,000 (each spans many windows and
+    CTAs), or Zipf(1.2) ids."""
+    if layout == "one_run":
+        return np.full(E, 7, np.int32)
+    if layout in ("runs_100", "runs_5000"):
+        length = int(layout.split("_")[1])
+        return rng.permutation(np.arange(E) // length % n).astype(np.int32)
+    return np.minimum(rng.zipf(1.2, E) - 1, n - 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("W", SCATTER_WIDTHS)
+@pytest.mark.parametrize("layout", ["one_run", "runs_100", "runs_5000", "zipf"])
+@pytest.mark.parametrize("form", ["longest_run", "one_round", "long_form"])
+def test_table_scatter_kernel_widths_and_runs(cuda, W, layout, form):
+    """np.add.at within 1e-5 and the plain version within 1e-4 at every
+    width and run length, both in float64 and as a sum's error (per
+    column, over the largest sum of magnitudes), with the windows that the
+    longest run picks (max_run computed by the wrapper) and with either
+    form forced where the width has two; the same bits on a second launch,
+    and from update rows already in sorted order (perm=None)."""
+    rng = np.random.default_rng(700 + W)
+    n, E = 3000, 20011
+    ids = _scatter_ids(rng, layout, E, n)
+    upd = rng.standard_normal((E, W)).astype(np.float32)
+    T0 = rng.standard_normal((n, W)).astype(np.float32)
+    # np.add.at in float64 (over one run of 20,011 rows a float32
+    # sequential sum errs by more than 1e-5 itself), and the error of a
+    # sum: over the column's largest sum of magnitudes
+    want, mag = T0.astype(np.float64), np.abs(T0).astype(np.float64)
+    np.add.at(want, ids, upd.astype(np.float64))
+    np.add.at(mag, ids, np.abs(upd).astype(np.float64))
+    perm = np.argsort(ids, kind="stable").astype(np.int32)
+    sids, permt, updt, upd_sorted = _to(cuda, ids[perm], perm, upd, upd[perm])
+    T, T2, T3, T4 = (torch.as_tensor(T0, device=cuda) for _ in range(4))
+    scratch = ts.ScatterScratch(E, W, cuda)
+    run = int(ts.longest_runs(ids[perm]))
+    max_run = {"longest_run": None, "one_round": 1, "long_form": ts.LONG_RUN + 1}[form]
+    before = kernels.launch_counts()["table_scatter"]
+    ts.table_scatter(T, sids, permt, updt, scratch=scratch, max_run=max_run)
+    ts.table_scatter(T2, sids, permt, updt, scratch=scratch, max_run=max_run)
+    ts.table_scatter(T3, sids, None, upd_sorted, max_run=max_run)
+    ts.table_scatter(T4, sids, None, upd_sorted, max_run=run if max_run is None else max_run)
+    T_p = ts.table_scatter_plain(torch.as_tensor(T0, dtype=torch.float64, device=cuda),
+                                 sids, permt, updt.double())
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["table_scatter"] == before + 4
+    assert torch.equal(T, T2) and torch.equal(T, T3) and torch.equal(T, T4)
+    assert _sum_err(T, want, mag) < 1e-5
+    assert _sum_err(T, T_p.cpu().numpy(), mag) < 1e-4
+    assert scratch.calls == 2
+
+
+def test_table_scatter_kernel_scratch_reused_across_shapes(cuda):
+    """One scratch, sized for the largest call, serves calls of other
+    lengths and widths in turn, with the bits of a fresh scratch."""
+    rng = np.random.default_rng(9)
+    scratch = ts.ScatterScratch(50000, 40, cuda)
+    for E, W, layout in ((50000, 9, "runs_5000"), (777, 40, "zipf"), (31, 17, "one_run"),
+                         (50000, 17, "runs_100"), (1, 1, "one_run")):
+        ids = _scatter_ids(rng, layout, E, 500)
+        upd = rng.standard_normal((E, W)).astype(np.float32)
+        perm = np.argsort(ids, kind="stable").astype(np.int32)
+        want, mag = np.zeros((500, W)), np.zeros((500, W))
+        np.add.at(want, ids, upd.astype(np.float64))
+        np.add.at(mag, ids, np.abs(upd).astype(np.float64))
+        sids, permt, updt = _to(cuda, ids[perm], perm, upd)
+        T, T_fresh = torch.zeros(500, W, device=cuda), torch.zeros(500, W, device=cuda)
+        ts.table_scatter(T, sids, permt, updt, scratch=scratch)
+        ts.table_scatter(T_fresh, sids, permt, updt)
+        torch.cuda.synchronize()
+        assert torch.equal(T, T_fresh)
+        assert _sum_err(T, want, mag) < 1e-5
+
+
+STEP_KS = [1, 8, 16, 64, 128]
+STEP_SHAPES = [("pair", 2), ("onehot", 13), ("general", 13), ("general", 20)]
+
+
+@pytest.mark.parametrize("k", STEP_KS)
+@pytest.mark.parametrize("mode,L", STEP_SHAPES)
+def test_sgd_step_kernel_sums_w0_and_order(cuda, k, mode, L):
+    """A padded batch: the update rows and red against the plain version;
+    red and the rows the same bits on a second launch; w0 updated in the
+    launch equal, bit for bit, to the torch line on the returned red; with
+    `order`, each entry's row at its sorted position, the same bits."""
+    rng = np.random.default_rng(800 + k + L)
+    n, B = 400, 3001
+    P = torch.as_tensor(rng.normal(0, 0.3, (n, k + 1)), dtype=torch.float32, device=cuda)
+    ids, vals, y, mask = _sgd_batch(cuda, rng, n, B, L, mode)
+    kw = dict(mode=mode, task=1, lr1=0.01, lr2=0.02, regw=0.05, regv=0.03,
+              min_target=-1.0, max_target=1.0)
+    lr0, reg0 = 0.003, 0.02
+    w0 = torch.tensor(0.2, device=cuda)
+    scratch = sg.sgd_step_scratch(cuda)
+    u_k, r_k = sg.sgd_step(P, ids, vals, y, mask, w0, scratch=scratch, **kw)
+    u_k2, r_k2 = sg.sgd_step(P, ids, vals, y, mask, w0, scratch=scratch, **kw)
+    u_p, r_p = sg.sgd_step_plain(P, ids, vals, y, mask, w0, **kw)
+    w0_new = w0.clone()
+    u_w, r_w = sg.sgd_step(P, ids, vals, y, mask, w0_new, lr0=lr0, reg0=reg0,
+                           scratch=scratch, **kw)
+    perm = torch.argsort(ids.reshape(-1).long(), stable=True)
+    order = torch.empty_like(perm).scatter_(0, perm, torch.arange(B * L, device=cuda))
+    order = order.to(torch.int32).reshape(B, L)
+    u_o, r_o = sg.sgd_step(P, ids, vals, y, mask, w0, order=order, scratch=scratch, **kw)
+    torch.cuda.synchronize()
+    assert _col_rel_err(u_k, u_p) < 1e-4
+    assert abs(r_k[0].item() - r_p[0].item()) <= 1e-4 * max(1.0, r_p[0].abs().item())
+    assert r_k[1].item() == B - 7
+    assert torch.equal(r_k, r_k2) and torch.equal(u_k, u_k2)
+    assert torch.equal(r_w, r_k) and torch.equal(u_w, u_k)
+    assert torch.equal(w0_new, w0 - lr0 * (r_k[0] + r_k[1] * reg0 * w0))
+    assert torch.equal(u_o, u_k[perm]) and torch.equal(r_o, r_k)
+    assert (scratch[-4:] == 0).all()  # the ticket is left at zero
+
+
+@pytest.mark.parametrize("which", ["ml", "ctr"])
+def test_sgd_epoch_on_cuda_launches_two_kernels_a_batch(cuda, which):
+    """The epoch's batch loop: one sgd_step and one table_scatter launch a
+    batch, and nothing else of the port's kernels."""
+    from libfm_tpu_torch.data.batching import batch_dataset
+    from libfm_tpu_torch.data.synth import ctr_like
+
+    if which == "ml":
+        train, _ = movielens_like(300, 200, 30000, seed=5)
+        task, mode, k = 0, "pair", 8
+    else:
+        train, _, _ = ctr_like(13, 300, 20000, seed=5)
+        task, mode, k = 1, "onehot", 16
+    tb = batch_dataset(train, 1000)
+    sids, perm = tsgd.sorted_scatter_order(tb.ids)
+    arrs = _to(cuda, tb.ids, tb.vals, tb.y, tb.row_mask, sids, perm)
+    n = train.num_features
+    rng = np.random.default_rng(1)
+    params = FMParams(torch.tensor(0.1, device=cuda),
+                      *_to(cuda, rng.normal(0, 0.01, n).astype(np.float32),
+                           rng.normal(0, 0.1, (n, k)).astype(np.float32)))
+    epoch = tsgd.make_epoch_fn(FMConfig(num_features=n, num_factors=k, regw=0.01,
+                                        regv=0.01, reg0=0.01), task, mode)
+    kernels.reset_launch_counts()
+    out = epoch(params, *arrs, (1e-3, 1e-3, 1e-3), -1.0, 5.0)
+    torch.cuda.synchronize()
+    counts = {name: c for name, c in kernels.launch_counts().items() if c}
+    assert counts == {"sgd_step": tb.num_batches, "table_scatter": tb.num_batches}
+    assert float(out.w0) != 0.1
+    ref = tsgd.make_epoch_fn(FMConfig(num_features=n, num_factors=k, regw=0.01,
+                                      regv=0.01, reg0=0.01), task, mode)(
+        FMParams(params.w0.cpu(), params.w.cpu(), params.v.cpu()), *(a.cpu() for a in arrs),
+        (1e-3, 1e-3, 1e-3), -1.0, 5.0)
+    assert abs(float(out.w0) - float(ref.w0)) < 1e-4
+    assert (out.v.cpu() - ref.v).abs().max().item() < 1e-4

@@ -6,6 +6,9 @@ tests/test_learners.py.
 - `sgd_batch_update` and one packed epoch (`make_epoch_fn`, modes
   "pair", "onehot" and "general") from the same parameters agree within
   atol 1e-5 on w0, w and V: f32 sums taken in another order;
+- the step's w0 line in place (`lr0`) follows the JAX epoch's w0 over one
+  batch within 1e-6, and the sorted-order update rows (`order`) with the
+  scatter's `perm=None` give the perm form's table bitwise;
 - `SGDLearner.learn` over 3 epochs: the train/test RMSE within 1e-5,
   the accuracy within one test row; `predict` within 1e-6;
 - the port's plain path in float64 at batch_size=1 follows the numpy
@@ -145,6 +148,73 @@ def test_epoch_matches_jax(which, mode, use_linear, use_bias):
         lrs, *lims)
     _close(jp, tp)
     assert float(tp.w0) != init[0] or not use_bias
+
+
+STEP_CASES = [("ml", "pair"), ("ctr", "onehot"), ("ctr_valued", "general")]
+
+
+def _one_batch(which, B=128):
+    """JAX and port batch stacks of `which` cut to their first batch, with
+    its scatter order, and the FMConfig keywords of the epoch tests."""
+    jtr, ttr, _, _, task = _data(which)
+    jb, tb = jax_batch_dataset(jtr, B), batch_dataset(ttr, B)
+    stack = [x[:1] for x in (tb.ids, tb.vals, tb.y, tb.row_mask)]
+    sids, perm = tsgd.sorted_scatter_order(stack[0])
+    kw = dict(num_features=jtr.num_features, num_factors=K, reg0=0.02, regw=0.05,
+              regv=0.03)
+    lims = (float(jtr.min_target), float(jtr.max_target))
+    return stack, sids, perm, kw, task, lims
+
+
+@pytest.mark.parametrize("which,mode", STEP_CASES)
+def test_sgd_step_plain_w0_in_place_matches_jax(which, mode):
+    """sgd_step_plain given lr0/reg0 updates w0 in place as the JAX
+    epoch's w0 line does over one batch (atol 1e-6)."""
+    stack, sids, perm, kw, task, lims = _one_batch(which)
+    init = _params(kw["num_features"], K, seed=4)
+    lrs = (0.01, 0.02, 0.03)
+    jp = jsgd.make_epoch_fn(JaxFMConfig(**kw), task, mode)(
+        _jax_params(*init), *(jnp.asarray(x) for x in (*stack, sids, perm)),
+        jnp.asarray(lrs, jnp.float32), *lims)
+    tp = _torch_params(*init)
+    P = tsgd._packed(tp)
+    w0 = tp.w0.clone()
+    ids, vals, y, mask = (torch.as_tensor(x[0]) for x in stack)
+    upd, red = tsgd.sgd_step(P, ids, vals, y, mask, w0, mode=mode, task=task,
+                             lr1=lrs[1], lr2=lrs[2], regw=kw["regw"], regv=kw["regv"],
+                             min_target=lims[0], max_target=lims[1], lr0=lrs[0],
+                             reg0=kw["reg0"])
+    assert float(w0) != init[0]
+    np.testing.assert_allclose(float(w0), float(jp.w0), rtol=0, atol=1e-6)
+    assert torch.equal(w0, tp.w0 - lrs[0] * (red[0] + red[1] * kw["reg0"] * tp.w0))
+
+
+@pytest.mark.parametrize("which,mode", STEP_CASES)
+def test_sorted_order_rows_match_the_perm_form(which, mode):
+    """`order` puts each entry's update row at its sorted position (rows
+    equal to upd[perm], bitwise), and table_scatter_plain with perm=None on
+    those rows gives the perm form's table bitwise; buffers passed in are
+    filled and returned."""
+    from libfm_tpu_torch.kernels import table_scatter as ts
+
+    stack, sids, perm, kw, task, lims = _one_batch(which)
+    tp = _torch_params(*_params(kw["num_features"], K, seed=5))
+    P = tsgd._packed(tp)
+    ids, vals, y, mask = (torch.as_tensor(x[0]) for x in stack)
+    sids_t, perm_t = torch.as_tensor(sids[0]), torch.as_tensor(perm[0])
+    order = torch.empty_like(perm_t).scatter_(
+        0, perm_t.long(), torch.arange(perm_t.numel(), dtype=perm_t.dtype))
+    step = dict(mode=mode, task=task, lr1=0.02, lr2=0.03, regw=kw["regw"],
+                regv=kw["regv"], min_target=lims[0], max_target=lims[1])
+    upd, red = tsgd.sgd_step(P, ids, vals, y, mask, tp.w0, **step)
+    buf, red_buf = torch.empty_like(upd), torch.empty(2)
+    got, got_red = tsgd.sgd_step(P, ids, vals, y, mask, tp.w0, order=order.reshape(ids.shape),
+                                 upd=buf, red=red_buf, **step)
+    assert got is buf and got_red is red_buf
+    assert torch.equal(got, upd[perm_t.long()]) and torch.equal(got_red, red)
+    T1 = ts.table_scatter_plain(P.clone(), sids_t, perm_t, upd)
+    T2 = ts.table_scatter(P.clone(), sids_t, None, got)
+    assert torch.equal(T1, T2)
 
 
 @pytest.fixture(scope="module", params=["regression", "classification"])

@@ -6,11 +6,14 @@
   another order; P1's carry multiplies by 8 a rep), exact for P2 (the
   table_scatter adds each row's ones in the order of the TPU loop).
 - P4 (studies/pallas_scatter.py port) against np.add.at, atol 1e-5.
+- `longest_runs` (table_scatter's `max_run`) against a count by
+  itertools.groupby.
   studies/probes/pallas_scatter.py runs its kernel at import, so it is
   not imported here; its own check is np.add.at (:68-72).
 """
 
 import functools
+import itertools
 
 import numpy as np
 import pytest
@@ -19,7 +22,7 @@ from jax.experimental import pallas as pl
 
 import studies.pallas_gather as jax_probes
 from libfm_tpu_torch.kernels.table_read import table_read
-from libfm_tpu_torch.kernels.table_scatter import table_scatter
+from libfm_tpu_torch.kernels.table_scatter import longest_runs, table_scatter
 from libfm_tpu_torch.studies import pallas_gather, pallas_scatter
 
 NSUB, NIDS, REPS = 64, 512, 3
@@ -79,6 +82,28 @@ def test_table_scatter_is_a_sequential_scatter(W):
     out = table_scatter(T, sids, perm, torch.as_tensor(upd))
     assert out is T
     np.testing.assert_allclose(T.numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["one_run", "uniform", "zipf", "one_entry"])
+def test_longest_runs_counts_each_row(layout):
+    """Each row's longest run of equal sorted ids, from a stack of rows
+    (numpy) and from one row (a tensor)."""
+    rng = np.random.default_rng(3)
+    E = 1 if layout == "one_entry" else 5000
+    rows = []
+    for _ in range(4):
+        if layout == "one_run":
+            ids = np.full(E, 11)
+        elif layout == "zipf":
+            ids = np.minimum(rng.zipf(1.2, E) - 1, 999)
+        else:
+            ids = rng.integers(0, 4000, E)
+        rows.append(np.sort(ids).astype(np.int32))
+    stack = np.stack(rows)
+    want = [max(len(list(g)) for _, g in itertools.groupby(r)) for r in rows]
+    got = longest_runs(stack)
+    assert got.shape == (4,) and got.tolist() == want
+    assert int(longest_runs(torch.as_tensor(rows[0]))) == want[0]
 
 
 def test_p4_run_matches_np_add_at():
