@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (libfm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # configs #3, #1 and #4b; the table probes
+    python3 chip_smoke.py            # configs #3, #4, #1 and #4b; the table probes
     python3 chip_smoke.py --config3-kernels   # config #3's kernel checks only
 
 What it does, in order (any failed phase exits non-zero):
@@ -16,7 +16,9 @@ What it does, in order (any failed phase exits non-zero):
    computes the same function, with CUDA events:
    - config #3 (movielens_like(71567, 10681, 10M, seed=1): 9M train rows,
      82,248 features, k=64): fm_refresh (train and test mode),
-     slot_stats, schur_draw, dense_update; schur_draw also on both blocks
+     slot_stats (case_stats, which the JAX engine's gate keeps off these
+     blocks, timed beside it), schur_draw, dense_update; schur_draw also
+     on both blocks
      with every 4th feature's system made not positive definite (its
      reject flags must equal the plain version's, and every such draw
      must be rejected); fm_refresh and dense_update also timed with every
@@ -35,13 +37,24 @@ What it does, in order (any failed phase exits non-zero):
      against index_add_ of the same rows); at #1 and #4b one batch whose
      ids are all equal through table_scatter;
    - table_scatter at probe P4's shape (against index_add_) and
-     table_read at probes P1 (scale 8) and P3 (scale 1).
+     table_read at probes P1 (scale 8) and P3 (scale 1);
+   - config #4 (bench.py:236-277: MCMC probit classification, k=16, on
+     #4b's data with its 13 field groups): case_stats on the 13 blocks
+     (one iteration's launches; slot_stats, which computes the same GG,
+     timed beside it; both, and the plain version in float32, held to
+     the plain version in float64 entry by entry over the entry's sum of
+     magnitudes), fm_refresh's probit train mode (latents drawn from
+     given uniforms, and as expectations) and probit_latent, each against
+     its plain version on the same uniforms.
 4. Path phase. Resets the launch counters before each run and reads them
-   after it; each run must launch its own kernels: ALSVectorLearner (3
-   iterations) and MCMCVectorLearner (4) at config #3; SGDLearner for 3
-   epochs at config #1 (regression) and config #4b (classification).
-   Checks that every metric is finite, that no draw was rejected and that
-   the ALS train RMSE falls.
+   after it; each run must launch its own kernels, and no other: ALSVectorLearner (3
+   iterations) and MCMCVectorLearner (4) at config #3 (regression, slot
+   statistics) and at config #4 (classification: case_stats 13 times an
+   iteration, fm_refresh's probit mode at the refresh iterations and
+   probit_latent at the others); SGDLearner for 3 epochs at config #1
+   (regression) and config #4b (classification). Checks that every metric
+   is finite, that no draw was rejected and that the ALS train RMSE falls;
+   prints accuracy, log10-loss and AUC at each config #4 iteration.
 5. Probe phase. The ported table probes (libfm_tpu_torch.studies
    pallas_gather.main and pallas_scatter.main) at the studies' shapes,
    each against its plain version; prints ns/row.
@@ -88,6 +101,19 @@ SGD_CONFIGS = {
 }
 SGD_EPOCHS = 3
 CTR_FIELDS, CTR_CARD, CTR_EXAMPLES = 13, 5000, 2_000_000
+# config #4 (bench.py:236-277, bench_ctr): MCMC probit classification on
+# the same CTR data, k=16, the 13 fields as groups; ALS with regw = regv = 5
+# as at config #3
+CTR_FACTORS, CTR_ALS_ITERS, CTR_MCMC_ITERS = 16, 3, 4
+# fm_refresh's probit latents are held to the plain draw on the kernel's
+# predictions, which come back as e + latent, to an ulp. An ulp of pred can
+# move u = a + (1 - a) U by its own ulp, and a draw z = sqrt2 erfinv(u)
+# from its mean by ~6e-8 / (|z| (1 - u)): 2e-6 at |z| = 2.5, 4e-4 at 3.9,
+# so the draws are checked where |z| <= 2.5
+LATENT_CHECKED = 2.5
+# case_stats (and slot_stats at config #4) against the float64 plain
+# version: the largest error over the entry's sum of magnitudes
+CASE_STATS_TOL = 6e-7
 HOT_ROWS = 1024  # the gather-against-streaming line's small table
 FEW_ROWS = 4  # a field of few values (the skewed line)
 ZIPF = 1.2  # ctr_like's default power of a field's values
@@ -95,6 +121,10 @@ ZIPF = 1.2  # ctr_like's default power of a field's values
 EXPECTED = {
     "als": {"fm_refresh", "slot_stats", "schur_draw", "dense_update"},
     "mcmc": {"fm_refresh", "slot_stats", "schur_draw", "dense_update"},
+    "als_4": {"fm_refresh", "fm_refresh_probit", "case_stats", "schur_draw",
+              "dense_update", "probit_latent"},
+    "mcmc_4": {"fm_refresh", "fm_refresh_probit", "case_stats", "schur_draw",
+               "dense_update", "probit_latent"},
     "sgd_1": {"sgd_step", "table_scatter", "fm_refresh"},
     "sgd_4b": {"sgd_step", "table_scatter", "fm_refresh"},
     "probes": {"table_read", "table_scatter"},
@@ -119,7 +149,7 @@ def bound_ms(nbytes: float, flops: float):
 
 
 def kernel_row(name, replaces, err, tol, ms, plain_ms, nbytes, flops, lib_ms,
-               timed, label=""):
+               timed, label="", source=None):
     """One row of the kernels line: fails when `err` exceeds `tol`."""
     bms, by = bound_ms(nbytes, flops)
     print(f"{name}{label}: err={err:.3g} (tol {tol:g}) ms={ms:.4f} "
@@ -128,7 +158,7 @@ def kernel_row(name, replaces, err, tol, ms, plain_ms, nbytes, flops, lib_ms,
     if not err <= tol:
         fail(f"{name}{label} disagrees with its plain version: {err} > {tol}")
     return dict(
-        name=name, route="cuda", source=f"libfm_tpu_torch/csrc/{name}.cu",
+        name=name, route="cuda", source=source or f"libfm_tpu_torch/csrc/{name}.cu",
         replaces=replaces, launches=0, max_abs_err=err, tolerance=tol,
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=lib_ms, timed=timed,
@@ -149,6 +179,7 @@ def kernel_checks(args, rec, dev):
     from libfm_tpu_torch.data.batching import conflict_free_blocks
     from libfm_tpu_torch.data.synth import movielens_like
     from libfm_tpu_torch.data.vector_layout import padded_rows_layout
+    from libfm_tpu_torch.kernels import case_stats as cs
     from libfm_tpu_torch.kernels import dense_update as du
     from libfm_tpu_torch.kernels import fm_refresh as fr
     from libfm_tpu_torch.kernels import schur_draw as sd
@@ -172,8 +203,10 @@ def kernel_checks(args, rec, dev):
     fblocks = conflict_free_blocks(train)
     setup["conflict_free_blocks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    blocks = [DevBlock(b, np.zeros(len(b.features), np.int32), nc, dev)
+    blocks = [DevBlock(b, np.zeros(len(b.features), np.int32), nc, dev, k, True)
               for b in fblocks]
+    if any(b.case_major for b in blocks):
+        fail("config #3: a block took the case-major path")
     torch.cuda.synchronize()
     setup["DevBlock"] = time.perf_counter() - t0
     for b in fblocks:
@@ -252,16 +285,18 @@ def kernel_checks(args, rec, dev):
     GG_k = [torch.empty(b.F, GW, device=dev) for b in blocks]
     errs = []
     for b, G in zip(blocks, GG_k):
-        ss.slot_stats(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id, GG=G)
+        ss.slot_stats(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id, GG=G,
+                      pieces=b.pieces)
         Gp = ss.slot_stats_plain(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id)
         torch.cuda.synchronize()
         errs.append(ss.gg_rel_err(G, Gp, k))
         del Gp
 
-    def run_stats(fn):
+    def run_stats(fn, GGs=GG_k, **kw):
         def go():
-            for b, G in zip(blocks, GG_k):
-                fn(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id, GG=G)
+            for b, G in zip(blocks, GGs):
+                fn(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id, GG=G,
+                   pieces=b.pieces, **kw)
         return go
 
     E = sum(int(b.slot_case.numel()) for b in blocks)
@@ -270,11 +305,28 @@ def kernel_checks(args, rec, dev):
         "slot_stats", "libfm_tpu/learners/mcmc_vector.py:1428", max(errs), 1e-4,
         cuda_ms(run_stats(ss.slot_stats), args.reps),
         cuda_ms(run_stats(ss.slot_stats_plain), args.reps, warmup=1),
-        nbytes=E * (8 + d * 4) + Fsum * (4 + 8 + d * 4 + GW * 4),
+        nbytes=E * (8 + d * 4) + Fsum * (4 + 8 + k * 4 + GW * 4),
         flops=E * (2 * T + 7 * k + 4),
         lib_ms=None,
     )
     rec["slot_stats_rel_err_per_block"] = errs
+    # case_stats on the same blocks, which the JAX engine's gate keeps on
+    # the slot path (Fd * MW far above 8e6): the other kernel's time here
+    if not all(b.onehot for b in blocks):
+        fail("config #3: a block is not one-hot")
+    GG_c = [torch.empty(b.F, GW, device=dev) for b in blocks]
+    run_stats(cs.case_stats, GG_c, onehot=True)()
+    torch.cuda.synchronize()
+    cs_err = max(ss.gg_rel_err(Gc, Gk, k) for Gc, Gk in zip(GG_c, GG_k))
+    out[-1]["case_stats_same_blocks"] = dict(
+        ms=cuda_ms(run_stats(cs.case_stats, GG_c, onehot=True), args.reps),
+        rel_err_against_slot_stats=cs_err, tolerance=1e-4)
+    print(f"case_stats on config #3's blocks: ms "
+          f"{out[-1]['case_stats_same_blocks']['ms']:.4f} against slot_stats "
+          f"{out[-1]['ms']:.4f}; GG rel err against slot_stats {cs_err:.3g} (tol 1e-4)")
+    if not cs_err <= 1e-4:
+        fail(f"case_stats and slot_stats disagree at config #3: {cs_err}")
+    del GG_c
 
     # ---- C. schur_draw (both blocks; sampling mode, mean mode checked too)
     alpha = torch.tensor(2.0, device=dev)
@@ -410,14 +462,212 @@ def kernel_checks(args, rec, dev):
 
 
 def ctr_data():
-    """Config #4b's data (bench.py:279-309): targets binarized to +-1."""
+    """Config #4b's and #4's data (bench.py:279-309, :236-277): targets
+    binarized to +-1 (ctr_like's are already); with the field groups."""
     from libfm_tpu_torch.data.synth import ctr_like
 
-    train, test, _ = ctr_like(num_fields=CTR_FIELDS, field_cardinality=CTR_CARD,
-                              num_examples=CTR_EXAMPLES, seed=SEED)
+    train, test, groups = ctr_like(num_fields=CTR_FIELDS, field_cardinality=CTR_CARD,
+                                   num_examples=CTR_EXAMPLES, seed=SEED)
     train.binarize_targets()
     test.binarize_targets()
-    return train, test
+    return train, test, groups
+
+
+def ctr_kernel_checks(args, rec, dev, ctr):
+    """Phase 3, config #4: case_stats on the 13 blocks (slot_stats timed
+    on the same blocks), fm_refresh's probit train mode and probit_latent,
+    each against its plain version on the same uniforms. Returns their
+    three rows."""
+    import numpy as np
+
+    from libfm_tpu_torch.data.batching import conflict_free_blocks
+    from libfm_tpu_torch.data.vector_layout import padded_rows_layout
+    from libfm_tpu_torch.kernels import case_stats as cs
+    from libfm_tpu_torch.kernels import fm_refresh as fr
+    from libfm_tpu_torch.kernels import probit_latent as pl
+    from libfm_tpu_torch.kernels import slot_stats as ss
+    from libfm_tpu_torch.learners.mcmc_vector import DevBlock
+    from libfm_tpu_torch.ops.samplers import probit_latent as draw
+
+    train, _, groups = ctr
+    k, d = CTR_FACTORS, CTR_FACTORS + 1
+    n, nc = train.num_features, train.num_rows
+    T = k * (k + 1) // 2
+    GW = ss.gg_width(k)
+    t0 = time.perf_counter()
+    blocks = [DevBlock(b, groups[b.features], nc, dev, k, True)
+              for b in conflict_free_blocks(train, attr_group=groups)]
+    ids, vals = (torch.as_tensor(x, device=dev) for x in
+                 padded_rows_layout(train.indptr, train.cols, train.vals))
+    y = torch.as_tensor(train.target, device=dev)
+    torch.cuda.synchronize()
+    heavy = [int((b.feat_off[1:] - b.feat_off[:-1]).max()) for b in blocks]
+    print(f"config #4: {len(blocks)} blocks, case-major "
+          f"{[b.case_major for b in blocks]}, one-hot {all(b.onehot for b in blocks)}, "
+          f"pieces {[b.pieces.count for b in blocks if b.case_major]}, longest slot list "
+          f"{heavy} ({time.perf_counter() - t0:.1f} s)")
+    if not all(b.case_major and b.onehot for b in blocks):
+        fail("config #4: a block left the case-major path or is not one-hot")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    P = 0.1 * torch.randn(n, d, generator=g, device=dev)
+    w0 = torch.tensor(0.05, device=dev)
+    A = torch.empty(nc, d, device=dev)
+    fr.fm_refresh(P, ids, vals, w0, y, A)
+    out = []
+
+    # ---- case_stats, one iteration's 13 launches; slot_stats beside it.
+    # Both are held to the plain version in float64, entry by entry, over
+    # the entry's sum of magnitudes (cs.case_stats_reference): a feature
+    # of 12 cases as closely as the head of 321K; the plain version in
+    # float32 is read the same way
+    GG_k = [torch.empty(b.F, GW, device=dev) for b in blocks]
+    GG_p = []
+
+    def run_cs(fn, keep=False):
+        def go():
+            for b, G in zip(blocks, GG_k):
+                r = fn(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id,
+                       onehot=b.onehot, GG=G if fn is cs.case_stats else None,
+                       pieces=b.pieces)
+                if keep:
+                    GG_p.append(r)
+        return go
+
+    run_cs(cs.case_stats)()
+    plain_ms = cuda_ms(run_cs(cs.case_stats_plain, keep=True), 1, warmup=0)
+    GG_s = [torch.empty(b.F, GW, device=dev) for b in blocks]
+
+    def run_ss():
+        for b, G in zip(blocks, GG_s):
+            ss.slot_stats(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id, GG=G,
+                          pieces=b.pieces)
+
+    run_ss()
+    torch.cuda.synchronize()
+    errs, errs_p, errs_s = [], [], []
+    for b, Gk, Gp, Gs in zip(blocks, GG_k, GG_p, GG_s):
+        ref, scale = cs.case_stats_reference(A, P, b.feat_off, b.slot_case, b.slot_val,
+                                             b.feat_id, onehot=b.onehot)
+        errs.append(cs.err_over_magnitudes(Gk, ref, scale))
+        errs_p.append(cs.err_over_magnitudes(Gp, ref, scale))
+        errs_s.append(cs.err_over_magnitudes(Gs, ref, scale))
+        del ref, scale
+    del GG_p
+    E = sum(int(b.slot_case.numel()) for b in blocks)
+    Fsum = sum(b.F for b in blocks)
+    MW = cs.moment_width(k, True)
+    row = kernel_row(
+        "case_stats", "libfm_tpu/learners/mcmc_vector.py:1320", max(errs), CASE_STATS_TOL,
+        cuda_ms(run_cs(cs.case_stats), args.reps), plain_ms,
+        # one-hot blocks: slot_case and the A row a slot, v and the GG row
+        # a feature (slot_val is not read)
+        nbytes=E * (4 + d * 4) + Fsum * (8 + 4 + k * 4 + GW * 4),
+        flops=E * 2 * MW + Fsum * 6 * T,
+        lib_ms=None, timed="one iteration's launches at config #4: one per block (13)",
+        label=" (config #4)")
+    row["also_replaces"] = ["libfm_tpu/learners/mcmc_vector.py:1383 (the reconstruction)"]
+    row["error_measure"] = ("largest |GG - float64 plain| over the entry's sum of "
+                            "magnitudes, over the 13 blocks")
+    row["per_block_err"] = errs
+    row["plain_f32_err"] = max(errs_p)
+    row["slot_stats_err_same_blocks"] = max(errs_s)
+    row["slot_stats_ms_same_blocks"] = cuda_ms(run_ss, args.reps)
+    row["library_ms_none_because"] = ("no one PyTorch call sums the moment rows per feature "
+                                      "and reconstructs GG")
+    print(f"case_stats against the float64 plain version, over each entry's sum of "
+          f"magnitudes: kernel {row['max_abs_err']:.3g}, plain version in float32 "
+          f"{row['plain_f32_err']:.3g}, slot_stats {row['slot_stats_err_same_blocks']:.3g} "
+          f"(tol {CASE_STATS_TOL:g}); slot_stats ms {row['slot_stats_ms_same_blocks']:.4f} "
+          f"against case_stats {row['ms']:.4f}")
+    if not row["slot_stats_err_same_blocks"] <= CASE_STATS_TOL:
+        fail(f"slot_stats disagrees with the float64 plain version at config #4: "
+             f"{row['slot_stats_err_same_blocks']}")
+    out.append(row)
+    del GG_k, GG_s
+
+    # ---- fm_refresh, probit train mode: sampling (MCMC) and expectation (ALS)
+    U = torch.rand(nc, generator=g, device=dev)
+    L = ids.shape[1]
+    cases = {}
+    for mode, u in (("sample", U), ("mean", None)):
+        A_k, A_p = torch.empty(nc, d, device=dev), torch.empty(nc, d, device=dev)
+        lat_k, lat_p = torch.empty(nc, device=dev), torch.empty(nc, device=dev)
+        c_k = fr.fm_refresh(P, ids, vals, w0, y, A_k, probit=mode, U=u, latent=lat_k)
+        c_p = fr.fm_refresh_plain(P, ids, vals, w0, y, A_p, probit=mode, U=u, latent=lat_p)
+        torch.cuda.synchronize()
+        # the kernel's predictions, as e + latent (to an ulp); a draw more
+        # than LATENT_CHECKED from its mean turns that ulp into more than 1e-5
+        pred_k = A_k[:, 0] + lat_k
+        lat_ref = draw(pred_k, y, u)
+        near = ((lat_ref - pred_k).abs() <= LATENT_CHECKED if u is not None
+                else torch.ones_like(y, dtype=torch.bool))
+        err = max(
+            (A_k[:, 1:] - A_p[:, 1:]).abs().max().item(),
+            (pred_k - (A_p[:, 0] + lat_p)).abs().max().item(),
+            ((lat_k - lat_ref).abs() / lat_ref.abs().clamp_min(1.0))[near].max().item(),
+            float(not ((lat_k >= 0) == (y >= 0)).all()),
+        )
+        cases[mode] = dict(
+            max_abs_err=err, correct_kernel=c_k.item(), correct_plain=c_p.item(),
+            cases_beyond_latent_check=int((~near).sum().item()),
+            ms=cuda_ms(lambda: fr.fm_refresh(P, ids, vals, w0, y, A_k, probit=mode, U=u,
+                                             latent=lat_k), args.reps),
+            plain_ms=cuda_ms(lambda: fr.fm_refresh_plain(P, ids, vals, w0, y, A_p,
+                                                         probit=mode, U=u, latent=lat_p),
+                             args.reps))
+        print(f"fm_refresh probit ({mode}): err {err:.3g} (Q and pred 1e-4 absolute, "
+              f"latents 1e-5 relative above 1 against the plain draw on the kernel's "
+              f"predictions where the draw lies within {LATENT_CHECKED} of its mean, all "
+              f"but {cases[mode]['cases_beyond_latent_check']} cases; every latent on "
+              f"y's side of 0), correct {c_k.item():.0f} (plain {c_p.item():.0f}), "
+              f"ms {cases[mode]['ms']:.4f} plain {cases[mode]['plain_ms']:.4f}")
+        del A_k, A_p, lat_p
+    row = kernel_row(
+        "fm_refresh_probit", "libfm_tpu/learners/mcmc_vector.py:1136",
+        max(c["max_abs_err"] for c in cases.values()), 1e-4,
+        cases["sample"]["ms"], cases["sample"]["plain_ms"],
+        # ids and values, then y, U and the latents, the table, the rows of A
+        nbytes=nc * L * 8 + nc * 4 * 3 + n * d * 4 + nc * d * 4,
+        flops=nc * (L * (4 * k + 2) + 2 * k + 8 + 40),
+        lib_ms=None, timed="one probit train-mode launch at config #4 (sampling)",
+        source="libfm_tpu_torch/csrc/fm_refresh.cu")
+    row["cases"] = cases
+    row["library_ms_none_because"] = "no one PyTorch call computes the gathered FM forward"
+    out.append(row)
+
+    # ---- probit_latent on the refreshed A: sampling and expectation
+    lat0 = lat_k
+    cases = {}
+    for mode, u in (("sample", U), ("mean", None)):
+        A_k, A_p = A.clone(), A.clone()
+        l_k, l_p = lat0.clone(), lat0.clone()
+        c_k = pl.probit_latent(A_k, l_k, y, u)
+        c_p = pl.probit_latent_plain(A_p, l_p, y, u)
+        torch.cuda.synchronize()
+        err = max(((l_k - l_p).abs() / l_p.abs().clamp_min(1.0)).max().item(),
+                  ((A_k[:, 0] - A_p[:, 0]).abs() / A_p[:, 0].abs().clamp_min(1.0))
+                  .max().item(),
+                  abs(c_k.item() - c_p.item()),
+                  float(not torch.equal(A_k[:, 1:], A[:, 1:])))
+        cases[mode] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: pl.probit_latent(A_k, l_k, y, u), args.reps),
+            plain_ms=cuda_ms(lambda: pl.probit_latent_plain(A_p, l_p, y, u), args.reps))
+        print(f"probit_latent ({mode}): err {err:.3g} (tol 1e-5, relative above 1), "
+              f"ms {cases[mode]['ms']:.4f} plain {cases[mode]['plain_ms']:.4f}")
+        del A_k, A_p
+    row = kernel_row(
+        "probit_latent", "libfm_tpu/learners/mcmc_vector.py:2033",
+        max(c["max_abs_err"] for c in cases.values()), 1e-5,
+        cases["sample"]["ms"], cases["sample"]["plain_ms"],
+        nbytes=nc * 4 * 6, flops=nc * 60, lib_ms=None,
+        timed="one launch at config #4 (sampling)")
+    row["cases"] = cases
+    row["library_ms_none_because"] = "no one PyTorch call draws the truncated normals"
+    out.append(row)
+    del A, blocks, ids, vals
+    torch.cuda.empty_cache()
+    return out
 
 
 def lockstep_err(P0, w0, batches, kw, lr0, reg0):
@@ -910,18 +1160,22 @@ def profile_summary(prof, out_dir, rec, name, batches=None):
     prof.export_chrome_trace(f"{out_dir}/trace_{name}.json")
 
 
-def run_learner(cls, name, data, args, rec, **cfg_kw):
+def run_learner(cls, name, data, args, rec, factors=FACTORS, iters=None, groups=None,
+                task=0, **cfg_kw):
     from libfm_tpu_torch import kernels
+    from libfm_tpu_torch.learners.mcmc import dispatch_chunks
     from libfm_tpu_torch.models.fm import FMConfig
 
-    train, test = data
-    cfg = FMConfig(num_features=train.num_features, num_factors=FACTORS, **cfg_kw)
-    iters = ALS_ITERS if name == "als" else MCMC_ITERS
-    learner = cls(cfg, num_iter=iters, seed=SEED, verbose=True)
+    train, test = data[:2]
+    cfg = FMConfig(num_features=train.num_features, num_factors=factors, **cfg_kw)
+    if iters is None:
+        iters = ALS_ITERS if name == "als" else MCMC_ITERS
+    learner = cls(cfg, task=task, num_iter=iters, seed=SEED, verbose=True,
+                  attr_group=groups)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     prof = None
-    if args.profile and name == "mcmc":
+    if args.profile and name.startswith("mcmc"):
         from torch.profiler import ProfilerActivity, profile
 
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -941,14 +1195,30 @@ def run_learner(cls, name, data, args, rec, **cfg_kw):
     secs = [h["time"] for h in hist]
     rec[name]["setup_seconds"] = wall - sum(secs)
     print(f"{name}: launches {counts}; learn() {wall:.2f} s, of which set-up "
-          f"{wall - sum(secs):.2f} s; per-iteration s {secs}")
+          f"{wall - sum(secs):.2f} s; per-iteration s {secs}; seconds an iteration past "
+          f"the first {secs[1:]}")
     check_launches(name, counts)
+    # the launches each path's iterations must make, exactly
+    refresh = len(dispatch_chunks(0, iters, learner.refresh_every))
+    nblocks = 13 if task else 2
+    want = ({"case_stats": nblocks * iters, "slot_stats": 0, "fm_refresh_probit": refresh,
+             "probit_latent": iters - refresh} if task else
+            {"case_stats": 0, "fm_refresh_probit": 0, "probit_latent": 0,
+             "slot_stats": nblocks * iters})
+    wrong = {key: (counts[key], v) for key, v in want.items() if counts[key] != v}
+    if wrong:
+        fail(f"{name}: launches (made, expected) {wrong}")
+    keys = ("train", "test_this", "test_all") + (("test_all_m2", "auc_all") if task else ())
     for h in hist:
-        for key in ("train", "test_this", "test_all"):
+        for key in keys:
             if not math.isfinite(h[key]):
                 fail(f"{name}: non-finite {key} at iteration {h['iter']}")
         if h["rejected"] != 0:
             fail(f"{name}: {h['rejected']} rejected draws at iteration {h['iter']}")
+        if task:
+            print(f"{name} iteration {h['iter']}: train accuracy {h['train']:.6g}, test "
+                  f"accuracy {h['test_all']:.6g}, log10-loss {h['test_all_m2']:.6g}, AUC "
+                  f"{h['auc_all']:.6g}, {h['time']:.4f} s")
     return learner, counts
 
 
@@ -1013,13 +1283,15 @@ def main(argv=None) -> int:
                               "table_row0_against_real_ids_ms"]}))
         return 0
     ctr = ctr_data()
-    print(f"config #4b data: {ctr[0].num_rows} train rows, {ctr[1].num_rows} test "
+    print(f"config #4 / #4b data: {ctr[0].num_rows} train rows, {ctr[1].num_rows} test "
           f"rows, {ctr[0].num_features} features ({time.perf_counter() - t0:.1f} s)")
-    t0 = done("config #4b data", t0)
+    t0 = done("config #4 / #4b data", t0)
     table += sgd_kernel_checks(args, rec, dev, data[0], ctr[0])
     t0 = done("SGD kernel checks", t0)
     table.append(table_checks(args, rec, dev, table[-1]))
     t0 = done("probe-shape kernel checks", t0)
+    table += ctr_kernel_checks(args, rec, dev, ctr)
+    t0 = done("config #4 kernel checks", t0)
 
     counts = {}
     _, counts["als"] = run_learner(ALSVectorLearner, "als", data, args, rec,
@@ -1030,9 +1302,16 @@ def main(argv=None) -> int:
     t0 = done("ALS path", t0)
     _, counts["mcmc"] = run_learner(MCMCVectorLearner, "mcmc", data, args, rec)
     t0 = done("MCMC path", t0)
+    c4 = dict(factors=CTR_FACTORS, groups=ctr[2], task=1)
+    _, counts["als_4"] = run_learner(ALSVectorLearner, "als_4", ctr, args, rec,
+                                     iters=CTR_ALS_ITERS, regw=5.0, regv=5.0, **c4)
+    t0 = done("config #4 ALS path", t0)
+    _, counts["mcmc_4"] = run_learner(MCMCVectorLearner, "mcmc_4", ctr, args, rec,
+                                      iters=CTR_MCMC_ITERS, **c4)
+    t0 = done("config #4 MCMC path", t0)
     counts["sgd_1"] = run_sgd("sgd_1", data, args, rec)
     t0 = done("SGD #1 path", t0)
-    counts["sgd_4b"] = run_sgd("sgd_4b", ctr, args, rec)
+    counts["sgd_4b"] = run_sgd("sgd_4b", ctr[:2], args, rec)
     t0 = done("SGD #4b path", t0)
     counts["probes"] = run_probes(rec)
     done("probe path", t0)
@@ -1049,7 +1328,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(rec, f, indent=1)
     print(json.dumps({"kernels": table}))
-    for name in ("als", "mcmc"):
+    for name in ("als", "mcmc", "als_4", "mcmc_4"):
         print(f"{name} per-iteration seconds on {smi}: "
               f"{[round(h['time'], 6) for h in rec[name]['history']]}")
     for name in SGD_CONFIGS:

@@ -249,6 +249,54 @@ inline cudaError_t one_wave_grid(int threads, long long wanted, unsigned* grid) 
   return cudaSuccess;
 }
 
+// ---- Probit classification (the JAX package's ops/samplers.py), in the
+// plain versions' order of operations (libfm_tpu_torch/ops/samplers.py):
+// no FMA contraction where they round twice.
+
+constexpr float kSqrt2 = 1.41421356237309515f;
+constexpr float kInvSqrt2 = 0.70710678118654757f;
+// nextafter(1, 0): the inverse-CDF draw keeps u inside (-1, 1), where
+// erfinvf is finite (erff rounds to exactly +-1 from |x| ~ 3.83 on)
+constexpr float kOneBelow = 0.99999994f;
+
+// Phi(x) >= 0.5 predicts y > 0, Phi(x) < 0.5 predicts y < 0; 1 if right.
+__device__ __forceinline__ float probit_correct(float pred, float y) {
+  const float p = __fmul_rn(0.5f, __fadd_rn(1.0f, erff(__fmul_rn(pred, kInvSqrt2))));
+  return ((p >= 0.5f && y > 0.0f) || (p < 0.5f && y < 0.0f)) ? 1.0f : 0.0f;
+}
+
+// phi(a) / (1 - Phi(a)): erfc up to a = 6, the asymptotic series above.
+__device__ __forceinline__ float normal_hazard(float a) {
+  if (a > 6.0f) {
+    const float a3 = __fmul_rn(__fmul_rn(a, a), a);
+    const float a5 = __fmul_rn(__fmul_rn(a3, a), a);
+    return __fadd_rn(__fsub_rn(__fadd_rn(a, __fdiv_rn(1.0f, a)), __fdiv_rn(2.0f, a3)),
+                     __fdiv_rn(10.0f, a5));
+  }
+  const float pdf = __fdiv_rn(expf(__fmul_rn(__fmul_rn(-0.5f, a), a)), 2.50662827463100024f);
+  return __fdiv_rn(pdf, fmaxf(__fmul_rn(0.5f, erfcf(__fmul_rn(a, kInvSqrt2))), 1e-38f));
+}
+
+// The probit latent of a case with prediction `pred` and target y: a draw
+// of N(pred, 1) truncated to [0, inf) when y >= 0, to (-inf, 0] else,
+// from the uniform u in [0, 1) by jax.random.truncated_normal's inverse
+// CDF; or (sample false) the truncated normal's expectation.
+__device__ __forceinline__ float probit_latent(float pred, float y, float u, bool sample) {
+  if (!sample)
+    return y >= 0.0f ? __fadd_rn(pred, normal_hazard(-pred))
+                     : __fsub_rn(pred, normal_hazard(pred));
+  const float inf = __int_as_float(0x7f800000);
+  const float lo = y >= 0.0f ? -pred : -inf;
+  const float hi = y >= 0.0f ? inf : -pred;
+  const float a = erff(__fmul_rn(lo, kInvSqrt2));
+  const float b = erff(__fmul_rn(hi, kInvSqrt2));
+  float v = fmaxf(a, __fadd_rn(__fmul_rn(u, __fsub_rn(b, a)), a));
+  v = fminf(fmaxf(v, -kOneBelow), kOneBelow);
+  float z = __fmul_rn(kSqrt2, erfinvf(v));
+  z = fminf(fmaxf(z, nextafterf(lo, inf)), nextafterf(hi, -inf));
+  return __fadd_rn(pred, z);
+}
+
 // The compile-time widths the kernels are built for; the launchers take
 // the one chosen on the host (kernels.padded_width) and check it.
 __host__ __forceinline__ bool valid_padded_width(int kp, int k) {

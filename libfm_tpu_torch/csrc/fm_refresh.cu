@@ -7,6 +7,12 @@
 //   pred = w0 + sum_l w x + 1/2 (|sum_l v x|^2 - sum_l |v x|^2),  Q = sum_l v x.
 // Train mode writes A[r] = [pred - y | Q] and a per-block partial of the
 // clipped squared error (clip(pred, min, max) - y)^2; test mode writes pred.
+// The probit train mode (classification, K5b: the probit branch of
+// refresh_A_and_train_metric) draws each case's latent instead, from the
+// uniform U[r] (probit 1: N(pred, 1) truncated to the side of 0 that y's
+// sign gives) or as the truncated normal's expectation (probit 2, ALS),
+// writes latent[r] and A[r] = [pred - latent | Q], and sums the correct
+// cases (Phi(pred) >= 0.5 against y's sign) in place of the squared error.
 //
 // Bound on the H100: bytes. Train mode moves ids + vals (8 L B/row), y
 // (4 B/row) and the A write ((k+1)*4 B/row, 2.34 GB at ML-10M, k=64),
@@ -85,8 +91,9 @@ fm_refresh_kernel(const float* __restrict__ P, const int* __restrict__ ids,
                   const float* __restrict__ vals, const float* __restrict__ y,
                   const float* __restrict__ w0p, float* __restrict__ A,
                   float* __restrict__ pred_out, float* __restrict__ sse_part,
+                  const float* __restrict__ U, float* __restrict__ latent,
                   long long nr, int L, int k, int use_linear, int use_bias,
-                  float min_t, float max_t, int npart) {
+                  float min_t, float max_t, int npart, int probit) {
   using S = Shape<KP, R>;
   constexpr int T = S::kTileRows;
   constexpr int RW = S::kWarpRows;
@@ -212,9 +219,17 @@ fm_refresh_kernel(const float* __restrict__ P, const int* __restrict__ ids,
         float* a = o + i * d;
         if (r < nr) {
           if (gl == 0) {
-            a[0] = pred - yr;
-            const float err = fminf(fmaxf(pred, min_t), max_t) - yr;
-            sse += err * err;
+            if (probit) {
+              const float lat =
+                  libfm::probit_latent(pred, yr, probit == 1 ? U[r] : 0.0f, probit == 1);
+              a[0] = pred - lat;
+              latent[r] = lat;
+              sse += libfm::probit_correct(pred, yr);
+            } else {
+              a[0] = pred - yr;
+              const float err = fminf(fmaxf(pred, min_t), max_t) - yr;
+              sse += err * err;
+            }
           }
 #pragma unroll
           for (int t = 0; t < NPL; ++t) {
@@ -259,9 +274,9 @@ fm_refresh_kernel(const float* __restrict__ P, const int* __restrict__ ids,
 
 template <int KP, int NPL, int R>
 int launch(const float* P, const int* ids, const float* vals, const float* y,
-           const float* w0p, float* A, float* pred_out, float* sse_part, long long nr,
-           int L, int k, int use_linear, int use_bias, float min_t, float max_t,
-           int npart, cudaStream_t stream) {
+           const float* w0p, float* A, float* pred_out, float* sse_part, const float* U,
+           float* latent, long long nr, int L, int k, int use_linear, int use_bias,
+           float min_t, float max_t, int npart, int probit, cudaStream_t stream) {
   const bool train = A != nullptr;
   const int d = k + 1;
   const size_t smem = smem_bytes<KP, R>(train, d);  // < 48 KB for every k <= kMaxK
@@ -288,8 +303,9 @@ int launch(const float* P, const int* ids, const float* vals, const float* y,
   if (grid > npass) grid = npass > 0 ? npass : 1;
   if (train && grid > npart) grid = npart;
   kernel<<<(unsigned)grid, kThreads, smem, stream>>>(P, ids, vals, y, w0p, A, pred_out,
-                                                     sse_part, nr, L, k, use_linear,
-                                                     use_bias, min_t, max_t, npart);
+                                                     sse_part, U, latent, nr, L, k,
+                                                     use_linear, use_bias, min_t, max_t,
+                                                     npart, probit);
   return (int)cudaGetLastError();
 }
 
@@ -298,22 +314,24 @@ int launch(const float* P, const int* ids, const float* vals, const float* y,
 // Train mode: A != NULL (16-byte aligned; y and sse_part [npart]
 // required; every entry of sse_part is written, those past the grid with
 // 0). Test mode: A == NULL, pred_out [nr] required. w0p points at the
-// device scalar w0.
+// device scalar w0. probit (train mode only): 0 regression, 1 latents
+// drawn from U [nr], 2 latents as expectations; latent [nr] required.
 extern "C" int fm_refresh_launch(const float* P, const int* ids,
                                  const float* vals, const float* y,
                                  const float* w0p, float* A, float* pred_out,
-                                 float* sse_part, long long nr, int L, int k,
-                                 int use_linear, int use_bias, float min_t,
-                                 float max_t, int npart,
-                                 cudaStream_t stream) {
+                                 float* sse_part, const float* U, float* latent,
+                                 long long nr, int L, int k, int use_linear,
+                                 int use_bias, float min_t, float max_t, int npart,
+                                 int probit, cudaStream_t stream) {
   const bool train = A != nullptr;
-  if (k < 1 || k > kMaxK || L < 0 ||
-      (train && ((reinterpret_cast<uintptr_t>(A) & 15) != 0 || npart < 1)))
+  if (k < 1 || k > kMaxK || L < 0 || probit < 0 || probit > 2 ||
+      (train && ((reinterpret_cast<uintptr_t>(A) & 15) != 0 || npart < 1)) ||
+      (probit && (!train || latent == nullptr || (probit == 1 && U == nullptr))))
     return (int)cudaErrorInvalidValue;
   if (nr == 0 && !train) return (int)cudaSuccess;
 #define FM_REFRESH_LAUNCH(KP, NPL, R)                                                  \
-  launch<KP, NPL, R>(P, ids, vals, y, w0p, A, pred_out, sse_part, nr, L, k, use_linear, \
-                     use_bias, min_t, max_t, npart, stream)
+  launch<KP, NPL, R>(P, ids, vals, y, w0p, A, pred_out, sse_part, U, latent, nr, L, k,  \
+                     use_linear, use_bias, min_t, max_t, npart, probit, stream)
   if (k <= 8) return FM_REFRESH_LAUNCH(8, 1, 4);
   if (k <= 16) return FM_REFRESH_LAUNCH(8, 2, 4);
   if (k <= 32) return FM_REFRESH_LAUNCH(8, 4, 2);

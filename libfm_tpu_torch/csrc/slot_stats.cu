@@ -9,10 +9,15 @@
 //   [ sum hq hq^T (upper triangle, np.triu_indices(k) order) |
 //     sum hq a | sum hq e | sum a^2 | sum a e ].
 // The JAX engine gathers [C, W, k+1] slot rows and runs batched MXU
-// einsums per chunk; here one CTA owns one feature and loops over the
-// feature's ragged slot list, so each GG row is written once, by one CTA,
-// deterministically and with no atomics. Slots with case == num_rows are
-// padding and add nothing.
+// einsums per chunk; here one CTA owns one piece of a feature's ragged
+// slot list (at most piece_len slots: kernels/pieces.py cuts the lists
+// once a block), and a feature of one piece has its GG row written once,
+// by one CTA. The pieces of a longer list each write a partial row to
+// scratch; the last of them to arrive (an integer ticket after a fence)
+// adds the partials in piece order and writes the row, so the result is
+// deterministic, with no float atomics, and a skewed list (the Zipf head
+// of a CTR field, 321K slots at config #4) no longer waits on one CTA.
+// Slots with case == num_rows are padding and add nothing.
 //
 // Bound on the H100 at ML-10M (k=64, 18M slots an iteration): the A-row
 // gathers, (k+1)*4 B a slot, plus the GG rows (0.73 GB): 5.6 GB = 1.66 ms,
@@ -93,20 +98,35 @@ __device__ __forceinline__ void load_block(const float* row, int b, float (&u)[k
   u[4] = hi.x, u[5] = hi.y, u[6] = hi.z, u[7] = hi.w;
 }
 
-template <int KP>
+// kSplit: some feature of the block has several pieces. Without one (no
+// list longer than piece_len, as at config #3) CTA j is feature j whole
+// and the order is not read: that form keeps the loop's registers as they
+// were before the split (with it, KP = 64 spills 20 bytes in the loop and
+// is 7% slower at config #3).
+template <int KP, bool kSplit>
 __global__ void __launch_bounds__(Cfg<KP>::kThreads, Cfg<KP>::kMinBlocks)
     slot_stats_kernel(const float* __restrict__ A, const float* __restrict__ P,
                       const long long* __restrict__ feat_off,
                       const int* __restrict__ slot_case, const float* __restrict__ slot_val,
-                      const int* __restrict__ feat_id, float* __restrict__ GG, int k,
-                      int num_rows, int use_linear) {
+                      const int* __restrict__ feat_id, const int4* __restrict__ order,
+                      float* __restrict__ scratch, int* __restrict__ ticket,
+                      float* __restrict__ GG, int piece_len, int k, int num_rows,
+                      int use_linear) {
   using C = Cfg<KP>;
   extern __shared__ __align__(16) float smem[];
+  __shared__ int4 s_piece;
+  __shared__ int s_last;
   float* vj = smem;
   float* ring = smem + KP;
-  const int j = blockIdx.x;
+  // this CTA's piece: (feature, rank within the feature, the feature's
+  // first scratch row, its pieces), in the host's order (features of many
+  // pieces first: their last piece adds the others). Kept in shared
+  // memory for the end, so that no register holds it through the loop
+  const int4 piece = kSplit ? order[blockIdx.x] : make_int4(blockIdx.x, 0, 0, 1);
+  const int j = piece.x;
   const int d = k + 1;
   const int tid = threadIdx.x;
+  if (kSplit && tid == 0) s_piece = piece;
   const int lane = tid % kWarp, warp = tid / kWarp;
 
   const long long fid = feat_id[j];
@@ -117,7 +137,9 @@ __global__ void __launch_bounds__(Cfg<KP>::kThreads, Cfg<KP>::kMinBlocks)
     ring[(row / kTile) * C::kStageFloats + (row % kTile) * C::kRow + c] = 0.0f;
   }
 
-  const long long lo = feat_off[j], hi = feat_off[j + 1];
+  const long long lo = feat_off[j] + (long long)piece.y * piece_len;
+  const long long hi =
+      kSplit ? min(lo + (long long)piece_len, feat_off[j + 1]) : feat_off[j + 1];
   const int ntiles = (int)((hi - lo + kTile - 1) / kTile);
   auto hq_of = [&](int t) { return ring + (t % kStages) * C::kStageFloats; };
   auto tile_n = [&](int t) { return (int)min((long long)kTile, hi - lo - (long long)t * kTile); };
@@ -266,11 +288,11 @@ __global__ void __launch_bounds__(Cfg<KP>::kThreads, Cfg<KP>::kMinBlocks)
   }
 
   // groups 1.. hand their partials to group 0, which adds them in order
-  float* scratch = ring;
+  float* part = ring;
   float* rowbuf = ring + C::kScratch;
   constexpr int kSlots = C::kGram + C::kNb;
   if (active && g > 0) {
-    float* p = scratch + ((g - 1) * kSlots + slot) * (C::kAcc + 1);
+    float* p = part + ((g - 1) * kSlots + slot) * (C::kAcc + 1);
 #pragma unroll
     for (int a = 0; a < kBlk; ++a)
 #pragma unroll
@@ -279,7 +301,7 @@ __global__ void __launch_bounds__(Cfg<KP>::kThreads, Cfg<KP>::kMinBlocks)
   __syncthreads();
   if (active && g == 0) {
     for (int h = 1; h < C::kGroups; ++h) {
-      const float* p = scratch + ((h - 1) * kSlots + slot) * (C::kAcc + 1);
+      const float* p = part + ((h - 1) * kSlots + slot) * (C::kAcc + 1);
 #pragma unroll
       for (int a = 0; a < kBlk; ++a)
 #pragma unroll
@@ -311,48 +333,91 @@ __global__ void __launch_bounds__(Cfg<KP>::kThreads, Cfg<KP>::kMinBlocks)
   }
   __syncthreads();
   const int GW = libfm::gg_width(k);
-  float* out = GG + (long long)j * GW;
-  for (int e = tid; e < GW; e += C::kThreads) out[e] = rowbuf[e];
+  if (!kSplit) {
+    float* out = GG + (long long)j * GW;
+    for (int e = tid; e < GW; e += C::kThreads) out[e] = rowbuf[e];
+    return;
+  }
+  const int4 pc = s_piece;
+  float* out = GG + (long long)pc.x * GW;
+  const int npieces = pc.w;
+  if (npieces == 1) {
+    for (int e = tid; e < GW; e += C::kThreads) out[e] = rowbuf[e];
+    return;
+  }
+  // publish this piece's row; the last piece to arrive adds them all
+  const int stride = round4(GW);
+  float* first = scratch + (long long)pc.z * stride;
+  for (int e = tid; e < GW; e += C::kThreads) first[(long long)pc.y * stride + e] = rowbuf[e];
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(ticket + pc.x, 1) == npieces - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int e = tid; e < GW; e += C::kThreads) {
+    float r = 0.0f;
+    for (int q = 0; q < npieces; ++q) r += __ldcg(first + (long long)q * stride + e);
+    out[e] = r;
+  }
+  if (tid == 0) ticket[pc.x] = 0;  // every piece has arrived: ready for the next call
 }
 
-template <int KP>
+template <int KP, bool kSplit>
 int launch(const float* A, const float* P, const long long* feat_off, const int* slot_case,
-           const float* slot_val, const int* feat_id, float* GG, int num_feats, int k,
-           int num_rows, int use_linear, cudaStream_t stream) {
+           const float* slot_val, const int* feat_id, const int4* order, float* scratch,
+           int* ticket, float* GG, int npieces, int piece_len, int k, int num_rows,
+           int use_linear, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)smem_floats<KP>(k);
-  auto kern = slot_stats_kernel<KP>;
+  auto kern = slot_stats_kernel<KP, kSplit>;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<num_feats, Cfg<KP>::kThreads, smem, stream>>>(A, P, feat_off, slot_case, slot_val,
-                                                        feat_id, GG, k, num_rows, use_linear);
+  kern<<<npieces, Cfg<KP>::kThreads, smem, stream>>>(A, P, feat_off, slot_case, slot_val,
+                                                      feat_id, order, scratch, ticket, GG,
+                                                      piece_len, k, num_rows, use_linear);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One CTA per feature: GG [num_feats, T+2k+2] is written row by row.
+// One CTA a piece: GG [num_feats, T+2k+2] is written row by row.
 // feat_off [num_feats+1] (int64) cuts slot_case/slot_val into per-feature
 // slot lists; feat_id [num_feats] is each feature's row in P = [w | V].
-// kp is the padded width (kernels.padded_width).
+// order [npieces] (int4, kernels/pieces.py) lists every piece once as
+// (feature, rank within the feature, the feature's first scratch row, the
+// feature's pieces: ceil(count/piece_len), at least one), in the order the
+// CTAs take them; ticket [num_feats] must be zero and is left zero;
+// scratch holds round4(T+2k+2) floats for each piece of a feature of
+// several. kp is the padded width (kernels.padded_width).
 extern "C" int slot_stats_launch(const float* A, const float* P, const long long* feat_off,
                                  const int* slot_case, const float* slot_val,
-                                 const int* feat_id, float* GG, int num_feats, int k, int kp,
-                                 int num_rows, int use_linear, cudaStream_t stream) {
-  if (!libfm::valid_padded_width(kp, k)) return (int)cudaErrorInvalidValue;
+                                 const int* feat_id, const int* order, float* scratch,
+                                 int* ticket, float* GG, int num_feats, int npieces,
+                                 int piece_len, int k, int kp, int num_rows, int use_linear,
+                                 cudaStream_t stream) {
+  if (!libfm::valid_padded_width(kp, k) || piece_len < 1 || npieces < num_feats ||
+      (reinterpret_cast<uintptr_t>(order) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   if (num_feats == 0) return (int)cudaSuccess;
+  // npieces == num_feats: every feature is one piece, CTA j feature j
+#define SLOT_STATS_LAUNCH(KP)                                                             \
+  (npieces > num_feats                                                                    \
+       ? launch<KP, true>(A, P, feat_off, slot_case, slot_val, feat_id,                   \
+                          reinterpret_cast<const int4*>(order), scratch, ticket, GG,      \
+                          npieces, piece_len, k, num_rows, use_linear, stream)            \
+       : launch<KP, false>(A, P, feat_off, slot_case, slot_val, feat_id,                  \
+                           reinterpret_cast<const int4*>(order), scratch, ticket, GG,     \
+                           npieces, piece_len, k, num_rows, use_linear, stream))
   switch (kp) {
     case 16:
-      return launch<16>(A, P, feat_off, slot_case, slot_val, feat_id, GG, num_feats, k,
-                        num_rows, use_linear, stream);
+      return SLOT_STATS_LAUNCH(16);
     case 32:
-      return launch<32>(A, P, feat_off, slot_case, slot_val, feat_id, GG, num_feats, k,
-                        num_rows, use_linear, stream);
+      return SLOT_STATS_LAUNCH(32);
     case 64:
-      return launch<64>(A, P, feat_off, slot_case, slot_val, feat_id, GG, num_feats, k,
-                        num_rows, use_linear, stream);
+      return SLOT_STATS_LAUNCH(64);
     default:
-      return launch<128>(A, P, feat_off, slot_case, slot_val, feat_id, GG, num_feats, k,
-                         num_rows, use_linear, stream);
+      return SLOT_STATS_LAUNCH(128);
   }
+#undef SLOT_STATS_LAUNCH
 }

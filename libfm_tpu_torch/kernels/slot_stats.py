@@ -16,11 +16,11 @@ import numpy as np
 import torch
 
 from libfm_tpu_torch.kernels import Kernel, check, on_cuda, padded_width, ptr
+from libfm_tpu_torch.kernels.pieces import PIECE_LEN, Pieces
 
 KERNEL = Kernel(
     "slot_stats", "slot_stats_launch",
-    [ctypes.c_void_p] * 7
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7,
 )
 # bound on the [chunk, Wmax, k] temporaries of the plain version
 _PLAIN_BUDGET = 1 << 26
@@ -45,9 +45,10 @@ def gg_rel_err(GG, ref, k: int) -> float:
 
 
 def slot_stats_plain(A, P, feat_off, slot_case, slot_val, feat_id, *,
-                     use_linear=True, GG=None):
+                     use_linear=True, GG=None, pieces=None):
     """The plain PyTorch version; same contract as `slot_stats`. Works on
     features in chunks, each padded to its widest feature."""
+    del pieces
     k = P.shape[1] - 1
     num_rows = A.shape[0]
     Fd = feat_id.shape[0]
@@ -99,14 +100,16 @@ def slot_stats_plain(A, P, feat_off, slot_case, slot_val, feat_id, *,
 
 
 def slot_stats(A, P, feat_off, slot_case, slot_val, feat_id, *,
-               use_linear=True, GG=None):
+               use_linear=True, GG=None, pieces=None):
     """GG [Fd, T+2k+2]: one statistics row per feature of a block.
 
     A [nc, k+1] = [e | Q]; P = [w | V] [n, k+1] (the PRE-draw V);
     feat_off int64 [Fd+1] cuts slot_case int32 / slot_val float32 [E]
     into per-feature slot lists (slots with case == nc are padding and
     contribute nothing); feat_id int32 [Fd] is each feature's global id.
-    GG may be passed to write into (its first Fd rows).
+    On the card `pieces` (`Pieces(feat_off, device)`, made once a block)
+    is made here when not given. GG may be passed to write into (its
+    first Fd rows).
     """
     tensors = [A, P, feat_off, slot_case, slot_val, feat_id]
     if not on_cuda(*tensors):
@@ -125,9 +128,14 @@ def slot_stats(A, P, feat_off, slot_case, slot_val, feat_id, *,
         GG = torch.empty(Fd, gg_width(k), dtype=torch.float32, device=A.device)
     if GG.shape[0] < Fd or GG.shape[1] != gg_width(k) or not GG.is_contiguous():
         raise ValueError(f"GG: shape {tuple(GG.shape)} cannot hold {Fd} rows")
+    if pieces is None:
+        pieces = Pieces(feat_off, A.device)
+    check(pieces.order, "order", torch.int32, (pieces.count, 4))
+    check(pieces.ticket, "ticket", torch.int32, (Fd,))
+    GW4 = -(-gg_width(k) // 4) * 4
     KERNEL.launch(
-        ptr(A), ptr(P), ptr(feat_off), ptr(slot_case), ptr(slot_val),
-        ptr(feat_id), ptr(GG), Fd, k, padded_width(k), A.shape[0],
-        int(use_linear),
+        ptr(A), ptr(P), ptr(feat_off), ptr(slot_case), ptr(slot_val), ptr(feat_id),
+        ptr(pieces.order), ptr(pieces.scratch(GW4)), ptr(pieces.ticket), ptr(GG), Fd,
+        pieces.count, PIECE_LEN, k, padded_width(k), A.shape[0], int(use_linear),
     )
     return GG[:Fd]

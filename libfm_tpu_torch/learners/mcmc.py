@@ -4,7 +4,9 @@ The port's counterpart of `libfm_tpu.learners.mcmc`. This slice carries
 the learner's configuration surface (constructor, `set_regularization`,
 per-iteration logging, `predict`, `get_params`), the hyperparameter
 draws (`draw_alpha`, `draw_theta_hyperpriors`), the refresh cadence
-(`dispatch_chunks`) and the masked test metric. The vector engine
+(`dispatch_chunks`) and the masked test metrics: RMSE/MAE for
+regression, accuracy/log10-likelihood and AUC for probit
+classification. The vector engine
 (`learners/mcmc_vector.py`) runs on top of it. The exact per-coordinate
 engine (`-engine exact`) is not ported: `MCMCLearner.learn` raises
 (ROADMAP M10).
@@ -105,6 +107,38 @@ def dispatch_chunks(start, num_iter, refresh_every):
 def _masked_rmse_mae(pred_sum, y, mask, min_t, max_t, normalizer):
     """Clamped (RMSE, MAE) of pred_sum * normalizer over the masked cases."""
     return rmse_mae(pred_sum * normalizer, y, min_t, max_t, mask)
+
+
+def _masked_acc_ll(pred_sum, y, mask, normalizer):
+    """(accuracy, negative mean log10-likelihood) of the probabilities
+    p = pred_sum * normalizer over the masked cases: p >= 0.5 predicts
+    y > 0, p < 0.5 predicts y < 0; p clipped to [0.01, 0.99] in the
+    likelihood (libFM fm_learn_mcmc_simultaneous.h:291-309)."""
+    p = pred_sum * normalizer
+    correct = (((p >= 0.5) & (y > 0.0)) | ((p < 0.5) & (y < 0.0))).to(p.dtype)
+    n = mask.sum().clamp_min(1.0)
+    acc = (correct * mask).sum() / n
+    m01 = (y + 1.0) * 0.5
+    pc = p.clamp(0.01, 0.99)
+    ll = m01 * torch.log10(pc) + (1.0 - m01) * torch.log10(1.0 - pc)
+    return acc, -(ll * mask).sum() / n
+
+
+def _masked_auc(p, y, mask):
+    """ROC AUC by the Mann-Whitney rank sum over the masked cases (a
+    metric beyond libFM's, as in the JAX package). Ties take the ranks of
+    a stable sort, not their midpoint."""
+    n = p.shape[0]
+    order = torch.argsort(torch.where(mask > 0, p, torch.full_like(p, float("inf"))),
+                          stable=True)
+    ranks = torch.empty_like(p)
+    ranks[order] = torch.arange(1, n + 1, dtype=p.dtype, device=p.device)
+    pos = (y > 0.0) & (mask > 0)
+    neg = (y <= 0.0) & (mask > 0)
+    npos = pos.sum().to(p.dtype)
+    nneg = neg.sum().to(p.dtype)
+    rsum = torch.where(pos, ranks, torch.zeros_like(ranks)).sum()
+    return (rsum - npos * (npos + 1.0) / 2.0) / torch.clamp_min(npos * nneg, 1.0)
 
 
 # --------------------------------------------------------------------------
@@ -214,13 +248,19 @@ class MCMCLearner:
     # ----------------------------------------------------------- reporting
     def _log_iteration(self, it, metrics, dt):
         """`metrics` holds host floats: train, this/all/but5 as (rmse,
-        mae) pairs, alpha, rejected. `dt` is the (user, cpu, wall) triple
-        of timers.iter_clocks() differences or a wall-seconds float."""
+        mae) pairs (classification: (accuracy, log10-loss)), alpha,
+        rejected and, for classification, auc. `dt` is the (user, cpu,
+        wall) triple of timers.iter_clocks() differences or a
+        wall-seconds float."""
         t_wall = dt[2] if isinstance(dt, tuple) else dt
         tr = float(metrics["train"])
         te = float(metrics["all"][0])
         if self.verbose:
-            print(f"#Iter={it:3d}\tTrain={tr:.6g}\tTest={te:.6g}")
+            if self.task == TASK_REGRESSION:
+                print(f"#Iter={it:3d}\tTrain={tr:.6g}\tTest={te:.6g}")
+            else:
+                ll = float(metrics["all"][1])
+                print(f"#Iter={it:3d}\tTrain={tr:.6g}\tTest={te:.6g}\tTest(ll)={ll:.6g}")
         self.history.append(
             dict(
                 iter=it,
@@ -234,19 +274,24 @@ class MCMCLearner:
                 alpha=float(metrics["alpha"]),
                 rejected=int(metrics["rejected"]),
                 time=t_wall,
+                **({"auc_all": float(metrics["auc"])} if "auc" in metrics else {}),
             )
         )
 
     # ---------------------------------------------------------- inference
     def predict(self, test=None) -> np.ndarray:
         """Posterior-mean predictions for the test set passed to learn(),
-        clamped (libFM fm_learn_mcmc.h:380-404)."""
+        clamped to the target range (regression) or to [0, 1]
+        (classification: the mean of Phi(pred), or Phi(pred) under ALS)
+        (libFM fm_learn_mcmc.h:380-404)."""
         st = self._final_state
         if self.do_sample:
             out = st["pred_sum_all"].cpu().numpy() / self.num_iter
         else:
             out = st["pred_this"].cpu().numpy()
-        return np.clip(out, self.min_target, self.max_target)
+        if self.task == TASK_REGRESSION:
+            return np.clip(out, self.min_target, self.max_target)
+        return np.clip(out, 0.0, 1.0)
 
     def get_params(self) -> FMParams:
         st = self._final_state

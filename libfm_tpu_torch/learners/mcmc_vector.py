@@ -9,31 +9,38 @@ State on the device:
 - P = [w | V] [n, k+1], the packed parameter table (w and V are views);
 - A = [e | Q] [num_train, k+1], the per-case residual and per-factor
   linear caches, maintained incrementally by every block's update and
-  rewritten by the periodic refresh.
+  rewritten by the periodic refresh;
+- classification: the probit latent of every train case, with
+  e = pred - latent.
 
 One iteration: alpha, w0 and hyperprior draws (plain torch), then per
 block the three CUDA kernels
-  slot_stats  (per-feature statistics GG from the block's slots),
-  schur_draw  (blocked Cholesky draw of every feature's theta),
+  case_stats or slot_stats (per-feature statistics GG: case-major moment
+               sums where the JAX engine's gate admits the block, else
+               the slot path),
+  schur_draw   (blocked Cholesky draw of every feature's theta),
   dense_update (case-major in-place update of A),
 then the unobserved-feature draws, the test prediction (fm_refresh, test
 mode) and, every `refresh_every` iterations, the train refresh
-(fm_refresh, train mode). On CPU tensors each kernel wrapper runs its
-plain PyTorch version.
+(fm_refresh, train mode; for classification its probit mode, which
+resamples the latents). Classification resamples the latents between
+refreshes too, from pred = e + latent (probit_latent). On CPU tensors
+each kernel wrapper runs its plain PyTorch version.
 
-This slice is the regression main path on one device. What it does not
-take raises NotImplementedError with the ROADMAP item it waits for:
-classification (M7), dual draws (K7), case-major statistics (K6), the
-incremental test tail (M7), case reordering and slabs (M7), streaming
-data (M7), relational data (M9), a mesh (M13), checkpoints and rlog
-(M7). `dual_draws` and `case_major_stats` default to False here; in the
-JAX engine both default to True and give the same distribution and the
-same statistic, and config #3 (ML-10M, k=64) takes neither branch.
-The update always runs as the case-major dense pass (the JAX engine's
-low-coverage slot-scatter fallback computes the same update).
+This slice runs regression and probit classification on one device,
+with case-major statistics on by default as in the JAX engine. What it
+does not take raises NotImplementedError with the ROADMAP item it waits
+for: dual (Woodbury) draws (kernel K7, M7 c; `dual_draws` defaults to
+False here, True in the JAX engine, which draws the same distribution),
+the incremental test tail (M7), case reordering and slabs (M7),
+streaming data (M7), relational data (M9), a mesh (M13), checkpoints and
+rlog (M7). The update always runs as the case-major dense pass (the JAX
+engine's low-coverage slot-scatter fallback computes the same update).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -44,13 +51,18 @@ from libfm_tpu_torch.data.batching import (
     feature_slots,
 )
 from libfm_tpu_torch.data.vector_layout import padded_rows_layout
+from libfm_tpu_torch.kernels.case_stats import case_stats, moment_width
 from libfm_tpu_torch.kernels.dense_update import dense_update, update_table
 from libfm_tpu_torch.kernels.fm_refresh import fm_refresh
+from libfm_tpu_torch.kernels.pieces import Pieces
+from libfm_tpu_torch.kernels.probit_latent import probit_latent
 from libfm_tpu_torch.kernels.schur_draw import schur_draw
 from libfm_tpu_torch.kernels.slot_stats import gg_width, slot_stats
 from libfm_tpu_torch.learners import base as _base
 from libfm_tpu_torch.learners.mcmc import (
     MCMCLearner,
+    _masked_acc_ll,
+    _masked_auc,
     _masked_rmse_mae,
     dispatch_chunks,
     draw_alpha,
@@ -58,19 +70,43 @@ from libfm_tpu_torch.learners.mcmc import (
 )
 from libfm_tpu_torch.models.fm import init_fm
 from libfm_tpu_torch.ops import samplers
-from libfm_tpu_torch.tasks import TASK_REGRESSION
+from libfm_tpu_torch.tasks import TASK_CLASSIFICATION
 from libfm_tpu_torch.utils.timers import iter_clocks
 
 #: the CUDA kernels take k <= 128
 MAX_FACTORS_CUDA = 128
+#: the JAX engine's case-major chunk (`_cu_chunk`): the case count that
+#: the case-major gate's cost term pads to
+CU_CHUNK = 1 << 17
+
+
+def case_major_gate(num_dense: int, k: int, onehot: bool, num_entries: int,
+                    num_rows: int) -> bool:
+    """Whether a block takes case-major statistics, as the JAX engine
+    decides (mcmc_vector.py learn: `_dense_update_arrays` and the gate
+    after it): its entries cover at least num_rows // 4 cases (else the
+    JAX engine updates by the slot scatter and keeps the slot path), its
+    moment table is small (Fd * MW <= 8e6) and the one-hot matmul's
+    FLOPs Fd * MW * nc_up_pad stay <= 2e13, with nc_up_pad the case
+    count rounded up to CU_CHUNK. Fd counts the dense (not dual)
+    features, all of them while dual draws are off."""
+    if num_entries < num_rows // 4:
+        return False
+    MW = moment_width(k, onehot)
+    nc_up_pad = -(-max(num_rows, 1) // CU_CHUNK) * CU_CHUNK
+    return num_dense * MW <= 8_000_000 and float(num_dense) * MW * nc_up_pad <= 2e13
 
 
 class DevBlock:
     """Device copy of one conflict-free block: its features and groups,
-    the per-feature slot lists `slot_stats` reads, and the per-case
-    (feature, value) arrays `dense_update` reads (val None: one-hot)."""
+    the per-feature slot lists `slot_stats` and `case_stats` read, and
+    the per-case (feature, value) arrays `dense_update` reads (val None:
+    one-hot). `case_major` (with `case_major_stats`) takes the gate of
+    the JAX engine; `pieces` is the block's cut for the statistics
+    kernels (kernels/pieces.py), whichever of the two runs."""
 
-    def __init__(self, block, groups, num_rows: int, device):
+    def __init__(self, block, groups, num_rows: int, device, k: int,
+                 case_major_stats: bool):
         F = len(block.features)
         self.F = F
         self.features = torch.as_tensor(block.features, dtype=torch.long, device=device)
@@ -82,8 +118,11 @@ class DevBlock:
         self.slot_val = torch.as_tensor(sv, device=device)
         col, val = case_columns(block, num_rows)
         self.up_col = torch.as_tensor(col, device=device)
-        onehot = bool((block.entry_vals == 1.0).all())
-        self.up_val = None if onehot else torch.as_tensor(val, device=device)
+        self.onehot = bool((block.entry_vals == 1.0).all())
+        self.up_val = None if self.onehot else torch.as_tensor(val, device=device)
+        self.case_major = case_major_stats and case_major_gate(
+            F, k, self.onehot, len(block.entry_rows), num_rows)
+        self.pieces = Pieces(off, device)
 
 
 class MCMCVectorLearner(MCMCLearner):
@@ -96,7 +135,7 @@ class MCMCVectorLearner(MCMCLearner):
     ALS_DEFAULT_REFRESH = 8
 
     def __init__(self, *args, mesh=None, dual_draws=False, refresh_every=None,
-                 case_major_stats=False, init_params=None, **kwargs):
+                 case_major_stats=True, init_params=None, **kwargs):
         super().__init__(*args, **kwargs)
         if mesh is not None:
             raise NotImplementedError("mesh (multi-GPU) waits for ROADMAP M13")
@@ -117,12 +156,8 @@ class MCMCVectorLearner(MCMCLearner):
             why = "relational (BS) data waits for ROADMAP M9"
         elif not hasattr(train, "indptr") or not hasattr(test, "indptr"):
             why = "streaming data waits for ROADMAP M7"
-        elif self.task != TASK_REGRESSION:
-            why = "classification (probit latents) waits for ROADMAP M7"
         elif self.dual_draws:
-            why = "dual (Woodbury) draws, kernel K7, wait for ROADMAP M7"
-        elif self.case_major_stats:
-            why = "case-major moment statistics, kernel K6, wait for ROADMAP M7"
+            why = "dual (Woodbury) draws, kernel K7, wait for ROADMAP M7 c"
         elif self.flat_incr_test:
             why = "the incremental test tail waits for ROADMAP M7"
         elif self.case_reorder:
@@ -166,7 +201,8 @@ class MCMCVectorLearner(MCMCLearner):
         observed = np.zeros(n, dtype=bool)
         for b in conflict_free_blocks(train, attr_group=attr_group_np):
             observed[b.features] = True
-            blocks.append(DevBlock(b, attr_group_np[b.features], nc_train, dev))
+            blocks.append(DevBlock(b, attr_group_np[b.features], nc_train, dev, k,
+                                   self.case_major_stats))
         unobserved = torch.as_tensor(np.nonzero(~observed)[0], dtype=torch.long, device=dev)
         n_unobs = int(unobserved.shape[0])
 
@@ -216,9 +252,14 @@ class MCMCVectorLearner(MCMCLearner):
             pred_sum_all=torch.zeros(nc_test, dtype=f32, device=dev),
             pred_sum_all_but5=torch.zeros(nc_test, dtype=f32, device=dev),
         )
+        classify = self.task == TASK_CLASSIFICATION
         A = torch.empty(nc_train, d, dtype=f32, device=dev)
+        # the initial refresh takes e = pred - y for both tasks (libFM
+        # fm_learn_mcmc_simultaneous.h:70-86): the latents start at y
         fm_refresh(P, tr_ids, tr_pv, w0, y_train, A, use_linear=use_linear,
                    use_bias=use_bias, min_target=min_t, max_target=max_t)
+        latent = y_train.clone() if classify else None
+        probit = None if not classify else "sample" if do_sample else "mean"
         GG_buf = torch.empty(
             max([b.F for b in blocks], default=0), gg_width(k), dtype=f32, device=dev
         )
@@ -227,8 +268,14 @@ class MCMCVectorLearner(MCMCLearner):
             """Joint draws for every feature of one block; updates A and P
             in place and returns the number of rejected draws."""
             theta_old = P[blk.features]  # [F, d] (a copy)
-            GG = slot_stats(A, P, blk.feat_off, blk.slot_case, blk.slot_val,
-                            blk.feat_id, use_linear=use_linear, GG=GG_buf)
+            if blk.case_major:
+                GG = case_stats(A, P, blk.feat_off, blk.slot_case, blk.slot_val,
+                                blk.feat_id, onehot=blk.onehot, use_linear=use_linear,
+                                GG=GG_buf, pieces=blk.pieces)
+            else:
+                GG = slot_stats(A, P, blk.feat_off, blk.slot_case, blk.slot_val,
+                                blk.feat_id, use_linear=use_linear, GG=GG_buf,
+                                pieces=blk.pieces)
             lam = torch.cat([w_lambda[blk.groups][:, None], v_lambda[blk.groups]], dim=1)
             mu_pr = torch.cat([w_mu[blk.groups][:, None], v_mu[blk.groups]], dim=1)
             if not use_linear:
@@ -307,36 +354,52 @@ class MCMCVectorLearner(MCMCLearner):
             w0 = st["w0"]
             pred_test = fm_refresh(P, te_ids, te_pv, w0, use_linear=use_linear,
                                    use_bias=use_bias)
+            U = (torch.rand(nc_train, generator=gen, device=dev)
+                 if classify and do_sample else None)
             if refresh:
-                sse = fm_refresh(P, tr_ids, tr_pv, w0, y_train, A,
-                                 use_linear=use_linear, use_bias=use_bias,
-                                 min_target=min_t, max_target=max_t)
-                train_metric = torch.sqrt(sse / max(nc_train, 1))
+                m = fm_refresh(P, tr_ids, tr_pv, w0, y_train, A,
+                               use_linear=use_linear, use_bias=use_bias,
+                               min_target=min_t, max_target=max_t, probit=probit,
+                               U=U, latent=latent)
+                train_metric = (m / max(nc_train, 1) if classify
+                                else torch.sqrt(m / max(nc_train, 1)))
+            elif classify:
+                # the sweeps keep e = pred - latent current: resample the
+                # latents from pred = e + latent, no pass over P
+                train_metric = probit_latent(A, latent, y_train, U) / max(nc_train, 1)
             else:
                 # the sweeps keep A = [e | Q] current (up to f32 drift,
                 # cleared by the periodic refresh): pred = e + y
                 err = (A[:, 0] + y_train).clamp(min_t, max_t) - y_train
                 train_metric = torch.sqrt((err * err).sum() / max(nc_train, 1))
-            p_clamped = pred_test.clamp(min_t, max_t)
-            st["pred_this"] = pred_test
-            st["pred_sum_all"] = st["pred_sum_all"] + p_clamped
+            if classify:
+                p_test = samplers.cdf_gaussian(pred_test)
+                metric = _masked_acc_ll
+            else:
+                p_test = pred_test.clamp(min_t, max_t)
+                metric = partial(_masked_rmse_mae, min_t=min_t, max_t=max_t)
+            st["pred_this"] = p_test if classify else pred_test
+            st["pred_sum_all"] = st["pred_sum_all"] + p_test
             if it >= 5:
-                st["pred_sum_all_but5"] = st["pred_sum_all_but5"] + p_clamped
+                st["pred_sum_all_but5"] = st["pred_sum_all_but5"] + p_test
             n_all = it + 1.0
             n_but5 = max(it - 4.0, 1e-12)
-            m_this = _masked_rmse_mae(pred_test, y_test, eval_mask, min_t, max_t, 1.0)
-            m_all = _masked_rmse_mae(st["pred_sum_all"], y_test, eval_mask,
-                                     min_t, max_t, 1.0 / n_all)
-            m_but5 = _masked_rmse_mae(st["pred_sum_all_but5"], y_test, eval_mask,
-                                      min_t, max_t, 1.0 / n_but5)
+            m_this = metric(st["pred_this"], y_test, eval_mask, normalizer=1.0)
+            m_all = metric(st["pred_sum_all"], y_test, eval_mask, normalizer=1.0 / n_all)
+            m_but5 = metric(st["pred_sum_all_but5"], y_test, eval_mask,
+                            normalizer=1.0 / n_but5)
+            extra = [_masked_auc(st["pred_sum_all"], y_test, eval_mask)] if classify else []
             vals = torch.stack([
                 train_metric, *m_this, *m_all, *m_but5, st["alpha"],
-                rej.to(f32),
+                rej.to(f32), *extra,
             ]).tolist()  # one device-to-host copy per iteration
-            return dict(
+            out = dict(
                 train=vals[0], this=vals[1:3], all=vals[3:5], but5=vals[5:7],
                 alpha=vals[7], rejected=int(vals[8]),
             )
+            if classify:
+                out["auc"] = vals[9]
+            return out
 
         self.history = []
         for i0, L in dispatch_chunks(0, self.num_iter, self.refresh_every):

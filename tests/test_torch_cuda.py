@@ -42,6 +42,9 @@ from libfm_tpu_torch.models.fm import FMConfig, FMParams
 pytestmark = pytest.mark.cuda
 
 KS = [1, 5, 8, 32, 64, 128]
+# case_stats against the float64 plain version, over each entry's sum of
+# magnitudes (as chip_smoke.py holds it)
+CASE_STATS_TOL = 6e-7
 
 
 @pytest.fixture
@@ -256,10 +259,15 @@ def _slots(rng, nc, counts, pad_share=0.0):
 @pytest.mark.parametrize("k", [5, 64, 128])
 def test_slot_stats_kernel_edge_lists(cuda, k):
     """A feature with no slots (its row is all zero), padding slots (a
-    fifth of them), and features that span many 32-slot tiles."""
+    fifth of them), features that span many 32-slot tiles, and lists cut
+    into several pieces (2,048 slots a CTA: 2, 3 and 7 pieces). One cut
+    serves every call: its ticket is zero again after each."""
+    from libfm_tpu_torch.kernels.pieces import PIECE_LEN, Pieces
+
     rng = np.random.default_rng(150 + k)
-    nc, n = 5000, 300
-    counts = np.array([0, 1, 31, 32, 33, 0, 2000, 97, 4000, 64, 3])
+    nc, n = 20000, 300
+    counts = np.array([0, 1, 31, 32, 33, 0, 2000, 97, 4000, 64, 3,
+                       2 * PIECE_LEN + 5, 7 * PIECE_LEN])
     off, sc, sv = _slots(rng, nc, counts, pad_share=0.2)
     fid = rng.choice(n, len(counts), replace=False).astype(np.int32)
     A, P, off, sc, sv, fid = _to(
@@ -268,14 +276,17 @@ def test_slot_stats_kernel_edge_lists(cuda, k):
         rng.normal(0, 0.3, (n, k + 1)).astype(np.float32),
         off, sc, sv, fid,
     )
+    pieces = Pieces(off, cuda)
+    assert pieces.rows == 2 + 3 + 7
     for use_linear in (True, False):
-        G_k = ss.slot_stats(A, P, off, sc, sv, fid, use_linear=use_linear)
+        G_k = ss.slot_stats(A, P, off, sc, sv, fid, use_linear=use_linear, pieces=pieces)
         G_p = ss.slot_stats_plain(A, P, off, sc, sv, fid, use_linear=use_linear)
         torch.cuda.synchronize()
         assert ss.gg_rel_err(G_k, G_p, k) < 1e-4
         assert (G_k[0] == 0).all() and (G_k[5] == 0).all()
-        again = ss.slot_stats(A, P, off, sc, sv, fid, use_linear=use_linear)
-        assert torch.equal(G_k, again)  # deterministic
+        again = ss.slot_stats(A, P, off, sc, sv, fid, use_linear=use_linear, pieces=pieces)
+        assert torch.equal(G_k, again)  # deterministic: pieces add in piece order
+        assert (pieces.ticket == 0).all()
 
 
 @pytest.mark.parametrize("k", KS)
@@ -789,3 +800,184 @@ def test_sgd_epoch_on_cuda_launches_two_kernels_a_batch(cuda, which):
         (1e-3, 1e-3, 1e-3), -1.0, 5.0)
     assert abs(float(out.w0) - float(ref.w0)) < 1e-4
     assert (out.v.cpu() - ref.v).abs().max().item() < 1e-4
+
+
+# ---- probit classification and case-major statistics
+
+def _close(a, b):
+    """Largest |a - b| over max(1, |b|)."""
+    return ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+
+
+# every compiled form: (KP, items a thread, groups) = (8,1,8) at k=5,
+# (16,1,8) at 12, (16,1,4) at 16, (32,1,2) at 20, (64,2,1) at 48,
+# (64,3,1) at 64, (128,5,1) at 90, (128,9,1) at 128 (one-hot and valued
+# differ in the item count, not the form, but for k=12 valued: (16,1,4))
+@pytest.mark.parametrize("k", [5, 12, 16, 20, 48, 64, 90, 128])
+@pytest.mark.parametrize("onehot", [True, False])
+@pytest.mark.parametrize("use_linear", [True, False])
+def test_case_stats_kernel_matches_plain(cuda, k, onehot, use_linear):
+    """Lists longer than a piece (3 and 7 pieces of PIECE_LEN slots), a
+    feature with none, a fifth of the slots padding; two launches give
+    the same bits (the pieces of a feature add in piece order)."""
+    from libfm_tpu_torch.kernels import case_stats as cs
+    from libfm_tpu_torch.kernels.pieces import Pieces
+
+    rng = np.random.default_rng(900 + k + 2 * onehot + use_linear)
+    nc, n = 20000, 300
+    counts = np.array([0, 1, 31, 33, 2 * cs.PIECE_LEN + 5, 97, 7 * cs.PIECE_LEN, 3])
+    # a block: no case in two lists, each list in case order
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    sc = rng.permutation(nc)[:off[-1]].astype(np.int32)
+    for a, b in zip(off[:-1], off[1:]):
+        sc[a:b].sort()
+    sc[rng.random(len(sc)) < 0.2] = nc
+    sv = (np.where(sc < nc, 1.0, 0.0) if onehot
+          else rng.normal(1.0, 0.5, len(sc))).astype(np.float32)
+    fid = rng.choice(n, len(counts), replace=False).astype(np.int32)
+    A, P, off, sc, sv, fid = _to(
+        cuda,
+        rng.normal(0, 1, (nc, k + 1)).astype(np.float32),
+        rng.normal(0, 0.3, (n, k + 1)).astype(np.float32),
+        off, sc, sv, fid,
+    )
+    pieces = Pieces(off, cuda)
+    before = kernels.launch_counts()["case_stats"]
+    kw = dict(onehot=onehot, use_linear=use_linear)
+    G_k = cs.case_stats(A, P, off, sc, sv, fid, pieces=pieces, **kw)
+    G_k2 = cs.case_stats(A, P, off, sc, sv, fid, pieces=pieces, **kw)
+    G_p = cs.case_stats_plain(A, P, off, sc, sv, fid, **kw)
+    G_s = ss.slot_stats_plain(A, P, off, sc, sv, fid, use_linear=use_linear)
+    ref, scale = cs.case_stats_reference(A, P, off, sc, sv, fid, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["case_stats"] == before + 2
+    assert torch.equal(G_k, G_k2) and (pieces.ticket == 0).all()
+    assert (G_k[0] == 0).all()
+    assert ss.gg_rel_err(G_k, G_p, k) < 1e-4
+    assert ss.gg_rel_err(G_k, G_s, k) < 1e-4
+    assert cs.err_over_magnitudes(G_k, ref, scale) < CASE_STATS_TOL
+
+
+@pytest.mark.parametrize("k", [8, 16, 64])
+@pytest.mark.parametrize("mode", ["sample", "mean"])
+def test_fm_refresh_probit_kernel_matches_plain(cuda, k, mode):
+    """Q and pred = e + latent against the plain version within 1e-4; the
+    latents within 1e-5 (relative above 1) of the plain draw on the
+    kernel's predictions where the draw lies within 2.5 of its mean (the
+    predictions come back as e + latent, to an ulp, and further out the
+    draw turns that ulp into more; chip_smoke.LATENT_CHECKED), on y's side
+    of 0 everywhere; the count of correct cases within 3 of the plain
+    count (pred near 0 may round to either side)."""
+    from libfm_tpu_torch.ops.samplers import probit_latent as draw
+
+    rng = np.random.default_rng(950 + k)
+    n, nr, L = 600, 20011, 5
+    P, ids, vals, y, U = _to(
+        cuda,
+        rng.normal(0, 0.5, (n, k + 1)).astype(np.float32),
+        rng.integers(0, n, (nr, L)).astype(np.int32),
+        rng.normal(1, 0.5, (nr, L)).astype(np.float32),
+        rng.choice([-1.0, 1.0], nr).astype(np.float32),
+        rng.random(nr).astype(np.float32),
+    )
+    U = U if mode == "sample" else None
+    w0 = torch.tensor(0.3, device=cuda)
+    A_k, A_p = (torch.empty(nr, k + 1, device=cuda) for _ in range(2))
+    lat_k, lat_p = (torch.empty(nr, device=cuda) for _ in range(2))
+    before = kernels.launch_counts()
+    c_k = fr.fm_refresh(P, ids, vals, w0, y, A_k, probit=mode, U=U, latent=lat_k)
+    c_p = fr.fm_refresh_plain(P, ids, vals, w0, y, A_p, probit=mode, U=U, latent=lat_p)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["fm_refresh_probit"] == before["fm_refresh_probit"] + 1
+    assert after["fm_refresh"] == before["fm_refresh"]
+    pred_k = A_k[:, 0] + lat_k
+    ref = draw(pred_k, y, U)
+    near = (ref - pred_k).abs() <= 2.5 if U is not None else torch.ones_like(y, dtype=bool)
+    assert (A_k[:, 1:] - A_p[:, 1:]).abs().max().item() < 1e-4
+    assert (pred_k - (A_p[:, 0] + lat_p)).abs().max().item() < 1e-4
+    assert _close(lat_k[near], ref[near]) < 1e-5
+    assert near.float().mean().item() > 0.5
+    assert abs(float(c_k) - float(c_p)) <= 3
+    assert ((lat_k >= 0) == (y >= 0)).all()
+
+
+@pytest.mark.parametrize("k", [1, 16, 128])
+@pytest.mark.parametrize("mode", ["sample", "mean"])
+def test_probit_latent_kernel_matches_plain(cuda, k, mode):
+    """Predictions e + latent up to |12|, 1.8M cases (the strided e column
+    of config #4's A): the same count, latents and e within 1e-5 (relative
+    above 1), the other columns of A untouched."""
+    from libfm_tpu_torch.kernels import probit_latent as pl
+
+    rng = np.random.default_rng(990 + k)
+    nc = 1_800_000 if k == 16 else 30011
+    A, lat, y, U = _to(
+        cuda,
+        rng.normal(0, 4, (nc, k + 1)).astype(np.float32),
+        rng.normal(0, 2, nc).astype(np.float32),
+        rng.choice([-1.0, 1.0], nc).astype(np.float32),
+        rng.random(nc).astype(np.float32),
+    )
+    U = U if mode == "sample" else None
+    A_k, A_p, lat_k, lat_p = A.clone(), A.clone(), lat.clone(), lat.clone()
+    before = kernels.launch_counts()["probit_latent"]
+    c_k = pl.probit_latent(A_k, lat_k, y, U)
+    c_p = pl.probit_latent_plain(A_p, lat_p, y, U)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["probit_latent"] == before + 1
+    assert float(c_k) == float(c_p)
+    assert _close(lat_k, lat_p) < 1e-5
+    assert _close(A_k[:, 0], A_p[:, 0]) < 1e-5
+    assert torch.equal(A_k[:, 1:], A[:, 1:])
+    assert ((lat_k >= 0) == (y >= 0)).all()
+
+
+@pytest.mark.parametrize("mode", ["sample", "mean"])
+def test_probit_kernels_in_the_tail(cuda, mode):
+    """Predictions at +-12 on the wrong side of 0: every latent sits at
+    the truncation point, in both kernels."""
+    from libfm_tpu_torch.kernels import probit_latent as pl
+
+    nc, k = 4096, 4
+    y = torch.where(torch.arange(nc, device=cuda) % 2 == 0, 1.0, -1.0)
+    pred = -12.0 * y
+    U = torch.rand(nc, device=cuda) if mode == "sample" else None
+    A = torch.zeros(nc, k + 1, device=cuda)
+    A[:, 0] = pred
+    lat = torch.zeros(nc, device=cuda)
+    pl.probit_latent(A, lat, y, U)
+    torch.cuda.synchronize()
+    lat_p = torch.zeros(nc, device=cuda)
+    A_p = torch.zeros(nc, k + 1, device=cuda)
+    A_p[:, 0] = pred
+    pl.probit_latent_plain(A_p, lat_p, y, U)
+    assert _close(lat, lat_p) < 1e-5
+    assert (lat * y >= 0).all() and (lat.abs() < (0.1 if mode == "mean" else 1e-5)).all()
+
+
+def test_als_classification_on_cuda_follows_the_cpu_trajectory(cuda):
+    """ALS probit (latents as expectations, case-major statistics) on the
+    card against the CPU from the same initial parameters."""
+    from libfm_tpu_torch.data.synth import ctr_like
+    from libfm_tpu_torch.tasks import TASK_CLASSIFICATION
+
+    train, test, groups = ctr_like(5, 300, 30000, seed=5)
+    n, k = train.num_features, 16
+    rng = np.random.default_rng(0)
+    init = (np.float32(0.0), rng.normal(0, 0.1, n).astype(np.float32),
+            rng.normal(0, 0.1, (n, k)).astype(np.float32))
+    cfg = FMConfig(num_features=n, num_factors=k, regw=2.0, regv=2.0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        learner = ALSVectorLearner(cfg, task=TASK_CLASSIFICATION, num_iter=10, seed=1,
+                                   verbose=False, device=dev, init_params=init,
+                                   attr_group=groups)
+        runs[dev] = learner.learn(train, test)
+        counts = kernels.launch_counts()
+    assert counts["case_stats"] == 5 * 10 and counts["slot_stats"] == 0
+    assert counts["fm_refresh_probit"] == 3 and counts["probit_latent"] == 7
+    for hc, hg in zip(runs["cpu"], runs["cuda"]):
+        assert abs(hc["test_this_m2"] - hg["test_this_m2"]) < 1e-4
+        assert abs(hc["train"] - hg["train"]) <= 3.0 / train.num_rows

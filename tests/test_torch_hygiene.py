@@ -56,7 +56,7 @@ def test_port_file_list_is_complete():
     assert {"mcmc_vector.py", "fm_refresh.py", "slot_stats.py", "schur_draw.py",
             "dense_update.py", "sgd.py", "sgd_step.py", "table_scatter.py",
             "table_read.py", "pallas_gather.py", "pallas_scatter.py",
-            "chip_smoke.py"} <= names
+            "case_stats.py", "probit_latent.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("args", [[], ["--config3-kernels"]])
@@ -99,17 +99,21 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_importing_kernels_builds_nothing():
     assert kernels._lib is None
     reg = kernels.import_all()
-    assert set(reg) == {"fm_refresh", "slot_stats", "schur_draw", "dense_update",
-                        "sgd_step", "table_scatter", "table_read"}
+    assert set(reg) == {"fm_refresh", "fm_refresh_probit", "slot_stats", "case_stats",
+                        "schur_draw", "dense_update", "probit_latent", "sgd_step",
+                        "table_scatter", "table_read"}
     assert kernels._lib is None
     assert sorted(p.name for p in kernels.CSRC_DIR.glob("*.cu")) == [
-        "dense_update.cu", "fm_refresh.cu", "schur_draw.cu", "sgd_step.cu",
-        "slot_stats.cu", "table_read.cu", "table_scatter.cu"]
+        "case_stats.cu", "dense_update.cu", "fm_refresh.cu", "probit_latent.cu",
+        "schur_draw.cu", "sgd_step.cu", "slot_stats.cu", "table_read.cu",
+        "table_scatter.cu"]
 
 
 def _cpu_calls():
+    from libfm_tpu_torch.kernels import case_stats as cs
     from libfm_tpu_torch.kernels import dense_update as du
     from libfm_tpu_torch.kernels import fm_refresh as fr
+    from libfm_tpu_torch.kernels import probit_latent as pl
     from libfm_tpu_torch.kernels import schur_draw as sd
     from libfm_tpu_torch.kernels import sgd_step as sg
     from libfm_tpu_torch.kernels import slot_stats as ss
@@ -137,7 +141,12 @@ def _cpu_calls():
     tab = du.update_table(th, th + 0.1)
     return {
         "fm_refresh": lambda: fr.fm_refresh(P, ids, vals, w0, torch.ones(nc), A),
+        "fm_refresh_probit": lambda: fr.fm_refresh(
+            P, ids, vals, w0, torch.ones(nc), A, probit="sample",
+            U=torch.rand(nc, generator=g), latent=torch.zeros(nc)),
         "slot_stats": lambda: ss.slot_stats(A, P, off, sc, sv, fid),
+        "case_stats": lambda: cs.case_stats(A, P, off, sc, sv, fid, onehot=True),
+        "probit_latent": lambda: pl.probit_latent(A, torch.zeros(nc), torch.ones(nc)),
         "schur_draw": lambda: sd.schur_draw(GG, th, lam, th, None, torch.tensor(1.0),
                                             do_sample=False, bound=1e6),
         "dense_update": lambda: du.dense_update(A, col, None, tab),
@@ -152,8 +161,10 @@ def _cpu_calls():
     }
 
 
-@pytest.mark.parametrize("name", ["fm_refresh", "slot_stats", "schur_draw", "dense_update",
-                                  "sgd_step", "table_scatter", "table_read"])
+@pytest.mark.parametrize("name", ["fm_refresh", "fm_refresh_probit", "slot_stats",
+                                  "case_stats", "schur_draw", "dense_update",
+                                  "probit_latent", "sgd_step", "table_scatter",
+                                  "table_read"])
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(name):
     kernels.import_all()
     before = kernels.launch_counts()

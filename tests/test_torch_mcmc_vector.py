@@ -2,7 +2,8 @@
 ml_small size (movielens_like(120, 90, 8000, seed=3), k=8).
 
 - ALS trajectory parity: JAX ALSVectorLearner (slot path: dual draws and
-  case-major statistics off) and the port from the same initial draw.
+  case-major statistics off, on both sides) and the port from the same
+  initial draw.
   test_this agrees within 1e-4 at every iteration and the final w, V
   within 1e-3 — f32 sums taken in another order.
 - MCMC band: both MCMC learners over 12 iterations land within 0.03 of
@@ -26,7 +27,6 @@ from libfm_tpu_torch.data.synth import movielens_like
 from libfm_tpu_torch.learners.mcmc import dispatch_chunks
 from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner, MCMCVectorLearner
 from libfm_tpu_torch.models.fm import FMConfig
-from libfm_tpu_torch.tasks import TASK_CLASSIFICATION
 
 K = 8
 ITERS = 12
@@ -63,7 +63,7 @@ def als_pair(ml_small, jax_ml_small):
     tr, te = ml_small
     ta = ALSVectorLearner(
         FMConfig(num_features=n, num_factors=K, regw=5, regv=5),
-        num_iter=ITERS, seed=1, verbose=False, device="cpu",
+        num_iter=ITERS, seed=1, verbose=False, device="cpu", case_major_stats=False,
         init_params=params_from_jax(*_jax_init(n, K, 1), device="cpu"),
     )
     ta.learn(tr, te)
@@ -107,7 +107,8 @@ def test_mcmc_band_against_jax(ml_small, jax_ml_small):
     jm.learn(jtr, jte)
     tr, te = ml_small
     tm = MCMCVectorLearner(FMConfig(num_features=n, num_factors=K),
-                           num_iter=ITERS, seed=1, verbose=False, device="cpu")
+                           num_iter=ITERS, seed=1, verbose=False, device="cpu",
+                           case_major_stats=False)
     tm.learn(tr, te)
     assert abs(jm.history[-1]["test_all"] - tm.history[-1]["test_all"]) < 0.03
     assert all(h["rejected"] == 0 for h in tm.history)
@@ -123,8 +124,6 @@ def test_dispatch_chunks_matches_jax(start, num_iter, R):
 
 @pytest.mark.parametrize("kwargs,attr", [
     (dict(dual_draws=True), None),
-    (dict(case_major_stats=True), None),
-    (dict(task=TASK_CLASSIFICATION), None),
     ({}, "flat_incr_test"),
 ])
 def test_outside_the_slice_raises(ml_small, kwargs, attr):
