@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (libfm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # configs #3, #4, #1 and #4b; the table probes
+    python3 chip_smoke.py            # configs #3, #4, #5, #1 and #4b; the table probes
     python3 chip_smoke.py --config3-kernels   # config #3's kernel checks only
+    python3 chip_smoke.py --config5-kernels   # config #5's dual_draw check only
 
 What it does, in order (any failed phase exits non-zero):
 
@@ -45,16 +46,28 @@ What it does, in order (any failed phase exits non-zero):
      the plain version in float64 entry by entry over the entry's sum of
      magnitudes), fm_refresh's probit train mode (latents drawn from
      given uniforms, and as expectations) and probit_latent, each against
-     its plain version on the same uniforms.
+     its plain version on the same uniforms;
+   - config #5 (bench.py:337-389, bench_largevocab: MCMC probit
+     classification, k=128, ctr_like(26, 40000, 3M, seed=1), the 26
+     fields as groups): dual_draw on the dual features of the 26 blocks
+     (one iteration's launches), sampling and ALS, against its plain
+     version on the same noise; the dual features counted by slot count
+     and checked against the JAX engine's rule reckoned straight from the
+     train rows (features of 1 to 32 entries); the library
+     yardstick is torch.linalg.cholesky_ex + torch.cholesky_solve on the
+     same c x c systems, grouped by c.
 4. Path phase. Resets the launch counters before each run and reads them
    after it; each run must launch its own kernels, and no other: ALSVectorLearner (3
    iterations) and MCMCVectorLearner (4) at config #3 (regression, slot
    statistics) and at config #4 (classification: case_stats 13 times an
    iteration, fm_refresh's probit mode at the refresh iterations and
-   probit_latent at the others); SGDLearner for 3 epochs at config #1
+   probit_latent at the others), MCMCVectorLearner (4) at config #5
+   (classification: slot_stats and schur_draw on each block's dense
+   features, dual_draw on its dual ones, 26 blocks an iteration); and
+   the paths of configs #3 and #4 launch no dual_draw; SGDLearner for 3 epochs at config #1
    (regression) and config #4b (classification). Checks that every metric
    is finite, that no draw was rejected and that the ALS train RMSE falls;
-   prints accuracy, log10-loss and AUC at each config #4 iteration.
+   prints accuracy, log10-loss and AUC at each config #4 and #5 iteration.
 5. Probe phase. The ported table probes (libfm_tpu_torch.studies
    pallas_gather.main and pallas_scatter.main) at the studies' shapes,
    each against its plain version; prints ns/row.
@@ -66,8 +79,9 @@ It runs on one card: the first that CUDA_VISIBLE_DEVICES names (card 0
 when it is unset), and it hides the others. It imports nothing of jax
 or of the JAX package. `--out PATH` also writes every number to a JSON
 file. `--config3-kernels` builds the kernels and runs config #3's kernel
-checks alone, and prints their rows as one JSON line; it uses only the
-wrappers' public calls, so it also times another version of the package
+checks alone, and prints their rows as one JSON line; `--config5-kernels`
+does the same for config #5's dual_draw check. Both use only the
+wrappers' public calls, so they also time another version of the package
 (a checkout of an earlier commit) when copied into that checkout's root.
 """
 
@@ -114,6 +128,24 @@ LATENT_CHECKED = 2.5
 # case_stats (and slot_stats at config #4) against the float64 plain
 # version: the largest error over the entry's sum of magnitudes
 CASE_STATS_TOL = 6e-7
+# config #5 (bench.py:337-389, bench_largevocab): MCMC probit
+# classification, k=128, on ctr_like(26, 40000, 3M, seed=1) with the 26
+# fields as groups; nothing cut but the iterations
+LV_FIELDS, LV_CARD, LV_EXAMPLES, LV_FACTORS, LV_MCMC_ITERS = 26, 40_000, 3_000_000, 128, 4
+# the dual features by the JAX engine's rule (mcmc_vector.py:731-763):
+# each of #5's blocks has a head of more than 4,096 entries, so
+# build_block_layout cuts it on the width ladder (32, 256), which gives a
+# feature of 1 to 32 entries one whole segment of width 32 < d = 129 and
+# any other feature two segments or one of width 256 > 64. So the dual
+# features are those of 1 to 32 train entries, counted straight from the
+# rows (numpy 2.0.2's zipf draws 890,171 of them, 303,277 of 1 or 2
+# entries; another numpy version draws other data)
+LV_DUAL_MAX, LV_WHOLE_MAX = 32, 4096
+# dual_draw against its plain version: the largest |difference| over
+# max(1, |theta|). K = I + Phi D^-1 Phi^T >= I, so ||K^-1|| <= 1 and the
+# f32 sums (the Gram's dot products of length 129, taken in another order)
+# move theta by ~1e-6 of its scale
+DUAL_TOL = 1e-4
 HOT_ROWS = 1024  # the gather-against-streaming line's small table
 FEW_ROWS = 4  # a field of few values (the skewed line)
 ZIPF = 1.2  # ctr_like's default power of a field's values
@@ -125,6 +157,8 @@ EXPECTED = {
               "dense_update", "probit_latent"},
     "mcmc_4": {"fm_refresh", "fm_refresh_probit", "case_stats", "schur_draw",
                "dense_update", "probit_latent"},
+    "mcmc_5": {"fm_refresh", "fm_refresh_probit", "slot_stats", "schur_draw",
+               "dual_draw", "dense_update", "probit_latent"},
     "sgd_1": {"sgd_step", "table_scatter", "fm_refresh"},
     "sgd_4b": {"sgd_step", "table_scatter", "fm_refresh"},
     "probes": {"table_read", "table_scatter"},
@@ -670,6 +704,147 @@ def ctr_kernel_checks(args, rec, dev, ctr):
     return out
 
 
+def lv_data():
+    """Config #5's data (bench.py:337-389): +-1 targets, the field groups."""
+    from libfm_tpu_torch.data.synth import ctr_like
+
+    return ctr_like(num_fields=LV_FIELDS, field_cardinality=LV_CARD,
+                    num_examples=LV_EXAMPLES, seed=SEED)
+
+
+def lv_kernel_checks(args, rec, dev, lv):
+    """Phase 3, config #5: dual_draw on the dual features of the 26 blocks
+    (one iteration's launches) against its plain version, in sampling and
+    ALS mode on the same noise; the library yardstick on the same c x c
+    systems. Returns its row and the blocks' (dense, dual) feature counts."""
+    import numpy as np
+
+    from libfm_tpu_torch.data.batching import conflict_free_blocks
+    from libfm_tpu_torch.data.vector_layout import padded_rows_layout
+    from libfm_tpu_torch.kernels import dual_draw as dd
+    from libfm_tpu_torch.kernels import fm_refresh as fr
+    from libfm_tpu_torch.learners.mcmc_vector import DevBlock
+
+    train, _, groups = lv
+    k, d = LV_FACTORS, LV_FACTORS + 1
+    n, nc = train.num_features, train.num_rows
+    per_feature = np.bincount(train.cols, minlength=n)
+    heads = [int(per_feature[groups == f].max()) for f in range(int(groups.max()) + 1)]
+    want = dict(features=int(((per_feature >= 1) & (per_feature <= LV_DUAL_MAX)).sum()),
+                c_le_2=int(((per_feature >= 1) & (per_feature <= 2)).sum()),
+                observed=int((per_feature > 0).sum()), numpy=np.__version__)
+    t0 = time.perf_counter()
+    blocks = [DevBlock(b, groups[b.features], nc, dev, k, True, dual_draws=True)
+              for b in conflict_free_blocks(train, attr_group=groups)]
+    torch.cuda.synchronize()
+    counts = np.concatenate([np.diff(b.dual_off.cpu().numpy()) for b in blocks])
+    hist = np.bincount(counts)
+    dual = dict(features=int(len(counts)), slots=int(counts.sum()),
+                c_le_2=int((counts <= 2).sum()), c_gt_2=int((counts > 2).sum()),
+                dense_features=sum(b.Fd for b in blocks),
+                per_c={int(c): int(m) for c, m in enumerate(hist) if m},
+                blocks=len(blocks), set_up_seconds=time.perf_counter() - t0)
+    dual["reckoned_from_the_rows"] = want
+    rec["config5_dual"] = dual
+    print(f"config #5: {len(blocks)} blocks, {dual['dense_features']} dense and "
+          f"{dual['features']} dual features ({dual['c_le_2']} of c <= 2, "
+          f"{dual['c_gt_2']} of c > 2; {dual['slots']} dual slots), case-major "
+          f"{sum(b.case_major for b in blocks)} blocks; dual features by c "
+          f"{dual['per_c']} ({dual['set_up_seconds']:.1f} s)")
+    print(f"config #5, reckoned from the train rows (numpy {np.__version__}): "
+          f"{want['observed']} observed features, {want['features']} of 1 to "
+          f"{LV_DUAL_MAX} entries, {want['c_le_2']} of 1 or 2; fields' heads {heads}")
+    if min(heads) <= LV_WHOLE_MAX or (dual["features"], dual["c_le_2"]) != (
+            want["features"], want["c_le_2"]):
+        fail(f"config #5: {dual['features']} dual features, {dual['c_le_2']} of c <= 2; "
+             f"the JAX engine's rule gives {want['features']} and {want['c_le_2']}")
+    if any(b.case_major for b in blocks) or not all(b.Fd and b.Fu for b in blocks):
+        fail("config #5: a block took the case-major gate or has no dense or no dual "
+             "feature")
+    ids, vals = (torch.as_tensor(x, device=dev) for x in
+                 padded_rows_layout(train.indptr, train.cols, train.vals))
+    y = torch.as_tensor(train.target, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    P = 0.1 * torch.randn(n, d, generator=g, device=dev)
+    A = torch.empty(nc, d, device=dev)
+    fr.fm_refresh(P, ids, vals, torch.tensor(0.05, device=dev), y, A)
+    del ids, vals, y
+    alpha = torch.tensor(2.0, device=dev)
+    bound = 1e6
+    sys_in = []
+    for b in blocks:
+        th = P[b.features[b.Fd:]].contiguous()
+        sys_in.append((b, th, torch.full((b.Fu, d), 5.0, device=dev),
+                       0.01 * torch.randn(b.Fu, d, generator=g, device=dev),
+                       torch.randn(b.Fu, d, generator=g, device=dev),
+                       torch.randn(b.dual_case.shape[0], generator=g, device=dev)))
+
+    def run(fn, sample=True):
+        def go():
+            return [fn(A, b.dual_off, b.dual_case, b.dual_val, th, lam, mu, u, dl, alpha,
+                       do_sample=sample, bound=bound, use_linear=True, plan=b.dual_plan)
+                    for b, th, lam, mu, u, dl in sys_in]
+        return go
+
+    errs, nrej = {}, 0
+    for sample in (True, False):
+        got, want = run(dd.dual_draw, sample)(), run(dd.dual_draw_plain, sample)()
+        torch.cuda.synchronize()
+        errs["sampling" if sample else "ALS"] = max(
+            ((tk - tp).abs() / tp.abs().clamp_min(1.0)).max().item()
+            for (tk, _), (tp, _) in zip(got, want))
+        if not all(torch.equal(rk, rp) for (_, rk), (_, rp) in zip(got, want)):
+            fail("config #5: dual_draw's reject flags differ from the plain version's")
+        nrej += sum(int(rk.sum().item()) for _, rk in got)
+        del got, want
+    # the library yardstick: cholesky_ex + cholesky_solve on the same K
+    # systems, one batch for each slot count c of each block
+    lib_in = []
+    for b, th, lam, mu, _, _ in sys_in:
+        cnt = b.dual_off[1:] - b.dual_off[:-1]
+        for c in torch.unique(cnt).tolist():
+            sel = torch.nonzero(cnt == c).squeeze(1)
+            K = dd.dual_system(A, b.dual_off, sel, b.dual_case, b.dual_val, th, lam, mu,
+                               alpha, use_linear=True)[3]
+            lib_in.append((K, torch.randn(K.shape[0], K.shape[1], 1, generator=g,
+                                          device=dev)))
+
+    def run_lib():
+        for K, r in lib_in:
+            Lf, _ = torch.linalg.cholesky_ex(K)
+            torch.cholesky_solve(r, Lf)
+
+    c = counts.astype(np.float64)
+    row = kernel_row(
+        "dual_draw", "libfm_tpu/learners/mcmc_vector.py:1661", max(errs.values()),
+        DUAL_TOL, cuda_ms(run(dd.dual_draw), args.reps),
+        cuda_ms(run(dd.dual_draw_plain), args.reps, warmup=1),
+        # a slot: its A row, case, value and noise; a feature: its offset,
+        # theta_old, lam, mu, u and theta_new, and its flag
+        nbytes=c.sum() * (d * 4 + 12) + len(c) * (8 + 5 * d * 4 + 4),
+        # the Gram (c(c+1)/2 dot products of d), h, ytil, v and Phi^T w
+        # (8 c d), the factorisation (c^3 / 3) and the solves (2 c^2)
+        flops=float((c * (c + 1) * d + 8 * c * d + c ** 3 / 3 + 2 * c * c).sum()),
+        lib_ms=cuda_ms(run_lib, args.reps),
+        timed="one iteration's launches at config #5: one per block (26), sampling",
+        label=" (config #5)")
+    row["also_replaces"] = ["libfm_tpu/ops/lane_chol.py:232 (cho_solve_lanes)"]
+    row["errors_by_mode"] = errs
+    row["rejected_in_check"] = nrej
+    row["dual_features"] = dual
+    row["library_call"] = ("torch.linalg.cholesky_ex + torch.cholesky_solve on the same "
+                           "K systems, one batch a slot count a block")
+    print(f"dual_draw at config #5: err sampling {errs['sampling']:.3g}, ALS "
+          f"{errs['ALS']:.3g} (tol {DUAL_TOL:g}); {nrej} rejected")
+    if nrej:
+        fail(f"config #5: dual_draw rejected {nrej} draws of well-posed systems")
+    launches = dict(dense=sum(bool(b.Fd) for b in blocks),
+                    dual=sum(bool(b.Fu) for b in blocks))
+    del A, P, blocks, sys_in, lib_in
+    torch.cuda.empty_cache()
+    return row, launches
+
+
 def lockstep_err(P0, w0, batches, kw, lr0, reg0):
     """An SGD epoch in which every batch's kernels and plain versions start
     from the same state (the kernels'), in the learner's form (update rows
@@ -1161,7 +1336,11 @@ def profile_summary(prof, out_dir, rec, name, batches=None):
 
 
 def run_learner(cls, name, data, args, rec, factors=FACTORS, iters=None, groups=None,
-                task=0, **cfg_kw):
+                task=0, per_iter=None, **cfg_kw):
+    """Path phase: one learner run. `per_iter` gives the launches each
+    iteration must make of slot_stats, case_stats, schur_draw and
+    dual_draw (2 slot_stats and schur_draw launches, no other, when None:
+    config #3); a probit run also makes the refreshes' probit launches."""
     from libfm_tpu_torch import kernels
     from libfm_tpu_torch.learners.mcmc import dispatch_chunks
     from libfm_tpu_torch.models.fm import FMConfig
@@ -1200,11 +1379,11 @@ def run_learner(cls, name, data, args, rec, factors=FACTORS, iters=None, groups=
     check_launches(name, counts)
     # the launches each path's iterations must make, exactly
     refresh = len(dispatch_chunks(0, iters, learner.refresh_every))
-    nblocks = 13 if task else 2
-    want = ({"case_stats": nblocks * iters, "slot_stats": 0, "fm_refresh_probit": refresh,
-             "probit_latent": iters - refresh} if task else
-            {"case_stats": 0, "fm_refresh_probit": 0, "probit_latent": 0,
-             "slot_stats": nblocks * iters})
+    per_iter = dict(dict(slot_stats=0, case_stats=0, schur_draw=0, dual_draw=0),
+                    **(per_iter or dict(slot_stats=2, schur_draw=2)))
+    want = dict({key: v * iters for key, v in per_iter.items()},
+                fm_refresh_probit=refresh if task else 0,
+                probit_latent=iters - refresh if task else 0)
     wrong = {key: (counts[key], v) for key, v in want.items() if counts[key] != v}
     if wrong:
         fail(f"{name}: launches (made, expected) {wrong}")
@@ -1235,6 +1414,9 @@ def main(argv=None) -> int:
     ap.add_argument("--config3-kernels", action="store_true",
                     help="only build the kernels and run config #3's kernel checks; "
                     "print their rows as one JSON line")
+    ap.add_argument("--config5-kernels", action="store_true",
+                    help="only build the kernels and run config #5's dual_draw "
+                    "check; print its row as one JSON line")
     args = ap.parse_args(argv)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
@@ -1275,6 +1457,10 @@ def main(argv=None) -> int:
     t0 = done("build", t0)
 
     dev = torch.device("cuda")
+    if args.config5_kernels:
+        row, _ = lv_kernel_checks(args, rec, dev, lv_data())
+        print(json.dumps({"card": smi, "kernels": [row]}))
+        return 0
     table, data = kernel_checks(args, rec, dev)
     t0 = done("config #3 data and kernel checks", t0)
     if args.config3_kernels:
@@ -1292,6 +1478,13 @@ def main(argv=None) -> int:
     t0 = done("probe-shape kernel checks", t0)
     table += ctr_kernel_checks(args, rec, dev, ctr)
     t0 = done("config #4 kernel checks", t0)
+    lv = lv_data()
+    print(f"config #5 data: {lv[0].num_rows} train rows, {lv[1].num_rows} test rows, "
+          f"{lv[0].num_features} features ({time.perf_counter() - t0:.1f} s)")
+    t0 = done("config #5 data", t0)
+    row, lv_blocks = lv_kernel_checks(args, rec, dev, lv)
+    table.append(row)
+    t0 = done("config #5 kernel checks", t0)
 
     counts = {}
     _, counts["als"] = run_learner(ALSVectorLearner, "als", data, args, rec,
@@ -1302,13 +1495,21 @@ def main(argv=None) -> int:
     t0 = done("ALS path", t0)
     _, counts["mcmc"] = run_learner(MCMCVectorLearner, "mcmc", data, args, rec)
     t0 = done("MCMC path", t0)
-    c4 = dict(factors=CTR_FACTORS, groups=ctr[2], task=1)
+    c4 = dict(factors=CTR_FACTORS, groups=ctr[2], task=1,
+              per_iter=dict(case_stats=CTR_FIELDS, schur_draw=CTR_FIELDS))
     _, counts["als_4"] = run_learner(ALSVectorLearner, "als_4", ctr, args, rec,
                                      iters=CTR_ALS_ITERS, regw=5.0, regv=5.0, **c4)
     t0 = done("config #4 ALS path", t0)
     _, counts["mcmc_4"] = run_learner(MCMCVectorLearner, "mcmc_4", ctr, args, rec,
                                       iters=CTR_MCMC_ITERS, **c4)
     t0 = done("config #4 MCMC path", t0)
+    _, counts["mcmc_5"] = run_learner(
+        MCMCVectorLearner, "mcmc_5", lv, args, rec, factors=LV_FACTORS,
+        iters=LV_MCMC_ITERS, groups=lv[2], task=1,
+        per_iter=dict(slot_stats=lv_blocks["dense"], schur_draw=lv_blocks["dense"],
+                      dual_draw=lv_blocks["dual"]))
+    del lv
+    t0 = done("config #5 MCMC path", t0)
     counts["sgd_1"] = run_sgd("sgd_1", data, args, rec)
     t0 = done("SGD #1 path", t0)
     counts["sgd_4b"] = run_sgd("sgd_4b", ctr[:2], args, rec)
@@ -1328,7 +1529,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(rec, f, indent=1)
     print(json.dumps({"kernels": table}))
-    for name in ("als", "mcmc", "als_4", "mcmc_4"):
+    for name in ("als", "mcmc", "als_4", "mcmc_4", "mcmc_5"):
         print(f"{name} per-iteration seconds on {smi}: "
               f"{[round(h['time'], 6) for h in rec[name]['history']]}")
     for name in SGD_CONFIGS:

@@ -15,7 +15,9 @@ The port's copy of `libfm_tpu.data.batching`:
 
 `feature_slots` and `case_columns` give a block the two forms the port's
 kernels read: one slot list per feature, and one (feature, value) pair
-per training case.
+per training case; `split_feature_slots` cuts the slot lists into the
+features drawn through the dense system and those drawn through the dual
+one.
 """
 
 from __future__ import annotations
@@ -243,6 +245,26 @@ def feature_slots(block: FeatureBlock):
         block.entry_rows[order].astype(np.int32),
         block.entry_vals[order].astype(np.float32),
     )
+
+
+def split_feature_slots(feat_off, slot_case, slot_val, mask):
+    """Split a block's per-feature slot lists (`feature_slots`) into the
+    features where `mask` [F] is False and those where it is True (the
+    dense and the dual features of a sweep).
+
+    Returns two tuples (feat_off int64 [Fs+1], slot_case int32 [Es],
+    slot_val float32 [Es], pos int64 [Fs]), False first: each subset's
+    own slot lists, its features in block order, and their block-local
+    positions `pos`."""
+    mask = np.asarray(mask, dtype=bool)
+    counts = np.diff(feat_off)
+    slot_mask = np.repeat(mask, counts)
+    out = []
+    for m, sm in ((~mask, ~slot_mask), (mask, slot_mask)):
+        off = np.zeros(int(m.sum()) + 1, dtype=np.int64)
+        np.cumsum(counts[m], out=off[1:])
+        out.append((off, slot_case[sm], slot_val[sm], np.flatnonzero(m)))
+    return tuple(out)
 
 
 def case_columns(block: FeatureBlock, num_rows: int):

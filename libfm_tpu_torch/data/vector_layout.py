@@ -12,10 +12,14 @@ Real slots always fill a segment from the left.
 
 The port's learner does not read this layout: its kernels take one
 ragged slot list per feature (`batching.feature_slots`), which needs no
-widths and no padding. `build_block_layout` is kept, held exactly
-against the JAX package's, for the dual draws (ROADMAP K7), whose
-eligibility depends on a segment's width. `slab_partition` (case-sorted
-slab gathers) is not ported (ROADMAP M7).
+widths and no padding. What it needs of the layout is which features
+the JAX engine draws through the dual (Woodbury) system: a feature whose
+ONE segment holds it whole, of a width W < d and W <= 64.
+`single_segment_widths` gives that width from the feature counts alone,
+without building the padded slot arrays; `build_block_layout`, held
+exactly against the JAX package's, is the reference it is tested
+against. `slab_partition` (case-sorted slab gathers) is not ported
+(ROADMAP M7).
 """
 
 from __future__ import annotations
@@ -156,6 +160,38 @@ def build_block_layout(
         buckets=buckets,
         num_features=F,
     )
+
+
+def single_segment_widths(counts: np.ndarray, widths: tuple = (32, 256)) -> np.ndarray:
+    """Per feature of a block with entry counts `counts` [F] (each >= 1),
+    the width of the one segment `build_block_layout` gives it when that
+    segment holds the whole feature, else 0 (the feature spans several
+    segments). Follows build_block_layout's two modes: whole-feature
+    mode gives every feature one segment of the common width; the width
+    ladder counts a feature's segments without cutting them."""
+    counts = np.asarray(counts, dtype=np.int64)
+    F = len(counts)
+    out = np.zeros(F, dtype=np.int64)
+    total = int(counts.sum())
+    if F == 0 or total == 0:
+        return out
+    W_whole = max(8, int(-(-int(counts.max()) // 8)) * 8)
+    if W_whole <= 4096 and F * W_whole <= 1.5 * total:
+        out[:] = W_whole
+        return out
+    desc = sorted(widths, reverse=True)
+    rem = counts.copy()
+    nseg = np.zeros(F, dtype=np.int64)
+    for li, w in enumerate(desc):
+        n_full = rem // w
+        tail = rem - n_full * w
+        smaller = desc[li + 1] if li + 1 < len(desc) else None
+        absorb = tail > 0 if smaller is None else tail > (w - smaller)
+        n_seg = n_full + absorb.astype(np.int64)
+        out = np.where(n_seg > 0, w, out)
+        nseg += n_seg
+        rem = rem - (n_full * w + np.where(absorb, tail, 0))
+    return np.where(nseg == 1, out, 0)
 
 
 def padded_rows_layout(indptr, cols, vals, align: int = 1):

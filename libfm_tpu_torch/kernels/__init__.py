@@ -210,8 +210,8 @@ def padded_width(k: int) -> int:
 def import_all() -> dict:
     """Import every kernel module so REGISTRY lists them all."""
     from libfm_tpu_torch.kernels import (  # noqa: F401
-        case_stats, dense_update, fm_refresh, probit_latent, schur_draw, sgd_step,
-        slot_stats, table_read, table_scatter,
+        case_stats, dense_update, dual_draw, fm_refresh, probit_latent, schur_draw,
+        sgd_step, slot_stats, table_read, table_scatter,
     )
 
     return REGISTRY

@@ -14,12 +14,15 @@ State on the device:
   e = pred - latent.
 
 One iteration: alpha, w0 and hyperprior draws (plain torch), then per
-block the three CUDA kernels
-  case_stats or slot_stats (per-feature statistics GG: case-major moment
-               sums where the JAX engine's gate admits the block, else
-               the slot path),
-  schur_draw   (blocked Cholesky draw of every feature's theta),
-  dense_update (case-major in-place update of A),
+block the CUDA kernels
+  case_stats or slot_stats (per-feature statistics GG of the block's
+               dense features: case-major moment sums where the JAX
+               engine's gate admits the block, else the slot path),
+  schur_draw   (blocked Cholesky draw of every dense feature's theta),
+  dual_draw    (the c x c Woodbury draw of every dual feature: one whose
+               one segment of the JAX engine's width layout holds it
+               whole, at a width W < k+1 and W <= 64),
+  dense_update (case-major in-place update of A, over every feature),
 then the unobserved-feature draws, the test prediction (fm_refresh, test
 mode) and, every `refresh_every` iterations, the train refresh
 (fm_refresh, train mode; for classification its probit mode, which
@@ -28,14 +31,13 @@ refreshes too, from pred = e + latent (probit_latent). On CPU tensors
 each kernel wrapper runs its plain PyTorch version.
 
 This slice runs regression and probit classification on one device,
-with case-major statistics on by default as in the JAX engine. What it
-does not take raises NotImplementedError with the ROADMAP item it waits
-for: dual (Woodbury) draws (kernel K7, M7 c; `dual_draws` defaults to
-False here, True in the JAX engine, which draws the same distribution),
-the incremental test tail (M7), case reordering and slabs (M7),
-streaming data (M7), relational data (M9), a mesh (M13), checkpoints and
-rlog (M7). The update always runs as the case-major dense pass (the JAX
-engine's low-coverage slot-scatter fallback computes the same update).
+with case-major statistics and dual draws on by default as in the JAX
+engine. What it does not take raises NotImplementedError with the
+ROADMAP item it waits for: the incremental test tail (M7), case
+reordering and slabs (M7), streaming data (M7), relational data (M9), a
+mesh (M13), checkpoints and rlog (M7). The update always runs as the
+case-major dense pass (the JAX engine's low-coverage slot-scatter
+fallback computes the same update).
 """
 
 from __future__ import annotations
@@ -49,10 +51,12 @@ from libfm_tpu_torch.data.batching import (
     case_columns,
     conflict_free_blocks,
     feature_slots,
+    split_feature_slots,
 )
-from libfm_tpu_torch.data.vector_layout import padded_rows_layout
+from libfm_tpu_torch.data.vector_layout import padded_rows_layout, single_segment_widths
 from libfm_tpu_torch.kernels.case_stats import case_stats, moment_width
 from libfm_tpu_torch.kernels.dense_update import dense_update, update_table
+from libfm_tpu_torch.kernels.dual_draw import DualPlan, dual_draw
 from libfm_tpu_torch.kernels.fm_refresh import fm_refresh
 from libfm_tpu_torch.kernels.pieces import Pieces
 from libfm_tpu_torch.kernels.probit_latent import probit_latent
@@ -97,32 +101,61 @@ def case_major_gate(num_dense: int, k: int, onehot: bool, num_entries: int,
     return num_dense * MW <= 8_000_000 and float(num_dense) * MW * nc_up_pad <= 2e13
 
 
+def dual_features(counts, d: int, widths=(32, 256)) -> np.ndarray:
+    """Which features of a block (entry counts [F]) the JAX engine draws
+    through the dual system (mcmc_vector.py learn, the dual/dense split):
+    those whose one segment of `build_block_layout`'s layout holds the
+    whole feature, at a width W < d and W <= 64."""
+    W = single_segment_widths(counts, widths)
+    return (W > 0) & (W < d) & (W <= 64)
+
+
 class DevBlock:
-    """Device copy of one conflict-free block: its features and groups,
-    the per-feature slot lists `slot_stats` and `case_stats` read, and
-    the per-case (feature, value) arrays `dense_update` reads (val None:
-    one-hot). `case_major` (with `case_major_stats`) takes the gate of
-    the JAX engine; `pieces` is the block's cut for the statistics
-    kernels (kernels/pieces.py), whichever of the two runs."""
+    """Device copy of one conflict-free block. Its features are ordered
+    dense first, then dual (`dual_features`, with `dual_draws`): `F`
+    features, the first `Fd` drawn by `schur_draw` from their statistics,
+    the other `Fu` by `dual_draw`. Each part has its own per-feature slot
+    lists: `feat_off`, `slot_case`, `slot_val` and the global `feat_id`
+    for the statistics kernels, `dual_off`, `dual_case`, `dual_val` (and
+    `dual_plan`, their CTAs) for `dual_draw`. The per-case (feature,
+    value) arrays `dense_update` reads cover every feature (val None:
+    one-hot). `case_major` (with `case_major_stats`) takes the gate of the
+    JAX engine on the dense count; `pieces` is the dense lists' cut for
+    the statistics kernels (kernels/pieces.py), whichever of the two
+    runs."""
 
     def __init__(self, block, groups, num_rows: int, device, k: int,
-                 case_major_stats: bool):
+                 case_major_stats: bool, dual_draws: bool = False, widths=(32, 256)):
         F = len(block.features)
-        self.F = F
-        self.features = torch.as_tensor(block.features, dtype=torch.long, device=device)
-        self.feat_id = torch.as_tensor(block.features, dtype=torch.int32, device=device)
-        self.groups = torch.as_tensor(groups, dtype=torch.long, device=device)
         off, sc, sv = feature_slots(block)
-        self.feat_off = torch.as_tensor(off, device=device)
-        self.slot_case = torch.as_tensor(sc, device=device)
-        self.slot_val = torch.as_tensor(sv, device=device)
+        dual = (dual_features(np.diff(off), k + 1, widths) if dual_draws
+                else np.zeros(F, dtype=bool))
+        (off_d, sc_d, sv_d, pos_d), (off_u, sc_u, sv_u, pos_u) = split_feature_slots(
+            off, sc, sv, dual)
+        order = np.concatenate([pos_d, pos_u])
+        features = np.asarray(block.features)[order]
+        self.F, self.Fd, self.Fu = F, len(pos_d), len(pos_u)
+        self.features = torch.as_tensor(features, dtype=torch.long, device=device)
+        self.feat_id = torch.as_tensor(features[:self.Fd], dtype=torch.int32, device=device)
+        self.groups = torch.as_tensor(np.asarray(groups)[order], dtype=torch.long,
+                                      device=device)
+        self.feat_off = torch.as_tensor(off_d, device=device)
+        self.slot_case = torch.as_tensor(sc_d, device=device)
+        self.slot_val = torch.as_tensor(sv_d, device=device)
+        self.dual_off = torch.as_tensor(off_u, device=device)
+        self.dual_case = torch.as_tensor(sc_u, device=device)
+        self.dual_val = torch.as_tensor(sv_u, device=device)
+        self.dual_plan = DualPlan(off_u, k + 1, device)
         col, val = case_columns(block, num_rows)
-        self.up_col = torch.as_tensor(col, device=device)
+        rank = np.empty(F + 1, dtype=np.int32)  # block position -> place in `order`
+        rank[order] = np.arange(F, dtype=np.int32)
+        rank[F] = F
+        self.up_col = torch.as_tensor(rank[col], device=device)
         self.onehot = bool((block.entry_vals == 1.0).all())
         self.up_val = None if self.onehot else torch.as_tensor(val, device=device)
         self.case_major = case_major_stats and case_major_gate(
-            F, k, self.onehot, len(block.entry_rows), num_rows)
-        self.pieces = Pieces(off, device)
+            self.Fd, k, self.onehot, len(block.entry_rows), num_rows)
+        self.pieces = Pieces(off_d, device)
 
 
 class MCMCVectorLearner(MCMCLearner):
@@ -134,11 +167,17 @@ class MCMCVectorLearner(MCMCLearner):
 
     ALS_DEFAULT_REFRESH = 8
 
-    def __init__(self, *args, mesh=None, dual_draws=False, refresh_every=None,
-                 case_major_stats=True, init_params=None, **kwargs):
+    def __init__(self, *args, widths=(32, 256), mesh=None, dual_draws=True,
+                 refresh_every=None, case_major_stats=True, init_params=None, **kwargs):
         super().__init__(*args, **kwargs)
         if mesh is not None:
             raise NotImplementedError("mesh (multi-GPU) waits for ROADMAP M13")
+        # the JAX engine's segment widths: they decide which features take
+        # the dual draw (dual_features), as in the JAX engine
+        self.widths = widths
+        # dual_draws: draw the whole-feature segments of few entries through
+        # the c x c Woodbury system (dual_draw) instead of the dense d x d
+        # one; the same distribution
         self.dual_draws = dual_draws
         if refresh_every is None:
             refresh_every = self.ALS_DEFAULT_REFRESH
@@ -156,8 +195,6 @@ class MCMCVectorLearner(MCMCLearner):
             why = "relational (BS) data waits for ROADMAP M9"
         elif not hasattr(train, "indptr") or not hasattr(test, "indptr"):
             why = "streaming data waits for ROADMAP M7"
-        elif self.dual_draws:
-            why = "dual (Woodbury) draws, kernel K7, wait for ROADMAP M7 c"
         elif self.flat_incr_test:
             why = "the incremental test tail waits for ROADMAP M7"
         elif self.case_reorder:
@@ -202,7 +239,7 @@ class MCMCVectorLearner(MCMCLearner):
         for b in conflict_free_blocks(train, attr_group=attr_group_np):
             observed[b.features] = True
             blocks.append(DevBlock(b, attr_group_np[b.features], nc_train, dev, k,
-                                   self.case_major_stats))
+                                   self.case_major_stats, self.dual_draws, self.widths))
         unobserved = torch.as_tensor(np.nonzero(~observed)[0], dtype=torch.long, device=dev)
         n_unobs = int(unobserved.shape[0])
 
@@ -261,35 +298,53 @@ class MCMCVectorLearner(MCMCLearner):
         latent = y_train.clone() if classify else None
         probit = None if not classify else "sample" if do_sample else "mean"
         GG_buf = torch.empty(
-            max([b.F for b in blocks], default=0), gg_width(k), dtype=f32, device=dev
+            max([b.Fd for b in blocks], default=0), gg_width(k), dtype=f32, device=dev
         )
 
         def sweep_block(blk, alpha, w_mu, w_lambda, v_mu, v_lambda):
-            """Joint draws for every feature of one block; updates A and P
-            in place and returns the number of rejected draws."""
+            """Joint draws for every feature of one block (the dense ones,
+            then the dual ones); updates A and P in place and returns the
+            number of rejected draws."""
             theta_old = P[blk.features]  # [F, d] (a copy)
-            if blk.case_major:
-                GG = case_stats(A, P, blk.feat_off, blk.slot_case, blk.slot_val,
-                                blk.feat_id, onehot=blk.onehot, use_linear=use_linear,
-                                GG=GG_buf, pieces=blk.pieces)
-            else:
-                GG = slot_stats(A, P, blk.feat_off, blk.slot_case, blk.slot_val,
-                                blk.feat_id, use_linear=use_linear, GG=GG_buf,
-                                pieces=blk.pieces)
             lam = torch.cat([w_lambda[blk.groups][:, None], v_lambda[blk.groups]], dim=1)
             mu_pr = torch.cat([w_mu[blk.groups][:, None], v_mu[blk.groups]], dim=1)
             if not use_linear:
                 # freeze w: infinite prior precision at prior mean 0
                 lam[:, 0] = 1e30
                 mu_pr[:, 0] = 0.0
-            z = (torch.randn(blk.F, d, generator=gen, device=dev)
-                 if do_sample else None)
-            theta_new, rej = schur_draw(GG, theta_old, lam, mu_pr, z, alpha,
-                                        do_sample=do_sample, bound=draw_bound)
-            # the table uses the PRE-draw V (qp = Q - x v_old)
+            Fd = blk.Fd
+            drawn, rej = [], []
+            if Fd:
+                if blk.case_major:
+                    GG = case_stats(A, P, blk.feat_off, blk.slot_case, blk.slot_val,
+                                    blk.feat_id, onehot=blk.onehot,
+                                    use_linear=use_linear, GG=GG_buf, pieces=blk.pieces)
+                else:
+                    GG = slot_stats(A, P, blk.feat_off, blk.slot_case, blk.slot_val,
+                                    blk.feat_id, use_linear=use_linear, GG=GG_buf,
+                                    pieces=blk.pieces)
+                z = (torch.randn(Fd, d, generator=gen, device=dev)
+                     if do_sample else None)
+                th, r = schur_draw(GG, theta_old[:Fd], lam[:Fd], mu_pr[:Fd], z, alpha,
+                                   do_sample=do_sample, bound=draw_bound)
+                drawn.append(th)
+                rej.append(r.sum())
+            if blk.Fu:
+                u, dl = ((torch.randn(blk.Fu, d, generator=gen, device=dev),
+                          torch.randn(blk.dual_case.shape[0], generator=gen, device=dev))
+                         if do_sample else (None, None))
+                th, r = dual_draw(A, blk.dual_off, blk.dual_case, blk.dual_val,
+                                  theta_old[Fd:], lam[Fd:], mu_pr[Fd:], u, dl, alpha,
+                                  do_sample=do_sample, bound=draw_bound,
+                                  use_linear=use_linear, plan=blk.dual_plan)
+                drawn.append(th)
+                rej.append(r.sum())
+            theta_new = drawn[0] if len(drawn) == 1 else torch.cat(drawn)
+            # the table uses the PRE-draw V (qp = Q - x v_old); it covers
+            # the dense and the dual features alike
             dense_update(A, blk.up_col, blk.up_val, update_table(theta_old, theta_new))
             P[blk.features] = theta_new
-            return rej.sum()
+            return sum(rej)
 
         def draw_all():
             rej = torch.zeros((), dtype=torch.int64, device=dev)

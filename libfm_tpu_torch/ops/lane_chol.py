@@ -3,13 +3,13 @@ the plain PyTorch versions.
 
 On the TPU, `libfm_tpu.ops.lane_chol` lays the batch out in the vector
 lanes because XLA's batched factorization ran far above the VPU floor
-for tiny systems. On the GPU the factorization and both solves are fused
-into the `schur_draw` kernel (`csrc/schur_draw.cu`); these functions are
-the plain versions the CPU tests and `kernels.schur_draw`'s plain path
-use.
+for tiny systems. On the GPU the factorization and the solves are fused
+into the `schur_draw` and `dual_draw` kernels (`csrc/schur_draw.cu`,
+`csrc/dual_draw.cu`); these functions are the plain versions the CPU
+tests and those kernels' plain paths use.
 
 Semantics match `cholesky_lanes` / `solve_lower_lanes` /
-`solve_upper_lanes` on SPD inputs. A system that is not positive
+`solve_upper_lanes` / `cho_solve_lanes` on SPD inputs. A system that is not positive
 definite gives NaN rows (the lane Cholesky takes the square root of a
 negative pivot), so the engine's finite guard rejects the draw instead
 of the factorization raising.
@@ -38,3 +38,8 @@ def solve_upper_lanes(L: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(
         L.transpose(-1, -2), y.unsqueeze(-1), upper=True
     )[..., 0]
+
+
+def cho_solve_lanes(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve (L L^T) x = b given the lower Cholesky factor L [C, W, W]; b: [C, W]."""
+    return solve_upper_lanes(L, solve_lower_lanes(L, b))

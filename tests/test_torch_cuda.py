@@ -27,8 +27,9 @@ import torch
 
 from libfm_tpu_torch import kernels
 from libfm_tpu_torch.data.batching import FeatureBlock, feature_slots
-from libfm_tpu_torch.data.synth import movielens_like
+from libfm_tpu_torch.data.synth import ctr_like, movielens_like
 from libfm_tpu_torch.kernels import dense_update as du
+from libfm_tpu_torch.kernels import dual_draw as dd
 from libfm_tpu_torch.kernels import fm_refresh as fr
 from libfm_tpu_torch.kernels import schur_draw as sd
 from libfm_tpu_torch.kernels import sgd_step as sg
@@ -38,6 +39,7 @@ from libfm_tpu_torch.kernels import table_scatter as ts
 from libfm_tpu_torch.learners import sgd as tsgd
 from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner
 from libfm_tpu_torch.models.fm import FMConfig, FMParams
+from libfm_tpu_torch.tasks import TASK_CLASSIFICATION
 
 pytestmark = pytest.mark.cuda
 
@@ -170,6 +172,126 @@ def test_schur_draw_kernel_matches_plain(cuda, k, do_sample):
     assert r_k[0].item() == 1 and r_k[1].item() == 1
     assert torch.equal(t_k[:2], theta[:2])
     assert ((t_k - t_p).abs().max() / t_p.abs().max().clamp_min(1.0)).item() < 1e-3
+
+
+# dual_draw's (slot count, k) pairs: every count below d = k + 1, up to
+# the JAX engine's widest dual segment (64)
+DUAL_CASES = [(c, k) for k in (5, 32, 40, 128) for c in (1, 2, 3, 17, 32, 64) if c < k + 1]
+
+
+def _dual_inputs(dev, rng, k, c, onehot, F=300, nc=4000):
+    """F dual features of 1 to c slots (the first three of exactly c, one
+    of 1) on an A of nc rows, with the rows, priors and noise of a draw.
+    Returns (args of dual_draw without the keywords, counts)."""
+    d = k + 1
+    counts = rng.integers(1, c + 1, F)
+    counts[:3] = c
+    counts[3] = 1
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    sc = np.concatenate([rng.choice(nc, n, replace=False) for n in counts]).astype(np.int32)
+    sv = (np.ones(len(sc)) if onehot else rng.normal(1.0, 0.5, len(sc))).astype(np.float32)
+    A = rng.normal(0, 0.5, (nc, d)).astype(np.float32)
+    theta = rng.normal(0, 0.1, (F, d)).astype(np.float32)
+    lam = rng.uniform(0.5, 5, (F, d)).astype(np.float32)
+    mu = rng.normal(0, 0.1, (F, d)).astype(np.float32)
+    u = rng.normal(size=(F, d)).astype(np.float32)
+    dl = rng.normal(size=len(sc)).astype(np.float32)
+    return _to(dev, A, off, sc, sv, theta, lam, mu, u, dl, np.float32(1.3)), counts
+
+
+def _dual_both(args, **kw):
+    """dual_draw and its plain version on the same inputs: the reject flags
+    agree, a rejected draw keeps the old theta, and a second launch gives
+    the same bits. Returns (kernel's theta, flags, plain's theta)."""
+    t_k, r_k = dd.dual_draw(*args, **kw)
+    t_k2, _ = dd.dual_draw(*args, **kw)
+    t_p, r_p = dd.dual_draw_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(t_k, t_k2)
+    assert torch.equal(r_k, r_p)
+    theta = args[4]
+    assert torch.equal(t_k[r_k == 1], theta[r_k == 1])
+    return t_k, r_k, t_p
+
+
+def _dual_err(t_k, t_p):
+    return ((t_k - t_p).abs() / t_p.abs().clamp_min(1.0)).max().item()
+
+
+@pytest.mark.parametrize("c,k", DUAL_CASES)
+@pytest.mark.parametrize("onehot", [True, False])
+@pytest.mark.parametrize("do_sample", [True, False])
+def test_dual_draw_kernel_matches_plain(cuda, c, k, onehot, do_sample):
+    """Tolerance 1e-4 of max(1, |theta|), as chip_smoke.py holds it: fp32
+    sums in another order through K = I + Phi D^-1 Phi^T >= I."""
+    rng = np.random.default_rng(900 + 7 * c + k + onehot)
+    args, _ = _dual_inputs(cuda, rng, k, c, onehot)
+    t_k, r_k, t_p = _dual_both(args, do_sample=do_sample, bound=100.0, use_linear=True)
+    assert not r_k.any()
+    assert _dual_err(t_k, t_p) < 1e-4
+
+
+@pytest.mark.parametrize("k", [5, 40, 128])
+def test_dual_draw_kernel_rejects_what_plain_rejects(cuda, k):
+    """Every 3rd feature gets a negative prior precision (K indefinite: a
+    NaN draw) and feature 1 a mean beyond the bound; the flags equal the
+    plain version's and those draws keep the old theta."""
+    rng = np.random.default_rng(950 + k)
+    args, _ = _dual_inputs(cuda, rng, k, min(32, k), onehot=False)
+    lam, mu = args[5], args[6]
+    lam[::3] = -1e-3 * lam[::3]
+    mu[1] = 1e4
+    t_k, r_k, t_p = _dual_both(args, do_sample=True, bound=100.0, use_linear=True)
+    assert r_k[::3].all() and r_k[1].item() == 1
+    ok = r_k == 0
+    assert ((t_k[ok] - t_p[ok]).abs() / t_p[ok].abs().clamp_min(1.0)).max().item() < 1e-4
+
+
+@pytest.mark.parametrize("k", [5, 128])
+def test_dual_draw_kernel_frozen_linear_term(cuda, k):
+    """use_linear False: h's w column is zero, and the learner's lam0 = 1e30
+    and mu0 = 0 keep w at the prior's draw alone."""
+    rng = np.random.default_rng(970 + k)
+    args, _ = _dual_inputs(cuda, rng, k, min(17, k), onehot=False)
+    args[5][:, 0] = 1e30
+    args[6][:, 0] = 0.0
+    for do_sample in (True, False):
+        t_k, r_k, t_p = _dual_both(args, do_sample=do_sample, bound=100.0,
+                                   use_linear=False)
+        assert not r_k.any()
+        assert _dual_err(t_k, t_p) < 1e-4
+        assert t_k[:, 0].abs().max().item() < 1e-12
+
+
+def test_dual_draw_kernel_refuses_longer_lists(cuda):
+    rng = np.random.default_rng(990)
+    args, _ = _dual_inputs(cuda, rng, 128, 65, onehot=True)
+    with pytest.raises(ValueError, match="at most 64"):
+        dd.dual_draw(*args, do_sample=True, bound=100.0, use_linear=True)
+
+
+def test_als_dual_on_cuda_follows_the_cpu_trajectory(cuda):
+    """ALS classification with dual draws (ctr_like(4, 100, 2000, seed=1),
+    k=40: every block has dense and dual features) on the card against the
+    CPU from the same initial parameters, within 1e-4 at every iteration."""
+    train, test, groups = ctr_like(4, 100, 2000, seed=1)
+    n, k = train.num_features, 40
+    rng = np.random.default_rng(1)
+    init = (np.float32(0.0), rng.normal(0, 0.1, n).astype(np.float32),
+            rng.normal(0, 0.1, (n, k)).astype(np.float32))
+    cfg = FMConfig(num_features=n, num_factors=k, regw=5.0, regv=5.0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        learner = ALSVectorLearner(cfg, task=TASK_CLASSIFICATION, num_iter=6, seed=1,
+                                   verbose=False, device=dev, attr_group=groups,
+                                   init_params=init)
+        runs[dev] = learner.learn(train, test)
+    assert kernels.launch_counts()["dual_draw"] == 4 * 6
+    for hc, hg in zip(runs["cpu"], runs["cuda"], strict=True):
+        for key in ("test_this", "test_this_m2", "train"):
+            assert abs(hc[key] - hg[key]) < 1e-4, (key, hc, hg)
+        assert hg["rejected"] == 0
 
 
 @pytest.mark.parametrize("k", [8, 64, 100])

@@ -56,10 +56,10 @@ def test_port_file_list_is_complete():
     assert {"mcmc_vector.py", "fm_refresh.py", "slot_stats.py", "schur_draw.py",
             "dense_update.py", "sgd.py", "sgd_step.py", "table_scatter.py",
             "table_read.py", "pallas_gather.py", "pallas_scatter.py",
-            "case_stats.py", "probit_latent.py", "chip_smoke.py"} <= names
+            "case_stats.py", "probit_latent.py", "dual_draw.py", "chip_smoke.py"} <= names
 
 
-@pytest.mark.parametrize("args", [[], ["--config3-kernels"]])
+@pytest.mark.parametrize("args", [[], ["--config3-kernels"], ["--config5-kernels"]])
 def test_chip_smoke_without_cuda_fails_and_prints_no_result(args):
     """Without a CUDA device chip_smoke.py exits non-zero before it
     builds or runs anything, and prints nothing on its standard output."""
@@ -100,18 +100,19 @@ def test_importing_kernels_builds_nothing():
     assert kernels._lib is None
     reg = kernels.import_all()
     assert set(reg) == {"fm_refresh", "fm_refresh_probit", "slot_stats", "case_stats",
-                        "schur_draw", "dense_update", "probit_latent", "sgd_step",
-                        "table_scatter", "table_read"}
+                        "schur_draw", "dual_draw", "dense_update", "probit_latent",
+                        "sgd_step", "table_scatter", "table_read"}
     assert kernels._lib is None
     assert sorted(p.name for p in kernels.CSRC_DIR.glob("*.cu")) == [
-        "case_stats.cu", "dense_update.cu", "fm_refresh.cu", "probit_latent.cu",
-        "schur_draw.cu", "sgd_step.cu", "slot_stats.cu", "table_read.cu",
-        "table_scatter.cu"]
+        "case_stats.cu", "dense_update.cu", "dual_draw.cu", "fm_refresh.cu",
+        "probit_latent.cu", "schur_draw.cu", "sgd_step.cu", "slot_stats.cu",
+        "table_read.cu", "table_scatter.cu"]
 
 
 def _cpu_calls():
     from libfm_tpu_torch.kernels import case_stats as cs
     from libfm_tpu_torch.kernels import dense_update as du
+    from libfm_tpu_torch.kernels import dual_draw as dd
     from libfm_tpu_torch.kernels import fm_refresh as fr
     from libfm_tpu_torch.kernels import probit_latent as pl
     from libfm_tpu_torch.kernels import schur_draw as sd
@@ -149,6 +150,9 @@ def _cpu_calls():
         "probit_latent": lambda: pl.probit_latent(A, torch.zeros(nc), torch.ones(nc)),
         "schur_draw": lambda: sd.schur_draw(GG, th, lam, th, None, torch.tensor(1.0),
                                             do_sample=False, bound=1e6),
+        "dual_draw": lambda: dd.dual_draw(A, off, sc, sv, th, lam, th, th, torch.ones(6),
+                                          torch.tensor(1.0), do_sample=True, bound=1e6,
+                                          use_linear=True),
         "dense_update": lambda: du.dense_update(A, col, None, tab),
         "sgd_step": lambda: sg.sgd_step(
             P, ids, vals, torch.ones(nc), torch.ones(nc, dtype=torch.bool), w0,
@@ -162,7 +166,7 @@ def _cpu_calls():
 
 
 @pytest.mark.parametrize("name", ["fm_refresh", "fm_refresh_probit", "slot_stats",
-                                  "case_stats", "schur_draw", "dense_update",
+                                  "case_stats", "schur_draw", "dual_draw", "dense_update",
                                   "probit_latent", "sgd_step", "table_scatter",
                                   "table_read"])
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(name):
