@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (libfm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # configs #3, #4, #5, #1 and #4b; the table probes
+    python3 chip_smoke.py            # configs #3, #4, #5, #1 and #4b (SGD, SGDA); the probes
     python3 chip_smoke.py --config3-kernels   # config #3's kernel checks only
     python3 chip_smoke.py --config5-kernels   # config #5's dual_draw check only
 
@@ -39,6 +39,17 @@ What it does, in order (any failed phase exits non-zero):
      ids are all equal through table_scatter;
    - table_scatter at probe P4's shape (against index_add_) and
      table_read at probes P1 (scale 8) and P3 (scale 1);
+   - SGDA (K13): one whole epoch with lambda steps (sgda_step with the w0
+     update + table_scatter + sgda_lambda on validation batch i % NV) from
+     the same table, caches and regularizers, kernels against plain
+     versions, at config #1's settings ("pair", users and items as the 2
+     groups), #4b's ("onehot", the 13 fields) and #4b's data with values
+     from N(1, 0.25) ("general"), each on a validation set carved from the
+     train rows (a seeded random ninth): batch by batch in lockstep (the
+     update rows, the table, the cache rows, the regularizers, and each
+     batch's in-kernel w0 bitwise against `w0_update` on its sum) and
+     free-running to the epoch's end; each kernel also timed alone over an
+     epoch's launches;
    - config #4 (bench.py:236-277: MCMC probit classification, k=16, on
      #4b's data with its 13 field groups): case_stats on the 13 blocks
      (one iteration's launches; slot_stats, which computes the same GG,
@@ -65,8 +76,13 @@ What it does, in order (any failed phase exits non-zero):
    (classification: slot_stats and schur_draw on each block's dense
    features, dual_draw on its dual ones, 26 blocks an iteration); and
    the paths of configs #3 and #4 launch no dual_draw; SGDLearner for 3 epochs at config #1
-   (regression) and config #4b (classification). Checks that every metric
-   is finite, that no draw was rejected and that the ALS train RMSE falls;
+   (regression) and config #4b (classification); SGDALearner for 3 epochs
+   at config #1's settings (8M train rows, 1M validation, 1M test) and
+   #4b's (1.6M, 200K, 200K), which must launch sgda_step and
+   table_scatter once a batch, sgda_lambda once a batch from the second
+   epoch, fm_refresh for the evaluations and nothing else. Checks that
+   every metric is finite, that no draw was rejected, that the ALS train
+   RMSE falls and that every learned regularizer is finite and >= 0;
    prints accuracy, log10-loss and AUC at each config #4 and #5 iteration.
 5. Probe phase. The ported table probes (libfm_tpu_torch.studies
    pallas_gather.main and pallas_scatter.main) at the studies' shapes,
@@ -114,6 +130,24 @@ SGD_CONFIGS = {
     "sgd_4b": dict(k=16, task=1, lr=1e-4, batch=8192, regw=0.01, regv=0.01),
 }
 SGD_EPOCHS = 3
+# SGDA (learners/sgda.py, K13) with config #1's and #4b's data and
+# settings; the regularizers are learned per group (users and items at
+# #1, the 13 fields at #4b) on a validation set carved from the train
+# rows: a seeded random ninth (HOLDOUT_SEED), the test set untouched
+SGDA_CONFIGS = {"sgda_1": "sgd_1", "sgda_4b": "sgd_4b"}
+SGDA_EPOCHS = 3
+HOLDOUT_SEED = 7
+# SGDA's kernels against their plain versions over an epoch. In lockstep
+# (every batch from the kernels' state): the update rows, the table after
+# the scatter and the cache rows 1e-4 relative per column, as SGD's; the
+# regularizers after a lambda step, beyond two ulps of their value, 1e-3
+# of the step the plain version takes (the step sums over a validation
+# batch of up to 32,768 rows in f32, the tests' 1,000 rows hold 1e-4).
+# Free-running to the epoch's end:
+# table and caches 1e-4 per column, the regularizers 1e-3 of their
+# largest value; w0 is recorded (its line is chaotic at #1's batch size,
+# ROADMAP §3) and held bitwise in lockstep.
+SGDA_TOL, SGDA_REG_TOL = 1e-4, 1e-3
 CTR_FIELDS, CTR_CARD, CTR_EXAMPLES = 13, 5000, 2_000_000
 # config #4 (bench.py:236-277, bench_ctr): MCMC probit classification on
 # the same CTR data, k=16, the 13 fields as groups; ALS with regw = regv = 5
@@ -161,6 +195,8 @@ EXPECTED = {
                "dual_draw", "dense_update", "probit_latent"},
     "sgd_1": {"sgd_step", "table_scatter", "fm_refresh"},
     "sgd_4b": {"sgd_step", "table_scatter", "fm_refresh"},
+    "sgda_1": {"sgda_step", "table_scatter", "sgda_lambda", "fm_refresh"},
+    "sgda_4b": {"sgda_step", "table_scatter", "sgda_lambda", "fm_refresh"},
     "probes": {"table_read", "table_scatter"},
 }
 
@@ -1131,6 +1167,298 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
     return out
 
 
+def sgda_data(ml, ctr):
+    """SGDA's runs: name -> (train, test, validation, groups), at config
+    #1 (the ML data; users group 0, items group 1) and #4b (the CTR data,
+    its 13 field groups)."""
+    import numpy as np
+
+    ml_groups = (np.arange(ml[0].num_features) >= USERS).astype(np.int32)
+    out = {}
+    for name, (train, test, groups) in (("sgda_1", (ml[0], ml[1], ml_groups)),
+                                        ("sgda_4b", ctr)):
+        trn, val = train.holdout(HOLDOUT_SEED)
+        out[name] = (trn, test, val, groups)
+        print(f"{name}: {trn.num_rows} train, {val.num_rows} validation, {test.num_rows} "
+              f"test rows; {int(groups.max()) + 1} groups")
+    return out
+
+
+def max_step_err(got, want, was):
+    """The regularizers after a lambda step against the plain version's:
+    the largest |got - want| beyond two ulps of want (both round
+    was + step to f32, and at #4b's lr of 1e-4 a step is ~1e-6 of a
+    value ~0.02 whose ulp is ~2e-9), over the largest step |want - was|."""
+    ulp = torch.nextafter(want.abs(), torch.full_like(want, math.inf)) - want.abs()
+    excess = ((got - want).abs() - 2 * ulp).clamp_min(0)
+    return (excess.max() / (want - was).abs().max().clamp_min(1e-12)).item()
+
+
+def sgda_kernel_checks(args, rec, dev, runs):
+    """Phase 3, SGDA: one whole epoch in the form of the second and later
+    epochs (lambda steps on), kernels against plain versions from the same
+    table, caches and regularizers, at config #1 ("pair"), config #4b
+    ("onehot") and #4b's data with values from N(1, 0.25) ("general"): in
+    lockstep batch by batch (w0 bitwise against `w0_update` on the
+    kernel's sum) and free-running to the epoch's end; then each kernel
+    alone over an epoch's launches. Returns the rows of sgda_step and
+    sgda_lambda (config #1's numbers, every case under "cases")."""
+    import numpy as np
+
+    from libfm_tpu_torch.data.batching import batch_dataset
+    from libfm_tpu_torch.data.dataset import Dataset
+    from libfm_tpu_torch.kernels import sgda_lambda as sl
+    from libfm_tpu_torch.kernels import sgda_step as sa
+    from libfm_tpu_torch.kernels import table_scatter as ts
+    from libfm_tpu_torch.learners.sgd import _epoch_mode
+    from libfm_tpu_torch.learners.sgda import make_epoch_fn, sgda_batches
+    from libfm_tpu_torch.models.fm import FMConfig
+
+    trn4, _, val4, groups4 = runs["sgda_4b"]
+    rng = np.random.default_rng(SEED)
+
+    def valued(ds):
+        return Dataset(ds.indptr, ds.cols, rng.normal(1.0, 0.25, ds.nnz).astype(np.float32),
+                       ds.target, ds.num_features, ds.min_target, ds.max_target)
+
+    trn1, _, val1, groups1 = runs["sgda_1"]
+    cases = [("config #1 pair", "sgda_1", trn1, val1, groups1, "pair"),
+             ("config #4b onehot", "sgda_4b", trn4, val4, groups4, "onehot"),
+             ("config #4b general", "sgda_4b", valued(trn4), valued(val4), groups4,
+              "general")]
+    reps = max(3, args.reps // 3)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = {"sgda_step": [], "sgda_lambda": []}
+    for label, cname, trn, val, groups, mode in cases:
+        t0 = time.perf_counter()
+        c = SGD_CONFIGS[SGDA_CONFIGS[cname]]
+        k, d, lr, task = c["k"], c["k"] + 1, c["lr"], c["task"]
+        n, G = trn.num_features, int(groups.max()) + 1
+        tb, vb = batch_dataset(trn, c["batch"]), batch_dataset(val, c["batch"])
+        if (_epoch_mode(trn, tb), _epoch_mode(val, vb)) != (mode, mode):
+            fail(f"SGDA {label}: the learner would pick modes {_epoch_mode(trn, tb)} and "
+                 f"{_epoch_mode(val, vb)}")
+        tr = sgda_batches(tb, n, dev)
+        va = [torch.as_tensor(x, device=dev) for x in (vb.ids, vb.vals, vb.y, vb.row_mask)]
+        attr = torch.as_tensor(groups, device=dev)
+        nb, B, L = tr.ids.shape
+        nv = vb.ids.shape[0]
+        lims = dict(task=task, lr=lr, min_target=float(trn.min_target),
+                    max_target=float(trn.max_target))
+        # the state: a table and w0 as the SGD check's, caches ~N(0, 0.01^2),
+        # regularizers in [0, 0.02)
+        P0 = torch.cat([0.01 * torch.randn(n, 1, generator=g, device=dev),
+                        0.1 * torch.randn(n, k, generator=g, device=dev)], 1)
+        Gc0 = 0.01 * torch.randn(n + 1, d, generator=g, device=dev)
+        rw0 = 0.02 * torch.rand(G, generator=g, device=dev)
+        rv0 = 0.02 * torch.rand(G, k, generator=g, device=dev)
+        w00 = torch.tensor(0.1, device=dev)
+        batches = list(zip(*(a.unbind(0) for a in (*tr.arrays, tr.order, tr.gc_row)),
+                           (s[:m] for s, m in zip(tr.sids.unbind(0), tr.n_real)),
+                           tr.n_real, tr.max_runs))
+        vbatches = list(zip(*(a.unbind(0) for a in va)))
+        t1 = time.perf_counter()
+        secs = {"set-up": t1 - t0}
+
+        # lockstep: each batch's kernels and plain versions from the kernels' state
+        P, Gc, w0, rw, rv = P0.clone(), Gc0.clone(), w00.clone(), rw0.clone(), rv0.clone()
+        errs, reg_errs, w0_bits = [], [], []
+        for i, (ids, vals, y, m, order, gc_row, sids, nr, run) in enumerate(batches):
+            w0_was, Gc_p = w0.clone(), Gc.clone()
+            u_k, r_k = sa.sgda_step(P, ids, vals, y, m, w0, Gc, gc_row, attr, rw, rv,
+                                    mode=mode, order=order, **lims)
+            u_p, r_p = sa.sgda_step_plain(P, ids, vals, y, m, w0_was.clone(), Gc_p, gc_row,
+                                          attr, rw, rv, mode=mode, order=order, **lims)
+            P_p = ts.table_scatter_plain(P.clone(), sids, None, u_k[:nr])
+            ts.table_scatter(P, sids, None, u_k[:nr], max_run=run)
+            errs.append(torch.stack([
+                col_rel_err(u_k[:nr], u_p[:nr]), col_rel_err(P, P_p),
+                col_rel_err(Gc[:n], Gc_p[:n]),
+                ((r_k - r_p).abs() / r_p.abs().clamp_min(1.0)).max()]))
+            w0_bits.append(torch.equal(w0, sa.w0_update(w0_was, lr, r_k[0])))
+            rw_was, rv_was = rw.clone(), rv.clone()
+            rw_p, rv_p = rw.clone(), rv.clone()
+            sl.sgda_lambda(P, Gc, *vbatches[i % nv], w0, attr, rw, rv, mode=mode, **lims)
+            sl.sgda_lambda_plain(P, Gc, *vbatches[i % nv], w0, attr, rw_p, rv_p, mode=mode,
+                                 **lims)
+            reg_errs.append(max(max_step_err(rw, rw_p, rw_was),
+                                max_step_err(rv, rv_p, rv_was)))
+        err = torch.stack(errs).max().item()
+        reg_err = max(reg_errs)
+        if not all(w0_bits):
+            fail(f"SGDA {label}: sgda_step's w0 differs from w0_update on its sum in "
+                 f"{w0_bits.count(False)} of {len(w0_bits)} batches")
+        lock_regs = (rw.clone(), rv.clone())
+
+        # free-running from the same state: the learner's epoch (kernels)
+        # and the plain versions' epoch
+        cfg = FMConfig(num_features=n, num_factors=k)
+        epoch = make_epoch_fn(cfg, task, mode, mode)
+        ends = {}
+        for side in ("kernels", "plain"):
+            S = [P0.clone(), w00.clone(), Gc0.clone(), rw0.clone(), rv0.clone()]
+            if side == "kernels":
+                epoch(*S, attr, tr, va, lr, lims["min_target"], lims["max_target"])
+            else:
+                P_, w0_, Gc_, rw_, rv_ = S
+                for i, (ids, vals, y, m, order, gc_row, sids, nr, _) in enumerate(batches):
+                    upd, _ = sa.sgda_step_plain(P_, ids, vals, y, m, w0_, Gc_, gc_row, attr,
+                                                rw_, rv_, mode=mode, order=order, **lims)
+                    ts.table_scatter_plain(P_, sids, None, upd[:nr])
+                    sl.sgda_lambda_plain(P_, Gc_, *vbatches[i % nv], w0_, attr, rw_, rv_,
+                                         mode=mode, **lims)
+            ends[side] = S
+        (Pk, w0k, Gck, rwk, rvk), (Pp, w0p, Gcp, rwp, rvp) = ends["kernels"], ends["plain"]
+        free = dict(table=col_rel_err(Pk, Pp).item(), caches=col_rel_err(Gck[:n], Gcp[:n]).item(),
+                    reg_w=((rwk - rwp).abs().max() / rwp.abs().max().clamp_min(1e-30)).item(),
+                    reg_v=((rvk - rvp).abs().max() / rvp.abs().max().clamp_min(1e-30)).item(),
+                    w0_kernels=w0k.item(), w0_plain=w0p.item())
+        t2 = time.perf_counter()
+        secs["lockstep and free-running epochs"] = t2 - t1
+        print(f"SGDA epoch, {label}: {nb} batches of {B}x{L}, {nv} validation batches, G={G}; "
+              f"kernels against plain in lockstep: rows, table, caches, sums {err:.3g} (tol "
+              f"{SGDA_TOL:g}, relative per column), regularizers {reg_err:.3g} of the plain "
+              f"step beyond 2 ulps (tol {SGDA_REG_TOL:g}), w0 bitwise on the kernel's sums; free-running "
+              f"after one epoch: {free} (tol table and caches {SGDA_TOL:g}, regularizers "
+              f"{SGDA_REG_TOL:g}; w0 recorded)")
+        if not (err <= SGDA_TOL and reg_err <= SGDA_REG_TOL and free["table"] <= SGDA_TOL
+                and free["caches"] <= SGDA_TOL and free["reg_w"] <= SGDA_REG_TOL
+                and free["reg_v"] <= SGDA_REG_TOL):
+            fail(f"SGDA epoch at {label}: kernels and plain versions differ: lockstep "
+                 f"{err}, regularizers {reg_err}, free-running {free}")
+        if not (torch.isfinite(lock_regs[1]).all() and (lock_regs[1] >= 0).all()):
+            fail(f"SGDA {label}: regularizers non-finite or negative")
+
+        # each kernel alone over the epoch's launches, in the learner's form
+        bufs = dict(upd=torch.empty(B * L, d, device=dev), red=torch.empty(1, device=dev),
+                    scratch=sa.sgda_step_scratch(dev))
+        Gc_t, w0_t = Gc0.clone(), w00.clone()
+        lam_s = sl.sgda_lambda_scratch(G, k, dev)
+        rw_t, rv_t = rw0.clone(), rv0.clone()
+
+        def steps(fn):
+            return lambda: [fn(P0, i_, v_, y_, m_, w0_t, Gc_t, gr_, attr, rw0, rv0, mode=mode,
+                               order=o_, **bufs, **lims)
+                            for i_, v_, y_, m_, o_, gr_, *_ in batches]
+
+        def lambdas(fn):
+            return lambda: [fn(P0, Gc0, *vbatches[i % nv], w00, attr, rw_t, rv_t, mode=mode,
+                               **({"scratch": lam_s} if fn is sl.sgda_lambda else {}), **lims)
+                            for i in range(nb)]
+
+        E = nb * B * L
+        ids_np = tb.ids.reshape(nb, -1)
+        uniq = int(sum(np.unique(r).size for r in ids_np))
+        writers = int((tr.gc_row < n).sum().item())
+        vids = vb.ids.reshape(nv, -1)
+        v_uniq = [np.unique(r).size for r in vids]
+        uniq_v = int(sum(v_uniq[i % nv] for i in range(nb)))
+        Ev = nb * vb.ids.shape[1] * vb.ids.shape[2]
+        valued_mode = mode == "general"
+        timed = f"one epoch's launches ({nb}), {label}"
+        row = kernel_row(
+            "sgda_step", "libfm_tpu/learners/sgda.py:70", err, SGDA_TOL,
+            cuda_ms(steps(sa.sgda_step), reps), cuda_ms(steps(sa.sgda_step_plain), 1, warmup=0),
+            # ids, order, gc_row (and values) an entry; y and the mask a row;
+            # each touched table row and its group id; the update rows; the
+            # cache rows written; the regularizers, w0 and the sum a batch
+            nbytes=E * (12 + 4 * valued_mode) + nb * B * 5 + uniq * (d * 4 + 4)
+            + E * d * 4 + writers * d * 4 + nb * (G * d * 4 + 12),
+            flops=E * 12 * d, lib_ms=None, timed=timed, label=f" ({label})")
+        row["library_ms_none_because"] = ("no one PyTorch call gathers, predicts and forms "
+                                          "the update and cache rows")
+        rows["sgda_step"].append(row)
+        row = kernel_row(
+            "sgda_lambda", "libfm_tpu/learners/sgda.py:109", reg_err, SGDA_REG_TOL,
+            cuda_ms(lambdas(sl.sgda_lambda), reps),
+            cuda_ms(lambdas(sl.sgda_lambda_plain), 1, warmup=0),
+            # ids (and values) an entry; y and the mask a row; each touched
+            # row of P and of Gc and its group id; the regularizers read and
+            # written, w0
+            nbytes=Ev * (4 + 4 * valued_mode) + nb * vb.ids.shape[1] * 5
+            + uniq_v * (2 * d * 4 + 4) + nb * (2 * G * d * 4 + 4),
+            flops=Ev * 20 * d, lib_ms=None, timed=timed, label=f" ({label})")
+        row["library_ms_none_because"] = ("no one PyTorch call looks ahead, predicts and "
+                                          "reduces per group")
+        rows["sgda_lambda"].append(row)
+        rec.setdefault("sgda_epoch", {})[label] = dict(
+            batches=nb, validation_batches=nv, groups=G, entries=E, unique_rows=uniq,
+            cache_writers=writers, lockstep_err=err, lockstep_reg_err=reg_err,
+            free_running=free, check_seconds=dict(secs, timing=time.perf_counter() - t2))
+        print(f"SGDA check seconds, {label}: {rec['sgda_epoch'][label]['check_seconds']}")
+        del tr, va, batches, vbatches, bufs, P, Gc, P_p, Gc_p, ends
+        torch.cuda.empty_cache()
+    out = []
+    for name, rs in rows.items():
+        main_row = dict(rs[0])
+        main_row["cases"] = {r["timed"]: {key: r[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for r in rs}
+        out.append(main_row)
+    return out
+
+
+def run_sgda(name, runs, args, rec):
+    """Path phase: SGDALearner for SGDA_EPOCHS epochs at one config. Its
+    batch loop must launch sgda_step and table_scatter once a batch and,
+    from the second epoch, sgda_lambda once a batch; besides them only
+    fm_refresh (three evaluations an epoch)."""
+    from libfm_tpu_torch import kernels
+    from libfm_tpu_torch.data.batching import batch_dataset
+    from libfm_tpu_torch.learners.sgda import SGDALearner
+    from libfm_tpu_torch.models.fm import FMConfig
+
+    c = SGD_CONFIGS[SGDA_CONFIGS[name]]
+    train, test, val, groups = runs[name]
+    cfg = FMConfig(num_features=train.num_features, num_factors=c["k"])
+    learner = SGDALearner(cfg, attr_group=groups, task=c["task"], num_iter=SGDA_EPOCHS,
+                          learn_rate=c["lr"], batch_size=c["batch"], seed=SEED)
+    nb = batch_dataset(train, c["batch"]).num_batches
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    prof = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    t0 = time.perf_counter()
+    hist = learner.learn(train, test, val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if prof is not None:
+        prof.stop()
+        profile_summary(prof, args.profile, rec, name, batches=nb)
+    secs = [h[3] for h in hist]
+    regs = (learner.reg_w.cpu(), learner.reg_v.cpu())
+    rec[name] = dict(history=hist, launches=counts, learn_seconds=wall,
+                     setup_seconds=wall - sum(secs), batches=nb,
+                     reg_w=regs[0].tolist(), reg_v=regs[1].tolist(),
+                     peak_mem_bytes=torch.cuda.max_memory_allocated())
+    print(f"{name}: {nb} batches; launches {counts}; learn() {wall:.2f} s, of which set-up "
+          f"and evaluation {wall - sum(secs):.2f} s; per-epoch s {secs}")
+    for it, (tr, te, vl, s) in enumerate(hist):
+        print(f"{name} epoch {it}: train {tr:.6g}, test {te:.6g}, validation {vl:.6g}, "
+              f"{s:.4f} s")
+    print(f"{name} final regularizers: reg_w {[round(x, 6) for x in regs[0].tolist()]}, "
+          f"reg_v by group (mean, max) "
+          f"{[(round(r.mean().item(), 6), round(r.max().item(), 6)) for r in regs[1]]}")
+    check_launches(name, counts)
+    want = dict(sgda_step=nb * SGDA_EPOCHS, table_scatter=nb * SGDA_EPOCHS,
+                sgda_lambda=nb * (SGDA_EPOCHS - 1), fm_refresh=3 * SGDA_EPOCHS)
+    wrong = {key: (v, want.get(key, 0)) for key, v in counts.items() if v != want.get(key, 0)}
+    if wrong:
+        fail(f"{name}: launches (made, expected) {wrong}")
+    for it, h in enumerate(hist):
+        if not all(math.isfinite(x) for x in h[:3]):
+            fail(f"{name}: non-finite metric at epoch {it}: {h}")
+    for r in regs:
+        if not (torch.isfinite(r).all() and (r >= 0).all()):
+            fail(f"{name}: a regularizer is non-finite or negative: {r}")
+    return counts
+
+
 def table_checks(args, rec, dev, scatter_row):
     """Phase 3, the probes' shapes: table_scatter at P4's (against
     index_add_, added to the table_scatter row under "p4"), table_read at
@@ -1258,8 +1586,9 @@ def run_probes(rec):
     return counts
 
 
-# the device names of the SGD batch loop's two kernels
-BATCH_KERNELS = ("sgd_step_kernel", "scatter_narrow", "scatter_wide")
+# the device names of the SGD and SGDA batch loops' kernels
+BATCH_KERNELS = ("sgd_step_kernel", "scatter_narrow", "scatter_wide", "sgda_step_kernel",
+                 "sgda_lambda_kernel")
 
 
 def profile_summary(prof, out_dir, rec, name, batches=None):
@@ -1267,9 +1596,9 @@ def profile_summary(prof, out_dir, rec, name, batches=None):
     epoch (the learners' "iteration N" / "epoch N" ranges) the wall time,
     the device-busy time (union of the device activities inside the
     range) and the device time by name; for the first one also its
-    longest host events. For an SGD run (`batches` a epoch) also the
-    device activities an epoch, the batch loop's kernels a batch, and the
-    torch ops an epoch with those run at least once a batch. Writes
+    longest host events. For an SGD or SGDA run (`batches` a epoch) also
+    the device activities an epoch, the batch loop's kernels a batch, and
+    the torch ops an epoch with those run at least once a batch. Writes
     DIR/trace_<name>.json."""
     from torch.autograd import DeviceType
 
@@ -1314,8 +1643,8 @@ def profile_summary(prof, out_dir, rec, name, batches=None):
                        other_device_activities=len(inside) - loop, torch_ops=ops,
                        torch_ops_once_a_batch_or_more={
                            k: v for k, v in ops.items() if v >= batches})
-            print(f"profile {name} {ev.name}: {batches} batches, {loop} launches of "
-                  f"sgd_step/table_scatter ({loop / batches:g} a batch), "
+            print(f"profile {name} {ev.name}: {batches} batches, {loop} launches of the "
+                  f"batch loop's kernels ({loop / batches:g} a batch), "
                   f"{len(inside) - loop} other device activities; torch ops {ops}")
         rows.append(row)
         print(f"profile {name} {ev.name}: wall {wall:.3f} ms, device busy "
@@ -1407,7 +1736,7 @@ def main(argv=None) -> int:
                     help="timed runs per kernel, plain version and library call")
     ap.add_argument("--out", default=None, help="also write the results here")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="run the MCMC and SGD learners under torch.profiler: "
+                    help="run the MCMC, SGD and SGDA learners under torch.profiler: "
                     "print each iteration's or epoch's device-busy time and write "
                     "DIR/trace_<run>.json (their per-iteration seconds then "
                     "include the profiler's cost)")
@@ -1476,6 +1805,9 @@ def main(argv=None) -> int:
     t0 = done("SGD kernel checks", t0)
     table.append(table_checks(args, rec, dev, table[-1]))
     t0 = done("probe-shape kernel checks", t0)
+    sgda_runs = sgda_data(data, ctr)
+    table += sgda_kernel_checks(args, rec, dev, sgda_runs)
+    t0 = done("SGDA data and kernel checks", t0)
     table += ctr_kernel_checks(args, rec, dev, ctr)
     t0 = done("config #4 kernel checks", t0)
     lv = lv_data()
@@ -1514,6 +1846,10 @@ def main(argv=None) -> int:
     t0 = done("SGD #1 path", t0)
     counts["sgd_4b"] = run_sgd("sgd_4b", ctr[:2], args, rec)
     t0 = done("SGD #4b path", t0)
+    for name in SGDA_CONFIGS:
+        counts[name] = run_sgda(name, sgda_runs, args, rec)
+        t0 = done(f"SGDA {name} path", t0)
+    del sgda_runs
     counts["probes"] = run_probes(rec)
     done("probe path", t0)
     phase["total, from the script's start"] = time.perf_counter() - T_START
@@ -1535,6 +1871,9 @@ def main(argv=None) -> int:
     for name in SGD_CONFIGS:
         print(f"{name} per-epoch seconds on {smi}: "
               f"{[round(h[2], 6) for h in rec[name]['history']]}")
+    for name in SGDA_CONFIGS:
+        print(f"{name} per-epoch seconds on {smi}: "
+              f"{[round(h[3], 6) for h in rec[name]['history']]}")
     print(smi)  # the card, as nvidia-smi names it, on the line before the last
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -29,6 +29,7 @@ from libfm_tpu_torch.learners.mcmc_vector import (  # noqa: E402
     MCMCVectorLearner,
 )
 from libfm_tpu_torch.learners.sgd import SGDLearner  # noqa: E402
+from libfm_tpu_torch.learners.sgda import SGDALearner  # noqa: E402
 from libfm_tpu_torch.models.fm import (  # noqa: E402
     FMConfig,
     FMParams,
@@ -49,6 +50,7 @@ __all__ = [
     "MCMCVectorLearner",
     "ALSVectorLearner",
     "SGDLearner",
+    "SGDALearner",
     "resolve_device",
     "TASK_REGRESSION",
     "TASK_CLASSIFICATION",

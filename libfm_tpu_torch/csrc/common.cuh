@@ -304,4 +304,41 @@ __host__ __forceinline__ bool valid_padded_width(int kp, int k) {
          (kp == 16 || k > kp / 2);
 }
 
+// ---- SGDA (libfm_tpu/learners/sgda.py): sgda_step.cu and sgda_lambda.cu
+
+// The sum over a lane group of G lanes (G a power of two dividing 32,
+// groups aligned in the warp); every lane of the warp calls it and every
+// lane of a group gets its group's sum.
+template <int G>
+__device__ __forceinline__ float lane_group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+// SGDA's loss derivative (sgda.py:39-44, adapt_reg.h:139-144):
+// 2 (clamp(pred) - y) for regression (task 0), y (sigmoid(y pred) - 1)
+// for classification.
+__device__ __forceinline__ float sgda_multiplier(float pred, float y, int task, float min_t,
+                                                 float max_t) {
+  if (task == 0) return 2.0f * (fminf(fmaxf(pred, min_t), max_t) - y);
+  return y * (1.0f / (1.0f + expf(-y * pred)) - 1.0f);
+}
+
+// The multiprocessors of the current device, asked once a device.
+inline cudaError_t device_sms(int* sms) {
+  constexpr int kDevices = 64;
+  static int cached[kDevices];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    err = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached[dev];
+  return cudaSuccess;
+}
+
 }  // namespace libfm

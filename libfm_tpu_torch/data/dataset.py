@@ -134,6 +134,22 @@ class Dataset:
         ds.relations = [r.permuted(perm) for r in self.relations]
         return ds
 
+    def holdout(self, seed: int) -> tuple["Dataset", "Dataset"]:
+        """(train, validation): a random ninth of the rows, drawn from
+        `seed`, as the validation set for SGDA and the rest as train, both
+        in the order `permuted` gives them and with the whole set's clamp
+        range. Relation blocks are not carried (SGDA takes none)."""
+        sh = self.permuted(np.random.default_rng(seed).permutation(self.num_rows))
+        nv = self.num_rows // 9
+
+        def rows(a, b):
+            lo, hi = sh.indptr[a], sh.indptr[b]
+            return Dataset(sh.indptr[a:b + 1] - lo, sh.cols[lo:hi], sh.vals[lo:hi],
+                           sh.target[a:b], self.num_features, self.min_target,
+                           self.max_target)
+
+        return rows(nv, self.num_rows), rows(0, nv)
+
     def binarize_targets(self) -> None:
         """Map targets to +-1 for classification (libFM libfm.cpp:302-305)."""
         self.target = np.where(self.target > 0.0, 1.0, -1.0).astype(np.float32)

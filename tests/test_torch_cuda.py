@@ -17,7 +17,10 @@ heavy duplicate ids in a batch, a padded final batch and table widths 9,
 part of a tile, ragged tails and many tiles a CTA, L = 1, 2, 5 and 13,
 blocks that cover no case or few tiles, the same bits on a second
 launch, and the inputs they refuse (A off 16 bytes, a table whose rows
-are not update_table's 16-byte pieces). Tolerances as in chip_smoke.py:
+are not update_table's 16-byte pieces). SGDA's two kernels at k 1-128,
+G 1, 2, 13 and the most the lambda step takes, in each mode, with
+padded rows and on a batch of one id, the lambda step refusing more
+groups, and the learner against the CPU. Tolerances as in chip_smoke.py:
 fp32 sums taken in another order.
 """
 
@@ -1103,3 +1106,207 @@ def test_als_classification_on_cuda_follows_the_cpu_trajectory(cuda):
     for hc, hg in zip(runs["cpu"], runs["cuda"]):
         assert abs(hc["test_this_m2"] - hg["test_this_m2"]) < 1e-4
         assert abs(hc["train"] - hg["train"]) <= 3.0 / train.num_rows
+
+
+# ---- SGDA (K13): sgda_step and sgda_lambda
+
+SGDA_KS = [1, 8, 16, 64, 128]
+SGDA_SHAPES = [("pair", 2), ("onehot", 13), ("general", 13)]
+SGDA_GROUPS = [1, 2, 13, "most"]  # "most": the largest G sgda_lambda takes at k
+
+
+def _sgda_inputs(dev, rng, k, G, mode, L, task, n=400, B=1000, same_id=False):
+    """A padded batch (Zipf ids, or every id 7), its scatter plan, and a
+    state: P, Gc [n+1, 1+k] (row n a sentinel no step may write), w0, the
+    groups arange(n) % G and the regularizers, half 0, half in [0, 0.05)."""
+    from libfm_tpu_torch.learners.sgda import sgda_scatter_plan
+
+    ids, vals, y, mask = _sgd_batch(dev, rng, n, B, L, mode)
+    if same_id:
+        ids = torch.where(mask[:, None], torch.full_like(ids, 7), ids)
+    if task == 0:
+        y = 3.0 + y
+    _, order, gc_row, n_real = sgda_scatter_plan(ids.cpu().numpy()[None],
+                                                 vals.cpu().numpy()[None], n)
+    P = torch.as_tensor(rng.normal(0, 0.3, (n, k + 1)), dtype=torch.float32, device=dev)
+    Gc = torch.as_tensor(rng.normal(0, 0.1, (n + 1, k + 1)), dtype=torch.float32,
+                         device=dev)
+    f32 = np.float32
+    reg_w = rng.random(G).astype(f32) * 0.05 * (rng.random(G) < 0.5)
+    reg_v = rng.random((G, k)).astype(f32) * 0.05 * (rng.random((G, k)) < 0.5)
+    groups = (np.arange(n) % G).astype(np.int32)
+    return dict(ids=ids, vals=vals, y=y, mask=mask, P=P, Gc=Gc,
+                w0=torch.tensor(0.2, device=dev),
+                groups=torch.as_tensor(groups, device=dev),
+                reg_w=torch.as_tensor(reg_w, device=dev),
+                reg_v=torch.as_tensor(reg_v, device=dev),
+                order=torch.as_tensor(order[0], device=dev),
+                gc_row=torch.as_tensor(gc_row[0], device=dev), n_real=int(n_real[0]))
+
+
+def _most_groups(G, k):
+    from libfm_tpu_torch.kernels.sgda_lambda import MAX_GROUP_WIDTH
+
+    return MAX_GROUP_WIDTH // (k + 1) if G == "most" else G
+
+
+@pytest.mark.parametrize("k", SGDA_KS)
+@pytest.mark.parametrize("mode,L", SGDA_SHAPES)
+@pytest.mark.parametrize("G", SGDA_GROUPS)
+@pytest.mark.parametrize("task", [0, 1])
+def test_sgda_step_kernel_matches_plain(cuda, k, mode, L, G, task):
+    """The update rows at their sorted positions, the batch sum and the
+    cache rows against the plain version; w0 moved in the launch equal,
+    bit for bit, to `w0_update` on the returned sum; the padded slots
+    write no cache row (row 0, which they address, holds its last real
+    entry's gradients) and row n is never written; the same bits on a
+    second launch."""
+    from libfm_tpu_torch.kernels import sgda_step as sa
+
+    G = _most_groups(G, k)
+    rng = np.random.default_rng(900 + k + L + G + task)
+    s = _sgda_inputs(cuda, rng, k, G, mode, L, task)
+    kw = dict(mode=mode, task=task, lr=0.05, min_target=1.0, max_target=5.0)
+    args = (s["ids"], s["vals"], s["y"], s["mask"])
+    Gc_k, Gc_p, Gc_2 = s["Gc"].clone(), s["Gc"].clone(), s["Gc"].clone()
+    w0_k, w0_p = s["w0"].clone(), s["w0"].clone()
+    rest = (s["gc_row"], s["groups"], s["reg_w"], s["reg_v"])
+    before = kernels.launch_counts()["sgda_step"]
+    u_k, r_k = sa.sgda_step(s["P"], *args, w0_k, Gc_k, *rest, order=s["order"], **kw)
+    u_2, r_2 = sa.sgda_step(s["P"], *args, s["w0"].clone(), Gc_2, *rest, order=s["order"],
+                            **kw)
+    u_p, r_p = sa.sgda_step_plain(s["P"], *args, w0_p, Gc_p, *rest, order=s["order"], **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sgda_step"] == before + 2
+    assert torch.equal(u_k, u_2) and torch.equal(r_k, r_2) and torch.equal(Gc_k, Gc_2)
+    m = s["n_real"]
+    assert _col_rel_err(u_k[:m], u_p[:m]) < 1e-4
+    assert (u_k[m:] == 0).all()  # the slots keyed to n: padding and values 0
+    assert abs(r_k[0].item() - r_p[0].item()) <= 1e-4 * max(1.0, r_p[0].abs().item())
+    assert torch.equal(w0_k, sa.w0_update(s["w0"], 0.05, r_k[0]))
+    n = s["P"].shape[0]
+    assert _col_rel_err(Gc_k[:n], Gc_p[:n]) < 1e-4
+    written = torch.zeros(n + 1, dtype=torch.bool, device=cuda)
+    written[s["gc_row"].reshape(-1).long()] = True
+    written[n] = False
+    assert torch.equal(Gc_k[~written], s["Gc"][~written])  # row n among them
+    if mode != "general":  # row 0: padded slots address it, its real entries write it
+        assert written[0] and not torch.equal(Gc_k[0], s["Gc"][0])
+
+
+@pytest.mark.parametrize("k", SGDA_KS)
+@pytest.mark.parametrize("mode,L", SGDA_SHAPES)
+@pytest.mark.parametrize("G", SGDA_GROUPS)
+@pytest.mark.parametrize("task", [0, 1])
+def test_sgda_lambda_kernel_matches_plain(cuda, k, mode, L, G, task):
+    """reg_w and reg_v after one lambda step against the plain version: the
+    largest difference over the largest step the plain version takes (the
+    clamp at 0 moves neither further); the same bits on a second launch;
+    the ticket left at zero."""
+    from libfm_tpu_torch.kernels import sgda_lambda as sl
+
+    G = _most_groups(G, k)
+    rng = np.random.default_rng(1900 + k + L + G + task)
+    s = _sgda_inputs(cuda, rng, k, G, mode, L, task)
+    kw = dict(mode=mode, task=task, lr=0.05, min_target=1.0, max_target=5.0)
+    args = (s["P"], s["Gc"], s["ids"], s["vals"], s["y"], s["mask"], s["w0"], s["groups"])
+    regs = [(s["reg_w"].clone(), s["reg_v"].clone()) for _ in range(3)]
+    scratch = sl.sgda_lambda_scratch(G, k, cuda)
+    sl.sgda_lambda(*args, *regs[0], scratch=scratch, **kw)
+    sl.sgda_lambda(*args, *regs[1], scratch=scratch, **kw)
+    sl.sgda_lambda_plain(*args, *regs[2], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(regs[0][0], regs[1][0]) and torch.equal(regs[0][1], regs[1][1])
+    assert (scratch[-4:] == 0).all()
+    for j, old in ((1, s["reg_v"]), (0, s["reg_w"])):
+        step = (regs[2][j] - old).abs().max().item()
+        assert (regs[0][j] - regs[2][j]).abs().max().item() <= 1e-4 * max(step, 1e-12)
+        assert (regs[0][j] >= 0).all()
+
+
+@pytest.mark.parametrize("k", SGDA_KS)
+def test_sgda_lambda_kernel_refuses_more_groups(cuda, k):
+    from libfm_tpu_torch.kernels import sgda_lambda as sl
+
+    G = sl.MAX_GROUP_WIDTH // (k + 1) + 1
+    s = _sgda_inputs(cuda, np.random.default_rng(k), k, G, "pair", 2, 0, B=50)
+    before = kernels.launch_counts()["sgda_lambda"]
+    with pytest.raises(ValueError, match="at most"):
+        sl.sgda_lambda(s["P"], s["Gc"], s["ids"], s["vals"], s["y"], s["mask"], s["w0"],
+                       s["groups"], s["reg_w"], s["reg_v"], mode="pair", task=0, lr=0.05,
+                       min_target=1.0, max_target=5.0)
+    assert kernels.launch_counts()["sgda_lambda"] == before
+
+
+@pytest.mark.parametrize("k", [8, 64])
+@pytest.mark.parametrize("mode,L", SGDA_SHAPES)
+def test_sgda_kernels_on_a_batch_of_one_id(cuda, k, mode, L):
+    """Every real entry on id 7: one cache writer (the last real entry),
+    the lambda step's sums all in that id's group."""
+    from libfm_tpu_torch.kernels import sgda_lambda as sl
+    from libfm_tpu_torch.kernels import sgda_step as sa
+
+    s = _sgda_inputs(cuda, np.random.default_rng(50 + k + L), k, 2, mode, L, 1,
+                     same_id=True)
+    kw = dict(mode=mode, task=1, lr=0.05, min_target=-1.0, max_target=1.0)
+    args = (s["ids"], s["vals"], s["y"], s["mask"])
+    rest = (s["gc_row"], s["groups"], s["reg_w"], s["reg_v"])
+    Gc_k, Gc_p = s["Gc"].clone(), s["Gc"].clone()
+    u_k, _ = sa.sgda_step(s["P"], *args, s["w0"].clone(), Gc_k, *rest, order=s["order"],
+                          **kw)
+    u_p, _ = sa.sgda_step_plain(s["P"], *args, s["w0"].clone(), Gc_p, *rest,
+                                order=s["order"], **kw)
+    regs = [(s["reg_w"].clone(), s["reg_v"].clone()) for _ in range(2)]
+    sl.sgda_lambda(s["P"], Gc_k, *args, s["w0"], s["groups"], *regs[0], **kw)
+    sl.sgda_lambda_plain(s["P"], Gc_k, *args, s["w0"], s["groups"], *regs[1], **kw)
+    torch.cuda.synchronize()
+    assert int((s["gc_row"] < s["P"].shape[0]).sum()) == 1
+    assert _col_rel_err(u_k[: s["n_real"]], u_p[: s["n_real"]]) < 1e-4
+    assert _col_rel_err(Gc_k, Gc_p) < 1e-4
+    step = (regs[1][1] - s["reg_v"]).abs().max().item()
+    assert (regs[0][1] - regs[1][1]).abs().max().item() <= 1e-4 * step
+
+
+@pytest.mark.parametrize("which", ["ml", "ctr"])
+def test_sgda_on_cuda_follows_the_cpu_trajectory(cuda, which):
+    """SGDALearner on the card (kernels) against the CPU (plain versions)
+    from the same parameters, 3 epochs: the metrics, regularizers and
+    factors; on the card its batch loop launches sgda_step and
+    table_scatter once a batch and, from the second epoch, sgda_lambda
+    once a batch, and besides them only fm_refresh (the evaluations)."""
+    from libfm_tpu_torch.data.batching import batch_dataset
+    from libfm_tpu_torch.data.synth import ctr_like
+    from libfm_tpu_torch.learners.sgda import SGDALearner
+
+    if which == "ml":
+        train, test = movielens_like(300, 200, 30000, seed=5)
+        groups = (np.arange(500) >= 300).astype(np.int32)
+        task, lr, k = 0, 1e-4, 8
+    else:
+        train, test, groups = ctr_like(13, 300, 20000, seed=5)
+        task, lr, k = 1, 1e-3, 16
+    trn, val = train.holdout(3)
+    n = train.num_features
+    rng = np.random.default_rng(0)
+    init = (np.float32(0.0), np.zeros(n, np.float32),
+            rng.normal(0, 0.1, (n, k)).astype(np.float32))
+    cfg = FMConfig(num_features=n, num_factors=k)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        learner = SGDALearner(cfg, attr_group=groups, task=task, num_iter=3,
+                              learn_rate=lr, batch_size=1000, verbose=False, device=dev)
+        learner.init_params(FMParams(*(torch.as_tensor(x) for x in init)))
+        hist = learner.learn(trn, test, val)
+        runs[dev] = (hist, learner.reg_v.cpu(), learner.params.v.cpu())
+        counts = {name: c for name, c in kernels.launch_counts().items() if c}
+    nb = batch_dataset(trn, 1000).num_batches
+    assert counts == {"sgda_step": 3 * nb, "table_scatter": 3 * nb,
+                      "sgda_lambda": 2 * nb, "fm_refresh": 9}
+    tol = 1e-4 if task == 0 else 1.0 / test.num_rows + 1e-9
+    for hc, hg in zip(runs["cpu"][0], runs["cuda"][0]):
+        assert all(abs(a - b) <= tol for a, b in zip(hc[:3], hg[:3]))
+    reg_c, reg_g = runs["cpu"][1], runs["cuda"][1]
+    assert reg_c.max() > 0
+    assert (reg_c - reg_g).abs().max().item() <= 1e-3 * reg_c.abs().max().item()
+    assert (runs["cpu"][2] - runs["cuda"][2]).abs().max().item() < 1e-3

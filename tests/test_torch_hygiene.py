@@ -56,7 +56,8 @@ def test_port_file_list_is_complete():
     assert {"mcmc_vector.py", "fm_refresh.py", "slot_stats.py", "schur_draw.py",
             "dense_update.py", "sgd.py", "sgd_step.py", "table_scatter.py",
             "table_read.py", "pallas_gather.py", "pallas_scatter.py",
-            "case_stats.py", "probit_latent.py", "dual_draw.py", "chip_smoke.py"} <= names
+            "case_stats.py", "probit_latent.py", "dual_draw.py", "sgda.py",
+            "sgda_step.py", "sgda_lambda.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("args", [[], ["--config3-kernels"], ["--config5-kernels"]])
@@ -101,12 +102,13 @@ def test_importing_kernels_builds_nothing():
     reg = kernels.import_all()
     assert set(reg) == {"fm_refresh", "fm_refresh_probit", "slot_stats", "case_stats",
                         "schur_draw", "dual_draw", "dense_update", "probit_latent",
-                        "sgd_step", "table_scatter", "table_read"}
+                        "sgd_step", "table_scatter", "table_read", "sgda_step",
+                        "sgda_lambda"}
     assert kernels._lib is None
     assert sorted(p.name for p in kernels.CSRC_DIR.glob("*.cu")) == [
         "case_stats.cu", "dense_update.cu", "dual_draw.cu", "fm_refresh.cu",
-        "probit_latent.cu", "schur_draw.cu", "sgd_step.cu", "slot_stats.cu",
-        "table_read.cu", "table_scatter.cu"]
+        "probit_latent.cu", "schur_draw.cu", "sgd_step.cu", "sgda_lambda.cu",
+        "sgda_step.cu", "slot_stats.cu", "table_read.cu", "table_scatter.cu"]
 
 
 def _cpu_calls():
@@ -117,6 +119,8 @@ def _cpu_calls():
     from libfm_tpu_torch.kernels import probit_latent as pl
     from libfm_tpu_torch.kernels import schur_draw as sd
     from libfm_tpu_torch.kernels import sgd_step as sg
+    from libfm_tpu_torch.kernels import sgda_lambda as sl
+    from libfm_tpu_torch.kernels import sgda_step as sa
     from libfm_tpu_torch.kernels import slot_stats as ss
     from libfm_tpu_torch.kernels import table_read as tr
     from libfm_tpu_torch.kernels import table_scatter as ts
@@ -140,6 +144,8 @@ def _cpu_calls():
     col = torch.full((nc,), 2, dtype=torch.int32)
     col[:4] = torch.tensor([0, 1, 0, 1], dtype=torch.int32)
     tab = du.update_table(th, th + 0.1)
+    groups = torch.arange(n, dtype=torch.int32) % 2
+    sgda = dict(mode="pair", task=0, lr=0.1, min_target=1.0, max_target=5.0)
     return {
         "fm_refresh": lambda: fr.fm_refresh(P, ids, vals, w0, torch.ones(nc), A),
         "fm_refresh_probit": lambda: fr.fm_refresh(
@@ -158,6 +164,14 @@ def _cpu_calls():
             P, ids, vals, torch.ones(nc), torch.ones(nc, dtype=torch.bool), w0,
             mode="pair", task=0, lr1=0.1, lr2=0.1, regw=0.0, regv=0.01,
             min_target=1.0, max_target=5.0),
+        "sgda_step": lambda: sa.sgda_step(
+            P, ids, vals, torch.ones(nc), torch.ones(nc, dtype=torch.bool), w0.clone(),
+            torch.zeros(n + 1, k + 1), ids, groups, torch.ones(2), torch.ones(2, k),
+            order=torch.arange(2 * nc, dtype=torch.int32).reshape(nc, 2), **sgda),
+        "sgda_lambda": lambda: sl.sgda_lambda(
+            P, torch.ones(n + 1, k + 1), ids, vals, torch.ones(nc),
+            torch.ones(nc, dtype=torch.bool), w0, groups, torch.ones(2), torch.ones(2, k),
+            **sgda),
         "table_scatter": lambda: ts.table_scatter(
             P, torch.tensor([1, 1, 3], dtype=torch.int32),
             torch.tensor([2, 0, 1], dtype=torch.int32), torch.ones(3, k + 1)),
@@ -168,7 +182,7 @@ def _cpu_calls():
 @pytest.mark.parametrize("name", ["fm_refresh", "fm_refresh_probit", "slot_stats",
                                   "case_stats", "schur_draw", "dual_draw", "dense_update",
                                   "probit_latent", "sgd_step", "table_scatter",
-                                  "table_read"])
+                                  "table_read", "sgda_step", "sgda_lambda"])
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(name):
     kernels.import_all()
     before = kernels.launch_counts()
