@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (libfm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # configs #3, #4, #5, #1 and #4b (SGD, SGDA); the probes
+    python3 chip_smoke.py            # configs #3, #4, #5, bench_bs, #1, #4b; the probes
     python3 chip_smoke.py --config3-kernels   # config #3's kernel checks only
     python3 chip_smoke.py --config5-kernels   # config #5's dual_draw check only
+    python3 chip_smoke.py --bench-bs          # bench_bs's kernel checks and paths only
 
 What it does, in order (any failed phase exits non-zero):
 
@@ -66,7 +67,23 @@ What it does, in order (any failed phase exits non-zero):
      and checked against the JAX engine's rule reckoned straight from the
      train rows (features of 1 to 32 entries); the library
      yardstick is torch.linalg.cholesky_ex + torch.cholesky_solve on the
-     same c x c systems, grouped by c.
+     same c x c systems, grouped by c;
+   - bench_bs (bench.py:392-455: relational regression, 1M train and 100K
+     test cases joined to 4,000 block rows of 16 gaussian entries over
+     20,000 features, k=32, rebuilt with numpy from default_rng(7); its
+     block count and shapes, observed and unobserved features and route
+     printed): rel_scores, rel_refresh (train and tail modes) and
+     rel_cache from a seeded P; one sweep of the 23 blocks to make SD
+     non-zero, then a second holding each block's rel_stats (to float64,
+     over each entry's sum of magnitudes, as rel_cache), each draw from
+     its GG (schur_draw) against the float64 draw from the float64 GG, in
+     posterior standard deviations (their root mean square over the
+     features within 1.5 times the float32 plain version's), and each
+     rel_update;
+     rel_resync in write mode (train rows) and read-only (the test tail).
+     The yardstick of rel_cache is one torch.bmm of the pre-gathered rows
+     [1 | e | Q]. The draw check runs again at the state mcmc_bs ends in
+     (phase 4).
 4. Path phase. Resets the launch counters before each run and reads them
    after it; each run must launch its own kernels, and no other: ALSVectorLearner (3
    iterations) and MCMCVectorLearner (4) at config #3 (regression, slot
@@ -74,9 +91,13 @@ What it does, in order (any failed phase exits non-zero):
    iteration, fm_refresh's probit mode at the refresh iterations and
    probit_latent at the others), MCMCVectorLearner (4) at config #5
    (classification: slot_stats and schur_draw on each block's dense
-   features, dual_draw on its dual ones, 26 blocks an iteration); and
-   the paths of configs #3 and #4 launch no dual_draw; SGDLearner for 3 epochs at config #1
-   (regression) and config #4b (classification); SGDALearner for 3 epochs
+   features, dual_draw on its dual ones, 26 blocks an iteration);
+   at bench_bs ALSVectorLearner (9 iterations) and MCMCVectorLearner (24:
+   test_all must end at or below 0.31, bench_bs's quality target being
+   0.3002) on the deferred path and MCMCVectorLearner (4) on the resync
+   path (bs_deferred=False), each launching exactly the BS engine's
+   kernels as its iterations and refreshes need; SGDLearner for 3 epochs
+   at config #1 (regression) and config #4b (classification); SGDALearner for 3 epochs
    at config #1's settings (8M train rows, 1M validation, 1M test) and
    #4b's (1.6M, 200K, 200K), which must launch sgda_step and
    table_scatter once a batch, sgda_lambda once a batch from the second
@@ -96,9 +117,11 @@ when it is unset), and it hides the others. It imports nothing of jax
 or of the JAX package. `--out PATH` also writes every number to a JSON
 file. `--config3-kernels` builds the kernels and runs config #3's kernel
 checks alone, and prints their rows as one JSON line; `--config5-kernels`
-does the same for config #5's dual_draw check. Both use only the
-wrappers' public calls, so they also time another version of the package
-(a checkout of an earlier commit) when copied into that checkout's root.
+does the same for config #5's dual_draw check, and `--bench-bs` runs
+bench_bs's kernel checks and three paths alone. All three use only the
+wrappers' and learners' public calls, so they also time another version
+of the package (a checkout of an earlier commit) when copied into that
+checkout's root.
 """
 
 from __future__ import annotations
@@ -180,6 +203,24 @@ LV_DUAL_MAX, LV_WHOLE_MAX = 32, 4096
 # f32 sums (the Gram's dot products of length 129, taken in another order)
 # move theta by ~1e-6 of its scale
 DUAL_TOL = 1e-4
+# timed runs of a plain version that takes a third of a second (config #5's
+# dual_draw_plain): its time is recorded, not compared, so the median of 3
+PLAIN_REPS = 3
+# bench_bs (bench.py:392-455): fat-block relational (BS) regression, 1M
+# train and 100K test cases joined to one relation of 4,000 block rows of
+# 16 gaussian entries over 20,000 features, k=32, the data drawn from
+# default_rng(7); the join expands ~15x, above expand_max_ratio = 8, so the
+# learner's default routing takes the BS vector engine
+BS_NB, BS_W, BS_NF, BS_NTR, BS_FACTORS, BS_SEED = 4000, 16, 20000, 1_000_000, 32, 7
+# ALS (regw = regv = 5, as at config #3) 9 iterations and MCMC 24
+# (bench_bs's own count, _cycle_iters with refresh_every 8) on the deferred
+# path; MCMC 4 on the resync path (bs_deferred=False)
+BS_ALS_ITERS, BS_MCMC_ITERS, BS_RESYNC_ITERS = 9, 24, 4
+# bench_bs's quality target, a test RMSE after 24 iterations (BENCH_r05.json,
+# a quality value), and the limit this run holds: the data's noise floor is
+# 0.3, predicting the prior mean reads about 0.5
+BS_TARGET, BS_LIMIT = 0.3002, 0.31
+U32 = 2.0 ** -24  # float32's unit roundoff
 HOT_ROWS = 1024  # the gather-against-streaming line's small table
 FEW_ROWS = 4  # a field of few values (the skewed line)
 ZIPF = 1.2  # ctr_like's default power of a field's values
@@ -198,6 +239,8 @@ EXPECTED = {
     "sgda_1": {"sgda_step", "table_scatter", "sgda_lambda", "fm_refresh"},
     "sgda_4b": {"sgda_step", "table_scatter", "sgda_lambda", "fm_refresh"},
     "probes": {"table_read", "table_scatter"},
+    **{name: {"rel_scores", "rel_refresh", "rel_cache", "rel_stats", "schur_draw",
+              "rel_update", "rel_resync"} for name in ("als_bs", "mcmc_bs", "mcmc_bs_resync")},
 }
 
 
@@ -233,6 +276,15 @@ def kernel_row(name, replaces, err, tol, ms, plain_ms, nbytes, flops, lib_ms,
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=lib_ms, timed=timed,
     )
+
+
+def fill_launches(table, counts):
+    """Set each row's launches: its kernel's on every path run, in all and
+    by path (`counts`: path -> launch counts)."""
+    for row in table:
+        by_path = {p: c[row["name"]] for p, c in counts.items() if c[row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
 
 
 def col_rel_err(a, b):
@@ -854,7 +906,7 @@ def lv_kernel_checks(args, rec, dev, lv):
     row = kernel_row(
         "dual_draw", "libfm_tpu/learners/mcmc_vector.py:1661", max(errs.values()),
         DUAL_TOL, cuda_ms(run(dd.dual_draw), args.reps),
-        cuda_ms(run(dd.dual_draw_plain), args.reps, warmup=1),
+        cuda_ms(run(dd.dual_draw_plain), PLAIN_REPS, warmup=1),
         # a slot: its A row, case, value and noise; a feature: its offset,
         # theta_old, lam, mu, u and theta_new, and its flag
         nbytes=c.sum() * (d * 4 + 12) + len(c) * (8 + 5 * d * 4 + 4),
@@ -881,6 +933,416 @@ def lv_kernel_checks(args, rec, dev, lv):
     return row, launches
 
 
+def bs_data(dev):
+    """bench_bs's data (bench.py:402-429) rebuilt with numpy, and its
+    relation's layout as the BS engine cuts it; prints the block count and
+    shapes, the observed and unobserved features and the learner's route
+    (`relational_mode`). Another numpy version may draw other data, so the
+    counts are printed on every run."""
+    import numpy as np
+
+    from libfm_tpu_torch.data.dataset import Dataset
+    from libfm_tpu_torch.data.relation import RelationData, RelationJoin
+    from libfm_tpu_torch.learners.mcmc_rel_vector import RelLayout
+    from libfm_tpu_torch.learners.mcmc_vector import MCMCVectorLearner
+    from libfm_tpu_torch.models.fm import FMConfig
+
+    rng = np.random.default_rng(BS_SEED)
+    NB, W, NF, NTR = BS_NB, BS_W, BS_NF, BS_NTR
+    NTE = NTR // 10
+    cols = np.stack([np.sort(rng.choice(NF, W, replace=False))
+                     for _ in range(NB)]).astype(np.int32)
+    vals = rng.standard_normal((NB, W)).astype(np.float32)
+    rd = RelationData(np.arange(NB + 1, dtype=np.int64) * W, cols.ravel(), vals.ravel(), NF)
+    rd.attr_offset = 0
+    beta = rng.standard_normal(NF).astype(np.float32) * 0.1
+    score = (vals * beta[cols]).sum(axis=1)
+
+    def build(m, y):
+        ds = Dataset(np.zeros(len(y) + 1, np.int64), np.empty(0, np.int32),
+                     np.empty(0, np.float32), y, 0)
+        ds.relations = [RelationJoin(rd, m)]
+        return ds
+
+    mtr = rng.integers(0, NB, NTR).astype(np.int32)
+    mte = rng.integers(0, NB, NTE).astype(np.int32)
+    train = build(mtr, (score[mtr] + 0.3 * rng.standard_normal(NTR)).astype(np.float32))
+    test = build(mte, (score[mte] + 0.3 * rng.standard_normal(NTE)).astype(np.float32))
+    lay = RelLayout(train.relations[0], test.relations[0], np.zeros(NF, np.int32), NF)
+    probe = MCMCVectorLearner(FMConfig(num_features=NF, num_factors=BS_FACTORS),
+                              verbose=False, device=dev)
+    probe._route_relational(train, test)
+    shapes = {}
+    for b in lay.blocks:
+        key = (len(b.features), len(b.entry_b))
+        shapes[key] = shapes.get(key, 0) + 1
+    observed = NF - len(lay.unobserved)
+    print(f"bench_bs: {train.num_rows} train and {test.num_rows} test cases, {lay.nb} "
+          f"block rows, {rd.nnz} block entries; {len(lay.blocks)} conflict-free blocks "
+          f"(features, entries): count {shapes}; {observed} observed and "
+          f"{len(lay.unobserved)} unobserved features; most cases on one block row "
+          f"{int(np.diff(lay.case_off).max())}; relational_mode {probe.relational_mode}")
+    if probe.relational_mode != "bs_vector":
+        fail(f"bench_bs routes to {probe.relational_mode}, not bs_vector")
+    return dict(train=train, test=test, layout=lay, blocks=len(lay.blocks), shapes=shapes,
+                observed=observed, unobserved=len(lay.unobserved))
+
+
+def bs_want(iters, nblk, deferred, refresh_every=8):
+    """The launches of a BS engine run (one relation, nblk blocks): at the
+    set-up and at each refresh rel_scores once and rel_refresh twice (train
+    and tail), on the deferred path rel_cache too; every iteration
+    rel_stats, schur_draw and rel_update once a block, and rel_resync once
+    (deferred: the read-only test prediction) or twice with rel_cache once
+    (resync path)."""
+    from libfm_tpu_torch.learners.mcmc import dispatch_chunks
+
+    refresh = len(dispatch_chunks(0, iters, refresh_every))
+    want = dict(rel_scores=1 + refresh, rel_refresh=2 * (1 + refresh),
+                rel_stats=iters * nblk, schur_draw=iters * nblk, rel_update=iters * nblk)
+    want.update(dict(rel_cache=1 + refresh, rel_resync=iters) if deferred
+                else dict(rel_cache=iters, rel_resync=2 * iters))
+    return want
+
+
+def posterior_sd_units(d, GG, lam, alpha):
+    """sqrt(d^T Lam d) [F] for each feature: a difference d [F, k+1] of
+    two draws in standard deviations of the posterior whose precision
+    Lam = alpha H^T H + diag(lam) the statistics GG (float64) give."""
+    from libfm_tpu_torch.kernels.schur_draw import unpack_sym
+
+    F, d1 = d.shape
+    k = d1 - 1
+    T = k * (k + 1) // 2
+    lam = lam.double()
+    L = torch.zeros(F, d1, d1, dtype=torch.float64, device=d.device)
+    L[:, 0, 0] = alpha * GG[:, T + 2 * k] + lam[:, 0]
+    L[:, 0, 1:] = alpha * GG[:, T:T + k]
+    L[:, 1:, 0] = alpha * GG[:, T:T + k]
+    L[:, 1:, 1:] = alpha * unpack_sym(GG, k) + torch.diag_embed(lam[:, 1:])
+    d = d.double()
+    return torch.einsum("fi,fij,fj->f", d, L, d).clamp_min(0).sqrt()
+
+
+def bs_sweeps(rel, lay, C, P, alpha, lam_row, mu_row, g, bound):
+    """Two Gibbs sweeps of a relation's blocks from the caches C and a zero
+    SD, as the deferred path runs them (P updated in place): the first
+    makes SD non-zero, the second is held to the plain versions. Each
+    block's rel_stats against the float64 plain version over each entry's
+    sum of magnitudes (the float32 plain version's error measured beside
+    it); every draw from the kernel's GG (schur_draw) and from the float32
+    plain GG (schur_draw_plain) against the float64 draw from the float64
+    GG on the same noise, in posterior standard deviations (the median,
+    99th percentile, largest and root mean square over the features); each
+    rel_update against its plain version. `lam_row` and `mu_row` [k+1]
+    give every feature's prior. Returns (SD, the checked sweep's (block,
+    theta_old, theta_new), its errors)."""
+    import numpy as np
+
+    from libfm_tpu_torch.kernels import rel_sweep as rs
+    from libfm_tpu_torch.kernels import schur_draw as sd
+    from libfm_tpu_torch.kernels.case_stats import err_over_magnitudes
+
+    d = P.shape[1]
+    SD = torch.zeros(lay.nb + 1, d, device=P.device)
+    sweep_in = []
+    for checked in (False, True):
+        stat_err = upd_err = plain_err = 0.0
+        emax = rej = 0
+        dist_k, dist_p = [], []
+        for hb, blk in zip(lay.blocks, rel.blocks):
+            b_args = (C, SD, rel.wnum, blk.feat_off, blk.entry_b, blk.entry_x, blk.feat_id, P)
+            G_k = rs.rel_stats(*b_args)
+            th_old = P[blk.features]
+            lam = lam_row.expand(blk.F, d).contiguous()
+            mu = mu_row.expand(blk.F, d).contiguous()
+            z = torch.randn(blk.F, d, generator=g, device=P.device)
+            th_k, r_k = sd.schur_draw(G_k, th_old, lam, mu, z, alpha, do_sample=True,
+                                      bound=bound)
+            if checked:
+                ref, scale = rs.rel_stats_reference(*b_args)
+                stat_err = max(stat_err, err_over_magnitudes(G_k, ref, scale))
+                G_p = rs.rel_stats_plain(*b_args)
+                plain_err = max(plain_err, err_over_magnitudes(G_p, ref, scale))
+                emax = max(emax, int(np.diff(hb.feat_off).max()))
+                th_p, r_p = sd.schur_draw_plain(G_p, th_old, lam, mu, z, alpha,
+                                                do_sample=True, bound=bound)
+                th_64, _ = sd.schur_draw_plain(ref, th_old.double(), lam.double(),
+                                               mu.double(), z.double(), alpha.double(),
+                                               do_sample=True, bound=bound)
+                a = float(alpha)
+                dist_k.append(posterior_sd_units(th_k - th_64, ref, lam, a))
+                dist_p.append(posterior_sd_units(th_p - th_64, ref, lam, a))
+                if not torch.equal(r_k, r_p):
+                    fail("bench_bs: schur_draw's reject flags on rel_stats' GG differ "
+                         "from the plain version's")
+                rej += int(r_k.sum().item())
+                del ref, scale, th_64
+                SD_p = SD.clone()
+                rs.rel_update_plain(SD_p, blk.entry_b, blk.entry_x, blk.entry_f, th_old,
+                                    th_k)
+                sweep_in.append((blk, th_old, th_k))
+            rs.rel_update(SD, blk.entry_b, blk.entry_x, blk.entry_f, th_old, th_k)
+            if checked:
+                upd_err = max(upd_err, col_rel_err(SD, SD_p).item())
+            P[blk.features] = th_k
+    torch.cuda.synchronize()
+    k = d - 1
+    dist_k, dist_p = torch.cat(dist_k), torch.cat(dist_p)
+    q = torch.tensor([0.5, 0.99], dtype=torch.float64, device=P.device)
+    return SD, sweep_in, dict(
+        stat_err=stat_err, stat_tol=2 * (emax + k + 8) * U32, stats_plain_f32_err=plain_err,
+        upd_err=upd_err, rejected=rej, features=dist_k.numel(),
+        **{f"{key}_{stat}": v for key, x in (("kernel", dist_k), ("plain", dist_p))
+           for stat, v in zip(("median", "p99", "max", "rms"),
+                              [*torch.quantile(x, q).tolist(), x.max().item(),
+                               x.square().mean().sqrt().item()])})
+
+
+def check_bs_draws(res, state):
+    """Fails unless the draws of a checked `bs_sweeps` lie, in posterior
+    standard deviations and by their root mean square over the features,
+    no further from the float64 draws than 1.5 times the float32 plain
+    version's own, with none rejected, and rel_stats and rel_update hold.
+    Returns the numbers for the record."""
+    # the draws amplify GG's float32 rounding: its reconstruction cancels
+    # (Qq = M2 - v S3 - S3 v + m4 v v), so the float32 plain version's own
+    # draws lie up to tenths of a posterior standard deviation from the
+    # float64 ones. The largest distance moves from run to run (the plain
+    # version's sums are not in a fixed order on the card), the root mean
+    # square over ~19K features does not; the kernel sums sequentially,
+    # ~1.25 x the plain version's at mcmc_bs's last state
+    draw_tol = 1.5 * res["plain_rms"]
+    print(f"bench_bs draws at {state}: distances in posterior sd from the float64 draws "
+          f"over {res['features']} features, schur_draw on rel_stats' GG rms "
+          f"{res['kernel_rms']:.4g} (tol {draw_tol:.4g}: 1.5 x the float32 plain version's "
+          f"{res['plain_rms']:.4g}), median / p99 / max {res['kernel_median']:.4g} / "
+          f"{res['kernel_p99']:.4g} / {res['kernel_max']:.4g} (plain "
+          f"{res['plain_median']:.4g} / {res['plain_p99']:.4g} / {res['plain_max']:.4g}); "
+          f"{res['rejected']} rejected; rel_stats {res['stat_err']:.3g} and its float32 plain "
+          f"version {res['stats_plain_f32_err']:.3g} of the sums of magnitudes from float64 "
+          f"(tol {res['stat_tol']:.3g}); rel_update {res['upd_err']:.3g} (tol 1e-5)")
+    if not res["kernel_rms"] <= draw_tol or res["rejected"]:
+        fail(f"bench_bs at {state}: draws from rel_stats' GG lie {res['kernel_rms']} posterior "
+             f"sd (rms) from float64 (> {draw_tol}) or were rejected ({res['rejected']})")
+    if not res["stat_err"] <= res["stat_tol"] or not res["upd_err"] <= 1e-5:
+        fail(f"bench_bs at {state}: rel_stats ({res['stat_err']} > {res['stat_tol']}) or "
+             f"rel_update ({res['upd_err']} > 1e-5) disagrees")
+    return dict(res, state=state, draw_tol=draw_tol)
+
+
+def bs_chain_check(rec, dev, bs, learner):
+    """The draw check of `bs_sweeps` again at a state of the chain: the
+    parameters, alpha and hyperpriors `learner` (mcmc_bs) ends with (its
+    last iteration a refresh), the caches taken from A as that refresh
+    writes it. Its launches fall outside every path's count."""
+    from libfm_tpu_torch.kernels import rel_cache as rc
+    from libfm_tpu_torch.kernels import rel_refresh as rr
+    from libfm_tpu_torch.learners.mcmc_rel_vector import DevRel
+
+    st = learner._final_state
+    train, lay = bs["train"], bs["layout"]
+    rel = DevRel(lay, dev)
+    P = torch.cat([st["w"][:, None], st["V"]], dim=1).contiguous()
+    A = torch.empty(train.num_rows, P.shape[1], device=dev)
+    rr.rel_refresh(rr.rel_scores(P, rel.indptr, rel.cols, rel.vals), rel.map_tr[None].contiguous(),
+                   st["w0"], A, torch.as_tensor(train.target, device=dev),
+                   min_target=float(train.min_target), max_target=float(train.max_target))
+    C = rc.rel_cache(A, rel.case_off, rel.case_ids)
+    del A
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    bound = 1e6 * max(1.0, abs(float(train.min_target)), abs(float(train.max_target)))
+    lam_row = torch.cat([st["w_lambda"][:1], st["v_lambda"][0]])
+    mu_row = torch.cat([st["w_mu"][:1], st["v_mu"][0]])
+    _, _, res = bs_sweeps(rel, lay, C, P, st["alpha"], lam_row, mu_row, g, bound)
+    state = (f"mcmc_bs's last state (alpha {float(st['alpha']):.4g}, lambda_w "
+             f"{float(st['w_lambda'][0]):.4g}, mean lambda_v "
+             f"{float(st['v_lambda'].mean()):.4g})")
+    rec["bs_sweep_chain"] = check_bs_draws(res, state)
+    del C, P
+    torch.cuda.empty_cache()
+
+
+def bs_kernel_checks(args, rec, dev, bs):
+    """Phase 3, bench_bs: the BS engine's six kernels against their plain
+    versions at its shapes. rel_scores and rel_refresh (train and tail
+    modes) from a seeded P; rel_cache from the A that refresh writes, held
+    to the float64 plain version entry by entry over the entry's sum of
+    magnitudes; two sweeps of the 23 blocks (`bs_sweeps`: rel_stats,
+    every draw from its GG and rel_update held in the second);
+    rel_resync in write mode on the train rows and read-only on the test
+    tail."""
+    import numpy as np
+
+    from libfm_tpu_torch.kernels import rel_cache as rc
+    from libfm_tpu_torch.kernels import rel_refresh as rr
+    from libfm_tpu_torch.kernels import rel_sweep as rs
+    from libfm_tpu_torch.kernels.case_stats import err_over_magnitudes
+    from libfm_tpu_torch.kernels.slot_stats import gg_width
+    from libfm_tpu_torch.learners.mcmc_rel_vector import DevRel
+
+    train, test, lay = bs["train"], bs["test"], bs["layout"]
+    k, d, n = BS_FACTORS, BS_FACTORS + 1, BS_NF
+    T = k * (k + 1) // 2
+    CW, GW = rc.cache_width(k), gg_width(k)
+    nc, nte, nb = train.num_rows, test.num_rows, lay.nb
+    nnz = int(lay.cols.shape[0])
+    rel = DevRel(lay, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    P = 0.1 * torch.randn(n, d, generator=g, device=dev)
+    w0 = torch.tensor(0.05, device=dev)
+    y = torch.as_tensor(train.target, device=dev)
+    out = []
+
+    def entry(*a, source, timed="one launch (at the set-up and each refresh)", **kw):
+        out.append(kernel_row(*a, timed=timed, source=f"libfm_tpu_torch/csrc/{source}",
+                              **kw))
+
+    # ---- rel_scores
+    sc_args = (P, rel.indptr, rel.cols, rel.vals)
+    SC = rr.rel_scores(*sc_args)
+    SC_p = rr.rel_scores_plain(*sc_args)
+    entry("rel_scores", "libfm_tpu/learners/mcmc_rel_vector.py:761",
+          col_rel_err(SC, SC_p).item(), 1e-5,
+          cuda_ms(lambda: rr.rel_scores(*sc_args), args.reps),
+          cuda_ms(lambda: rr.rel_scores_plain(*sc_args), args.reps),
+          nbytes=(nb + 1) * 8 + nnz * 8 + len(np.unique(lay.cols)) * d * 4
+          + (nb + 1) * (k + 2) * 4,
+          flops=nnz * (4 * k + 2), lib_ms=None, source="rel_refresh.cu")
+    out[-1]["library_note"] = ("none: one sparse product gives qB and linB, not sqB "
+                               "(a sum of squares over the entries)")
+    del SC_p
+
+    # ---- rel_refresh, train mode (the refresh) and tail mode
+    maps_tr, maps_te = rel.map_tr[None].contiguous(), rel.map_te[None].contiguous()
+    kw = dict(min_target=float(train.min_target), max_target=float(train.max_target))
+    A, A_p = torch.empty(nc, d, device=dev), torch.empty(nc, d, device=dev)
+    tail, tail_p = torch.empty(nte, d, device=dev), torch.empty(nte, d, device=dev)
+    m_k = rr.rel_refresh(SC, maps_tr, w0, A, y, **kw)
+    m_p = rr.rel_refresh_plain(SC, maps_tr, w0, A_p, y, **kw)
+    rr.rel_refresh(SC, maps_te, w0, tail)
+    rr.rel_refresh_plain(SC, maps_te, w0, tail_p)
+    err = max(col_rel_err(A, A_p).item(), col_rel_err(tail, tail_p).item(),
+              abs(m_k.item() - m_p.item()) / m_p.item())
+    entry("rel_refresh", "libfm_tpu/learners/mcmc_rel_vector.py:777", err, 1e-5,
+          cuda_ms(lambda: rr.rel_refresh(SC, maps_tr, w0, A, y, **kw), args.reps),
+          cuda_ms(lambda: rr.rel_refresh_plain(SC, maps_tr, w0, A_p, y, **kw), args.reps),
+          nbytes=nc * (d * 4 + 8) + (nb + 1) * (k + 2) * 4, flops=nc * (2 * k + 8),
+          lib_ms=None, timed="one train-mode launch (the refresh)", source="rel_refresh.cu")
+    out[-1]["library_note"] = "none: no one call gathers the joined rows' scores"
+    out[-1]["tail_mode_ms"] = cuda_ms(lambda: rr.rel_refresh(SC, maps_te, w0, tail),
+                                      args.reps)
+    out[-1]["tail_mode_bound_ms"] = bound_ms(nte * (d * 4 + 4) + (nb + 1) * (k + 2) * 4,
+                                             0)[0]
+    print(f"rel_refresh tail mode: ms={out[-1]['tail_mode_ms']:.4f} "
+          f"bound_ms={out[-1]['tail_mode_bound_ms']:.4f} (bytes)")
+    del A_p, tail_p
+
+    # ---- rel_cache, from the refreshed A
+    C = rc.rel_cache(A, rel.case_off, rel.case_ids)
+    ref, scale = rc.rel_cache_reference(A, rel.case_off, rel.case_ids)
+    counts = np.diff(lay.case_off)
+    lmax = int(counts.max())
+    err = err_over_magnitudes(C, ref, scale)
+    del ref, scale
+    # the yardstick: one bmm of the pre-gathered, zero-padded rows [1 | e | Q]
+    # a block row (its R^T R holds every cache; the gather is not timed)
+    rowid = torch.as_tensor(np.repeat(np.arange(nb), counts), device=dev)
+    pos = torch.as_tensor(np.arange(nc) - np.repeat(lay.case_off[:-1], counts), device=dev)
+    R = torch.zeros(nb, lmax, k + 2, device=dev)
+    R[rowid, pos, 0] = 1.0
+    R[rowid, pos, 1:] = A[rel.case_ids.long()]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = cuda_ms(lambda: torch.bmm(R.transpose(1, 2), R), args.reps)
+    del R, rowid, pos
+    entry("rel_cache", "libfm_tpu/learners/mcmc_rel_vector.py:982", err,
+          2 * (lmax + 2) * U32,
+          cuda_ms(lambda: rc.rel_cache(A, rel.case_off, rel.case_ids), args.reps),
+          cuda_ms(lambda: rc.rel_cache_plain(A, rel.case_off, rel.case_ids), args.reps),
+          nbytes=nc * (d * 4 + 4) + (nb + 1) * 8 + (nb + 1) * CW * 4,
+          flops=2 * nc * CW, lib_ms=lib, source="rel_cache.cu",
+          timed="one launch (deferred path: at the set-up and each refresh)")
+    out[-1]["library_note"] = ("torch.bmm(R^T, R) of the pre-gathered rows [1 | e | Q], "
+                               f"zero-padded to [nb, {lmax}, k+2], fp32 without TF32; "
+                               "the gather not timed")
+    out[-1]["tolerance_note"] = ("2 (most cases on a row + 2) float32 roundings of each "
+                                 "entry's sum of magnitudes: a sequential sum's bound")
+
+    # ---- one sweep to make SD non-zero, then a checked one
+    alpha = torch.tensor(2.0, device=dev)
+    bound = 1e6 * max(1.0, abs(kw["min_target"]), abs(kw["max_target"]))
+    SD, sweep_in, res = bs_sweeps(rel, lay, C, P, alpha, torch.full((d,), 5.0, device=dev),
+                                  torch.zeros(d, device=dev), g, bound)
+    stat_err, upd_err, stat_tol = res["stat_err"], res["upd_err"], res["stat_tol"]
+    rec["bs_sweep"] = check_bs_draws(res, "the check state (P = 0.1 randn, alpha 2, "
+                                     "lambda 5)")
+
+    def run_stats(fn):
+        def go():
+            for blk in rel.blocks:
+                fn(C, SD, rel.wnum, blk.feat_off, blk.entry_b, blk.entry_x, blk.feat_id, P)
+        return go
+
+    E = nnz
+    F = sum(blk.F for blk in rel.blocks)
+    entry("rel_stats", "libfm_tpu/learners/mcmc_rel_vector.py:1144", stat_err, stat_tol,
+          cuda_ms(run_stats(rs.rel_stats), args.reps),
+          cuda_ms(run_stats(rs.rel_stats_plain), args.reps),
+          nbytes=E * (8 + (CW + d + 1) * 4) + len(rel.blocks) * 8 + F * (8 + 4 + d * 4
+                                                                         + GW * 4),
+          flops=E * (8 * T + 2 * k * k + 12 * k) + F * 6 * T, lib_ms=None,
+          source="rel_sweep.cu", timed=f"one iteration's launches: one per block "
+          f"({len(rel.blocks)})")
+    out[-1]["library_note"] = ("none: no one call sums the corrected caches' moments per "
+                               "feature and rebuilds GG")
+    out[-1]["tolerance_note"] = ("2 (most entries of a feature + k + 8) float32 roundings "
+                                 "of each entry's sum of magnitudes")
+
+    SD_t = SD.clone()
+
+    def run_upd(fn):
+        def go():
+            for blk, th_old, th_new in sweep_in:
+                fn(SD_t, blk.entry_b, blk.entry_x, blk.entry_f, th_old, th_new)
+        return go
+
+    entry("rel_update", "libfm_tpu/learners/mcmc_rel_vector.py:1284", upd_err, 1e-5,
+          cuda_ms(run_upd(rs.rel_update), args.reps),
+          cuda_ms(run_upd(rs.rel_update_plain), args.reps),
+          nbytes=E * (12 + 2 * d * 4) + F * 2 * d * 4, flops=E * (6 * k + 4), lib_ms=None,
+          source="rel_sweep.cu",
+          timed=f"one iteration's launches: one per block ({len(rel.blocks)})")
+    out[-1]["library_note"] = "none: no one call forms and adds the rows' shifts"
+    del SD_t
+
+    # ---- rel_resync: write mode on the train rows, read-only on the tail
+    A_k, A_p = A.clone(), A.clone()
+    rs.rel_resync(SD, rel.map_tr, A_k)
+    rs.rel_resync_plain(SD, rel.map_tr, A_p)
+    e_k = rs.rel_resync(SD, rel.map_te, tail, read_only=True)
+    e_p = rs.rel_resync_plain(SD, rel.map_te, tail, read_only=True)
+    err = max(col_rel_err(A_k, A_p).item(),
+              ((e_k - e_p).abs().max() / e_p.abs().max()).item())
+    entry("rel_resync", "libfm_tpu/learners/mcmc_rel_vector.py:1548", err, 1e-5,
+          cuda_ms(lambda: rs.rel_resync(SD, rel.map_te, tail, read_only=True), args.reps),
+          cuda_ms(lambda: rs.rel_resync_plain(SD, rel.map_te, tail, read_only=True),
+                  args.reps),
+          nbytes=nte * (d * 4 + 8) + (nb + 1) * d * 4, flops=nte * (2 * k + 2), lib_ms=None,
+          source="rel_sweep.cu",
+          timed="one read-only launch on the test tail (the deferred path's prediction)")
+    out[-1]["library_note"] = "none: no one call gathers, dots and shifts the rows"
+    out[-1]["write_mode_ms"] = cuda_ms(lambda: rs.rel_resync(SD, rel.map_tr, A_k),
+                                       args.reps)
+    out[-1]["write_mode_bound_ms"] = bound_ms(nc * (d * 8 + 4) + (nb + 1) * d * 4, 0)[0]
+    print(f"rel_resync write mode, the train rows: ms={out[-1]['write_mode_ms']:.4f} "
+          f"bound_ms={out[-1]['write_mode_bound_ms']:.4f} (bytes)")
+    del A, A_k, A_p, tail, C, SD, SC, sweep_in
+    torch.cuda.empty_cache()
+    return out
+
+
 def lockstep_err(P0, w0, batches, kw, lr0, reg0):
     """An SGD epoch in which every batch's kernels and plain versions start
     from the same state (the kernels'), in the learner's form (update rows
@@ -888,7 +1350,7 @@ def lockstep_err(P0, w0, batches, kw, lr0, reg0):
     relative per column, of the update rows, of the table after the
     scatter (the plain scatter adds the same rows) and of the batch sums.
     Fails unless every batch's w0 equals, bit for bit, the torch line
-    `w0 - lr0 * (red[0] + red[1] * reg0 * w0)` on the kernel's sums."""
+    `sgd_w0_update(w0, lr0, red[0], red[1], reg0)` on the kernel's sums."""
     from libfm_tpu_torch.kernels import sgd_step as sg
     from libfm_tpu_torch.kernels import table_scatter as ts
 
@@ -906,7 +1368,7 @@ def lockstep_err(P0, w0, batches, kw, lr0, reg0):
             col_rel_err(u_k, u_p), col_rel_err(P, P_p),
             ((r_k - r_p).abs() / r_p.abs().clamp_min(1.0)).max(),
         ]))
-        w0_bits.append(torch.equal(w0, w0_was - lr0 * (r_k[0] + r_k[1] * reg0 * w0_was)))
+        w0_bits.append(torch.equal(w0, sg.sgd_w0_update(w0_was, lr0, r_k[0], r_k[1], reg0)))
     if not all(w0_bits):
         fail(f"sgd_step's w0 differs from the torch line on its sums in "
              f"{w0_bits.count(False)} of {len(w0_bits)} batches")
@@ -930,7 +1392,7 @@ def plain_epoch(P0, w0, batches, kw, lr0, reg0, sums=None):
         else:
             upd, _ = sg.sgd_step_plain(P, ids, vals, y, m, w0, order=order, **kw)
             red = sums(P, ids, vals, y, m, w0, **kw)[1]
-            w0 = w0 - lr0 * (red[0] + red[1] * reg0 * w0)
+            w0 = sg.sgd_w0_update(w0, lr0, red[0], red[1], reg0)
         ts.table_scatter_plain(P, sids, None, upd)
     return P, w0
 
@@ -1057,16 +1519,16 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
             return plain_epoch(P_, w0_, batches, kw, c["lr"], cfg.reg0, sums)
 
         # free-running from the same table: the kernels' epoch (the
-        # learner's), the plain epoch twice (index_add_'s atomics add in no
-        # fixed order), the plain epoch with the kernel's batch sums, and
-        # the plain epoch in float64
+        # learner's), the plain epoch (in a fixed order on the card since
+        # table_scatter_plain sums each run in entry order), the plain epoch
+        # with the kernel's batch sums, and the plain epoch in float64
         r_k = ep_k(params, *arrs, lrs, *lims, max_runs)
         P_k, w0_k = _packed(r_k), r_k.w0.item()
-        (P_p, w0_p), (P_p2, w0_p2) = ep_p(P0, params.w0), ep_p(P0, params.w0)
+        P_p, w0_p = ep_p(P0, params.w0)
         w0_ks = ep_p(P0, params.w0, sums=sg.sgd_step)[1].item()
         w0_64 = ep_p(P0.double(), params.w0.double())[1].item()
-        w0_p, w0_p2 = w0_p.item(), w0_p2.item()
-        free = [col_rel_err(P_k, P_p).item(), col_rel_err(P_p2, P_p).item()]
+        w0_p = w0_p.item()
+        free = col_rel_err(P_k, P_p).item()
         w0_err, w0_sums_err = rel(w0_k, w0_p), rel(w0_k, w0_ks)
         t2 = time.perf_counter()
         secs["lockstep and free-running epochs"] = t2 - t1
@@ -1075,16 +1537,16 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
         print(f"SGD epoch, {label}: {nb} batches of {B}x{L}; kernels against plain "
               f"in lockstep (every batch from the same state): {err:.3g} (tol 1e-4, "
               f"relative per column); free-running after one epoch: table, kernels "
-              f"against plain {free[0]:.3g} (tol 1e-4), plain against plain "
-              f"{free[1]:.3g}; w0 kernels {w0_k!r}, plain {w0_p!r} and {w0_p2!r}, "
+              f"against plain {free:.3g} (tol 1e-4); w0 kernels {w0_k!r}, plain "
+              f"{w0_p!r}, "
               f"plain with the kernel's sums {w0_ks!r}, plain float64 {w0_64!r}; "
               f"w0 kernels against plain {w0_err:.3g} "
               f"({'tol 1e-4' if gate_w0 else 'recorded'}), against plain with the "
               f"kernel's sums {w0_sums_err:.3g} (tol 1e-4); "
               f"epoch ms {epoch_ms:.3f}, plain {epoch_plain_ms:.3f}")
-        if not max(err, free[0], w0_sums_err, w0_err if gate_w0 else 0.0) <= 1e-4:
+        if not max(err, free, w0_sums_err, w0_err if gate_w0 else 0.0) <= 1e-4:
             fail(f"SGD epoch at {label}: kernels and plain versions differ by "
-                 f"{err} (lockstep), {free[0]} (free-running table), {w0_err} "
+                 f"{err} (lockstep), {free} (free-running table), {w0_err} "
                  f"(w0), {w0_sums_err} (w0 against the plain epoch with the "
                  f"kernel's sums)")
         # each kernel alone over the epoch's batches, from the initial table,
@@ -1144,8 +1606,8 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
             equal_ids[cname] = one_run_batch(args, dev, g, P0, B * L, label)
         rec.setdefault("sgd_epoch", {})[label] = dict(
             kernels_ms=epoch_ms, plain_ms=epoch_plain_ms, batches=nb, entries=E,
-            unique_rows=uniq, lockstep_err=err, free_running_err=free[0],
-            plain_repeat_err=free[1], w0_kernels=w0_k, w0_plain=[w0_p, w0_p2],
+            unique_rows=uniq, lockstep_err=err, free_running_err=free,
+            w0_kernels=w0_k, w0_plain=w0_p,
             w0_plain_kernel_sums=w0_ks, w0_plain_f64=w0_64, w0_err=w0_err,
             w0_err_gated=gate_w0, w0_kernel_sums_err=w0_sums_err)
         secs["timing"] = time.perf_counter() - t2
@@ -1519,9 +1981,13 @@ def table_checks(args, rec, dev, scatter_row):
 
 
 def check_launches(name, counts):
+    """Fails unless the run launched each kernel of its path and no other."""
     for kname in sorted(EXPECTED[name]):
         if counts.get(kname, 0) <= 0:
             fail(f"{name}: kernel {kname} was not launched on the path")
+    others = {kname: c for kname, c in counts.items() if c and kname not in EXPECTED[name]}
+    if others:
+        fail(f"{name}: launched kernels outside its path: {others}")
 
 
 def run_sgd(name, data, args, rec):
@@ -1665,21 +2131,28 @@ def profile_summary(prof, out_dir, rec, name, batches=None):
 
 
 def run_learner(cls, name, data, args, rec, factors=FACTORS, iters=None, groups=None,
-                task=0, per_iter=None, **cfg_kw):
+                task=0, per_iter=None, want=None, num_features=None, flags=None,
+                **cfg_kw):
     """Path phase: one learner run. `per_iter` gives the launches each
     iteration must make of slot_stats, case_stats, schur_draw and
     dual_draw (2 slot_stats and schur_draw launches, no other, when None:
-    config #3); a probit run also makes the refreshes' probit launches."""
+    config #3); a probit run also makes the refreshes' probit launches.
+    `want` gives the run's launches instead (the BS engine's runs);
+    `num_features` the model's width where the main table is narrower
+    (relational data); `flags` learner attributes to set."""
     from libfm_tpu_torch import kernels
     from libfm_tpu_torch.learners.mcmc import dispatch_chunks
     from libfm_tpu_torch.models.fm import FMConfig
 
     train, test = data[:2]
-    cfg = FMConfig(num_features=train.num_features, num_factors=factors, **cfg_kw)
+    cfg = FMConfig(num_features=num_features or train.num_features, num_factors=factors,
+                   **cfg_kw)
     if iters is None:
         iters = ALS_ITERS if name == "als" else MCMC_ITERS
     learner = cls(cfg, task=task, num_iter=iters, seed=SEED, verbose=True,
                   attr_group=groups)
+    for key, v in (flags or {}).items():
+        setattr(learner, key, v)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     prof = None
@@ -1704,15 +2177,17 @@ def run_learner(cls, name, data, args, rec, factors=FACTORS, iters=None, groups=
     rec[name]["setup_seconds"] = wall - sum(secs)
     print(f"{name}: launches {counts}; learn() {wall:.2f} s, of which set-up "
           f"{wall - sum(secs):.2f} s; per-iteration s {secs}; seconds an iteration past "
-          f"the first {secs[1:]}")
+          f"the first {secs[1:]}; peak device memory "
+          f"{rec[name]['peak_mem_bytes'] / 1e9:.3f} GB")
     check_launches(name, counts)
     # the launches each path's iterations must make, exactly
-    refresh = len(dispatch_chunks(0, iters, learner.refresh_every))
-    per_iter = dict(dict(slot_stats=0, case_stats=0, schur_draw=0, dual_draw=0),
-                    **(per_iter or dict(slot_stats=2, schur_draw=2)))
-    want = dict({key: v * iters for key, v in per_iter.items()},
-                fm_refresh_probit=refresh if task else 0,
-                probit_latent=iters - refresh if task else 0)
+    if want is None:
+        refresh = len(dispatch_chunks(0, iters, learner.refresh_every))
+        per_iter = dict(dict(slot_stats=0, case_stats=0, schur_draw=0, dual_draw=0),
+                        **(per_iter or dict(slot_stats=2, schur_draw=2)))
+        want = dict({key: v * iters for key, v in per_iter.items()},
+                    fm_refresh_probit=refresh if task else 0,
+                    probit_latent=iters - refresh if task else 0)
     wrong = {key: (counts[key], v) for key, v in want.items() if counts[key] != v}
     if wrong:
         fail(f"{name}: launches (made, expected) {wrong}")
@@ -1728,6 +2203,55 @@ def run_learner(cls, name, data, args, rec, factors=FACTORS, iters=None, groups=
                   f"accuracy {h['test_all']:.6g}, log10-loss {h['test_all_m2']:.6g}, AUC "
                   f"{h['auc_all']:.6g}, {h['time']:.4f} s")
     return learner, counts
+
+
+def run_bench_bs(args, rec, dev, counts, done):
+    """bench_bs: its data, the kernel checks at its shapes (returns their
+    rows) and the three paths (their launches into `counts`): ALS 9
+    iterations and MCMC 24 on the deferred path, the draw check again at
+    the state MCMC ends in, MCMC 4 on the resync path. `done(name, t0)`
+    records a phase's seconds."""
+    from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner, MCMCVectorLearner
+
+    t0 = time.perf_counter()
+    bs = bs_data(dev)
+    t0 = done("bench_bs data", t0)
+    table = bs_kernel_checks(args, rec, dev, bs)
+    t0 = done("bench_bs kernel checks", t0)
+    rec["bench_bs"] = {key: bs[key] for key in ("blocks", "observed", "unobserved")}
+    rec["bench_bs"]["shapes"] = [[F, E, c] for (F, E), c in bs["shapes"].items()]
+    c_bs = dict(factors=BS_FACTORS, num_features=BS_NF)
+    learner, counts["als_bs"] = run_learner(
+        ALSVectorLearner, "als_bs", (bs["train"], bs["test"]), args, rec,
+        iters=BS_ALS_ITERS, want=bs_want(BS_ALS_ITERS, bs["blocks"], True), regw=5.0,
+        regv=5.0, **c_bs)
+    if learner.relational_mode != "bs_vector":
+        fail(f"als_bs: routed to {learner.relational_mode}")
+    als = rec["als_bs"]["history"]
+    if not als[-1]["train"] < als[0]["train"]:
+        fail(f"bench_bs ALS train RMSE did not fall: {[h['train'] for h in als]}")
+    t0 = done("bench_bs ALS path", t0)
+    learner, counts["mcmc_bs"] = run_learner(
+        MCMCVectorLearner, "mcmc_bs", (bs["train"], bs["test"]), args, rec,
+        iters=BS_MCMC_ITERS, want=bs_want(BS_MCMC_ITERS, bs["blocks"], True), **c_bs)
+    rmse = rec["mcmc_bs"]["history"][-1]["test_all"]
+    print(f"mcmc_bs: test_all after {BS_MCMC_ITERS} iterations {rmse:.6f} (bench_bs's "
+          f"quality target {BS_TARGET}, limit {BS_LIMIT}); test_all by iteration "
+          f"{[round(h['test_all'], 6) for h in rec['mcmc_bs']['history']]}")
+    if not rmse <= BS_LIMIT:
+        fail(f"mcmc_bs: test_all {rmse} after {BS_MCMC_ITERS} iterations is above "
+             f"{BS_LIMIT}")
+    t0 = done("bench_bs MCMC path", t0)
+    bs_chain_check(rec, dev, bs, learner)
+    del learner
+    t0 = done("bench_bs draw check at the chain's state", t0)
+    _, counts["mcmc_bs_resync"] = run_learner(
+        MCMCVectorLearner, "mcmc_bs_resync", (bs["train"], bs["test"]), args, rec,
+        iters=BS_RESYNC_ITERS, want=bs_want(BS_RESYNC_ITERS, bs["blocks"], False),
+        flags=dict(bs_deferred=False), **c_bs)
+    del bs
+    done("bench_bs MCMC resync path", t0)
+    return table
 
 
 def main(argv=None) -> int:
@@ -1746,6 +2270,9 @@ def main(argv=None) -> int:
     ap.add_argument("--config5-kernels", action="store_true",
                     help="only build the kernels and run config #5's dual_draw "
                     "check; print its row as one JSON line")
+    ap.add_argument("--bench-bs", action="store_true",
+                    help="only build the kernels and run bench_bs: its kernel checks "
+                    "and its three paths; print the rows and launches as one JSON line")
     args = ap.parse_args(argv)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
@@ -1786,6 +2313,16 @@ def main(argv=None) -> int:
     t0 = done("build", t0)
 
     dev = torch.device("cuda")
+    if args.bench_bs:
+        counts = {}
+        table = run_bench_bs(args, rec, dev, counts, done)
+        fill_launches(table, counts)
+        print(f"phase seconds: { {key: round(v, 2) for key, v in phase.items()} }")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(rec, kernels=table, phase_seconds=phase), f, indent=1)
+        print(json.dumps({"card": smi, "kernels": table}))
+        return 0
     if args.config5_kernels:
         row, _ = lv_kernel_checks(args, rec, dev, lv_data())
         print(json.dumps({"card": smi, "kernels": [row]}))
@@ -1842,6 +2379,8 @@ def main(argv=None) -> int:
                       dual_draw=lv_blocks["dual"]))
     del lv
     t0 = done("config #5 MCMC path", t0)
+    table += run_bench_bs(args, rec, dev, counts, done)
+    t0 = time.perf_counter()
     counts["sgd_1"] = run_sgd("sgd_1", data, args, rec)
     t0 = done("SGD #1 path", t0)
     counts["sgd_4b"] = run_sgd("sgd_4b", ctr[:2], args, rec)
@@ -1856,16 +2395,14 @@ def main(argv=None) -> int:
     rec["phase_seconds"] = phase
     print(f"phase seconds on {smi}: "
           f"{ {key: round(v, 2) for key, v in phase.items()} }")
-    for row in table:
-        by_path = {p: c[row["name"]] for p, c in counts.items() if c[row["name"]]}
-        row["launches"] = sum(by_path.values())
-        row["launches_by_path"] = by_path
+    fill_launches(table, counts)
     rec["kernels"] = table
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rec, f, indent=1)
     print(json.dumps({"kernels": table}))
-    for name in ("als", "mcmc", "als_4", "mcmc_4", "mcmc_5"):
+    for name in ("als", "mcmc", "als_4", "mcmc_4", "mcmc_5", "als_bs", "mcmc_bs",
+                 "mcmc_bs_resync"):
         print(f"{name} per-iteration seconds on {smi}: "
               f"{[round(h['time'], 6) for h in rec[name]['history']]}")
     for name in SGD_CONFIGS:

@@ -1,0 +1,314 @@
+// rel_stats, rel_update and rel_resync: the relational (BS) engine's sweep
+// over one relation (K10).
+//
+// Replace, in libfm_tpu/learners/mcmc_rel_vector.py `sweep_relation`, the
+// per-block `block_step`: its `corrected` caches, `mom_chunk` moments and
+// the reconstruction of GG (rel_stats) and its `upd_chunk` (rel_update); and
+// `resync_chunk`, `resync_te` and the deferred `_te_chunk` (rel_resync).
+//
+// rel_stats, per feature j of one conflict-free block, over its entries
+// (b, x): the caches of row b corrected by SD[b] = [s | dQB] from the frozen
+// ones C[b] = [we0 | we2_0 | SQ0 | SQe0 | SQQ0 (T)] and wnum[b],
+//   SQ = SQ0 + wnum dQB, we = we0 + wnum s + SQ0 . dQB,
+//   SQe = SQe0 + s SQ0 + SQQ0 dQB + dQB we,
+//   SQQ = SQQ0 + dQB SQ0^T + SQ0 dQB^T + wnum dQB dQB^T,
+// summed x-power weighted into the moments M2 = sum x^2 SQQ, S2 = sum x^2
+// SQ, S3 = sum x^3 SQ, SQe = sum x SQe, m2, m3, m4 = sum x^2, x^3, x^4
+// wnum, mxe = sum x we, m2e = sum x^2 we; then GG's row [Qq (T) | qa | qe |
+// aa | ae] with Qq = M2 - v S3^T - S3 v^T + m4 v v^T, qa = S2 - m3 v,
+// qe = SQe - m2e v, aa = m2, ae = mxe (qa, aa, ae 0 without the linear
+// term), v the feature's pre-draw factors. The moments never leave the CTA.
+// rel_update, per entry (b, x) of feature f: with (dw, dv) = theta_new[f] -
+// theta_old[f], s_b += x (dw + dv . (dQB_b - x v_old)), dQB_b += x dv; a
+// conflict-free block's entries hold distinct rows, so this is a plain
+// read-modify-write.
+// rel_resync, per case c of row m = map[c]: e += s_m + dQB_m . Q (the Q
+// before the update), Q += dQB_m; or (read-only) return e + s_m + dQB_m . Q.
+//
+// Bounds on the H100. rel_stats: bytes, writing GG (T + 2k + 2 floats a
+// feature: 45 MB an iteration at bench_bs's 19,147 features, k = 32) and
+// reading each entry's cache row (2.4 KB, L2-resident: C is 9.5 MB);
+// ~0.014 ms an iteration at 3.35 TB/s. rel_update: bytes, an SD row read
+// and written and a theta row pair read an entry. rel_resync: bytes, the
+// map and A's row read (and written back) a case, and the SD rows (L2).
+// Design. rel_stats: one CTA of 256 threads a feature. Per entry the CTA
+// stages the row's SQ0, dQB and SQe0 in shared memory, threads i < k form
+// (SQQ0 dQB)_i from the packed triangle (L2 reads), warp 0 the dot SQ0 . dQB;
+// then each thread adds x^2 SQQ to the upper-triangle moments it owns in
+// registers (up to 33 at k = 128), threads i < k the vector moments, thread
+// 0 the scalars. The reconstruction reads S3, m4, m2e, m3 and v from shared
+// memory and writes the GG row. Entries are taken in order: no atomics, the
+// same bits every run. rel_update and rel_resync: one warp an entry / a
+// case, lanes over the factors, the dot product by warp shuffles.
+
+#include "common.cuh"
+
+namespace {
+
+using libfm::kMaxK;
+using libfm::kWarp;
+using libfm::tri_index;
+using libfm::warp_sum;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / kWarp;
+constexpr int kLaneFactors = kMaxK / kWarp;  // 4
+
+__host__ __device__ constexpr int tri_count(int k) { return k * (k + 1) / 2; }
+
+template <int KP>
+__global__ void __launch_bounds__(kThreads)
+    rel_stats_kernel(const float* __restrict__ C, const float* __restrict__ SD,
+                     const float* __restrict__ wnum, const long long* __restrict__ feat_off,
+                     const int* __restrict__ entry_b, const float* __restrict__ entry_x,
+                     const int* __restrict__ feat_id, const float* __restrict__ P,
+                     float* __restrict__ GG, int k, int use_linear) {
+  constexpr int kPer = (tri_count(KP) + kThreads - 1) / kThreads;
+  __shared__ float s_sq0[KP], s_dq[KP], s_mv[KP], s_S3[KP], s_v[KP];
+  __shared__ float s_scal[4];  // per entry: s, wnum, we; at the end: m4, m2e, m3
+  const int f = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int T = tri_count(k);
+  const int d = k + 1;
+  const int cw = 2 + 2 * k + T;
+  int pi[kPer], pj[kPer];
+  float M2[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    M2[j] = 0.0f;
+    int t = tid + j * kThreads, i = 0;
+    if (t < T) {
+      while (t >= k - i) {
+        t -= k - i;
+        ++i;
+      }
+      pi[j] = i;
+      pj[j] = i + t;
+    } else {
+      pi[j] = pj[j] = 0;
+    }
+  }
+  float S2 = 0.0f, S3 = 0.0f, SQe = 0.0f;           // thread i < k: factor i
+  float m2 = 0.0f, m3 = 0.0f, m4 = 0.0f, mxe = 0.0f, m2e = 0.0f;  // thread 0
+  for (long long e = feat_off[f]; e < feat_off[f + 1]; ++e) {
+    const int b = entry_b[e];
+    const float x = entry_x[e];
+    const float* c = C + (long long)b * cw;
+    const float* sd = SD + (long long)b * d;
+    __syncthreads();  // the previous entry's staged rows are read
+    if (tid < k) {
+      s_sq0[tid] = c[2 + tid];
+      s_dq[tid] = sd[1 + tid];
+    }
+    if (tid == 0) {
+      s_scal[0] = sd[0];
+      s_scal[1] = wnum[b];
+    }
+    __syncthreads();
+    const float s = s_scal[0], wn = s_scal[1];
+    if (tid < k) {
+      // (SQQ0 dQB)_i over the packed triangle of row b
+      float mv = 0.0f;
+      for (int g = 0; g < k; ++g) {
+        const int t = tid <= g ? tri_index(tid, g, k) : tri_index(g, tid, k);
+        mv = fmaf(c[2 + 2 * k + t], s_dq[g], mv);
+      }
+      s_mv[tid] = mv;
+    }
+    if (tid < kWarp) {
+      float p = 0.0f;
+      for (int i = tid; i < k; i += kWarp) p = fmaf(s_sq0[i], s_dq[i], p);
+      p = warp_sum(p);
+      // we = we0 + wnum s + SQ0 . dQB
+      if (tid == 0) s_scal[2] = __fadd_rn(__fadd_rn(c[0], __fmul_rn(wn, s)), p);
+    }
+    __syncthreads();
+    const float we = s_scal[2];
+    const float x2 = __fmul_rn(x, x);
+    if (tid < k) {
+      const float sq0 = s_sq0[tid], dq = s_dq[tid];
+      const float SQc = fmaf(wn, dq, sq0);
+      // SQe0 + s SQ0 + SQQ0 dQB + dQB we
+      const float SQec = __fadd_rn(
+          __fadd_rn(__fadd_rn(c[2 + k + tid], __fmul_rn(s, sq0)), s_mv[tid]), __fmul_rn(dq, we));
+      S2 = fmaf(x2, SQc, S2);
+      S3 = fmaf(__fmul_rn(x2, x), SQc, S3);
+      SQe = fmaf(x, SQec, SQe);
+    }
+    if (tid == 0) {
+      const float x3 = __fmul_rn(x2, x), x4 = __fmul_rn(x2, x2);
+      m2 = fmaf(x2, wn, m2);
+      m3 = fmaf(x3, wn, m3);
+      m4 = fmaf(x4, wn, m4);
+      mxe = fmaf(x, we, mxe);
+      m2e = fmaf(x2, we, m2e);
+    }
+    const float* sqq0 = c + 2 + 2 * k;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int t = tid + j * kThreads;
+      if (t < T) {
+        const int i = pi[j], g = pj[j];
+        const float dqi = s_dq[i], dqg = s_dq[g];
+        float q = __fadd_rn(sqq0[t], __fmul_rn(dqi, s_sq0[g]));
+        q = __fadd_rn(q, __fmul_rn(s_sq0[i], dqg));
+        q = __fadd_rn(q, __fmul_rn(wn, __fmul_rn(dqi, dqg)));
+        M2[j] = fmaf(x2, q, M2[j]);
+      }
+    }
+  }
+  // the reconstruction, with the feature's pre-draw v
+  __syncthreads();  // the last entry's staged values are read
+  const float* pv = P + (long long)feat_id[f] * d;
+  if (tid < k) {
+    s_v[tid] = pv[1 + tid];
+    s_S3[tid] = S3;
+  }
+  if (tid == 0) {
+    s_scal[0] = m4;
+    s_scal[1] = m2e;
+    s_scal[2] = m3;
+  }
+  __syncthreads();
+  const float M4 = s_scal[0], M2E = s_scal[1], M3 = s_scal[2];
+  float* g = GG + (long long)f * (T + 2 * k + 2);
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int t = tid + j * kThreads;
+    if (t < T) {
+      const int i = pi[j], q = pj[j];
+      const float vi = s_v[i], vq = s_v[q];
+      float r = __fsub_rn(M2[j], __fmul_rn(vi, s_S3[q]));
+      r = __fsub_rn(r, __fmul_rn(s_S3[i], vq));
+      g[t] = __fadd_rn(r, __fmul_rn(M4, __fmul_rn(vi, vq)));
+    }
+  }
+  if (tid < k) {
+    const float v = s_v[tid];
+    g[T + tid] = use_linear ? __fsub_rn(S2, __fmul_rn(M3, v)) : 0.0f;
+    g[T + k + tid] = __fsub_rn(SQe, __fmul_rn(M2E, v));
+  }
+  if (tid == 0) {
+    g[T + 2 * k] = use_linear ? m2 : 0.0f;
+    g[T + 2 * k + 1] = use_linear ? mxe : 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    rel_update_kernel(float* __restrict__ SD, const int* __restrict__ entry_b,
+                      const float* __restrict__ entry_x, const int* __restrict__ entry_f,
+                      const float* __restrict__ theta_old, const float* __restrict__ theta_new,
+                      int E, int k) {
+  const int e = (int)((blockIdx.x * (long long)kThreads + threadIdx.x) / kWarp);
+  const int lane = threadIdx.x & (kWarp - 1);
+  if (e >= E) return;
+  const int d = k + 1;
+  const float x = entry_x[e];
+  const float* to = theta_old + (long long)entry_f[e] * d;
+  const float* tn = theta_new + (long long)entry_f[e] * d;
+  float* sd = SD + (long long)entry_b[e] * d;
+  float dv[kLaneFactors];
+  float p = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kLaneFactors; ++i) {
+    const int f = lane + kWarp * i;
+    dv[i] = 0.0f;
+    if (f < k) {
+      dv[i] = __fsub_rn(tn[1 + f], to[1 + f]);
+      p = fmaf(dv[i], __fsub_rn(sd[1 + f], __fmul_rn(x, to[1 + f])), p);
+    }
+  }
+  p = warp_sum(p);  // every lane has read its dQB entries
+  const float ds = __fmul_rn(x, __fadd_rn(__fsub_rn(tn[0], to[0]), p));
+#pragma unroll
+  for (int i = 0; i < kLaneFactors; ++i) {
+    const int f = lane + kWarp * i;
+    if (f < k) sd[1 + f] = __fadd_rn(sd[1 + f], __fmul_rn(x, dv[i]));
+  }
+  if (lane == 0) sd[0] = __fadd_rn(sd[0], ds);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    rel_resync_kernel(const float* __restrict__ SD, const int* __restrict__ row_map,
+                      float* __restrict__ A, float* __restrict__ out, long long nc, int k) {
+  const long long c = (blockIdx.x * (long long)kThreads + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x & (kWarp - 1);
+  if (c >= nc) return;
+  const int d = k + 1;
+  const float* sd = SD + (long long)row_map[c] * d;
+  float* a = A + c * d;
+  float dq[kLaneFactors], q[kLaneFactors];
+  const float a0 = a[0];
+  float p = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kLaneFactors; ++i) {
+    const int f = lane + kWarp * i;
+    dq[i] = q[i] = 0.0f;
+    if (f < k) {
+      dq[i] = sd[1 + f];
+      q[i] = a[1 + f];
+      p = fmaf(dq[i], q[i], p);
+    }
+  }
+  p = warp_sum(p);  // every lane has read its part of a
+  const float e = __fadd_rn(__fadd_rn(a0, sd[0]), p);
+  if (out != nullptr) {
+    if (lane == 0) out[c] = e;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kLaneFactors; ++i) {
+    const int f = lane + kWarp * i;
+    if (f < k) a[1 + f] = __fadd_rn(q[i], dq[i]);
+  }
+  if (lane == 0) a[0] = e;
+}
+
+}  // namespace
+
+// GG [F, T+2k+2] out; C [nb+1, 2+2k+T], SD [nb+1, k+1], wnum [nb+1];
+// feat_off int64 [F+1] over entry_b int32 / entry_x [E]; feat_id int32 [F]
+// rows of P [n, k+1]; kp the padded width (16, 32, 64 or 128) holding k.
+extern "C" int rel_stats_launch(const float* C, const float* SD, const float* wnum,
+                                const long long* feat_off, const int* entry_b,
+                                const float* entry_x, const int* feat_id, const float* P,
+                                float* GG, int F, int k, int kp, int use_linear,
+                                cudaStream_t stream) {
+  if (!libfm::valid_padded_width(kp, k) || F < 0) return (int)cudaErrorInvalidValue;
+  if (F == 0) return (int)cudaSuccess;
+#define REL_STATS_LAUNCH(KP)                                                                \
+  rel_stats_kernel<KP><<<(unsigned)F, kThreads, 0, stream>>>(C, SD, wnum, feat_off, entry_b, \
+                                                             entry_x, feat_id, P, GG, k,      \
+                                                             use_linear)
+  switch (kp) {
+    case 16: REL_STATS_LAUNCH(16); break;
+    case 32: REL_STATS_LAUNCH(32); break;
+    case 64: REL_STATS_LAUNCH(64); break;
+    default: REL_STATS_LAUNCH(128); break;
+  }
+#undef REL_STATS_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// SD [nb+1, k+1] updated in place; entry_b / entry_x / entry_f [E] (entry_f
+// block-local rows of theta_old / theta_new [F, k+1]).
+extern "C" int rel_update_launch(float* SD, const int* entry_b, const float* entry_x,
+                                 const int* entry_f, const float* theta_old,
+                                 const float* theta_new, int E, int k, cudaStream_t stream) {
+  if (k < 1 || k > kMaxK || E < 0) return (int)cudaErrorInvalidValue;
+  if (E == 0) return (int)cudaSuccess;
+  const unsigned grid = (unsigned)(((long long)E + kWarps - 1) / kWarps);
+  rel_update_kernel<<<grid, kThreads, 0, stream>>>(SD, entry_b, entry_x, entry_f, theta_old,
+                                                   theta_new, E, k);
+  return (int)cudaGetLastError();
+}
+
+// A [nc, k+1] updated in place (out == NULL), or left as it is with
+// out [nc] = e + s + dQB . Q (read-only); row_map int32 [nc] rows of SD.
+extern "C" int rel_resync_launch(const float* SD, const int* row_map, float* A, float* out,
+                                 long long nc, int k, cudaStream_t stream) {
+  if (k < 1 || k > kMaxK || nc < 0) return (int)cudaErrorInvalidValue;
+  if (nc == 0) return (int)cudaSuccess;
+  const unsigned grid = (unsigned)((nc + kWarps - 1) / kWarps);
+  rel_resync_kernel<<<grid, kThreads, 0, stream>>>(SD, row_map, A, out, nc, k);
+  return (int)cudaGetLastError();
+}

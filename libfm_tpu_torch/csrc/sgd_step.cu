@@ -357,10 +357,11 @@ sgd_step_kernel(const float* __restrict__ P, const int* __restrict__ ids,
     red[0] = r0;
     red[1] = r1;
     if (update_w0) {
-      // w0 - lr0 * (red0 + red1 * reg0 * w0), op by op as torch rounds it
-      // (no contraction into an FMA)
-      const float g = __fadd_rn(r0, __fmul_rn(__fmul_rn(r1, reg0), w0));
-      *w0p = __fsub_rn(w0, __fmul_rn(lr0, g));
+      // w0 - lr0 * (red0 + red1 * reg0 * w0) as XLA rounds JAX's line on
+      // the CPU (and kernels/sgd_step.py's sgd_w0_update): red1 * reg0,
+      // then two fused multiply-adds, each rounded once
+      const float g = __fmaf_rn(__fmul_rn(r1, reg0), w0, r0);
+      *w0p = __fmaf_rn(-lr0, g, w0);
     }
     *ticket = 0;
   }

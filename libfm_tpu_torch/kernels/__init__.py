@@ -210,8 +210,9 @@ def padded_width(k: int) -> int:
 def import_all() -> dict:
     """Import every kernel module so REGISTRY lists them all."""
     from libfm_tpu_torch.kernels import (  # noqa: F401
-        case_stats, dense_update, dual_draw, fm_refresh, probit_latent, schur_draw,
-        sgd_step, sgda_lambda, sgda_step, slot_stats, table_read, table_scatter,
+        case_stats, dense_update, dual_draw, fm_refresh, probit_latent, rel_cache,
+        rel_refresh, rel_sweep, schur_draw, sgd_step, sgda_lambda, sgda_step, slot_stats,
+        table_read, table_scatter,
     )
 
     return REGISTRY

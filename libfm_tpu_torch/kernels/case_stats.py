@@ -21,6 +21,8 @@ the same sums over the per-feature slot lists.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -36,6 +38,13 @@ KERNEL = Kernel(
 #: cases a one-hot product of the plain version sums (the JAX engine's
 #: case-major chunk, `CUS`)
 CASE_CHUNK = 8192
+
+
+@lru_cache(maxsize=None)
+def triu(k: int, device) -> tuple:
+    """(iu0, iu1) long tensors of np.triu_indices(k) on `device`, made once
+    (a copy to the card inside a timed plain version would wait for it)."""
+    return tuple(torch.as_tensor(a, device=device) for a in np.triu_indices(k))
 
 
 def moment_width(k: int, onehot: bool) -> int:
@@ -58,7 +67,6 @@ def case_stats_plain(A, P, feat_off, slot_case, slot_val, feat_id, *, onehot,
     k = P.shape[1] - 1
     nc = A.shape[0]
     Fd = feat_id.shape[0]
-    T = k * (k + 1) // 2
     MW = moment_width(k, onehot)
     dev = A.device
     iu0, iu1 = (torch.as_tensor(a, device=dev) for a in np.triu_indices(k))
@@ -92,8 +100,19 @@ def case_stats_plain(A, P, feat_off, slot_case, slot_val, feat_id, *, onehot,
         # one one-hot product a chunk of cases, as the JAX engine sums
         onehot_c = (sid[c0:c0 + CASE_CHUNK, None] == feats[None, :]).to(A.dtype)
         MOM += onehot_c.T @ rows
-    MOM = MOM[:Fd]
-    v = P[feat_id.long(), 1:]
+    return gg_from_moments(MOM[:Fd], P[feat_id.long(), 1:], onehot=onehot,
+                           use_linear=use_linear, GG=GG)
+
+
+def gg_from_moments(MOM, v, *, onehot, use_linear=True, GG=None):
+    """GG [F, T+2k+2] from the moment rows MOM [F, moment_width(k, onehot)]
+    and the features' (pre-draw) v [F, k], without v in the sums:
+    Qq = M2 - v S3 - S3 v + m4 v v, qa = S2 - m3 v, qe = SQe - m2e v,
+    aa = m2, ae = m x e (qa, aa, ae zero without the linear term). GG may
+    be passed to write into (its first F rows)."""
+    F, k = v.shape
+    T = k * (k + 1) // 2
+    iu0, iu1 = triu(k, v.device)
     M2 = MOM[:, :T]
     if onehot:
         S2 = S3 = MOM[:, T:T + k]
@@ -109,8 +128,8 @@ def case_stats_plain(A, P, feat_off, slot_case, slot_val, feat_id, *, onehot,
     S3v = S3[:, iu0] * v[:, iu1]
     vv = v[:, iu0] * v[:, iu1]
     if GG is None:
-        GG = torch.empty(Fd, gg_width(k), dtype=A.dtype, device=dev)
-    G = GG[:Fd]
+        GG = torch.empty(F, gg_width(k), dtype=MOM.dtype, device=MOM.device)
+    G = GG[:F]
     G[:, :T] = M2 - vS3 - S3v + m4[:, None] * vv
     G[:, T + k:T + 2 * k] = SQe - m2e[:, None] * v
     if use_linear:

@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from libfm_tpu_torch.kernels import Kernel, check, on_cuda, ptr
+from libfm_tpu_torch.kernels.sgda_step import fma_f32
 from libfm_tpu_torch.tasks import TASK_REGRESSION
 
 KERNEL = Kernel(
@@ -32,6 +33,19 @@ def sgd_step_scratch(device) -> torch.Tensor:
     the last-CTA ticket); every call leaves it ready for the next, so it
     is allocated once."""
     return torch.zeros(SCRATCH_FLOATS, dtype=torch.float32, device=device)
+
+
+def sgd_w0_update(w0, lr0, m, n, reg0):
+    """w0 - lr0 (m + n reg0 w0), the SGD w0 line for a batch whose
+    multipliers sum to m over n real rows, rounded as XLA rounds JAX's
+    line on the CPU (libfm_tpu/learners/sgd.py:147) and as the kernel
+    rounds it: n reg0 first, then two fused multiply-adds, g = (n reg0) w0
+    + m and w0 - lr0 g, each rounded once (`fma_f32`). In another dtype,
+    op by op."""
+    if w0.dtype != torch.float32:
+        return w0 - lr0 * (m + n * reg0 * w0)
+    g = fma_f32(n * reg0, w0, m)
+    return fma_f32(torch.tensor(-lr0, dtype=torch.float32, device=w0.device), g, w0)
 
 
 def sgd_multiplier(pred, y, task: int, min_target, max_target):
@@ -96,7 +110,7 @@ def sgd_step_plain(P, ids, vals, y, row_mask, w0, *, mode, task, lr1, lr2,
     if red is not None:
         sums = red.copy_(sums)
     if lr0 is not None:
-        w0.copy_(w0 - lr0 * (sums[0] + sums[1] * reg0 * w0))
+        w0.copy_(sgd_w0_update(w0, lr0, sums[0], sums[1], reg0))
     return out, sums
 
 
@@ -112,8 +126,8 @@ def sgd_step(P, ids, vals, y, row_mask, w0, *, mode, task, lr1, lr2, regw,
     - red [2]: the sum of the batch's multipliers and its count of real
       rows.
 
-    With `lr0`, w0 is also updated in place from red, as the line
-    `w0 - lr0 * (red[0] + red[1] * reg0 * w0)` rounds it.
+    With `lr0`, w0 is also updated in place from red, as
+    `sgd_w0_update(w0, lr0, red[0], red[1], reg0)` rounds it.
 
     P [n, 1+k] float32; ids int32 [B, L]; vals float32 [B, L] (read in
     "general" mode only); y float32 [B]; row_mask bool [B]; w0 a 0-dim

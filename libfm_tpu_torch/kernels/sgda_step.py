@@ -43,23 +43,29 @@ def sgda_multiplier(pred, y, task: int, min_target, max_target):
     return y * (torch.sigmoid(y * pred) - 1.0)
 
 
+def fma_f32(a, b, c):
+    """a b + c rounded once to float32, as a fused multiply-add rounds it
+    (float32 tensors of one shape, or broadcast). In float64: the product
+    of two float32 is exact there, the sum's rounding error is recovered
+    exactly (TwoSum) and the sum rounded to odd, so that its rounding to
+    float32 is the single rounding of a b + c."""
+    x = a.double() * b.double()
+    c = c.double()
+    z = x + c
+    bb = z - x
+    err = (x - (z - bb)) + (c - bb)
+    even = (z.reshape(-1).view(torch.int64) & 1).reshape(z.shape) == 0
+    z = torch.where((err != 0) & even, torch.nextafter(z, err * float("inf")), z)
+    return z.float()
+
+
 def w0_update(w0, lr, s):
     """w0 - lr s rounded once, as XLA contracts JAX's w0 line into a fused
     multiply-add on the CPU (sgda.py:85-87) and as the kernel rounds it
-    (__fmaf_rn); lr is taken in w0's dtype. In float32 through float64:
-    the product of two float32 is exact there, the sum's rounding error is
-    recovered exactly (TwoSum) and the sum rounded to odd, so that its
-    rounding to float32 is the single rounding of w0 - lr s."""
+    (__fmaf_rn); lr is taken in w0's dtype (`fma_f32` in float32)."""
     if w0.dtype != torch.float32:
         return w0 - lr * s
-    a = w0.double()
-    b = -(torch.tensor(lr, dtype=torch.float32).double() * s.double())
-    z = a + b
-    bb = z - a
-    err = (a - (z - bb)) + (b - bb)
-    even = (z.reshape(1).view(torch.int64) & 1).reshape(()) == 0
-    z = torch.where((err != 0) & even, torch.nextafter(z, err * float("inf")), z)
-    return z.float()
+    return fma_f32(torch.tensor(-lr, dtype=torch.float32, device=w0.device), s, w0)
 
 
 def entry_values(mode, vals, row_mask, dtype):

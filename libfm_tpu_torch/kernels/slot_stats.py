@@ -56,7 +56,7 @@ def slot_stats_plain(A, P, feat_off, slot_case, slot_val, feat_id, *,
     iu0, iu1 = np.triu_indices(k)
     tri = torch.as_tensor(iu0 * k + iu1, device=A.device)
     if GG is None:
-        GG = torch.empty(Fd, gg_width(k), dtype=torch.float32, device=A.device)
+        GG = torch.empty(Fd, gg_width(k), dtype=A.dtype, device=A.device)
     off = feat_off.cpu().numpy()
     counts = np.diff(off)
     f0 = 0
@@ -78,9 +78,9 @@ def slot_stats_plain(A, P, feat_off, slot_case, slot_val, feat_id, *,
             torch.as_tensor(counts[f0:f1], device=A.device),
         )
         sc = torch.full((n, wmax), num_rows, dtype=torch.long, device=A.device)
-        sv = torch.zeros(n, wmax, dtype=torch.float32, device=A.device)
+        sv = torch.zeros(n, wmax, dtype=A.dtype, device=A.device)
         sc[row, pos] = slot_case[lo:hi].long()
-        sv[row, pos] = slot_val[lo:hi]
+        sv[row, pos] = slot_val[lo:hi].to(A.dtype)
         real = sc != num_rows
         sv = torch.where(real, sv, torch.zeros_like(sv))
         A_slot = A[torch.where(real, sc, torch.zeros_like(sc))]  # [n, W, d]

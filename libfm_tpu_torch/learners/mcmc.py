@@ -3,11 +3,14 @@
 The port's counterpart of `libfm_tpu.learners.mcmc`. This slice carries
 the learner's configuration surface (constructor, `set_regularization`,
 per-iteration logging, `predict`, `get_params`), the hyperparameter
-draws (`draw_alpha`, `draw_theta_hyperpriors`), the refresh cadence
-(`dispatch_chunks`) and the masked test metrics: RMSE/MAE for
+draws (`draw_alpha`, `draw_alpha_from_sum`, `draw_theta_hyperpriors`), the refresh cadence
+(`dispatch_chunks`), the masked test metrics (RMSE/MAE for
 regression, accuracy/log10-likelihood and AUC for probit
-classification. The vector engine
-(`learners/mcmc_vector.py`) runs on top of it. The exact per-coordinate
+classification) and the steps the two vector engines share (the
+initial state, the w0, hyperprior and unobserved-feature draws, the
+per-iteration metrics). The flat vector engine
+(`learners/mcmc_vector.py`) and the BS one (`learners/mcmc_rel_vector.py`)
+run on top of it. The exact per-coordinate
 engine (`-engine exact`) is not ported: `MCMCLearner.learn` raises
 (ROADMAP M10).
 
@@ -17,16 +20,22 @@ instead of draws (libFM src/libfm/libfm.cpp:135-139).
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
 from libfm_tpu_torch.device import resolve_device
 from libfm_tpu_torch.learners.base import rmse_mae
-from libfm_tpu_torch.models.fm import FMConfig, FMParams
+from libfm_tpu_torch.models.fm import FMConfig, FMParams, init_fm
 from libfm_tpu_torch.ops import samplers
 from libfm_tpu_torch.ops.segment import seg_sum
-from libfm_tpu_torch.tasks import TASK_REGRESSION
+from libfm_tpu_torch.tasks import TASK_CLASSIFICATION, TASK_REGRESSION
 
+
+#: the hyperparameters a sweep draws with (`draw_sweep_hyperpriors`'
+#: order)
+HYPER = ("w_mu", "w_lambda", "v_mu", "v_lambda")
 
 # --------------------------------------------------------------------------
 # Hyperprior draws
@@ -50,6 +59,25 @@ def draw_alpha(generator, e, num_cases, alpha, alpha_0, gamma_0,
     e2 = e * e
     e2 = torch.where(torch.isfinite(e2), e2.clamp_max(1e30), torch.full_like(e2, 1e30))
     gamma_n = (gamma_0 + e2.sum()).clamp_max(1e37)
+    proposal = samplers.gamma(generator, alpha_n / 2.0, gamma_n / 2.0)
+    ok = torch.isfinite(proposal) & (proposal > 0.0)
+    return torch.where(ok, proposal, alpha), (~ok).sum()
+
+
+def draw_alpha_from_sum(generator, sum_e2, num_cases, alpha, alpha_0, gamma_0,
+                        do_multilevel, do_sample):
+    """draw_alpha when only sum(e^2) is at hand (the BS engine's deferred
+    path sums it in closed form from block-row caches): the same formula,
+    with the runaway clamp on the sum instead of each element."""
+    if not do_multilevel:
+        return (
+            torch.tensor(alpha_0, dtype=sum_e2.dtype, device=sum_e2.device),
+            torch.zeros((), dtype=torch.int64, device=sum_e2.device),
+        )
+    alpha_n = alpha_0 + num_cases
+    s = torch.where(torch.isfinite(sum_e2), sum_e2.clamp_max(1e37),
+                    torch.full_like(sum_e2, 1e37))
+    gamma_n = (gamma_0 + s).clamp_max(1e37)
     proposal = samplers.gamma(generator, alpha_n / 2.0, gamma_n / 2.0)
     ok = torch.isfinite(proposal) & (proposal > 0.0)
     return torch.where(ok, proposal, alpha), (~ok).sum()
@@ -139,6 +167,165 @@ def _masked_auc(p, y, mask):
     nneg = neg.sum().to(p.dtype)
     rsum = torch.where(pos, ranks, torch.zeros_like(ranks)).sum()
     return (rsum - npos * (npos + 1.0) / 2.0) / torch.clamp_min(npos * nneg, 1.0)
+
+
+# --------------------------------------------------------------------------
+# The steps the vector engines share (flat: learners/mcmc_vector.py; BS:
+# learners/mcmc_rel_vector.py). `lrn` is the MCMCLearner whose settings
+# and generator a step uses.
+# --------------------------------------------------------------------------
+
+
+def attr_groups(attr_group_np, n, device):
+    """(attr_group_np [n], attr_group long [n], num_attr_per_group
+    float32 [G]) on `device`; one group when `attr_group_np` is None."""
+    if attr_group_np is None:
+        attr_group_np = np.zeros(n, dtype=np.int32)
+    G = int(attr_group_np.max()) + 1
+    return (
+        attr_group_np,
+        torch.as_tensor(attr_group_np, dtype=torch.long, device=device),
+        torch.as_tensor(np.bincount(attr_group_np, minlength=G).astype(np.float32),
+                        device=device),
+    )
+
+
+def initial_state(lrn, init_params, n, k, G, nc_test):
+    """(P = [w | V] [n, k+1], the sampler state st): the parameters
+    `init_params` = (w0, w, V) when given, else drawn; the warm start's w0
+    and V; w = 0 without the linear term; alpha 1, mu 0 and the lambdas of
+    the regularization; zeroed test-prediction sums."""
+    dev, f32, cfg = lrn.device, torch.float32, lrn.cfg
+    if init_params is not None:
+        w0, w, V = (
+            (x if torch.is_tensor(x) else torch.tensor(np.asarray(x)))
+            .to(device=dev, dtype=f32).reshape(shape)
+            for x, shape in zip(init_params, ((), (n,), (n, k)))
+        )
+    else:
+        init = init_fm(cfg, lrn.generator, mcmc_style_w=True)
+        w0, w, V = init.w0, init.w, init.v
+    if lrn.warm_start is not None:
+        V = torch.as_tensor(lrn.warm_start.v, dtype=f32, device=dev)
+        w0 = torch.as_tensor(lrn.warm_start.w0, dtype=f32, device=dev).reshape(())
+    if not cfg.use_linear:
+        w = torch.zeros(n, dtype=f32, device=dev)
+    P = torch.cat([w[:, None], V], dim=1).contiguous()  # [n, d]
+    w_lambda = (
+        torch.as_tensor(lrn._w_lambda_vec, dtype=f32, device=dev)
+        if lrn._w_lambda_vec is not None
+        else torch.full((G,), float(lrn._init_w_lambda), dtype=f32, device=dev)
+    )
+    v_lambda = (
+        torch.as_tensor(lrn._v_lambda_vec, dtype=f32, device=dev)
+        if lrn._v_lambda_vec is not None
+        else torch.full((G, k), float(lrn._init_v_lambda), dtype=f32, device=dev)
+    )
+    st = dict(
+        w0=w0,
+        alpha=torch.tensor(1.0, dtype=f32, device=dev),
+        w_mu=torch.zeros(G, dtype=f32, device=dev), w_lambda=w_lambda,
+        v_mu=torch.zeros(G, k, dtype=f32, device=dev), v_lambda=v_lambda,
+        pred_this=torch.zeros(nc_test, dtype=f32, device=dev),
+        pred_sum_all=torch.zeros(nc_test, dtype=f32, device=dev),
+        pred_sum_all_but5=torch.zeros(nc_test, dtype=f32, device=dev),
+    )
+    return P, st
+
+
+def draw_w0(lrn, sum_e, num_cases, w0, alpha, bound):
+    """w0's draw (its mean under ALS) given sum_e, the sum of the train
+    residuals e = pred - y (libFM fm_learn_mcmc.h:447-465). Returns
+    (w0_new, rejected)."""
+    acc = sum_e - num_cases * w0
+    sigma_sqr = 1.0 / (lrn.reg0 + alpha * num_cases)
+    mean = -sigma_sqr * (alpha * acc - lrn.w0_mean_0 * lrn.reg0)
+    prop = (samplers.gaussian(lrn.generator, mean, torch.sqrt(sigma_sqr))
+            if lrn.do_sample else mean)
+    return samplers.finite_or(prop, w0, bound=bound)
+
+
+def draw_sweep_hyperpriors(lrn, P, attr_group, num_attr_per_group, st):
+    """(w_mu, w_lambda, v_mu, v_lambda) for the sweep: drawn per group
+    from P = [w | V] with do_multilevel, else the state's lambdas at mean
+    mu_0. Returns (that tuple, rejected)."""
+    w_mu, w_lambda = st["w_mu"], st["w_lambda"]
+    v_mu, v_lambda = st["v_mu"], st["v_lambda"]
+    rej = torch.zeros((), dtype=torch.int64, device=P.device)
+    if not lrn.do_multilevel:
+        return (torch.full_like(w_mu, lrn.mu_0), w_lambda,
+                torch.full_like(v_mu, lrn.mu_0), v_lambda), rej
+    hp = (lrn.alpha_0, lrn.gamma_0, lrn.beta_0, lrn.mu_0, lrn.do_sample)
+    if lrn.cfg.use_linear:
+        w_lambda, w_mu, r = draw_theta_hyperpriors(
+            lrn.generator, P[:, 0], attr_group, num_attr_per_group, w_mu, w_lambda, *hp,
+        )
+        rej += r
+    v_lambda, v_mu, r = draw_theta_hyperpriors(
+        lrn.generator, P[:, 1:], attr_group, num_attr_per_group, v_mu, v_lambda, *hp,
+    )
+    return (w_mu, w_lambda, v_mu, v_lambda), rej + r
+
+
+def draw_unobserved(lrn, P, unobserved, attr_group, hyper, bound):
+    """Draw the features in no block from their prior (libFM
+    fm_learn_mcmc.h:467-476), in P; `hyper` is the sweep's (w_mu,
+    w_lambda, v_mu, v_lambda). Returns the rejected count."""
+    w_mu, w_lambda, v_mu, v_lambda = hyper
+    n_unobs = int(unobserved.shape[0])
+    if not n_unobs:
+        return 0
+    gen = lrn.generator
+    g_u = attr_group[unobserved]
+    if lrn.do_sample:
+        w_u = samplers.gaussian(gen, w_mu[g_u], torch.sqrt(1.0 / w_lambda[g_u]))
+        v_u = samplers.gaussian(gen, v_mu[g_u], torch.sqrt(1.0 / v_lambda[g_u]))
+    else:
+        w_u = w_mu[g_u]
+        v_u = v_mu[g_u] + torch.zeros(n_unobs, P.shape[1] - 1, dtype=P.dtype,
+                                      device=P.device)
+    w_u, r1 = samplers.finite_or(w_u, P[unobserved, 0], bound=bound)
+    v_u, r2 = samplers.finite_or(v_u, P[unobserved, 1:], bound=bound)
+    if lrn.cfg.use_linear:
+        P[unobserved, 0] = w_u
+    P[unobserved, 1:] = v_u
+    return r1 + r2
+
+
+def step_metrics(lrn, st, it, pred_test, train_metric, rej, y_test, eval_mask):
+    """Fold iteration `it`'s test prediction into the state's sums and
+    return the logged metrics (host floats, one device-to-host copy)."""
+    classify = lrn.task == TASK_CLASSIFICATION
+    min_t, max_t = float(lrn.min_target), float(lrn.max_target)
+    if classify:
+        p_test = samplers.cdf_gaussian(pred_test)
+        metric = _masked_acc_ll
+    else:
+        p_test = pred_test.clamp(min_t, max_t)
+        metric = partial(_masked_rmse_mae, min_t=min_t, max_t=max_t)
+    st["pred_this"] = p_test if classify else pred_test
+    st["pred_sum_all"] = st["pred_sum_all"] + p_test
+    if it >= 5:
+        st["pred_sum_all_but5"] = st["pred_sum_all_but5"] + p_test
+    n_all = it + 1.0
+    n_but5 = max(it - 4.0, 1e-12)
+    m_this = metric(st["pred_this"], y_test, eval_mask, normalizer=1.0)
+    m_all = metric(st["pred_sum_all"], y_test, eval_mask, normalizer=1.0 / n_all)
+    m_but5 = metric(st["pred_sum_all_but5"], y_test, eval_mask, normalizer=1.0 / n_but5)
+    extra = [_masked_auc(st["pred_sum_all"], y_test, eval_mask)] if classify else []
+    vals = torch.stack([
+        torch.as_tensor(train_metric, dtype=torch.float32, device=pred_test.device),
+        *m_this, *m_all, *m_but5, st["alpha"], torch.as_tensor(rej).to(torch.float32),
+        *extra,
+    ]).tolist()  # one device-to-host copy per iteration
+    out = dict(
+        train=vals[0], this=vals[1:3], all=vals[3:5], but5=vals[5:7],
+        alpha=vals[7], rejected=int(vals[8]),
+    )
+    if classify:
+        out["auc"] = vals[9]
+    return out
+
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,411 @@
+"""Relational (BS) vector-sweep MCMC/ALS engine (PyTorch, one device).
+
+The port of `libfm_tpu.learners.mcmc_rel_vector`: the VLDB 2013
+block-structure algorithm behind libFM's `-relation` (fm_learn_mcmc.h
+:734-790, 849-909) with joint draws of each block feature's whole
+theta_j = (w_j, v_j), as the flat vector engine draws them. The join is
+never materialised: per-feature work is O(nnz of the block), not O(the
+expanded entries).
+
+State on the device:
+- P = [w | V] [n, k+1], the packed parameter table;
+- A = [e | Q] [num_train, k+1], the per-case residual and factor sums;
+- the test tail [num_test, k+1] = [pred | Q], kept current by the same
+  per-case updates as A (the incremental test prediction);
+- per relation, block-row tables of b = 0..nb (row nb a zero sentinel):
+  the frozen caches C (`rel_cache`) and SD = [s | dQB], the per-row shift
+  of every case joined to the row since C was taken (kernels/rel_sweep.py
+  gives the algebra).
+
+One iteration, in the JAX engine's order (`draw_all`, `one_step`):
+alpha, w0 and the hyperpriors (plain torch), then per relation:
+  rel_cache   (C from A: the resync path only, every iteration),
+  per conflict-free block (over block rows, in the JAX engine's order):
+    rel_stats   (each feature's GG from C and SD),
+    schur_draw  (the blocked Cholesky draw of its theta),
+    rel_update  (the draw's shift into SD),
+  rel_resync  (SD into A and the test tail: the resync path only),
+then the unobserved features, the test prediction and, every
+`refresh_every` iterations, rel_scores + rel_refresh (A and the tail
+rebuilt from P) and, on the deferred path, a fresh C and a zero SD.
+
+The deferred path (one relation, regression, the JAX engine's gate)
+keeps C and SD across iterations: alpha, w0 and the train metric between
+refreshes come from closed-form block-row sums (`deferred_sums`), and
+the test prediction is the frozen tail plus SD (`rel_resync`'s read-only
+mode). On CPU tensors each kernel wrapper runs its plain PyTorch version.
+
+This slice runs pure block structure (an empty main table) with any
+number of relations, regression, MCMC and ALS. What it does not take
+raises NotImplementedError with its ROADMAP item: main-table features
+beside relations and BS classification (M9); a mesh (M13), checkpoints
+and rlog (M7) raise in the learner's constructor.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from libfm_tpu_torch.data.batching import conflict_free_blocks, feature_slots
+from libfm_tpu_torch.data.dataset import Dataset
+from libfm_tpu_torch.kernels.case_stats import triu
+from libfm_tpu_torch.kernels.rel_cache import case_lists, rel_cache
+from libfm_tpu_torch.kernels.rel_refresh import rel_refresh, rel_scores
+from libfm_tpu_torch.kernels.rel_sweep import rel_resync, rel_stats, rel_update
+from libfm_tpu_torch.kernels.schur_draw import schur_draw
+from libfm_tpu_torch.kernels.slot_stats import gg_width
+from libfm_tpu_torch.learners.mcmc import (
+    HYPER,
+    attr_groups,
+    dispatch_chunks,
+    draw_alpha,
+    draw_alpha_from_sum,
+    draw_sweep_hyperpriors,
+    draw_unobserved,
+    draw_w0,
+    initial_state,
+    step_metrics,
+)
+from libfm_tpu_torch.ops import samplers
+from libfm_tpu_torch.tasks import TASK_REGRESSION
+from libfm_tpu_torch.utils.timers import iter_clocks
+
+#: the cache build pads no case list here, but the routing keeps the JAX
+#: engine's skew gate (`bs_vector_skew` above it goes to the exact engine)
+MAX_SKEW = 16.0
+
+
+def _pow2_at_least(x: int, lo: int = 8) -> int:
+    p = lo
+    while p < x:
+        p <<= 1
+    return p
+
+
+def bs_vector_skew(train) -> float:
+    """The JAX engine's padding blow-up of its per-relation case lists:
+    nb times the most cases joined to one block row, over the cases. The
+    learner routes joins above MAX_SKEW to the exact BS engine."""
+    worst = 1.0
+    for join in train.relations:
+        nb = join.data.num_cases
+        counts = np.bincount(join.row_map, minlength=nb)
+        if counts.sum() == 0:
+            continue
+        worst = max(worst, nb * int(counts.max()) / max(1, len(join.row_map)))
+    return worst
+
+
+class RelBlock:
+    """One conflict-free block of a relation's features (over block rows),
+    host arrays at its real size: `features` (global ids), `groups`, and
+    the per-feature entry lists `feat_off` [F+1], `entry_b` (block rows),
+    `entry_x` (values) and `entry_f` (each entry's block-local feature)."""
+
+    def __init__(self, block, attr_offset: int, groups):
+        off, eb, ex = feature_slots(block)
+        self.features = np.asarray(block.features, np.int64) + attr_offset
+        self.groups = np.asarray(groups)
+        self.feat_off = off
+        self.entry_b = eb
+        self.entry_x = ex
+        self.entry_f = np.repeat(np.arange(len(off) - 1, dtype=np.int32), np.diff(off))
+
+
+class RelLayout:
+    """The host layout of one relation (the JAX engine's `_build_rel_layout`):
+    its conflict-free blocks in the order the JAX engine sweeps them
+    (grouped by power-of-two shape, in order of that shape), `wnum`
+    [nb+1] (train cases joined to each row, the sentinel 0), its design
+    matrix by block row, the join maps, one CSR list of train cases a
+    block row (`case_off`, `case_ids`) and its unobserved features
+    (global ids)."""
+
+    def __init__(self, join_tr, join_te, attr_group, n: int):
+        rd = join_tr.data
+        nb = rd.num_cases
+        for which, join in (("train", join_tr), ("test", join_te)):
+            if len(join.row_map) and int(join.row_map.max()) >= nb:
+                raise ValueError(
+                    f"relation join map ({which}) references block row "
+                    f"{int(join.row_map.max())} but the relation has only "
+                    f"{nb} rows — wrong relation file for this join map?"
+                )
+        ds = Dataset(rd.indptr, rd.cols, rd.vals, np.zeros(nb, dtype=np.float32),
+                     rd.num_features)
+        local_groups = attr_group[rd.attr_offset:rd.attr_offset + rd.num_features]
+        blocks = conflict_free_blocks(ds, attr_group=local_groups)
+        observed = np.zeros(rd.num_features, dtype=bool)
+        for b in blocks:
+            observed[b.features] = True
+        shape = [(_pow2_at_least(len(b.features)), _pow2_at_least(len(b.entry_rows)))
+                 for b in blocks]
+        order = sorted(range(len(blocks)), key=lambda i: shape[i])  # stable
+        self.nb = nb
+        self.attr_offset = rd.attr_offset
+        self.blocks = [RelBlock(blocks[i], rd.attr_offset,
+                                local_groups[blocks[i].features]) for i in order]
+        self.wnum = np.zeros(nb + 1, np.float64)
+        self.wnum[:nb] = np.bincount(join_tr.row_map, minlength=nb)
+        self.indptr = rd.indptr.astype(np.int64)
+        self.cols = (rd.cols.astype(np.int64) + rd.attr_offset).astype(np.int32)
+        self.vals = rd.vals.astype(np.float32)
+        self.row_map_train = join_tr.row_map.astype(np.int32)
+        self.row_map_test = join_te.row_map.astype(np.int32)
+        self.case_off, self.case_ids = case_lists(self.row_map_train, nb)
+        self.unobserved = (np.nonzero(~observed)[0] + rd.attr_offset).astype(np.int64)
+
+
+class DevRelBlock:
+    """Device copy of a RelBlock."""
+
+    def __init__(self, blk: RelBlock, device):
+        def t(x, dtype=None):
+            return torch.as_tensor(x, dtype=dtype, device=device)
+
+        self.F = len(blk.features)
+        self.features = t(blk.features, torch.long)
+        self.feat_id = t(blk.features, torch.int32)
+        self.groups = t(blk.groups, torch.long)
+        self.feat_off = t(blk.feat_off)
+        self.entry_b = t(blk.entry_b)
+        self.entry_x = t(blk.entry_x)
+        self.entry_f = t(blk.entry_f)
+
+
+class DevRel:
+    """Device copy of a RelLayout."""
+
+    def __init__(self, lay: RelLayout, device):
+        def t(x, dtype=None):
+            return torch.as_tensor(x, dtype=dtype, device=device)
+
+        self.nb = lay.nb
+        self.blocks = [DevRelBlock(b, device) for b in lay.blocks]
+        self.wnum = t(lay.wnum, torch.float32)
+        self.indptr = t(lay.indptr)
+        self.cols = t(lay.cols)
+        self.vals = t(lay.vals)
+        self.map_tr = t(lay.row_map_train)
+        self.map_te = t(lay.row_map_test)
+        self.case_off = t(lay.case_off)
+        self.case_ids = t(lay.case_ids)
+
+
+def deferred_sums(C, SD, wnum):
+    """Closed-form (sum e, sum e^2) over the train cases from one
+    relation's frozen caches C and its accumulated SD: per block row b
+    every case has e = e0 + s_b + dQB_b . Q0, so
+      sum_b e   = we0 + wnum s + dQB . SQ0,
+      sum_b e^2 = we2_0 + 2 s we0 + 2 dQB . SQe0 + wnum s^2
+                  + 2 s (dQB . SQ0) + dQB^T SQQ0 dQB
+    (the JAX engine's `_deferred_sums`; exact for one relation). The terms
+    cancel (the sum of e^2 is ~1e-3 of its terms' magnitude on small
+    problems), so they are summed in float64; returns float32 0-dim
+    tensors."""
+    C, SD, wnum = C.double(), SD.double(), wnum.double()
+    k = SD.shape[1] - 1
+    iu0, iu1 = triu(k, C.device)
+    we0, we2_0 = C[:, 0], C[:, 1]
+    SQ0, SQe0, SQQ0 = C[:, 2:2 + k], C[:, 2 + k:2 + 2 * k], C[:, 2 + 2 * k:]
+    s, dq = SD[:, 0], SD[:, 1:]
+    dqSQ = (dq * SQ0).sum(-1)
+    sum_e = we0 + wnum * s + dqSQ
+    twice = torch.where(iu0 == iu1, 1.0, 2.0).to(C.dtype)
+    dqSQQdq = (SQQ0 * twice * dq[:, iu0] * dq[:, iu1]).sum(-1)
+    sum_e2 = (we2_0 + 2.0 * s * we0 + 2.0 * (dq * SQe0).sum(-1)
+              + wnum * s * s + 2.0 * s * dqSQ + dqSQQdq)
+    return sum_e.sum().float(), sum_e2.sum().float()
+
+
+def check_relational(learner, train, test) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for what the
+    BS vector engine of this slice does not take."""
+    if train.nnz or test.nnz:
+        raise NotImplementedError(
+            "main-table features beside relations (the JAX engine's "
+            "sweep_main_block) wait for ROADMAP M9"
+        )
+    if learner.task != TASK_REGRESSION:
+        raise NotImplementedError(
+            "relational (BS) classification waits for ROADMAP M9"
+        )
+    if len(train.relations) != len(test.relations):
+        raise ValueError("train and test must join the same relations")
+
+
+def learn_relational_vector(learner, train, test):
+    """Run the BS vector MCMC/ALS loop for `learner` (MCMCVectorLearner)
+    on pure block-structure regression data; returns the history."""
+    check_relational(learner, train, test)
+    cfg = learner.cfg
+    dev, gen, f32 = learner.device, learner.generator, torch.float32
+    n, k = cfg.num_features, cfg.num_factors
+    d = k + 1
+    learner.min_target = train.min_target
+    learner.max_target = train.max_target
+    do_sample, do_multilevel = learner.do_sample, learner.do_multilevel
+    min_t, max_t = float(learner.min_target), float(learner.max_target)
+    draw_bound = samplers.DRAW_BOUND * max(1.0, abs(min_t), abs(max_t))
+    use_linear, use_bias = cfg.use_linear, cfg.use_bias
+    nc_train, nc_test = train.num_rows, test.num_rows
+
+    attr_group_np, attr_group, num_attr_per_group = attr_groups(learner.attr_group_np, n, dev)
+    G = num_attr_per_group.shape[0]
+    lays = [RelLayout(jt, je, attr_group_np, n)
+            for jt, je in zip(train.relations, test.relations)]
+    rels = [DevRel(lay, dev) for lay in lays]
+    # features in no block: the main table's (all of them: it is empty)
+    # and each relation's unobserved ones, as the JAX engine lists them
+    unobserved = torch.as_tensor(
+        np.concatenate([np.arange(lays[0].attr_offset)] + [lay.unobserved for lay in lays]),
+        dtype=torch.long, device=dev)
+    # the relations' score tables stack in one table for rel_refresh; the
+    # maps [R, nc] point into it
+    first = np.cumsum([0] + [lay.nb + 1 for lay in lays])
+
+    def stacked_maps(which, nc):
+        maps = [getattr(lay, which).astype(np.int64) + f for lay, f in zip(lays, first)]
+        return torch.as_tensor(np.stack(maps).astype(np.int32).reshape(len(lays), nc),
+                               device=dev)
+
+    maps_tr = stacked_maps("row_map_train", nc_train)
+    maps_te = stacked_maps("row_map_test", nc_test)
+    y_train = torch.as_tensor(train.target, dtype=f32, device=dev)
+    y_test = torch.as_tensor(test.target, dtype=f32, device=dev)
+    nec = learner.num_eval_cases if learner.num_eval_cases is not None else nc_test
+    eval_mask = (torch.arange(nc_test, device=dev) < nec).to(f32)
+    incr_test = nc_test > 0 and learner.bs_incr_test
+    deferred = len(rels) == 1 and incr_test and learner.bs_deferred
+
+    P, st = initial_state(learner, learner.init_params, n, k, G, nc_test)
+    A = torch.empty(nc_train, d, dtype=f32, device=dev)
+    tail = torch.empty(nc_test, d, dtype=f32, device=dev)
+    GG_buf = torch.empty(max([b.F for r in rels for b in r.blocks], default=0),
+                         gg_width(k), dtype=f32, device=dev)
+    fwd = dict(use_linear=use_linear, use_bias=use_bias)
+
+    def scores():
+        return torch.cat([rel_scores(P, r.indptr, r.cols, r.vals, use_linear=use_linear)
+                          for r in rels])
+
+    def refresh():
+        """A and the test tail from P (rel_scores, rel_refresh); returns
+        the clipped squared train error, summed."""
+        SC = scores()
+        m = rel_refresh(SC, maps_tr, st["w0"], A, y_train, min_target=min_t,
+                        max_target=max_t, **fwd)
+        if incr_test:
+            rel_refresh(SC, maps_te, st["w0"], tail, **fwd)
+        return m
+
+    def new_sd(r):
+        return torch.zeros(r.nb + 1, d, dtype=f32, device=dev)
+
+    refresh()
+    if deferred:
+        relc = rel_cache(A, rels[0].case_off, rels[0].case_ids)
+        SD_def = new_sd(rels[0])
+
+    def sweep_relation(r, alpha, hyper, C, SD):
+        """One Gibbs sweep over a relation's blocks; updates P and SD in
+        place and returns the number of rejected draws."""
+        w_mu, w_lambda, v_mu, v_lambda = hyper
+        rej = torch.zeros((), dtype=torch.int64, device=dev)
+        for blk in r.blocks:
+            theta_old = P[blk.features]
+            lam = torch.cat([w_lambda[blk.groups][:, None], v_lambda[blk.groups]], dim=1)
+            mu_pr = torch.cat([w_mu[blk.groups][:, None], v_mu[blk.groups]], dim=1)
+            if not use_linear:
+                lam[:, 0] = 1e30
+                mu_pr[:, 0] = 0.0
+            GG = rel_stats(C, SD, r.wnum, blk.feat_off, blk.entry_b, blk.entry_x,
+                           blk.feat_id, P, use_linear=use_linear, GG=GG_buf)
+            z = torch.randn(blk.F, d, generator=gen, device=dev) if do_sample else None
+            theta_new, rj = schur_draw(GG, theta_old, lam, mu_pr, z, alpha,
+                                       do_sample=do_sample, bound=draw_bound)
+            rel_update(SD, blk.entry_b, blk.entry_x, blk.entry_f, theta_old, theta_new)
+            P[blk.features] = theta_new
+            rej += rj.sum()
+        return rej
+
+    def draw_all():
+        if deferred:
+            sum_e, sum_e2 = deferred_sums(relc, SD_def, rels[0].wnum)
+            alpha, rej = draw_alpha_from_sum(gen, sum_e2, nc_train, st["alpha"],
+                                             learner.alpha_0, learner.gamma_0,
+                                             do_multilevel, do_sample)
+        else:
+            sum_e = A[:, 0].sum()
+            alpha, rej = draw_alpha(gen, A[:, 0], nc_train, st["alpha"], learner.alpha_0,
+                                    learner.gamma_0, do_multilevel, do_sample)
+        w0 = st["w0"]
+        if use_bias:
+            w0_new, r = draw_w0(learner, sum_e, nc_train, w0, alpha, draw_bound)
+            rej = rej + r
+            if deferred:
+                # every case maps to one real block row of the one relation:
+                # its s column moves every e by the delta
+                SD_def[:rels[0].nb, 0] += w0_new - w0
+            else:
+                A[:, 0] += w0_new - w0
+                if incr_test:
+                    tail[:, 0] += w0_new - w0
+            w0 = w0_new
+        hyper, r = draw_sweep_hyperpriors(learner, P, attr_group, num_attr_per_group, st)
+        rej = rej + r
+        for rel in rels:
+            if deferred:
+                rej = rej + sweep_relation(rel, alpha, hyper, relc, SD_def)
+                continue
+            C = rel_cache(A, rel.case_off, rel.case_ids)
+            SD = new_sd(rel)
+            rej = rej + sweep_relation(rel, alpha, hyper, C, SD)
+            rel_resync(SD, rel.map_tr, A)
+            if incr_test:
+                rel_resync(SD, rel.map_te, tail)
+        rej = rej + draw_unobserved(learner, P, unobserved, attr_group, hyper,
+                                     draw_bound)
+        st.update(w0=w0, alpha=alpha, **dict(zip(HYPER, hyper)))
+        return rej
+
+    def one_step(it, do_refresh):
+        nonlocal relc, SD_def
+        rej = draw_all()
+        if deferred:
+            pred_test = rel_resync(SD_def, rels[0].map_te, tail, read_only=True)
+        elif incr_test:
+            pred_test = tail[:, 0].clone()
+        else:
+            out = torch.empty(nc_test, d, dtype=f32, device=dev)
+            rel_refresh(scores(), maps_te, st["w0"], out, **fwd)
+            pred_test = out[:, 0]
+        if do_refresh:
+            m = refresh()
+            train_metric = torch.sqrt(m / max(nc_train, 1))
+            if deferred:
+                relc = rel_cache(A, rels[0].case_off, rels[0].case_ids)
+                SD_def.zero_()
+        elif deferred:
+            # the closed-form e^2 sum, without the target clamp (the
+            # refresh iterations report the clamped metric), as the JAX
+            # engine reports it
+            _, sum_e2 = deferred_sums(relc, SD_def, rels[0].wnum)
+            train_metric = torch.sqrt(sum_e2.clamp_min(0.0) / max(nc_train, 1))
+        else:
+            err = (A[:, 0] + y_train).clamp(min_t, max_t) - y_train
+            train_metric = torch.sqrt((err * err).sum() / max(nc_train, 1))
+        return step_metrics(learner, st, it, pred_test, train_metric, rej, y_test,
+                            eval_mask)
+
+    learner.history = []
+    for i0, L in dispatch_chunks(0, learner.num_iter, learner.refresh_every):
+        for it in range(i0, i0 + L):
+            c0 = iter_clocks(dev)
+            with torch.profiler.record_function(f"iteration {it}"):
+                metrics = one_step(it, do_refresh=(it == i0 + L - 1))
+            c1 = iter_clocks(dev)
+            learner._log_iteration(it, metrics, tuple(b - a for a, b in zip(c0, c1)))
+    learner._final_state = dict(st, w=P[:, 0].clone(), V=P[:, 1:].clone())
+    return learner.history

@@ -32,17 +32,17 @@ each kernel wrapper runs its plain PyTorch version.
 
 This slice runs regression and probit classification on one device,
 with case-major statistics and dual draws on by default as in the JAX
-engine. What it does not take raises NotImplementedError with the
-ROADMAP item it waits for: the incremental test tail (M7), case
-reordering and slabs (M7), streaming data (M7), relational data (M9), a
-mesh (M13), checkpoints and rlog (M7). The update always runs as the
-case-major dense pass (the JAX engine's low-coverage slot-scatter
-fallback computes the same update).
+engine. Relational (BS) data is routed as the JAX engine routes it
+(`_route_relational`): thin joins are expanded and run here, fat ones on
+the BS vector engine (learners/mcmc_rel_vector.py). What it does not
+take raises NotImplementedError with the ROADMAP item it waits for: the
+incremental test tail (M7), case reordering and slabs (M7), streaming
+data (M7), the exact BS engine (M10), a mesh (M13), checkpoints and rlog
+(M7). The update always runs as the case-major dense pass (the JAX
+engine's low-coverage slot-scatter fallback computes the same update).
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import numpy as np
 import torch
@@ -53,6 +53,7 @@ from libfm_tpu_torch.data.batching import (
     feature_slots,
     split_feature_slots,
 )
+from libfm_tpu_torch.data.relation import expand_join, expansion_cost
 from libfm_tpu_torch.data.vector_layout import padded_rows_layout, single_segment_widths
 from libfm_tpu_torch.kernels.case_stats import case_stats, moment_width
 from libfm_tpu_torch.kernels.dense_update import dense_update, update_table
@@ -64,15 +65,22 @@ from libfm_tpu_torch.kernels.schur_draw import schur_draw
 from libfm_tpu_torch.kernels.slot_stats import gg_width, slot_stats
 from libfm_tpu_torch.learners import base as _base
 from libfm_tpu_torch.learners.mcmc import (
+    HYPER,
     MCMCLearner,
-    _masked_acc_ll,
-    _masked_auc,
-    _masked_rmse_mae,
+    attr_groups,
     dispatch_chunks,
     draw_alpha,
-    draw_theta_hyperpriors,
+    draw_sweep_hyperpriors,
+    draw_unobserved,
+    draw_w0,
+    initial_state,
+    step_metrics,
 )
-from libfm_tpu_torch.models.fm import init_fm
+from libfm_tpu_torch.learners.mcmc_rel_vector import (
+    MAX_SKEW,
+    bs_vector_skew,
+    learn_relational_vector,
+)
 from libfm_tpu_torch.ops import samplers
 from libfm_tpu_torch.tasks import TASK_CLASSIFICATION
 from libfm_tpu_torch.utils.timers import iter_clocks
@@ -186,14 +194,20 @@ class MCMCVectorLearner(MCMCLearner):
         self.case_reorder = False
         self.flat_incr_test = False
         self.init_params = init_params
+        # relational (BS) routing (`_route_relational`) and the BS vector
+        # engine's paths (learners/mcmc_rel_vector.py): the deferred path
+        # for one relation, the incremental test tail
+        self.relational_mode = None
+        self.expand_max_ratio = 8.0
+        self.bs_vector = True
+        self.bs_deferred = True
+        self.bs_incr_test = True
 
     def _check_supported(self, train, test):
         _base.check_num_features(self.cfg, train, test)
         k = self.cfg.num_factors
         why = None
-        if getattr(train, "relations", None) or getattr(test, "relations", None):
-            why = "relational (BS) data waits for ROADMAP M9"
-        elif not hasattr(train, "indptr") or not hasattr(test, "indptr"):
+        if not hasattr(train, "indptr") or not hasattr(test, "indptr"):
             why = "streaming data waits for ROADMAP M7"
         elif self.flat_incr_test:
             why = "the incremental test tail waits for ROADMAP M7"
@@ -206,9 +220,45 @@ class MCMCVectorLearner(MCMCLearner):
         if why:
             raise NotImplementedError(why)
 
+    def _route_relational(self, train, test):
+        """Route block-structure (BS) data as the JAX engine does
+        (mcmc_vector.py learn): a join whose materialisation costs at most
+        200M entries and `expand_max_ratio` times the BS form (block tables
+        that train and test share counted once) is expanded and runs on
+        the flat engine ("expanded"); a fatter one runs on the BS vector
+        engine ("bs_vector") when `bs_vector` is on and the join's skew is
+        at most MAX_SKEW; anything else would take the JAX package's exact
+        BS engine, which waits for ROADMAP M10. Sets `relational_mode` and
+        returns the (train, test) the flat engine runs on."""
+        exp_nnz, bs_nnz = expansion_cost(train)
+        exp_nnz_te, bs_nnz_te = expansion_cost(test)
+        shared_nnz = sum(
+            jte.data.nnz for jte in test.relations
+            if any(jte.data is jtr.data for jtr in train.relations)
+        )
+        bs_total = bs_nnz + bs_nnz_te - shared_nnz
+        exp_total = exp_nnz + exp_nnz_te
+        if exp_total <= 200_000_000 and exp_total <= self.expand_max_ratio * bs_total:
+            self.relational_mode = "expanded"
+            if self.verbose:
+                print(f"BS join expanded: {exp_total} entries (BS form {bs_total}); "
+                      "vector sweeps")
+            return expand_join(train), expand_join(test)
+        if self.bs_vector and bs_vector_skew(train) <= MAX_SKEW:
+            self.relational_mode = "bs_vector"
+            return train, test
+        raise NotImplementedError(
+            "fat relational blocks with bs_vector off or a join skew above "
+            f"{MAX_SKEW:g} take the exact BS engine, which waits for ROADMAP M10"
+        )
+
     # ------------------------------------------------------------ learn
     def learn(self, train, test):
         self._check_supported(train, test)
+        if getattr(train, "relations", None):
+            train, test = self._route_relational(train, test)
+            if self.relational_mode == "bs_vector":
+                return learn_relational_vector(self, train, test)
         cfg = self.cfg
         dev = self.device
         gen = self.generator
@@ -219,20 +269,13 @@ class MCMCVectorLearner(MCMCLearner):
         self.max_target = train.max_target
         do_sample, do_multilevel = self.do_sample, self.do_multilevel
         alpha_0, gamma_0 = self.alpha_0, self.gamma_0
-        beta_0, mu_0 = self.beta_0, self.mu_0
         min_t, max_t = float(self.min_target), float(self.max_target)
         draw_bound = samplers.DRAW_BOUND * max(1.0, abs(min_t), abs(max_t))
         use_linear, use_bias = cfg.use_linear, cfg.use_bias
 
         # ---- host layouts -> device
-        attr_group_np = self.attr_group_np
-        if attr_group_np is None:
-            attr_group_np = np.zeros(n, dtype=np.int32)
-        G = int(attr_group_np.max()) + 1
-        attr_group = torch.as_tensor(attr_group_np, dtype=torch.long, device=dev)
-        num_attr_per_group = torch.as_tensor(
-            np.bincount(attr_group_np, minlength=G).astype(np.float32), device=dev
-        )
+        attr_group_np, attr_group, num_attr_per_group = attr_groups(self.attr_group_np, n, dev)
+        G = num_attr_per_group.shape[0]
         nc_train, nc_test = train.num_rows, test.num_rows
         blocks = []
         observed = np.zeros(n, dtype=bool)
@@ -241,7 +284,6 @@ class MCMCVectorLearner(MCMCLearner):
             blocks.append(DevBlock(b, attr_group_np[b.features], nc_train, dev, k,
                                    self.case_major_stats, self.dual_draws, self.widths))
         unobserved = torch.as_tensor(np.nonzero(~observed)[0], dtype=torch.long, device=dev)
-        n_unobs = int(unobserved.shape[0])
 
         def _rows(ds):
             ids, vals = padded_rows_layout(ds.indptr, ds.cols, ds.vals)
@@ -254,46 +296,12 @@ class MCMCVectorLearner(MCMCLearner):
         nec = self.num_eval_cases if self.num_eval_cases is not None else nc_test
         eval_mask = (torch.arange(nc_test, device=dev) < nec).to(f32)
 
-        # ---- parameters
-        if self.init_params is not None:
-            w0, w, V = (
-                (x if torch.is_tensor(x) else torch.tensor(np.asarray(x)))
-                .to(device=dev, dtype=f32).reshape(shape)
-                for x, shape in zip(self.init_params, ((), (n,), (n, k)))
-            )
-        else:
-            init = init_fm(cfg, gen, mcmc_style_w=True)
-            w0, w, V = init.w0, init.w, init.v
-        if self.warm_start is not None:
-            V = torch.as_tensor(self.warm_start.v, dtype=f32, device=dev)
-            w0 = torch.as_tensor(self.warm_start.w0, dtype=f32, device=dev).reshape(())
-        if not use_linear:
-            w = torch.zeros(n, dtype=f32, device=dev)
-        P = torch.cat([w[:, None], V], dim=1).contiguous()  # [n, d]
-        w_lambda = (
-            torch.as_tensor(self._w_lambda_vec, dtype=f32, device=dev)
-            if self._w_lambda_vec is not None
-            else torch.full((G,), float(self._init_w_lambda), dtype=f32, device=dev)
-        )
-        v_lambda = (
-            torch.as_tensor(self._v_lambda_vec, dtype=f32, device=dev)
-            if self._v_lambda_vec is not None
-            else torch.full((G, k), float(self._init_v_lambda), dtype=f32, device=dev)
-        )
-        st = dict(
-            w0=w0,
-            alpha=torch.tensor(1.0, dtype=f32, device=dev),
-            w_mu=torch.zeros(G, dtype=f32, device=dev), w_lambda=w_lambda,
-            v_mu=torch.zeros(G, k, dtype=f32, device=dev), v_lambda=v_lambda,
-            pred_this=torch.zeros(nc_test, dtype=f32, device=dev),
-            pred_sum_all=torch.zeros(nc_test, dtype=f32, device=dev),
-            pred_sum_all_but5=torch.zeros(nc_test, dtype=f32, device=dev),
-        )
+        P, st = initial_state(self, self.init_params, n, k, G, nc_test)
         classify = self.task == TASK_CLASSIFICATION
         A = torch.empty(nc_train, d, dtype=f32, device=dev)
         # the initial refresh takes e = pred - y for both tasks (libFM
         # fm_learn_mcmc_simultaneous.h:70-86): the latents start at y
-        fm_refresh(P, tr_ids, tr_pv, w0, y_train, A, use_linear=use_linear,
+        fm_refresh(P, tr_ids, tr_pv, st["w0"], y_train, A, use_linear=use_linear,
                    use_bias=use_bias, min_target=min_t, max_target=max_t)
         latent = y_train.clone() if classify else None
         probit = None if not classify else "sample" if do_sample else "mean"
@@ -354,54 +362,16 @@ class MCMCVectorLearner(MCMCLearner):
             rej += r
             w0 = st["w0"]
             if use_bias:
-                acc = e.sum() - nc_train * w0
-                sigma_sqr = 1.0 / (self.reg0 + alpha * nc_train)
-                mean = -sigma_sqr * (alpha * acc - self.w0_mean_0 * self.reg0)
-                prop = (samplers.gaussian(gen, mean, torch.sqrt(sigma_sqr))
-                        if do_sample else mean)
-                w0_new, r = samplers.finite_or(prop, w0, bound=draw_bound)
+                w0_new, r = draw_w0(self, e.sum(), nc_train, w0, alpha, draw_bound)
                 rej += r
                 A[:, 0] += w0_new - w0
                 w0 = w0_new
-            w_mu, w_lambda = st["w_mu"], st["w_lambda"]
-            v_mu, v_lambda = st["v_mu"], st["v_lambda"]
-            if do_multilevel:
-                if use_linear:
-                    w_lambda, w_mu, r = draw_theta_hyperpriors(
-                        gen, P[:, 0], attr_group, num_attr_per_group, w_mu,
-                        w_lambda, alpha_0, gamma_0, beta_0, mu_0, do_sample,
-                    )
-                    rej += r
-                v_lambda, v_mu, r = draw_theta_hyperpriors(
-                    gen, P[:, 1:], attr_group, num_attr_per_group, v_mu,
-                    v_lambda, alpha_0, gamma_0, beta_0, mu_0, do_sample,
-                )
-                rej += r
-            else:
-                w_mu = torch.full_like(w_mu, mu_0)
-                v_mu = torch.full_like(v_mu, mu_0)
-
+            hyper, r = draw_sweep_hyperpriors(self, P, attr_group, num_attr_per_group, st)
+            rej += r
             for blk in blocks:
-                rej += sweep_block(blk, alpha, w_mu, w_lambda, v_mu, v_lambda)
-
-            if n_unobs:
-                # features in no block: posterior == prior
-                # (libFM fm_learn_mcmc.h:467-476)
-                g_u = attr_group[unobserved]
-                if do_sample:
-                    w_u = samplers.gaussian(gen, w_mu[g_u], torch.sqrt(1.0 / w_lambda[g_u]))
-                    v_u = samplers.gaussian(gen, v_mu[g_u], torch.sqrt(1.0 / v_lambda[g_u]))
-                else:
-                    w_u = w_mu[g_u]
-                    v_u = v_mu[g_u] + torch.zeros(n_unobs, k, dtype=f32, device=dev)
-                w_u, r1 = samplers.finite_or(w_u, P[unobserved, 0], bound=draw_bound)
-                v_u, r2 = samplers.finite_or(v_u, P[unobserved, 1:], bound=draw_bound)
-                rej += r1 + r2
-                if use_linear:
-                    P[unobserved, 0] = w_u
-                P[unobserved, 1:] = v_u
-            st.update(w0=w0, alpha=alpha, w_mu=w_mu, w_lambda=w_lambda,
-                      v_mu=v_mu, v_lambda=v_lambda)
+                rej += sweep_block(blk, alpha, *hyper)
+            rej += draw_unobserved(self, P, unobserved, attr_group, hyper, draw_bound)
+            st.update(w0=w0, alpha=alpha, **dict(zip(HYPER, hyper)))
             return rej
 
         def one_step(it, refresh):
@@ -427,34 +397,8 @@ class MCMCVectorLearner(MCMCLearner):
                 # cleared by the periodic refresh): pred = e + y
                 err = (A[:, 0] + y_train).clamp(min_t, max_t) - y_train
                 train_metric = torch.sqrt((err * err).sum() / max(nc_train, 1))
-            if classify:
-                p_test = samplers.cdf_gaussian(pred_test)
-                metric = _masked_acc_ll
-            else:
-                p_test = pred_test.clamp(min_t, max_t)
-                metric = partial(_masked_rmse_mae, min_t=min_t, max_t=max_t)
-            st["pred_this"] = p_test if classify else pred_test
-            st["pred_sum_all"] = st["pred_sum_all"] + p_test
-            if it >= 5:
-                st["pred_sum_all_but5"] = st["pred_sum_all_but5"] + p_test
-            n_all = it + 1.0
-            n_but5 = max(it - 4.0, 1e-12)
-            m_this = metric(st["pred_this"], y_test, eval_mask, normalizer=1.0)
-            m_all = metric(st["pred_sum_all"], y_test, eval_mask, normalizer=1.0 / n_all)
-            m_but5 = metric(st["pred_sum_all_but5"], y_test, eval_mask,
-                            normalizer=1.0 / n_but5)
-            extra = [_masked_auc(st["pred_sum_all"], y_test, eval_mask)] if classify else []
-            vals = torch.stack([
-                train_metric, *m_this, *m_all, *m_but5, st["alpha"],
-                rej.to(f32), *extra,
-            ]).tolist()  # one device-to-host copy per iteration
-            out = dict(
-                train=vals[0], this=vals[1:3], all=vals[3:5], but5=vals[5:7],
-                alpha=vals[7], rejected=int(vals[8]),
-            )
-            if classify:
-                out["auc"] = vals[9]
-            return out
+            return step_metrics(self, st, it, pred_test, train_metric, rej, y_test,
+                                eval_mask)
 
         self.history = []
         for i0, L in dispatch_chunks(0, self.num_iter, self.refresh_every):

@@ -31,7 +31,12 @@ from libfm_tpu_torch.data.batching import BatchedCSR, batch_dataset
 from libfm_tpu_torch.data.dataset import Dataset
 from libfm_tpu_torch.device import resolve_device
 from libfm_tpu_torch.kernels.fm_refresh import fm_refresh
-from libfm_tpu_torch.kernels.sgd_step import sgd_multiplier, sgd_step, sgd_step_scratch
+from libfm_tpu_torch.kernels.sgd_step import (
+    sgd_multiplier,
+    sgd_step,
+    sgd_step_scratch,
+    sgd_w0_update,
+)
 from libfm_tpu_torch.kernels.table_scatter import ScatterScratch, longest_runs, table_scatter
 from libfm_tpu_torch.learners import base
 from libfm_tpu_torch.models.fm import FMConfig, FMParams, fm_batch_terms, init_fm
@@ -64,7 +69,7 @@ def sgd_batch_update(params: FMParams, ids, vals, y, row_mask, cfg: FMConfig,
     new_w0 = params.w0
     if cfg.use_bias:
         n_real = row_mask.sum().to(dt)
-        new_w0 = params.w0 - lr0 * (mult.sum() + n_real * cfg.reg0 * params.w0)
+        new_w0 = sgd_w0_update(params.w0, lr0, mult.sum(), n_real, cfg.reg0)
     new_w = params.w
     if cfg.use_linear:
         w_g = params.w[ids.long()]

@@ -885,7 +885,7 @@ def test_sgd_step_kernel_sums_w0_and_order(cuda, k, mode, L):
     assert r_k[1].item() == B - 7
     assert torch.equal(r_k, r_k2) and torch.equal(u_k, u_k2)
     assert torch.equal(r_w, r_k) and torch.equal(u_w, u_k)
-    assert torch.equal(w0_new, w0 - lr0 * (r_k[0] + r_k[1] * reg0 * w0))
+    assert torch.equal(w0_new, sg.sgd_w0_update(w0, lr0, r_k[0], r_k[1], reg0))
     assert torch.equal(u_o, u_k[perm]) and torch.equal(r_o, r_k)
     assert (scratch[-4:] == 0).all()  # the ticket is left at zero
 
@@ -1310,3 +1310,198 @@ def test_sgda_on_cuda_follows_the_cpu_trajectory(cuda, which):
     assert reg_c.max() > 0
     assert (reg_c - reg_g).abs().max().item() <= 1e-3 * reg_c.abs().max().item()
     assert (runs["cpu"][2] - runs["cuda"][2]).abs().max().item() < 1e-3
+
+
+# ---- the relational (BS) engine's kernels: rel_scores, rel_refresh,
+# rel_cache, rel_stats, rel_update, rel_resync
+
+REL_KS = [1, 8, 32, 64, 128]
+U32 = 2.0 ** -24  # float32's unit roundoff
+
+
+def _relation(rng, nb, W, nf, nc, offset=0):
+    """A relation of nb block rows of W valued entries over nf features,
+    joined by nc cases: row 1 joined by no case, row 0 by most (skew just
+    under 16), and feature nf - 1 on exactly one row."""
+    from libfm_tpu_torch.data.relation import RelationData, RelationJoin
+
+    cols = np.stack([np.sort(rng.choice(nf - 1, W, replace=False)) for _ in range(nb)])
+    cols[2, -1] = nf - 1
+    rd = RelationData(np.arange(nb + 1) * W, cols.ravel(), rng.normal(0, 1, nb * W), nf)
+    rd.attr_offset = offset
+    heavy = int(15.5 * nc / nb)
+    m = np.concatenate([np.zeros(heavy, np.int64), rng.integers(2, nb, nc - heavy)])
+    return RelationJoin(rd, rng.permutation(m).astype(np.int32))
+
+
+def _rel_state(cuda, k, seed=0, nb=64, W=6, nf=150, nc=3000):
+    """(P, A, layout, its device copy, C, SD) on the card: P and A random,
+    C the plain caches of A, SD random with a zero sentinel row."""
+    from libfm_tpu_torch.learners.mcmc_rel_vector import DevRel, RelLayout
+
+    rng = np.random.default_rng(seed)
+    join = _relation(rng, nb, W, nf, nc)
+    lay = RelLayout(join, join, np.zeros(nf, np.int32), nf)
+    rel = DevRel(lay, cuda)
+    P = torch.as_tensor(rng.normal(0, 0.5, (nf, k + 1)), dtype=torch.float32, device=cuda)
+    A = torch.as_tensor(rng.normal(0, 1, (nc, k + 1)), dtype=torch.float32, device=cuda)
+    from libfm_tpu_torch.kernels.rel_cache import rel_cache_plain
+
+    C = rel_cache_plain(A, rel.case_off, rel.case_ids)
+    SD = torch.as_tensor(rng.normal(0, 0.3, (nb + 1, k + 1)), dtype=torch.float32,
+                         device=cuda)
+    SD[nb] = 0.0
+    return P, A, lay, rel, C, SD
+
+
+@pytest.mark.parametrize("k", REL_KS)
+@pytest.mark.parametrize("use_linear", [True, False])
+def test_rel_scores_and_refresh_kernels_match_plain(cuda, k, use_linear):
+    """Two relations in one rel_refresh launch, train and tail modes."""
+    from libfm_tpu_torch.kernels import rel_refresh as rr
+
+    rng = np.random.default_rng(k)
+    nc, nf1, nf2 = 2500, 120, 90
+    joins = [_relation(rng, 50, 7, nf1, nc), _relation(rng, 30, 4, nf2, nc, offset=nf1)]
+    P = torch.as_tensor(rng.normal(0, 0.5, (nf1 + nf2, k + 1)), dtype=torch.float32,
+                        device=cuda)
+    SC_k, SC_p, maps, first = [], [], [], 0
+    for j in joins:
+        rd = j.data
+        args = _to(cuda, rd.indptr, (rd.cols + rd.attr_offset).astype(np.int32), rd.vals)
+        SC_k.append(rr.rel_scores(P, *args, use_linear=use_linear))
+        SC_p.append(rr.rel_scores_plain(P, *args, use_linear=use_linear))
+        maps.append(j.row_map.astype(np.int64) + first)
+        first += rd.num_cases + 1
+    SC_k, SC_p = torch.cat(SC_k), torch.cat(SC_p)
+    assert _col_rel_err(SC_k[:, :k + 1], SC_p[:, :k + 1]) < 1e-5
+    assert (SC_k[:, k + 1] - SC_p[:, k + 1]).abs().max() <= 1e-5 * max(
+        1.0, SC_p[:, k + 1].abs().max().item())
+    maps = torch.as_tensor(np.stack(maps).astype(np.int32), device=cuda)
+    y = torch.as_tensor(rng.normal(0, 1, nc), dtype=torch.float32, device=cuda)
+    w0 = torch.tensor(0.4, device=cuda)
+    kw = dict(use_linear=use_linear, min_target=-2.0, max_target=2.0)
+    A_k, A_p = (torch.empty(nc, k + 1, device=cuda) for _ in range(2))
+    m_k = rr.rel_refresh(SC_p, maps, w0, A_k, y, **kw)
+    m_k2 = rr.rel_refresh(SC_p, maps, w0, A_k.clone(), y, **kw)
+    m_p = rr.rel_refresh_plain(SC_p, maps, w0, A_p, y, **kw)
+    assert _col_rel_err(A_k, A_p) < 1e-5
+    assert abs(m_k.item() - m_p.item()) <= 1e-5 * m_p.item()
+    assert torch.equal(m_k, m_k2)
+    T_k, T_p = (torch.empty(nc, k + 1, device=cuda) for _ in range(2))
+    rr.rel_refresh(SC_p, maps, w0, T_k, use_linear=use_linear)
+    rr.rel_refresh_plain(SC_p, maps, w0, T_p, use_linear=use_linear)
+    assert _col_rel_err(T_k, T_p) < 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", REL_KS)
+def test_rel_cache_kernel_matches_float64(cuda, k):
+    """Every cache entry within (the row's cases + 2) roundings of its sum
+    of magnitudes; the unjoined row and the sentinel are 0; a second
+    launch gives the same bits."""
+    from libfm_tpu_torch.kernels import rel_cache as rc
+
+    P, A, lay, rel, C, SD = _rel_state(cuda, k)
+    C_k = rc.rel_cache(A, rel.case_off, rel.case_ids)
+    ref, scale = rc.rel_cache_reference(A, rel.case_off, rel.case_ids)
+    from libfm_tpu_torch.kernels.case_stats import err_over_magnitudes
+
+    lmax = int(np.diff(lay.case_off).max())
+    assert err_over_magnitudes(C_k, ref, scale) <= 2 * (lmax + 2) * U32
+    assert (C_k[1] == 0).all() and (C_k[lay.nb] == 0).all()
+    assert torch.equal(C_k, rc.rel_cache(A, rel.case_off, rel.case_ids))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", REL_KS)
+@pytest.mark.parametrize("use_linear", [True, False])
+def test_rel_stats_kernel_matches_float64(cuda, k, use_linear):
+    """Every block's GG at a non-zero SD within (the feature's entries + k
+    + 8) roundings of each entry's sum of magnitudes (the feature of one
+    entry among them)."""
+    from libfm_tpu_torch.kernels import rel_sweep as rs
+    from libfm_tpu_torch.kernels.case_stats import err_over_magnitudes
+
+    P, A, lay, rel, C, SD = _rel_state(cuda, k, seed=1)
+    ones = 0
+    for hb, blk in zip(lay.blocks, rel.blocks):
+        args = (C, SD, rel.wnum, blk.feat_off, blk.entry_b, blk.entry_x, blk.feat_id, P)
+        G_k = rs.rel_stats(*args, use_linear=use_linear)
+        ref, scale = rs.rel_stats_reference(*args, use_linear=use_linear)
+        emax = int(np.diff(hb.feat_off).max())
+        assert err_over_magnitudes(G_k, ref, scale) <= 2 * (emax + k + 8) * U32
+        assert torch.equal(G_k, rs.rel_stats(*args, use_linear=use_linear))
+        ones += int((np.diff(hb.feat_off) == 1).sum())
+    assert ones > 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", REL_KS)
+def test_rel_update_and_resync_kernels_match_plain(cuda, k):
+    from libfm_tpu_torch.kernels import rel_sweep as rs
+
+    P, A, lay, rel, C, SD = _rel_state(cuda, k, seed=2)
+    rng = np.random.default_rng(3)
+    SD_k, SD_p = SD.clone(), SD.clone()
+    for blk in rel.blocks:
+        th_old = P[blk.features]
+        th_new = th_old + torch.as_tensor(rng.normal(0, 0.2, tuple(th_old.shape)),
+                                          dtype=torch.float32, device=cuda)
+        rs.rel_update(SD_k, blk.entry_b, blk.entry_x, blk.entry_f, th_old, th_new)
+        rs.rel_update_plain(SD_p, blk.entry_b, blk.entry_x, blk.entry_f, th_old, th_new)
+        assert _col_rel_err(SD_k, SD_p) < 1e-5
+        SD_k.copy_(SD_p)
+    A_k, A_p = A.clone(), A.clone()
+    rs.rel_resync(SD_p, rel.map_tr, A_k)
+    rs.rel_resync_plain(SD_p, rel.map_tr, A_p)
+    assert _col_rel_err(A_k, A_p) < 1e-5
+    e_k = rs.rel_resync(SD_p, rel.map_tr, A, read_only=True)
+    e_p = rs.rel_resync_plain(SD_p, rel.map_tr, A, read_only=True)
+    assert (e_k - e_p).abs().max() <= 1e-5 * e_p.abs().max()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("deferred", [True, False])
+def test_bs_als_on_cuda_follows_the_cpu_trajectory(cuda, deferred):
+    """The BS vector engine's ALS on the card against the CPU (plain
+    versions) from the same parameters, 5 iterations; the kernels it
+    launches, exactly."""
+    from libfm_tpu_torch.data.dataset import Dataset
+    from libfm_tpu_torch.learners.mcmc import dispatch_chunks
+
+    rng = np.random.default_rng(4)
+    nf, nc = 150, 4000
+    join = _relation(rng, 64, 6, nf, nc + 800)
+    y = rng.normal(0, 1, nc + 800).astype(np.float32)
+
+    def ds(sl):
+        d = Dataset(np.zeros(len(y[sl]) + 1, np.int64), np.empty(0, np.int32),
+                    np.empty(0, np.float32), y[sl], 0)
+        d.relations = [join.permuted(np.arange(nc + 800)[sl])]
+        return d
+
+    train, test = ds(slice(0, nc)), ds(slice(nc, None))
+    init = (np.float32(0.0), rng.normal(0, 0.1, nf).astype(np.float32),
+            rng.normal(0, 0.1, (nf, 8)).astype(np.float32))
+    hist = {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        lr = ALSVectorLearner(FMConfig(num_features=nf, num_factors=8, regw=1.0, regv=1.0),
+                              num_iter=5, seed=1, verbose=False, device=dev,
+                              init_params=[torch.as_tensor(x) for x in init])
+        lr.expand_max_ratio = 0.0
+        lr.bs_deferred = deferred
+        hist[dev] = lr.learn(train, test)
+        assert lr.relational_mode == "bs_vector"
+    counts = {name: c for name, c in kernels.launch_counts().items() if c}
+    nblk = counts["rel_stats"] // 5
+    refresh = len(dispatch_chunks(0, 5, lr.refresh_every))
+    want = dict(rel_scores=1 + refresh, rel_refresh=2 + 2 * refresh, rel_stats=5 * nblk,
+                schur_draw=5 * nblk, rel_update=5 * nblk)
+    want.update(dict(rel_cache=1 + refresh, rel_resync=5) if deferred
+                else dict(rel_cache=5, rel_resync=10))
+    assert counts == want
+    for hc, hg in zip(hist["cpu"], hist["cuda"]):
+        assert abs(hc["test_this"] - hg["test_this"]) < 1e-4
+        assert abs(hc["train"] - hg["train"]) < 1e-4

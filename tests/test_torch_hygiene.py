@@ -57,10 +57,13 @@ def test_port_file_list_is_complete():
             "dense_update.py", "sgd.py", "sgd_step.py", "table_scatter.py",
             "table_read.py", "pallas_gather.py", "pallas_scatter.py",
             "case_stats.py", "probit_latent.py", "dual_draw.py", "sgda.py",
-            "sgda_step.py", "sgda_lambda.py", "chip_smoke.py"} <= names
+            "sgda_step.py", "sgda_lambda.py", "chip_smoke.py", "relation.py",
+            "mcmc_rel_vector.py", "rel_refresh.py", "rel_cache.py",
+            "rel_sweep.py"} <= names
 
 
-@pytest.mark.parametrize("args", [[], ["--config3-kernels"], ["--config5-kernels"]])
+@pytest.mark.parametrize("args", [[], ["--config3-kernels"], ["--config5-kernels"],
+                                  ["--bench-bs"]])
 def test_chip_smoke_without_cuda_fails_and_prints_no_result(args):
     """Without a CUDA device chip_smoke.py exits non-zero before it
     builds or runs anything, and prints nothing on its standard output."""
@@ -94,6 +97,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
         SGDLearner(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax(0.0, np.zeros(3), np.zeros((3, 2)))
+    # the relational (BS) entry path: learn() on relational data
+    train, test = _relational_data()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ALSVectorLearner(FMConfig(num_features=6, num_factors=2)).learn(train, test)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -103,12 +110,31 @@ def test_importing_kernels_builds_nothing():
     assert set(reg) == {"fm_refresh", "fm_refresh_probit", "slot_stats", "case_stats",
                         "schur_draw", "dual_draw", "dense_update", "probit_latent",
                         "sgd_step", "table_scatter", "table_read", "sgda_step",
-                        "sgda_lambda"}
+                        "sgda_lambda", "rel_scores", "rel_refresh", "rel_cache",
+                        "rel_stats", "rel_update", "rel_resync"}
     assert kernels._lib is None
     assert sorted(p.name for p in kernels.CSRC_DIR.glob("*.cu")) == [
         "case_stats.cu", "dense_update.cu", "dual_draw.cu", "fm_refresh.cu",
-        "probit_latent.cu", "schur_draw.cu", "sgd_step.cu", "sgda_lambda.cu",
-        "sgda_step.cu", "slot_stats.cu", "table_read.cu", "table_scatter.cu"]
+        "probit_latent.cu", "rel_cache.cu", "rel_refresh.cu", "rel_sweep.cu",
+        "schur_draw.cu", "sgd_step.cu", "sgda_lambda.cu", "sgda_step.cu", "slot_stats.cu",
+        "table_read.cu", "table_scatter.cu"]
+
+
+def _relational_data():
+    """A tiny pure block-structure train/test pair: 3 block rows of 2
+    entries over 6 features."""
+    from libfm_tpu_torch.data.dataset import Dataset
+    from libfm_tpu_torch.data.relation import RelationData, RelationJoin
+
+    rd = RelationData(np.array([0, 2, 4, 6]), np.array([0, 1, 2, 3, 4, 5]),
+                      np.ones(6), 6)
+    out = []
+    for m in (np.array([0, 1, 2, 0, 1]), np.array([2, 0])):
+        ds = Dataset(np.zeros(len(m) + 1, np.int64), np.empty(0, np.int32),
+                     np.empty(0, np.float32), np.arange(len(m), dtype=np.float32), 0)
+        ds.relations = [RelationJoin(rd, m.astype(np.int32))]
+        out.append(ds)
+    return out
 
 
 def _cpu_calls():
@@ -117,6 +143,9 @@ def _cpu_calls():
     from libfm_tpu_torch.kernels import dual_draw as dd
     from libfm_tpu_torch.kernels import fm_refresh as fr
     from libfm_tpu_torch.kernels import probit_latent as pl
+    from libfm_tpu_torch.kernels import rel_cache as rc
+    from libfm_tpu_torch.kernels import rel_refresh as rr
+    from libfm_tpu_torch.kernels import rel_sweep as rs
     from libfm_tpu_torch.kernels import schur_draw as sd
     from libfm_tpu_torch.kernels import sgd_step as sg
     from libfm_tpu_torch.kernels import sgda_lambda as sl
@@ -146,7 +175,25 @@ def _cpu_calls():
     tab = du.update_table(th, th + 0.1)
     groups = torch.arange(n, dtype=torch.int32) % 2
     sgda = dict(mode="pair", task=0, lr=0.1, min_target=1.0, max_target=5.0)
+    # a relation of 4 block rows (row 4 the sentinel) over features 0-5
+    indptr = torch.tensor([0, 2, 3, 5, 6])
+    rcols = torch.tensor([0, 1, 2, 3, 4, 5], dtype=torch.int32)
+    rmap = torch.tensor([0, 1, 2, 3, 0], dtype=torch.int32)
+    case_off = torch.tensor([0, 2, 3, 4, 5])
+    case_ids = torch.tensor([0, 4, 1, 2, 3], dtype=torch.int32)
+    C = rc.rel_cache(A[:5], case_off, case_ids)
+    SD = torch.full((5, k + 1), 0.1)
+    eb = torch.tensor([0, 2], dtype=torch.int32)
+    ef = torch.tensor([0, 1], dtype=torch.int32)
     return {
+        "rel_scores": lambda: rr.rel_scores(P, indptr, rcols, torch.ones(6)),
+        "rel_refresh": lambda: rr.rel_refresh(torch.ones(5, k + 2), rmap[None], w0,
+                                              torch.zeros(5, k + 1), torch.ones(5)),
+        "rel_cache": lambda: rc.rel_cache(A[:5], case_off, case_ids),
+        "rel_stats": lambda: rs.rel_stats(C, SD, torch.ones(5), torch.tensor([0, 2]), eb,
+                                          torch.ones(2), fid[:1], P),
+        "rel_update": lambda: rs.rel_update(SD.clone(), eb, torch.ones(2), ef, th, th + 0.1),
+        "rel_resync": lambda: rs.rel_resync(SD, rmap, torch.ones(5, k + 1), read_only=True),
         "fm_refresh": lambda: fr.fm_refresh(P, ids, vals, w0, torch.ones(nc), A),
         "fm_refresh_probit": lambda: fr.fm_refresh(
             P, ids, vals, w0, torch.ones(nc), A, probit="sample",
@@ -182,7 +229,9 @@ def _cpu_calls():
 @pytest.mark.parametrize("name", ["fm_refresh", "fm_refresh_probit", "slot_stats",
                                   "case_stats", "schur_draw", "dual_draw", "dense_update",
                                   "probit_latent", "sgd_step", "table_scatter",
-                                  "table_read", "sgda_step", "sgda_lambda"])
+                                  "table_read", "sgda_step", "sgda_lambda", "rel_scores",
+                                  "rel_refresh", "rel_cache", "rel_stats", "rel_update",
+                                  "rel_resync"])
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(name):
     kernels.import_all()
     before = kernels.launch_counts()

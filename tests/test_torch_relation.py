@@ -1,0 +1,358 @@
+"""The port's relational (BS) data and the BS vector engine's host layout
+and plain kernel versions, against the JAX package, on the CPU.
+
+- data: `expand_join`, `expansion_cost`, `RelationJoin.permuted` and
+  `bs_vector_skew` equal JAX's exactly; so do the layout's blocks (in the
+  JAX engine's sweep order) and `wnum`; the learner routes
+  (`relational_mode`, or the raise) as JAX's does for the same data and
+  flags;
+- plain versions against what they replace, on data expanded by
+  `expand_join` (the identities in the JAX engine's docstring,
+  libfm_tpu/learners/mcmc_rel_vector.py:15-54): `rel_refresh_plain` over
+  `rel_scores_plain` equals `fm_refresh_plain` on the expanded rows;
+  `rel_cache_plain` then `rel_stats_plain` at a non-zero SD equals
+  `slot_stats_plain` over the expanded cases (float64, 1e-9 of each
+  part's largest value); `rel_update_plain` then `rel_resync_plain`
+  equals `dense_update_plain` on the expanded cases; `deferred_sums`
+  equals the sums over the resynced residuals;
+- what the slice does not take raises NotImplementedError naming its
+  ROADMAP item.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import libfm_tpu.data.relation as jrelation
+import libfm_tpu.learners.mcmc_rel_vector as jrel
+from libfm_tpu.learners.mcmc_vector import MCMCVectorLearner as JaxMCMC
+from libfm_tpu.models.fm import FMConfig as JaxFMConfig
+from libfm_tpu_torch.data import relation as trelation
+from libfm_tpu_torch.data.dataset import Dataset
+from libfm_tpu_torch.data.vector_layout import padded_rows_layout
+from libfm_tpu_torch.kernels.dense_update import dense_update_plain, update_table
+from libfm_tpu_torch.kernels.fm_refresh import fm_refresh_plain
+from libfm_tpu_torch.kernels.rel_cache import case_lists, rel_cache_plain
+from libfm_tpu_torch.kernels.rel_refresh import rel_refresh_plain, rel_scores_plain
+from libfm_tpu_torch.kernels.rel_sweep import (
+    rel_resync_plain,
+    rel_stats_plain,
+    rel_update_plain,
+)
+from libfm_tpu_torch.kernels.slot_stats import slot_stats_plain
+from libfm_tpu_torch.learners import mcmc_rel_vector as trel
+from libfm_tpu_torch.learners.mcmc_vector import MCMCVectorLearner
+from libfm_tpu_torch.models.fm import FMConfig
+from libfm_tpu_torch.tasks import TASK_CLASSIFICATION
+
+from test_mcmc_rel_vector import _general_bs_problem, _single_rel_problem
+from test_mcmc_relational import make_relational_problem
+
+
+def to_port(*datasets):
+    """The port's Datasets for JAX Datasets with relations; a relation
+    block shared by several datasets stays one object."""
+    blocks = {}
+    out = []
+    for ds in datasets:
+        t = Dataset(ds.indptr, ds.cols, ds.vals, ds.target, ds.num_features)
+        for join in ds.relations:
+            rd = join.data
+            if id(rd) not in blocks:
+                blocks[id(rd)] = trelation.RelationData(rd.indptr, rd.cols, rd.vals,
+                                                        rd.num_features)
+                blocks[id(rd)].attr_offset = rd.attr_offset
+            t.relations.append(trelation.RelationJoin(blocks[id(rd)],
+                                                      np.asarray(join.row_map)))
+        out.append(t)
+    return out
+
+
+def _skewed_problem():
+    """One relation of 40 rows, most cases joined to row 0 (skew ~33)."""
+    train, test, nf = _single_rel_problem(seed=3, NB=40, NTR=600)
+    for ds in (train, test):
+        m = ds.relations[0].row_map
+        m[: 5 * len(m) // 6] = 0
+    return train, test, nf
+
+
+PROBLEMS = {
+    "single": lambda: _single_rel_problem(seed=9),
+    "two": lambda: make_relational_problem()[:2] + make_relational_problem()[4:],
+    "general": _general_bs_problem,
+    "skewed": _skewed_problem,
+}
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+def test_data_functions_equal_jax(name):
+    train, test, _ = PROBLEMS[name]()
+    ttr, tte = to_port(train, test)
+    for j, t in ((train, ttr), (test, tte)):
+        je, te = jrelation.expand_join(j), trelation.expand_join(t)
+        for f in ("indptr", "cols", "vals", "target"):
+            np.testing.assert_array_equal(getattr(te, f), getattr(je, f))
+        assert te.num_features == je.num_features
+        assert trelation.expansion_cost(t) == jrelation.expansion_cost(j)
+        perm = np.random.default_rng(1).permutation(j.num_rows)
+        for jj, tj in zip(j.relations, t.relations):
+            np.testing.assert_array_equal(tj.permuted(perm).row_map,
+                                          jj.permuted(perm).row_map)
+    assert trel.bs_vector_skew(ttr) == jrel.bs_vector_skew(train)
+
+
+@pytest.mark.parametrize("name", ["single", "two", "general"])
+def test_layout_blocks_and_wnum_equal_jax(name):
+    """The port's blocks, in sweep order, are the JAX engine's stacks
+    unpadded (feature ids, entry rows, values), and wnum is equal."""
+    train, test, nf = PROBLEMS[name]()
+    ttr, tte = to_port(train, test)
+    groups = np.zeros(nf, np.int32)
+    for jt, je, tt, te in zip(train.relations, test.relations, ttr.relations,
+                              tte.relations):
+        jl = jrel._build_rel_layout(jt, je, groups, nf)
+        tl = trel.RelLayout(tt, te, groups, nf)
+        np.testing.assert_array_equal(tl.wnum, jl.wnum)
+        jblocks = []
+        for st in jl.stacks:
+            for feats, eb, ex in zip(st.feats, st.entry_b, st.entry_x):
+                F, E = int((feats < nf).sum()), int((eb < jl.nb).sum())
+                jblocks.append((feats[:F], eb[:E], ex[:E]))
+        assert len(tl.blocks) == len(jblocks)
+        for tb, (feats, eb, ex) in zip(tl.blocks, jblocks):
+            np.testing.assert_array_equal(tb.features, feats)
+            np.testing.assert_array_equal(tb.entry_b, eb)
+            np.testing.assert_array_equal(tb.entry_x, ex)
+        np.testing.assert_array_equal(tl.unobserved, jl.unobserved_local + jl.attr_offset)
+
+
+class _Routed(Exception):
+    pass
+
+
+ROUTES = [("single", {}), ("single", dict(expand_max_ratio=0.0)),
+          ("two", {}), ("two", dict(expand_max_ratio=0.0)),
+          ("skewed", dict(expand_max_ratio=0.0)),
+          ("single", dict(expand_max_ratio=0.0, bs_vector=False))]
+
+
+@pytest.mark.parametrize("name,flags", ROUTES)
+def test_routing_matches_jax(name, flags, monkeypatch):
+    """relational_mode as JAX decides it for the same data and flags (the
+    JAX engines are stopped right after the decision); where JAX takes its
+    exact BS engine ("bs") the port raises naming ROADMAP M10."""
+    train, test, nf = PROBLEMS[name]()
+
+    def stop(*a, **kw):
+        raise _Routed
+
+    monkeypatch.setattr(jrelation, "expand_join", stop)
+    monkeypatch.setattr(jrel, "learn_relational_vector", stop)
+    monkeypatch.setattr(JaxMCMC, "_learn_relational", stop)
+    jl = JaxMCMC(JaxFMConfig(num_features=nf, num_factors=2), num_iter=1, verbose=False)
+    for key, v in flags.items():
+        setattr(jl, key, v)
+    with pytest.raises(_Routed):
+        jl.learn(train, test)
+    tl = MCMCVectorLearner(FMConfig(num_features=nf, num_factors=2), num_iter=1,
+                           verbose=False, device="cpu")
+    for key, v in flags.items():
+        setattr(tl, key, v)
+    ttr, tte = to_port(train, test)
+    if jl.relational_mode == "bs":
+        with pytest.raises(NotImplementedError, match="M10"):
+            tl._route_relational(ttr, tte)
+        return
+    tl._route_relational(ttr, tte)
+    assert tl.relational_mode == jl.relational_mode
+
+
+# ---- the plain versions against what they replace, on the expansion
+
+
+def _port_problem(name, k, seed=0):
+    """(train, its expansion, P [n, k+1] float64, w0) for a problem's train
+    set, P random."""
+    train, test, nf = PROBLEMS[name]()
+    ttr, _ = to_port(train, test)
+    rng = np.random.default_rng(seed)
+    P = torch.as_tensor(rng.normal(0, 0.5, (nf, k + 1)))
+    return ttr, trelation.expand_join(ttr), P, torch.tensor(0.3, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("name", ["single", "two"])
+@pytest.mark.parametrize("use_linear", [True, False])
+def test_rel_refresh_plain_equals_fm_refresh_on_expansion(name, use_linear):
+    k = 3
+    ttr, exp, P, w0 = _port_problem(name, k)
+    P = P.float()
+    w0 = w0.float()
+    nc = ttr.num_rows
+    SC, maps, first = [], [], 0
+    for join in ttr.relations:
+        rd = join.data
+        cols = torch.as_tensor(rd.cols.astype(np.int64) + rd.attr_offset)
+        SC.append(rel_scores_plain(P, torch.as_tensor(rd.indptr), cols,
+                                   torch.as_tensor(rd.vals), use_linear=use_linear))
+        maps.append(torch.as_tensor(join.row_map.astype(np.int64) + first))
+        first += rd.num_cases + 1
+    SC, maps = torch.cat(SC), torch.stack(maps).int()
+    y = torch.as_tensor(ttr.target)
+    kw = dict(use_linear=use_linear, min_target=ttr.min_target, max_target=ttr.max_target)
+    A_rel = torch.empty(nc, k + 1)
+    m_rel = rel_refresh_plain(SC, maps, w0, A_rel, y, **kw)
+    tail = torch.empty(nc, k + 1)
+    rel_refresh_plain(SC, maps, w0, tail, use_linear=use_linear)
+    ids, vals = (torch.as_tensor(a) for a in padded_rows_layout(exp.indptr, exp.cols,
+                                                                 exp.vals))
+    A_flat = torch.empty(nc, k + 1)
+    m_flat = fm_refresh_plain(P, ids, vals, w0, y, A_flat, **kw)
+    pred = fm_refresh_plain(P, ids, vals, w0, use_linear=use_linear)
+    torch.testing.assert_close(A_rel, A_flat, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tail[:, 0], pred, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tail[:, 1:], A_rel[:, 1:], rtol=0, atol=0)
+    torch.testing.assert_close(m_rel, m_flat, rtol=1e-5, atol=0)
+
+
+def _sweep_state(name, k, seed):
+    """A relation's caches at a non-zero SD, in float64: (train, expansion,
+    P, layout, C, SD, the frozen A0 and the current A = A0 resynced by SD)."""
+    ttr, exp, P, _ = _port_problem(name, k, seed)
+    join = ttr.relations[0]
+    nf = P.shape[0]
+    lay = trel.RelLayout(join, join, np.zeros(nf, np.int32), nf)
+    rng = np.random.default_rng(seed + 1)
+    A0 = torch.as_tensor(rng.normal(0, 1, (ttr.num_rows, k + 1)))
+    C = rel_cache_plain(A0, *(torch.as_tensor(a) for a in case_lists(join.row_map, lay.nb)))
+    SD = torch.as_tensor(rng.normal(0, 0.3, (lay.nb + 1, k + 1)))
+    SD[lay.nb] = 0.0
+    A = A0.clone()
+    rel_resync_plain(SD, torch.as_tensor(join.row_map), A)
+    return ttr, exp, P, lay, C, SD, A0, A
+
+
+def _expanded_slots(exp, feats):
+    """Per feature of `feats` (global ids) its slots over the expansion:
+    (feat_off, slot_case, slot_val)."""
+    t_indptr, t_rows, t_vals = exp.transpose()
+    cnt = t_indptr[feats + 1] - t_indptr[feats]
+    idx = np.concatenate([np.arange(t_indptr[f], t_indptr[f + 1]) for f in feats])
+    off = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int64)
+    return (torch.as_tensor(off), torch.as_tensor(t_rows[idx].astype(np.int32)),
+            torch.as_tensor(t_vals[idx].astype(np.float32)))
+
+
+def _part_err(G, ref, k):
+    T = k * (k + 1) // 2
+    cuts = [0, T, T + k, T + 2 * k, T + 2 * k + 2]
+    return max(((G[:, a:b] - ref[:, a:b]).abs().max()
+                / ref[:, a:b].abs().max().clamp_min(1e-300)).item()
+               for a, b in zip(cuts, cuts[1:]))
+
+
+@pytest.mark.parametrize("name,k", [("single", 3), ("general", 4), ("general", 1)])
+@pytest.mark.parametrize("use_linear", [True, False])
+def test_rel_cache_and_stats_plain_equal_slot_stats_on_expansion(name, k, use_linear):
+    """GG from the frozen caches and SD equals slot_stats over the
+    expanded cases of the current A, every block (float64, 1e-9)."""
+    _, exp, P, lay, C, SD, _, A = _sweep_state(name, k, seed=2)
+    wnum = torch.as_tensor(lay.wnum)
+    assert len(lay.blocks) > (1 if name == "general" else 0)
+    for blk in lay.blocks:
+        G_rel = rel_stats_plain(C, SD, wnum, torch.as_tensor(blk.feat_off),
+                                torch.as_tensor(blk.entry_b), torch.as_tensor(blk.entry_x),
+                                torch.as_tensor(blk.features.astype(np.int32)), P,
+                                use_linear=use_linear)
+        off, sc, sv = _expanded_slots(exp, blk.features)
+        G_flat = slot_stats_plain(A, P, off, sc, sv.double(),
+                                  torch.as_tensor(blk.features.astype(np.int32)),
+                                  use_linear=use_linear)
+        assert _part_err(G_rel, G_flat, k) < 1e-9
+
+
+@pytest.mark.parametrize("name,k", [("single", 3), ("general", 4)])
+def test_rel_update_and_resync_plain_equal_dense_update_on_expansion(name, k):
+    """A block's draw folded into SD (rel_update_plain) and resynced into
+    A0 equals the flat engine's dense update of the expanded cases, block
+    after block (float64)."""
+    ttr, exp, P, lay, C, SD, A0, A = _sweep_state(name, k, seed=4)
+    rmap = torch.as_tensor(ttr.relations[0].row_map)
+    rng = np.random.default_rng(5)
+    for blk in lay.blocks:
+        feats = torch.as_tensor(blk.features)
+        theta_old = P[feats]
+        theta_new = theta_old + torch.as_tensor(rng.normal(0, 0.2, theta_old.shape))
+        rel_update_plain(SD, torch.as_tensor(blk.entry_b), torch.as_tensor(blk.entry_x),
+                         torch.as_tensor(blk.entry_f), theta_old, theta_new)
+        col = np.full(exp.num_rows, len(blk.features), np.int32)
+        val = np.zeros(exp.num_rows, np.float64)
+        t_indptr, t_rows, t_vals = exp.transpose()
+        for j, f in enumerate(blk.features):
+            rows = t_rows[t_indptr[f]:t_indptr[f + 1]]
+            col[rows] = j
+            val[rows] = t_vals[t_indptr[f]:t_indptr[f + 1]]
+        dense_update_plain(A, torch.as_tensor(col), torch.as_tensor(val),
+                           update_table(theta_old, theta_new))
+        P[feats] = theta_new
+        A_bs = A0.clone()
+        rel_resync_plain(SD, rmap, A_bs)
+        torch.testing.assert_close(A_bs, A, rtol=1e-10, atol=1e-10)
+        pred = rel_resync_plain(SD, rmap, A0, read_only=True)
+        torch.testing.assert_close(pred, A[:, 0], rtol=1e-10, atol=1e-10)
+
+
+def test_deferred_sums_equal_the_resynced_sums():
+    _, _, _, lay, C, SD, _, A = _sweep_state("single", 3, seed=6)
+    s, s2 = trel.deferred_sums(C, SD, torch.as_tensor(lay.wnum))
+    np.testing.assert_allclose(float(s), float(A[:, 0].sum()), rtol=1e-6)
+    np.testing.assert_allclose(float(s2), float((A[:, 0] ** 2).sum()), rtol=1e-6)
+
+
+# ---- what the slice does not take
+
+
+def test_out_of_slice_relational_cases_raise():
+    train, test, nf = _single_rel_problem(seed=9)
+    ttr, tte = to_port(train, test)
+    cfg = FMConfig(num_features=nf, num_factors=2)
+
+    def fat(**kw):
+        lr = MCMCVectorLearner(cfg, num_iter=1, verbose=False, device="cpu", **kw)
+        lr.expand_max_ratio = 0.0
+        return lr
+
+    with pytest.raises(NotImplementedError, match="classification waits for ROADMAP M9"):
+        fat(task=TASK_CLASSIFICATION).learn(ttr, tte)
+    gtr, gte, gnf = _general_bs_problem()
+    with pytest.raises(NotImplementedError, match="main-table features .* ROADMAP M9"):
+        lr = MCMCVectorLearner(FMConfig(num_features=gnf, num_factors=2), num_iter=1,
+                               verbose=False, device="cpu")
+        lr.expand_max_ratio = 0.0
+        lr.learn(*to_port(gtr, gte))
+    off = fat()
+    off.bs_vector = False
+    with pytest.raises(NotImplementedError, match="exact BS engine.*M10"):
+        off.learn(ttr, tte)
+    with pytest.raises(NotImplementedError, match="M13"):
+        MCMCVectorLearner(cfg, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="M7"):
+        MCMCVectorLearner(cfg, checkpoint_path="x", device="cpu")
+    with pytest.raises(NotImplementedError, match="M7"):
+        MCMCVectorLearner(cfg, rlog=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="M2b"):
+        trelation.RelationData.load("no_such_prefix")
+
+
+def test_relation_join_load_text_and_binary(tmp_path):
+    rd = trelation.RelationData(np.arange(4), np.arange(3), np.ones(3), 3)
+    path = tmp_path / "map.txt"
+    np.savetxt(path, np.array([2, 0, 1, 1]), fmt="%d")
+    join = trelation.RelationJoin.load(rd, str(path), 4)
+    np.testing.assert_array_equal(join.row_map, [2, 0, 1, 1])
+    with pytest.raises(ValueError, match="expected 5"):
+        trelation.RelationJoin.load(rd, str(path), 5)
+    binary = tmp_path / "map.bin"
+    binary.write_bytes(np.array([1, 4, 2], np.uint32).tobytes() + np.zeros(2, np.uint32).tobytes())
+    with pytest.raises(NotImplementedError, match="M2b"):
+        trelation.RelationJoin.load(rd, str(binary), 2)

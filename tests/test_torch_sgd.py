@@ -169,7 +169,8 @@ def _one_batch(which, B=128):
 @pytest.mark.parametrize("which,mode", STEP_CASES)
 def test_sgd_step_plain_w0_in_place_matches_jax(which, mode):
     """sgd_step_plain given lr0/reg0 updates w0 in place as the JAX
-    epoch's w0 line does over one batch (atol 1e-6)."""
+    epoch's w0 line does over one batch (atol 1e-6), through
+    `sgd_w0_update` on its sums."""
     stack, sids, perm, kw, task, lims = _one_batch(which)
     init = _params(kw["num_features"], K, seed=4)
     lrs = (0.01, 0.02, 0.03)
@@ -186,7 +187,7 @@ def test_sgd_step_plain_w0_in_place_matches_jax(which, mode):
                              reg0=kw["reg0"])
     assert float(w0) != init[0]
     np.testing.assert_allclose(float(w0), float(jp.w0), rtol=0, atol=1e-6)
-    assert torch.equal(w0, tp.w0 - lrs[0] * (red[0] + red[1] * kw["reg0"] * tp.w0))
+    assert torch.equal(w0, tsgd.sgd_w0_update(tp.w0, lrs[0], red[0], red[1], kw["reg0"]))
 
 
 @pytest.mark.parametrize("which,mode", STEP_CASES)

@@ -44,7 +44,8 @@ from libfm_tpu_torch.data.batching import batch_dataset
 from libfm_tpu_torch.data.dataset import Dataset
 from libfm_tpu_torch.data.synth import ctr_like, movielens_like
 from libfm_tpu_torch.kernels.sgda_lambda import sgda_lambda_plain
-from libfm_tpu_torch.kernels.sgda_step import sgda_step_plain, w0_update
+from libfm_tpu_torch.kernels import sgd_step as tsgd_step
+from libfm_tpu_torch.kernels.sgda_step import fma_f32, sgda_step_plain, w0_update
 from libfm_tpu_torch.kernels.table_scatter import table_scatter_plain
 from libfm_tpu_torch.learners import sgd as tsgd
 from libfm_tpu_torch.learners import sgda as tsgda
@@ -489,17 +490,46 @@ def w0_after_one_epoch(ratings=W0_RATINGS, seed=1):
 
 def test_w0_drift_at_config1_batches_is_no_larger_than_jax():
     """ROADMAP §3 "w0 at config #1 in f32", over 32 of config #1's batches
-    at two seeds. SGDA's w0 line rounds w0 - lr sum once, as XLA's fused
-    multiply-add rounds JAX's on the CPU, and lands on JAX's f32 w0 bit for
-    bit. SGD's line (sgd_step.cu and its torch line) still rounds twice, an
-    open fault of the port (ROADMAP §3): its f32 w0 lies no further from
-    the float64 epoch's than JAX's does, plus one rounding a batch."""
+    at two seeds. SGDA's w0 line rounds w0 - lr sum once and SGD's rounds
+    its two fused multiply-adds once each (`sgd_w0_update`), as XLA rounds
+    JAX's lines on the CPU: both land on JAX's f32 w0 bit for bit."""
     for seed in (1, 3):
         r = w0_after_one_epoch(seed=seed)
         assert r["sgda_port_f32"] == r["sgda_jax_f32"], r
-        ref = r["sgd_port_f64"]
-        port, jx = abs(r["sgd_port_f32"] - ref), abs(r["sgd_jax_f32"] - ref)
-        assert port <= jx + r["batches"] * float(np.spacing(np.float32(abs(ref)))), r
+        assert r["sgd_port_f32"] == r["sgd_jax_f32"], r
+
+
+def test_sgd_w0_update_rounds_as_jax():
+    """`sgd_w0_update` against JAX's SGD w0 line on the CPU
+    (libfm_tpu/learners/sgd.py:147, `w0 - lr0 * (sum + n * reg0 * w0)`),
+    bit for bit. XLA contracts both the inner n reg0 w0 + sum and the outer
+    w0 - lr0 g into fused multiply-adds: the values are drawn so that each
+    of the three other roundings (op by op, one fma outside only, one fma
+    inside only) misses JAX's value somewhere."""
+    rng = np.random.default_rng(0)
+    m, B, reg0 = 4000, 8, 0.37
+    w0 = rng.normal(0, 3, m).astype(np.float32)
+    mult = rng.normal(0, 1, (m, B)).astype(np.float32)
+    mask = rng.random((m, B)) < 0.8
+    lr = rng.uniform(0.001, 0.5, m).astype(np.float32)
+
+    def line(w0, mult, mask, lr):
+        n_real = mask.sum().astype(jnp.float32)
+        return w0 - lr * (mult.sum() + n_real * reg0 * w0)
+
+    want = np.asarray(jax.jit(jax.vmap(line))(w0, mult, mask, lr))
+    s = np.array(jax.jit(jax.vmap(lambda a: a.sum()))(mult))
+    n = mask.sum(1).astype(np.float32)
+    got = np.asarray([float(tsgd_step.sgd_w0_update(torch.tensor(a), float(b), torch.tensor(c),
+                                                    torch.tensor(d), reg0))
+                      for a, b, c, d in zip(w0, lr, s, n)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    t = [torch.as_tensor(a) for a in (w0, lr, s, n)]
+    g_fl = t[2] + t[3] * reg0 * t[0]
+    g_fma = fma_f32(t[3] * reg0, t[0], t[2])
+    others = [t[0] - t[1] * g_fl, fma_f32(-t[1], g_fl, t[0]), t[0] - t[1] * g_fma]
+    for other in others:
+        assert (other.numpy() != want).any()
 
 
 # ---- what this slice does not take
