@@ -212,7 +212,7 @@ def import_all() -> dict:
     from libfm_tpu_torch.kernels import (  # noqa: F401
         case_stats, dense_update, dual_draw, fm_refresh, probit_latent, rel_cache,
         rel_refresh, rel_sweep, schur_draw, sgd_step, sgda_lambda, sgda_step, slot_stats,
-        table_read, table_scatter,
+        slot_update, table_read, table_scatter,
     )
 
     return REGISTRY

@@ -25,6 +25,7 @@ import torch
 
 from libfm_tpu_torch.kernels import Kernel, check, on_cuda, padded_width, ptr
 from libfm_tpu_torch.kernels.case_stats import triu
+from libfm_tpu_torch.ops.segment import sorted_index_add_
 
 KERNEL = Kernel(
     "rel_cache", "rel_cache_launch",
@@ -61,8 +62,8 @@ def rel_cache_plain(A, case_off, case_ids):
     for c0 in range(0, case_ids.shape[0], _PLAIN_CHUNK):
         Ac = A[case_ids[c0:c0 + _PLAIN_CHUNK].long()]
         e, Q = Ac[:, :1], Ac[:, 1:]
-        C.index_add_(0, rows[c0:c0 + _PLAIN_CHUNK],
-                     torch.cat([e, e * e, Q, Q * e, Q[:, iu0] * Q[:, iu1]], dim=1))
+        sorted_index_add_(C, rows[c0:c0 + _PLAIN_CHUNK],
+                          torch.cat([e, e * e, Q, Q * e, Q[:, iu0] * Q[:, iu1]], dim=1))
     return C
 
 

@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from libfm_tpu_torch.kernels import Kernel, check, on_cuda, ptr
+from libfm_tpu_torch.ops.segment import sorted_index_add_
 
 SCORES = Kernel(
     "rel_scores", "rel_scores_launch",
@@ -43,15 +44,10 @@ def rel_scores_plain(P, indptr, cols, vals, *, use_linear=True):
                                    indptr[1:] - indptr[:-1], output_size=cols.shape[0])
     c = cols.long()
     vx = P[c, 1:] * vals[:, None]
+    lin = P[c, :1] * vals[:, None] if use_linear else torch.zeros_like(vals)[:, None]
     SC = torch.zeros(nb + 1, k + 2, dtype=P.dtype, device=P.device)
-    qB = torch.zeros(nb + 1, k, dtype=P.dtype, device=P.device).index_add_(0, rows, vx)
-    SC[:, :k] = qB
-    SC[:, k] = torch.zeros(nb + 1, dtype=P.dtype, device=P.device).index_add_(
-        0, rows, (vx * vx).sum(dim=1))
-    if use_linear:
-        SC[:, k + 1] = torch.zeros(nb + 1, dtype=P.dtype, device=P.device).index_add_(
-            0, rows, P[c, 0] * vals)
-    return SC
+    return sorted_index_add_(SC, rows, torch.cat([vx, (vx * vx).sum(dim=1, keepdim=True),
+                                                  lin], dim=1))
 
 
 def rel_scores(P, indptr, cols, vals, *, use_linear=True):

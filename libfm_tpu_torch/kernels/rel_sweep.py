@@ -34,6 +34,7 @@ from libfm_tpu_torch.kernels import Kernel, check, on_cuda, padded_width, ptr
 from libfm_tpu_torch.kernels.case_stats import gg_from_moments, moment_width, triu
 from libfm_tpu_torch.kernels.rel_cache import cache_width
 from libfm_tpu_torch.kernels.slot_stats import gg_width
+from libfm_tpu_torch.ops.segment import sorted_index_add_
 
 STATS = Kernel(
     "rel_stats", "rel_stats_launch",
@@ -100,7 +101,7 @@ def rel_stats_plain(C, SD, wnum, feat_off, entry_b, entry_x, feat_id, P, *,
     ef = torch.repeat_interleave(torch.arange(F, device=C.device),
                                  feat_off[1:] - feat_off[:-1], output_size=entry_b.shape[0])
     MOM = torch.zeros(F, moment_width(k, False), dtype=C.dtype, device=C.device)
-    MOM.index_add_(0, ef, rel_moments(C, SD, wnum, entry_b, entry_x, k))
+    sorted_index_add_(MOM, ef, rel_moments(C, SD, wnum, entry_b, entry_x, k))
     return gg_from_moments(MOM, P[feat_id.long(), 1:].to(C.dtype), onehot=False,
                            use_linear=use_linear, GG=GG)
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from libfm_tpu_torch.kernels import Kernel, check, on_cuda, ptr
+from libfm_tpu_torch.ops.segment import sorted_index_add_
 
 KERNEL = Kernel(
     "table_scatter", "table_scatter_launch",
@@ -65,40 +66,14 @@ def longest_runs(sids) -> np.ndarray:
     return out.reshape(s.shape[:-1])
 
 
-def _run_sums(sids, rows):
-    """(ids, sums): each run of equal ids in the sorted `sids` and the sum
-    of its rows, added pairwise in entry order (neighbours first, then
-    neighbouring pairs, ...): a fixed order, with no atomics."""
-    ids = sids.long()
-    while ids.shape[0] > 1:
-        E = ids.shape[0]
-        new = torch.ones(E, dtype=torch.bool, device=ids.device)
-        new[1:] = ids[1:] != ids[:-1]
-        starts = torch.nonzero(new).squeeze(1)
-        if starts.shape[0] == E:
-            break
-        at = torch.arange(E, device=ids.device)
-        rank = at - starts[torch.cumsum(new, 0) - 1]
-        keep = torch.nonzero(rank % 2 == 0).squeeze(1)
-        partner = (keep + 1).clamp(max=E - 1)
-        paired = (partner != keep) & (ids[partner] == ids[keep])
-        rows = rows[keep] + torch.where(paired[:, None], rows[partner],
-                                        torch.zeros((), device=rows.device))
-        ids = ids[keep]
-    return ids, rows
-
-
 def table_scatter_plain(T, sids, perm, upd, scratch=None, max_run=None):
     """The plain PyTorch version; same contract as `table_scatter`. Every
     sum is taken in a fixed order: on the CPU `index_add_` adds each row
     in entry order; on a CUDA device, whose `index_add_` adds with atomics
     in an order that changes from run to run, each run's rows are summed
-    pairwise in entry order (`_run_sums`) and added to T once."""
+    pairwise in entry order and added to T once (`sorted_index_add_`)."""
     rows = upd if perm is None else upd[perm.long()]
-    if T.device.type == "cpu":
-        return T.index_add_(0, sids.long(), rows)
-    ids, sums = _run_sums(sids, rows)
-    return T.index_add_(0, ids, sums)
+    return sorted_index_add_(T, sids, rows)
 
 
 def table_scatter(T, sids, perm, upd, scratch=None, max_run=None):

@@ -9,7 +9,9 @@ State on the device:
 - P = [w | V] [n, k+1], the packed parameter table (w and V are views);
 - A = [e | Q] [num_train, k+1], the per-case residual and per-factor
   linear caches, maintained incrementally by every block's update and
-  rewritten by the periodic refresh;
+  rewritten by the periodic refresh; with the incremental test tail
+  (`flat_incr_test`) A also holds [pred | Q] of every test case, in rows
+  of its own past the train rows;
 - classification: the probit latent of every train case, with
   e = pred - latent.
 
@@ -22,24 +24,34 @@ block the CUDA kernels
   dual_draw    (the c x c Woodbury draw of every dual feature: one whose
                one segment of the JAX engine's width layout holds it
                whole, at a width W < k+1 and W <= 64),
-  dense_update (case-major in-place update of A, over every feature),
+  dense_update (case-major in-place update of A, over every feature) or,
+               for a block whose entries cover fewer than num_rows // 4
+               cases and for every block with dense_update=False,
+  slot_update  (the same update over the block's slots: the JAX engine's
+               slot scatter); with the test tail, dense_update also on
+               the tail's rows,
 then the unobserved-feature draws, the test prediction (fm_refresh, test
-mode) and, every `refresh_every` iterations, the train refresh
-(fm_refresh, train mode; for classification its probit mode, which
-resamples the latents). Classification resamples the latents between
-refreshes too, from pred = e + latent (probit_latent). On CPU tensors
-each kernel wrapper runs its plain PyTorch version.
+mode; with the tail, its pred column) and, every `refresh_every`
+iterations, the train refresh (fm_refresh, train mode; for
+classification its probit mode, which resamples the latents; with the
+tail, train mode with y = 0 on the tail's rows as well). Classification
+resamples the latents between refreshes too, from pred = e + latent
+(probit_latent). On CPU tensors each kernel wrapper runs its plain
+PyTorch version.
 
 This slice runs regression and probit classification on one device,
-with case-major statistics and dual draws on by default as in the JAX
-engine. Relational (BS) data is routed as the JAX engine routes it
-(`_route_relational`): thin joins are expanded and run here, fat ones on
-the BS vector engine (learners/mcmc_rel_vector.py). What it does not
-take raises NotImplementedError with the ROADMAP item it waits for: the
-incremental test tail (M7), case reordering and slabs (M7), streaming
-data (M7), the exact BS engine (M10), a mesh (M13), checkpoints and rlog
-(M7). The update always runs as the case-major dense pass (the JAX
-engine's low-coverage slot-scatter fallback computes the same update).
+with case-major statistics, dual draws and the dense update on by
+default as in the JAX engine. The incremental test tail is off by
+default, as in JAX; set `flat_incr_test = True` on the learner, and it
+steps aside silently where the JAX engine's does (a block on the slot
+scatter, a test case holding two features of one block, a one-hot block
+meeting a test value other than 1). Relational (BS) data is routed as the
+JAX engine routes it (`_route_relational`): thin joins are expanded and
+run here, fat ones on the BS vector engine (learners/mcmc_rel_vector.py).
+What it does not take raises NotImplementedError with the ROADMAP item it
+waits for: case reordering and slabs (M7), the pure linear model (M7),
+streaming data (M7), the exact BS engine (M10), a mesh (M13),
+checkpoints and rlog (M7).
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ from libfm_tpu_torch.kernels.pieces import Pieces
 from libfm_tpu_torch.kernels.probit_latent import probit_latent
 from libfm_tpu_torch.kernels.schur_draw import schur_draw
 from libfm_tpu_torch.kernels.slot_stats import gg_width, slot_stats
+from libfm_tpu_torch.kernels.slot_update import slot_update
 from libfm_tpu_torch.learners import base as _base
 from libfm_tpu_torch.learners.mcmc import (
     HYPER,
@@ -92,17 +105,25 @@ MAX_FACTORS_CUDA = 128
 CU_CHUNK = 1 << 17
 
 
+def dense_coverage(num_entries: int, num_rows: int) -> bool:
+    """The JAX engine's coverage rule (mcmc_vector.py learn,
+    `_dense_update_arrays`): a block whose entries cover at least
+    num_rows // 4 cases takes the case-major dense update (with
+    dense_update on); below that it takes the slot scatter, and its
+    statistics stay on the slot path."""
+    return num_entries >= num_rows // 4
+
+
 def case_major_gate(num_dense: int, k: int, onehot: bool, num_entries: int,
                     num_rows: int) -> bool:
     """Whether a block takes case-major statistics, as the JAX engine
     decides (mcmc_vector.py learn: `_dense_update_arrays` and the gate
-    after it): its entries cover at least num_rows // 4 cases (else the
-    JAX engine updates by the slot scatter and keeps the slot path), its
-    moment table is small (Fd * MW <= 8e6) and the one-hot matmul's
-    FLOPs Fd * MW * nc_up_pad stay <= 2e13, with nc_up_pad the case
-    count rounded up to CU_CHUNK. Fd counts the dense (not dual)
-    features, all of them while dual draws are off."""
-    if num_entries < num_rows // 4:
+    after it): its entries pass `dense_coverage` (the learner also needs
+    dense_update on), its moment table is small (Fd * MW <= 8e6) and the
+    one-hot matmul's FLOPs Fd * MW * nc_up_pad stay <= 2e13, with
+    nc_up_pad the case count rounded up to CU_CHUNK. Fd counts the dense
+    (not dual) features, all of them while dual draws are off."""
+    if not dense_coverage(num_entries, num_rows):
         return False
     MW = moment_width(k, onehot)
     nc_up_pad = -(-max(num_rows, 1) // CU_CHUNK) * CU_CHUNK
@@ -125,15 +146,23 @@ class DevBlock:
     the other `Fu` by `dual_draw`. Each part has its own per-feature slot
     lists: `feat_off`, `slot_case`, `slot_val` and the global `feat_id`
     for the statistics kernels, `dual_off`, `dual_case`, `dual_val` (and
-    `dual_plan`, their CTAs) for `dual_draw`. The per-case (feature,
-    value) arrays `dense_update` reads cover every feature (val None:
-    one-hot). `case_major` (with `case_major_stats`) takes the gate of the
-    JAX engine on the dense count; `pieces` is the dense lists' cut for
-    the statistics kernels (kernels/pieces.py), whichever of the two
-    runs."""
+    `dual_plan`, their CTAs) for `dual_draw`. `scatter_update` says which
+    update the block takes, as the JAX engine decides (`dense_coverage`,
+    and always with dense_update off): with it, `upd_case`, `upd_val` and
+    `upd_feat` are one slot list over all F features (dense, then dual;
+    `upd_feat` the slot's place in that order) for `slot_update`, and
+    `up_col`/`up_val` are None; without it, `up_col` and `up_val` are the
+    per-case (feature, value) arrays `dense_update` reads, over every
+    feature (val None: one-hot). `case_major` (with `case_major_stats`)
+    takes the gate of the JAX engine on the dense count; `pieces` is the
+    dense lists' cut for the statistics kernels (kernels/pieces.py),
+    whichever of the two runs. `host_features` are the global ids in the
+    block's order; `te_col`/`te_val` the incremental test tail's per-case
+    arrays (`tail_columns`), set by the learner."""
 
     def __init__(self, block, groups, num_rows: int, device, k: int,
-                 case_major_stats: bool, dual_draws: bool = False, widths=(32, 256)):
+                 case_major_stats: bool, dual_draws: bool = False, widths=(32, 256),
+                 dense_update: bool = True):
         F = len(block.features)
         off, sc, sv = feature_slots(block)
         dual = (dual_features(np.diff(off), k + 1, widths) if dual_draws
@@ -143,6 +172,7 @@ class DevBlock:
         order = np.concatenate([pos_d, pos_u])
         features = np.asarray(block.features)[order]
         self.F, self.Fd, self.Fu = F, len(pos_d), len(pos_u)
+        self.host_features = features
         self.features = torch.as_tensor(features, dtype=torch.long, device=device)
         self.feat_id = torch.as_tensor(features[:self.Fd], dtype=torch.int32, device=device)
         self.groups = torch.as_tensor(np.asarray(groups)[order], dtype=torch.long,
@@ -154,16 +184,57 @@ class DevBlock:
         self.dual_case = torch.as_tensor(sc_u, device=device)
         self.dual_val = torch.as_tensor(sv_u, device=device)
         self.dual_plan = DualPlan(off_u, k + 1, device)
-        col, val = case_columns(block, num_rows)
-        rank = np.empty(F + 1, dtype=np.int32)  # block position -> place in `order`
-        rank[order] = np.arange(F, dtype=np.int32)
-        rank[F] = F
-        self.up_col = torch.as_tensor(rank[col], device=device)
         self.onehot = bool((block.entry_vals == 1.0).all())
-        self.up_val = None if self.onehot else torch.as_tensor(val, device=device)
-        self.case_major = case_major_stats and case_major_gate(
-            self.Fd, k, self.onehot, len(block.entry_rows), num_rows)
+        num_entries = len(block.entry_rows)
+        self.scatter_update = not (dense_update and dense_coverage(num_entries, num_rows))
+        self.up_col = self.up_val = None
+        self.upd_case = self.upd_val = self.upd_feat = None
+        if self.scatter_update:
+            counts = np.concatenate([np.diff(off_d), np.diff(off_u)])
+            self.upd_feat = torch.as_tensor(np.repeat(np.arange(F, dtype=np.int32), counts),
+                                            device=device)
+            if self.Fu:
+                self.upd_case = torch.as_tensor(np.concatenate([sc_d, sc_u]), device=device)
+                self.upd_val = torch.as_tensor(np.concatenate([sv_d, sv_u]), device=device)
+            else:
+                self.upd_case, self.upd_val = self.slot_case, self.slot_val
+        else:
+            col, val = case_columns(block, num_rows)
+            rank = np.empty(F + 1, dtype=np.int32)  # block position -> place in `order`
+            rank[order] = np.arange(F, dtype=np.int32)
+            rank[F] = F
+            self.up_col = torch.as_tensor(rank[col], device=device)
+            self.up_val = None if self.onehot else torch.as_tensor(val, device=device)
+        self.case_major = (case_major_stats and not self.scatter_update
+                           and case_major_gate(self.Fd, k, self.onehot, num_entries, num_rows))
         self.pieces = Pieces(off_d, device)
+        self.te_col = self.te_val = None
+
+
+def tail_columns(features, onehot: bool, test, num_features: int):
+    """The incremental test tail's per-case arrays of one block, as the
+    JAX engine builds its te_col/te_val (mcmc_vector.py learn): for every
+    test case, the place in the block's order (`features`, global ids) of
+    the one block feature it holds (F where it holds none) and that
+    entry's value (0 where none; None for a one-hot block). Returns None
+    where the tail cannot take the block: a test case holds two of its
+    features, or the block is one-hot and a test value is not 1."""
+    F = len(features)
+    loc = np.full(num_features, F, np.int32)
+    loc[features] = np.arange(F, dtype=np.int32)
+    lc = loc[np.asarray(test.cols)]
+    m = lc != F
+    rows = test.row_of_entry[m]
+    nc = test.num_rows
+    if len(rows) and np.bincount(rows, minlength=nc).max() > 1:
+        return None
+    col = np.full(nc, F, np.int32)
+    val = np.zeros(nc, np.float32)
+    col[rows] = lc[m]
+    val[rows] = np.asarray(test.vals, dtype=np.float32)[m]
+    if onehot:
+        return (col, None) if (val[col != F] == 1.0).all() else None
+    return col, val
 
 
 class MCMCVectorLearner(MCMCLearner):
@@ -176,7 +247,8 @@ class MCMCVectorLearner(MCMCLearner):
     ALS_DEFAULT_REFRESH = 8
 
     def __init__(self, *args, widths=(32, 256), mesh=None, dual_draws=True,
-                 refresh_every=None, case_major_stats=True, init_params=None, **kwargs):
+                 dense_update=True, refresh_every=None, case_major_stats=True,
+                 init_params=None, **kwargs):
         super().__init__(*args, **kwargs)
         if mesh is not None:
             raise NotImplementedError("mesh (multi-GPU) waits for ROADMAP M13")
@@ -187,12 +259,20 @@ class MCMCVectorLearner(MCMCLearner):
         # the c x c Woodbury system (dual_draw) instead of the dense d x d
         # one; the same distribution
         self.dual_draws = dual_draws
+        # dense_update: apply each block's update to A case-major
+        # (dense_update) where its entries cover at least num_rows // 4
+        # cases, else by the slot scatter (slot_update); off: the slot
+        # scatter for every block. The same update at another cost
+        self.dense_update = dense_update
         if refresh_every is None:
             refresh_every = self.ALS_DEFAULT_REFRESH
         self.refresh_every = refresh_every
         self.case_major_stats = case_major_stats
         self.case_reorder = False
+        # the incremental test tail, off by default as in the JAX engine;
+        # incr_test says whether the last learn() ran it
         self.flat_incr_test = False
+        self.incr_test = False
         self.init_params = init_params
         # relational (BS) routing (`_route_relational`) and the BS vector
         # engine's paths (learners/mcmc_rel_vector.py): the deferred path
@@ -209,8 +289,6 @@ class MCMCVectorLearner(MCMCLearner):
         why = None
         if not hasattr(train, "indptr") or not hasattr(test, "indptr"):
             why = "streaming data waits for ROADMAP M7"
-        elif self.flat_incr_test:
-            why = "the incremental test tail waits for ROADMAP M7"
         elif self.case_reorder:
             why = "case reordering and slab gathers wait for ROADMAP M7"
         elif k < 1:
@@ -282,7 +360,23 @@ class MCMCVectorLearner(MCMCLearner):
         for b in conflict_free_blocks(train, attr_group=attr_group_np):
             observed[b.features] = True
             blocks.append(DevBlock(b, attr_group_np[b.features], nc_train, dev, k,
-                                   self.case_major_stats, self.dual_draws, self.widths))
+                                   self.case_major_stats, self.dual_draws, self.widths,
+                                   self.dense_update))
+        # the incremental test tail (JAX mcmc_vector.py learn, `incr_te`):
+        # the test cases' [pred | Q] rows ride in A past the train rows and
+        # take every block's update, so an iteration reads its test
+        # prediction from A; it steps aside where the JAX engine's does
+        incr_te = bool(self.flat_incr_test and nc_test > 0 and blocks
+                       and not any(b.scatter_update for b in blocks))
+        if incr_te:
+            tails = [tail_columns(b.host_features, b.onehot, test, n) for b in blocks]
+            incr_te = all(t is not None for t in tails)
+        if incr_te:
+            for b, (col, val) in zip(blocks, tails):
+                b.te_col = torch.as_tensor(col, device=dev)
+                b.te_val = None if val is None else torch.as_tensor(val, device=dev)
+            del tails
+        self.incr_test = incr_te
         unobserved = torch.as_tensor(np.nonzero(~observed)[0], dtype=torch.long, device=dev)
 
         def _rows(ds):
@@ -298,11 +392,30 @@ class MCMCVectorLearner(MCMCLearner):
 
         P, st = initial_state(self, self.init_params, n, k, G, nc_test)
         classify = self.task == TASK_CLASSIFICATION
-        A = torch.empty(nc_train, d, dtype=f32, device=dev)
+        if incr_te:
+            # the tail starts at the first row past the train rows whose
+            # offset is whole 16-byte pieces: dense_update and fm_refresh
+            # move A's rows by bulk copies
+            test_off = -(-nc_train // 4) * 4
+            A_rows = torch.empty(test_off + nc_test, d, dtype=f32, device=dev)
+            A, A_te = A_rows[:nc_train], A_rows[test_off:]
+            y_te0 = torch.zeros(nc_test, dtype=f32, device=dev)
+        else:
+            A = torch.empty(nc_train, d, dtype=f32, device=dev)
+            A_te = None
+
+        def refresh_tail(w0):
+            """Re-ground the tail: A_te = [pred | Q] of every test case
+            (fm_refresh's train mode with y = 0 writes the pred unclipped)."""
+            fm_refresh(P, te_ids, te_pv, w0, y_te0, A_te, use_linear=use_linear,
+                       use_bias=use_bias)
+
         # the initial refresh takes e = pred - y for both tasks (libFM
         # fm_learn_mcmc_simultaneous.h:70-86): the latents start at y
         fm_refresh(P, tr_ids, tr_pv, st["w0"], y_train, A, use_linear=use_linear,
                    use_bias=use_bias, min_target=min_t, max_target=max_t)
+        if incr_te:
+            refresh_tail(st["w0"])
         latent = y_train.clone() if classify else None
         probit = None if not classify else "sample" if do_sample else "mean"
         GG_buf = torch.empty(
@@ -350,7 +463,13 @@ class MCMCVectorLearner(MCMCLearner):
             theta_new = drawn[0] if len(drawn) == 1 else torch.cat(drawn)
             # the table uses the PRE-draw V (qp = Q - x v_old); it covers
             # the dense and the dual features alike
-            dense_update(A, blk.up_col, blk.up_val, update_table(theta_old, theta_new))
+            tab = update_table(theta_old, theta_new)
+            if blk.scatter_update:
+                slot_update(A, blk.upd_case, blk.upd_val, blk.upd_feat, tab)
+            else:
+                dense_update(A, blk.up_col, blk.up_val, tab)
+            if blk.te_col is not None:
+                dense_update(A_te, blk.te_col, blk.te_val, tab)
             P[blk.features] = theta_new
             return sum(rej)
 
@@ -365,6 +484,9 @@ class MCMCVectorLearner(MCMCLearner):
                 w0_new, r = draw_w0(self, e.sum(), nc_train, w0, alpha, draw_bound)
                 rej += r
                 A[:, 0] += w0_new - w0
+                if incr_te:
+                    # the tail holds pred, which moves with w0 too
+                    A_te[:, 0] += w0_new - w0
                 w0 = w0_new
             hyper, r = draw_sweep_hyperpriors(self, P, attr_group, num_attr_per_group, st)
             rej += r
@@ -377,8 +499,12 @@ class MCMCVectorLearner(MCMCLearner):
         def one_step(it, refresh):
             rej = draw_all()
             w0 = st["w0"]
-            pred_test = fm_refresh(P, te_ids, te_pv, w0, use_linear=use_linear,
-                                   use_bias=use_bias)
+            # the tail's pred column, kept current by the updates and the
+            # w0 shifts (the unobserved features' draws reach it only at
+            # the next refresh, as in the JAX engine)
+            pred_test = (A_te[:, 0].clone() if incr_te else
+                         fm_refresh(P, te_ids, te_pv, w0, use_linear=use_linear,
+                                    use_bias=use_bias))
             U = (torch.rand(nc_train, generator=gen, device=dev)
                  if classify and do_sample else None)
             if refresh:
@@ -386,6 +512,8 @@ class MCMCVectorLearner(MCMCLearner):
                                use_linear=use_linear, use_bias=use_bias,
                                min_target=min_t, max_target=max_t, probit=probit,
                                U=U, latent=latent)
+                if incr_te:
+                    refresh_tail(w0)
                 train_metric = (m / max(nc_train, 1) if classify
                                 else torch.sqrt(m / max(nc_train, 1)))
             elif classify:

@@ -20,8 +20,12 @@ launch, and the inputs they refuse (A off 16 bytes, a table whose rows
 are not update_table's 16-byte pieces). SGDA's two kernels at k 1-128,
 G 1, 2, 13 and the most the lambda step takes, in each mode, with
 padded rows and on a batch of one id, the lambda step refusing more
-groups, and the learner against the CPU. Tolerances as in chip_smoke.py:
-fp32 sums taken in another order.
+groups, and the learner against the CPU. slot_update (K4b) at k 4-128,
+one-hot and valued, a twentieth and all of the cases covered, against its
+plain version and dense_update on the same block; dense_update on the
+incremental test tail's view of A; ALS with dense_update=False and with
+the test tail on the card against the CPU, with exact launches.
+Tolerances as in chip_smoke.py: fp32 sums taken in another order.
 """
 
 import numpy as np
@@ -37,6 +41,7 @@ from libfm_tpu_torch.kernels import fm_refresh as fr
 from libfm_tpu_torch.kernels import schur_draw as sd
 from libfm_tpu_torch.kernels import sgd_step as sg
 from libfm_tpu_torch.kernels import slot_stats as ss
+from libfm_tpu_torch.kernels import slot_update as su
 from libfm_tpu_torch.kernels import table_read as tr
 from libfm_tpu_torch.kernels import table_scatter as ts
 from libfm_tpu_torch.learners import sgd as tsgd
@@ -613,6 +618,111 @@ def test_als_on_cuda_follows_the_cpu_trajectory(cuda):
     for hc, hg in zip(runs["cpu"], runs["cuda"]):
         assert abs(hc["test_this"] - hg["test_this"]) < 1e-4
         assert abs(hc["train"] - hg["train"]) < 1e-4
+
+
+SU_KS = [4, 16, 32, 128]
+
+
+@pytest.mark.parametrize("k", SU_KS)
+@pytest.mark.parametrize("onehot", [True, False])
+@pytest.mark.parametrize("coverage", [0.05, 1.0])
+def test_slot_update_kernel_matches_plain(cuda, k, onehot, coverage):
+    """slot_update on a block's slots (grouped by feature, each case once,
+    a few features with no slot) against its plain version and against
+    dense_update on the same block; cases outside the block untouched; the
+    same bits on a second launch; one launch a call."""
+    rng = np.random.default_rng(900 + k + int(coverage * 10))
+    nc, F = 20_000, 300
+    case = rng.choice(nc, int(coverage * nc), replace=False).astype(np.int32)
+    feat = np.sort(rng.integers(0, F - 3, case.size)).astype(np.int32)
+    val = (np.ones(case.size) if onehot else rng.normal(1, 0.5, case.size)).astype(np.float32)
+    col = np.full(nc, F, np.int32)
+    col[case] = feat
+    x = np.zeros(nc, np.float32)
+    x[case] = val
+    A, ct, vt, ft, colt, xt = _to(cuda, rng.normal(0, 1, (nc, k + 1)).astype(np.float32),
+                                  case, val, feat, col, x)
+    th_old = torch.as_tensor(rng.normal(0, 0.3, (F, k + 1)), dtype=torch.float32, device=cuda)
+    tab = du.update_table(th_old, th_old + 0.1 * torch.randn_like(th_old))
+    before = kernels.launch_counts()["slot_update"]
+    A_k = su.slot_update(A.clone(), ct, vt, ft, tab)
+    A_k2 = su.slot_update(A.clone(), ct, vt, ft, tab)
+    A_p = su.slot_update_plain(A.clone(), ct, vt, ft, tab)
+    A_d = du.dense_update(A.clone(), colt, None if onehot else xt, tab)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["slot_update"] == before + 2
+    assert torch.equal(A_k, A_k2)
+    assert _col_rel_err(A_k, A_p) < 1e-5
+    assert _col_rel_err(A_k, A_d) < 1e-5
+    outside = colt == F
+    assert torch.equal(A_k[outside], A[outside])
+
+
+def test_slot_update_kernel_takes_no_slot_and_refuses_wide_k(cuda):
+    A = torch.zeros(8, 5, device=cuda)
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    tab = du.update_table(torch.zeros(3, 5, device=cuda), torch.ones(3, 5, device=cuda))
+    before = kernels.launch_counts()["slot_update"]
+    su.slot_update(A, none, none.float(), none, tab)
+    assert kernels.launch_counts()["slot_update"] == before
+    assert not A.any()
+    wide = torch.zeros(2, 131, device=cuda)
+    th = torch.zeros(1, 131, device=cuda)
+    one = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="k=130"):
+        su.slot_update(wide, one, one.float(), one, du.update_table(th, th))
+
+
+@pytest.mark.parametrize("offset_rows", [4, 1000])
+def test_dense_update_on_the_test_tail_view(cuda, offset_rows):
+    """dense_update on a view of A past its train rows at an offset of
+    whole 16-byte pieces (the incremental test tail) touches only the
+    view's rows and agrees with its plain version."""
+    rng = np.random.default_rng(950 + offset_rows)
+    k, nt, F = 64, 5000, 70
+    rows = torch.as_tensor(rng.normal(0, 1, (offset_rows + nt, k + 1)).astype(np.float32),
+                           device=cuda)
+    col, _ = _to(cuda, rng.integers(0, F + 1, nt).astype(np.int32), np.zeros(1))
+    th_old = torch.as_tensor(rng.normal(0, 0.3, (F, k + 1)), dtype=torch.float32, device=cuda)
+    tab = du.update_table(th_old, th_old + 0.1 * torch.randn_like(th_old))
+    got = rows.clone()
+    du.dense_update(got[offset_rows:], col, None, tab)
+    want = du.dense_update_plain(rows[offset_rows:].clone(), col, None, tab)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:offset_rows], rows[:offset_rows])
+    assert (got[offset_rows:] - want).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("option", ["dense_update_off", "flat_incr_test"])
+def test_als_k4b_options_on_cuda_follow_the_cpu_trajectory(cuda, option):
+    """ALS with the slot scatter on every block, or with the incremental
+    test tail, on the card against the CPU from the same initial
+    parameters, within 1e-4 at every iteration; the card launches
+    slot_update twice an iteration and no dense_update (the scatter), or
+    dense_update four times an iteration (two train blocks, two tails)."""
+    train, test = movielens_like(300, 200, 30000, seed=5)
+    n, k, iters = train.num_features, 16, 6
+    rng = np.random.default_rng(0)
+    init = (np.float32(0.0), rng.normal(0, 0.1, n).astype(np.float32),
+            rng.normal(0, 0.1, (n, k)).astype(np.float32))
+    cfg = FMConfig(num_features=n, num_factors=k, regw=2.0, regv=2.0)
+    kw = dict(dense_update=False) if option == "dense_update_off" else {}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        learner = ALSVectorLearner(cfg, num_iter=iters, seed=1, verbose=False, device=dev,
+                                   init_params=init, **kw)
+        learner.flat_incr_test = option == "flat_incr_test"
+        runs[dev] = learner.learn(train, test)
+        assert learner.incr_test is (option == "flat_incr_test")
+    counts = kernels.launch_counts()
+    if option == "dense_update_off":
+        assert (counts["slot_update"], counts["dense_update"]) == (2 * iters, 0)
+    else:
+        assert (counts["slot_update"], counts["dense_update"]) == (0, 4 * iters)
+    for hc, hg in zip(runs["cpu"], runs["cuda"], strict=True):
+        assert abs(hc["test_this"] - hg["test_this"]) < 1e-4, (hc, hg)
+        assert abs(hc["train"] - hg["train"]) < 1e-4, (hc, hg)
 
 
 def _col_rel_err(a, b):

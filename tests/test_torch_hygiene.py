@@ -59,11 +59,11 @@ def test_port_file_list_is_complete():
             "case_stats.py", "probit_latent.py", "dual_draw.py", "sgda.py",
             "sgda_step.py", "sgda_lambda.py", "chip_smoke.py", "relation.py",
             "mcmc_rel_vector.py", "rel_refresh.py", "rel_cache.py",
-            "rel_sweep.py"} <= names
+            "rel_sweep.py", "slot_update.py"} <= names
 
 
 @pytest.mark.parametrize("args", [[], ["--config3-kernels"], ["--config5-kernels"],
-                                  ["--bench-bs"]])
+                                  ["--bench-bs"], ["--quality"]])
 def test_chip_smoke_without_cuda_fails_and_prints_no_result(args):
     """Without a CUDA device chip_smoke.py exits non-zero before it
     builds or runs anything, and prints nothing on its standard output."""
@@ -111,13 +111,13 @@ def test_importing_kernels_builds_nothing():
                         "schur_draw", "dual_draw", "dense_update", "probit_latent",
                         "sgd_step", "table_scatter", "table_read", "sgda_step",
                         "sgda_lambda", "rel_scores", "rel_refresh", "rel_cache",
-                        "rel_stats", "rel_update", "rel_resync"}
+                        "rel_stats", "rel_update", "rel_resync", "slot_update"}
     assert kernels._lib is None
     assert sorted(p.name for p in kernels.CSRC_DIR.glob("*.cu")) == [
         "case_stats.cu", "dense_update.cu", "dual_draw.cu", "fm_refresh.cu",
         "probit_latent.cu", "rel_cache.cu", "rel_refresh.cu", "rel_sweep.cu",
         "schur_draw.cu", "sgd_step.cu", "sgda_lambda.cu", "sgda_step.cu", "slot_stats.cu",
-        "table_read.cu", "table_scatter.cu"]
+        "slot_update.cu", "table_read.cu", "table_scatter.cu"]
 
 
 def _relational_data():
@@ -151,6 +151,7 @@ def _cpu_calls():
     from libfm_tpu_torch.kernels import sgda_lambda as sl
     from libfm_tpu_torch.kernels import sgda_step as sa
     from libfm_tpu_torch.kernels import slot_stats as ss
+    from libfm_tpu_torch.kernels import slot_update as su
     from libfm_tpu_torch.kernels import table_read as tr
     from libfm_tpu_torch.kernels import table_scatter as ts
 
@@ -207,6 +208,7 @@ def _cpu_calls():
                                           torch.tensor(1.0), do_sample=True, bound=1e6,
                                           use_linear=True),
         "dense_update": lambda: du.dense_update(A, col, None, tab),
+        "slot_update": lambda: su.slot_update(A, sc[:4], sv[:4], col[:4], tab),
         "sgd_step": lambda: sg.sgd_step(
             P, ids, vals, torch.ones(nc), torch.ones(nc, dtype=torch.bool), w0,
             mode="pair", task=0, lr1=0.1, lr2=0.1, regw=0.0, regv=0.01,
@@ -231,7 +233,7 @@ def _cpu_calls():
                                   "probit_latent", "sgd_step", "table_scatter",
                                   "table_read", "sgda_step", "sgda_lambda", "rel_scores",
                                   "rel_refresh", "rel_cache", "rel_stats", "rel_update",
-                                  "rel_resync"])
+                                  "rel_resync", "slot_update"])
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(name):
     kernels.import_all()
     before = kernels.launch_counts()

@@ -122,15 +122,17 @@ def test_dispatch_chunks_matches_jax(start, num_iter, R):
     assert dispatch_chunks(start, num_iter, R) == jax_dispatch_chunks(start, num_iter, R)
 
 
-@pytest.mark.parametrize("kwargs,attr", [
+@pytest.mark.parametrize("kwargs,attr,k", [
     # dual draws (the first case once) are in the slice since kernel K7:
     # case reordering takes the case's place
-    pytest.param({}, "case_reorder", id="kwargs0-None"),
-    ({}, "flat_incr_test"),
+    pytest.param({}, "case_reorder", 4, id="kwargs0-None"),
+    # the incremental test tail (the second case once) is in the slice
+    # since kernel K4b: the pure linear model (k=0) takes the case's place
+    pytest.param({}, None, 0, id="kwargs1-flat_incr_test"),
 ])
-def test_outside_the_slice_raises(ml_small, kwargs, attr):
+def test_outside_the_slice_raises(ml_small, kwargs, attr, k):
     tr, te = ml_small
-    learner = MCMCVectorLearner(FMConfig(num_features=tr.num_features, num_factors=4),
+    learner = MCMCVectorLearner(FMConfig(num_features=tr.num_features, num_factors=k),
                                 num_iter=1, verbose=False, device="cpu", **kwargs)
     if attr:
         setattr(learner, attr, True)

@@ -15,7 +15,7 @@ from libfm_tpu.ops import lane_chol as jchol
 from libfm_tpu.ops import samplers as jsamp
 from libfm_tpu_torch.ops import lane_chol as tchol
 from libfm_tpu_torch.ops import samplers as tsamp
-from libfm_tpu_torch.ops.segment import seg_sum
+from libfm_tpu_torch.ops.segment import run_sums, seg_sum, sorted_index_add_
 
 
 @pytest.mark.parametrize("C,W", [(7, 5), (64, 32), (16, 128), (3, 1)])
@@ -96,3 +96,32 @@ def test_seg_sum_matches_numpy():
     np.add.at(ref, ids, data)
     out = seg_sum(torch.tensor(data), torch.tensor(ids), 7)
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(), (3,)])
+@pytest.mark.parametrize("longest", [1, 2, 7, 300])
+def test_run_sums_add_each_run_in_a_fixed_order(shape, longest):
+    """run_sums (the CUDA path of sorted_index_add_) gives each run of
+    equal sorted ids once, with its rows' sum: equal to the float64 sum to
+    float32 rounding, the same bits on a second call."""
+    rng = np.random.default_rng(longest)
+    lens = rng.integers(1, longest + 1, 40)
+    ids = np.repeat(np.sort(rng.choice(1000, 40, replace=False)), lens)
+    rows = rng.normal(size=(len(ids),) + shape).astype(np.float32)
+    got_ids, got = run_sums(torch.tensor(ids, dtype=torch.int32), torch.tensor(rows))
+    got_ids2, got2 = run_sums(torch.tensor(ids, dtype=torch.int32), torch.tensor(rows))
+    assert got_ids.tolist() == sorted(set(ids.tolist()))
+    assert torch.equal(got, got2) and torch.equal(got_ids, got_ids2)
+    ref = np.zeros((1000,) + shape)
+    np.add.at(ref, ids, rows.astype(np.float64))
+    np.testing.assert_allclose(got.numpy(), ref[got_ids.numpy()], rtol=1e-5, atol=1e-5)
+
+
+def test_sorted_index_add_on_the_cpu_is_index_add():
+    rng = np.random.default_rng(4)
+    ids = torch.tensor(np.sort(rng.integers(0, 9, 200)))
+    rows = torch.tensor(rng.normal(size=(200, 4)).astype(np.float32))
+    out = torch.ones(9, 4)
+    want = torch.ones(9, 4).index_add_(0, ids, rows)
+    assert sorted_index_add_(out, ids, rows) is out
+    assert torch.equal(out, want)
