@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (libfm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # configs #3, #4, #5, bench_bs, #1, #4b; the probes
+    python3 chip_smoke.py            # configs #3, #4, #5, bench_bs(_ctx), #1, #4b; the probes
     python3 chip_smoke.py --config3-kernels   # config #3's kernel checks only
     python3 chip_smoke.py --config5-kernels   # config #5's dual_draw check only
-    python3 chip_smoke.py --bench-bs          # bench_bs's kernel checks and paths only
+    python3 chip_smoke.py --bench-bs          # bench_bs's and bench_bs_ctx's kernel
+                                              # checks and paths only
     python3 chip_smoke.py --quality           # MCMC 24 iterations at #3, #4, #5 against
-                                              # bench.py's quality targets
+                                              # bench.py's quality targets, and at
+                                              # bench_bs_ctx and bench_bs_c
 
 What it does, in order (any failed phase exits non-zero):
 
@@ -93,6 +95,17 @@ What it does, in order (any failed phase exits non-zero):
      [1 | e | Q]. The draw check runs again at the state mcmc_bs ends in
      (phase 4), which moves from run to run: there the largest distance
      is recorded, not gated.
+   - bench_bs_ctx (bench_bs's data with a main table of two one-hot
+     context fields, day of 1,000 and hour of 168, drawn from
+     default_rng(8); 21,168 features; bench_bs_c its probit form, the
+     sign of the regression target; its main blocks, route and class
+     share printed): rel_refresh with the main rows, train mode (A per
+     column within 1e-4, the summed error within 1e-6 relative) and test
+     mode; rel_refresh_probit, sampling on given uniforms and as
+     expectations (Q, the predictions and the latents as config #4's
+     probit check holds them, the correct count equal to the plain
+     version's); on both main blocks (K12's main half) slot_stats (GG
+     within 1e-4 per part), schur_draw (1e-3) and slot_update (1e-5).
 4. Path phase. Resets the launch counters before each run and reads them
    after it; each run must launch its own kernels, and no other: ALSVectorLearner (3
    iterations) and MCMCVectorLearner (4) at config #3 (regression, slot
@@ -110,7 +123,14 @@ What it does, in order (any failed phase exits non-zero):
    test_all must end at or below 0.31, bench_bs's quality target being
    0.3002) on the deferred path and MCMCVectorLearner (4) on the resync
    path (bs_deferred=False), each launching exactly the BS engine's
-   kernels as its iterations and refreshes need; SGDLearner for 3 epochs
+   kernels as its iterations and refreshes need; at bench_bs_ctx
+   ALSVectorLearner (3 iterations, regw = regv = 5; its train RMSE must
+   fall) and MCMCVectorLearner (4; test_all below the test targets' sd),
+   and at bench_bs_c the same two (MCMC: refreshes at 0 and 3 with
+   rel_refresh_probit, probit_latent at 1 and 2; test accuracy above the
+   larger class's share), each on the resync path with no test tail and
+   exactly its launches (the main blocks' slot_stats, schur_draw and
+   slot_update once an iteration each); SGDLearner for 3 epochs
    at config #1 (regression) and config #4b (classification); SGDALearner for 3 epochs
    at config #1's settings (8M train rows, 1M validation, 1M test) and
    #4b's (1.6M, 200K, 200K), which must launch sgda_step and
@@ -131,6 +151,9 @@ iterations (`_cycle_iters` with refresh_every 8) at configs #3, #4 and #5
 and prints each final test_all beside bench.py's quality target (test RMSE
 0.3541, accuracy 0.7294 and 0.5169) and numpy's version (#5's data
 depends on it); a reading that misses its target is printed, not failed.
+Then MCMC 24 iterations at bench_bs_ctx and bench_bs_c, which have no
+published target: printed beside the test targets' sd and the larger
+class's share.
 
 It runs on one card: the first that CUDA_VISIBLE_DEVICES names (card 0
 when it is unset), and it hides the others. It imports nothing of jax
@@ -138,7 +161,8 @@ or of the JAX package. `--out PATH` also writes every number to a JSON
 file. `--config3-kernels` builds the kernels and runs config #3's kernel
 checks alone, and prints their rows as one JSON line; `--config5-kernels`
 does the same for config #5's dual_draw check, and `--bench-bs` runs
-bench_bs's kernel checks and three paths alone. All three use only the
+bench_bs's kernel checks and three paths and bench_bs_ctx's kernel checks
+and four paths alone. All three use only the
 wrappers' and learners' public calls, so they also time another version
 of the package (a checkout of an earlier commit) when copied into that
 checkout's root.
@@ -240,6 +264,22 @@ BS_ALS_ITERS, BS_MCMC_ITERS, BS_RESYNC_ITERS = 9, 24, 4
 # a quality value), and the limit this run holds: the data's noise floor is
 # 0.3, predicting the prior mean reads about 0.5
 BS_TARGET, BS_LIMIT = 0.3002, 0.31
+# bench_bs_ctx: bench_bs's data with a main table of two one-hot context
+# fields, day (1,000 values) and hour (168), the VLDB 2013 shape (context
+# in the main table, entity attributes in the block): gD, gH, day and hour
+# drawn in that order from default_rng(8) after bench_bs's data; main ids
+# day -> d, hour -> 1000 + h, value 1; the relation's features from 1,168
+# on; the regression target bench_bs's + 0.2 gD[day] + 0.2 gH[hour], the
+# probit target (bench_bs_c) +1 where that is > 0, else -1. k = 32 and
+# expand_max_ratio = 0, as bench.py sets for bench_bs (with the main table
+# the join's ratio falls to ~5.9, which would expand it). ALS (regw = regv
+# = 5) 3 iterations and MCMC 4 at each task: every path on the resync
+# path, with no test tail
+BS_CTX_SEED, BS_DAYS, BS_HOURS, BS_CTX_WEIGHT = 8, 1000, 168, 0.2
+BS_CTX_ALS_ITERS, BS_CTX_MCMC_ITERS = 3, 4
+# rel_refresh with main rows against its plain version: A per column
+# (1e-4 of the column's largest value), the summed error 1e-6 relative
+BS_CTX_A_TOL, BS_CTX_SUM_TOL = 1e-4, 1e-6
 # config #3's K4b paths against the `mcmc` run of the same seed (the same
 # draws; only the order of float32 sums differs): the slot scatter within
 # the JAX test's own band (tests/test_mcmc_vector.py:213-232), the
@@ -273,8 +313,13 @@ EXPECTED = {
     **{name: {"rel_scores", "rel_refresh", "rel_cache", "rel_stats", "schur_draw",
               "rel_update", "rel_resync"} for name in ("als_bs", "mcmc_bs", "mcmc_bs_resync")},
 }
+EXPECTED.update({name: EXPECTED["mcmc_bs"] | {"slot_stats", "slot_update"}
+                 for name in ("als_bs_ctx", "mcmc_bs_ctx")})
+EXPECTED.update({name: EXPECTED["mcmc_bs_ctx"] | {"rel_refresh_probit", "probit_latent"}
+                 for name in ("als_bs_c", "mcmc_bs_c")})
 EXPECTED.update(quality_3=EXPECTED["mcmc"], quality_4=EXPECTED["mcmc_4"],
-                quality_5=EXPECTED["mcmc_5"])
+                quality_5=EXPECTED["mcmc_5"], quality_bs_ctx=EXPECTED["mcmc_bs_ctx"],
+                quality_bs_c=EXPECTED["mcmc_bs_c"])
 
 
 def fail(msg: str) -> None:
@@ -417,8 +462,11 @@ def kernel_checks(args, rec, dev):
     nt, Lt = te_ids.shape
     out[-1]["test_mode_ms"] = cuda_ms(lambda: fr.fm_refresh(P, te_ids, te_vals, w0),
                                       args.reps)
+    out[-1]["test_mode_plain_ms"] = cuda_ms(
+        lambda: fr.fm_refresh_plain(P, te_ids, te_vals, w0), args.reps)
     out[-1]["test_mode_bound_ms"] = bound_ms(nt * Lt * 8 + nt * 4 + n * d * 4, 0)[0]
     print(f"fm_refresh test mode: ms={out[-1]['test_mode_ms']:.4f} "
+          f"plain_ms={out[-1]['test_mode_plain_ms']:.4f} "
           f"bound_ms={out[-1]['test_mode_bound_ms']:.4f} (bytes)")
     # gather against streaming: every id on table row 0 (hot in L1), or
     # on the first HOT_ROWS rows (hot in L2), beside the real ids
@@ -708,9 +756,9 @@ def tail_checks(args, rec, dev, out, test, te_ids, te_vals, P, w0, nc, blocks, t
     err_upd = (A_te - T_p).abs().max().item()
     del T_p
 
-    def run_tail_update():
+    def run_tail_update(fn=du.dense_update):
         for c, tab in zip(cols, tabs):
-            du.dense_update(A_te, c, None, tab)
+            fn(A_te, c, None, tab)
 
     Lt = te_ids.shape[1]
     covered = sum(int((c != b.F).sum().item()) for c, b in zip(cols, blocks))
@@ -718,18 +766,23 @@ def tail_checks(args, rec, dev, out, test, te_ids, te_vals, P, w0, nc, blocks, t
     fr_row["tail_mode"] = dict(
         err=err_ref, tolerance=1e-4, timed="one launch on the 1M-row tail (a refresh)",
         ms=cuda_ms(lambda: fr.fm_refresh(P, te_ids, te_vals, w0, y0, A_te), args.reps),
+        plain_ms=cuda_ms(lambda: fr.fm_refresh_plain(P, te_ids, te_vals, w0, y0, A_te),
+                         args.reps),
         bound_ms=bound_ms(nt * Lt * 8 + nt * 4 + n * d * 4 + nt * d * 4,
                           nt * (Lt * (4 * k + 2) + 2 * k + 8))[0])
     du_row["tail"] = dict(
         err=err_upd, tolerance=1e-4, timed="one iteration's tail launches: one per block",
         ms=cuda_ms(run_tail_update, args.reps),
+        plain_ms=cuda_ms(lambda: run_tail_update(du.dense_update_plain), args.reps),
         bound_ms=bound_ms(len(cols) * nt * 4 + covered * d * 8
                           + sum((b.F + 1) * (d + 1) * 4 for b in blocks),
                           covered * (4 * k + 6))[0])
     print(f"test tail ({nt} rows from row {test_off}): fm_refresh y=0 mode err {err_ref:.3g} "
-          f"(tol 1e-4) ms {fr_row['tail_mode']['ms']:.4f} bound_ms "
+          f"(tol 1e-4) ms {fr_row['tail_mode']['ms']:.4f} plain_ms "
+          f"{fr_row['tail_mode']['plain_ms']:.4f} bound_ms "
           f"{fr_row['tail_mode']['bound_ms']:.4f}; dense_update err {err_upd:.3g} (tol 1e-4) "
-          f"ms {du_row['tail']['ms']:.4f} bound_ms {du_row['tail']['bound_ms']:.4f}")
+          f"ms {du_row['tail']['ms']:.4f} plain_ms {du_row['tail']['plain_ms']:.4f} bound_ms "
+          f"{du_row['tail']['bound_ms']:.4f}")
     if not (err_ref <= 1e-4 and err_upd <= 1e-4):
         fail(f"config #3's test tail disagrees with the plain versions: {err_ref}, {err_upd}")
     rec["test_tail_rows"] = [test_off, nt, covered]
@@ -1141,20 +1194,33 @@ def bs_data(dev):
                 observed=observed, unobserved=len(lay.unobserved))
 
 
-def bs_want(iters, nblk, deferred, refresh_every=8):
+def bs_want(iters, nblk, deferred, refresh_every=8, main=0, classify=False):
     """The launches of a BS engine run (one relation, nblk blocks): at the
     set-up and at each refresh rel_scores once and rel_refresh twice (train
     and tail), on the deferred path rel_cache too; every iteration
     rel_stats, schur_draw and rel_update once a block, and rel_resync once
     (deferred: the read-only test prediction) or twice with rel_cache once
-    (resync path)."""
+    (resync path). With a main table of `main` blocks (no tail, no deferred
+    path): every iteration also slot_stats, schur_draw and slot_update once
+    a main block, rel_scores and rel_refresh (test mode) once, rel_resync
+    once; at the set-up and at each refresh rel_refresh once (train). With
+    `classify` each refresh's train-mode rel_refresh is rel_refresh_probit
+    (the set-up's stays: e = pred - y) and the other iterations resample the
+    latents (probit_latent)."""
     from libfm_tpu_torch.learners.mcmc import dispatch_chunks
 
     refresh = len(dispatch_chunks(0, iters, refresh_every))
     want = dict(rel_scores=1 + refresh, rel_refresh=2 * (1 + refresh),
-                rel_stats=iters * nblk, schur_draw=iters * nblk, rel_update=iters * nblk)
+                rel_stats=iters * nblk, schur_draw=iters * (nblk + main),
+                rel_update=iters * nblk)
     want.update(dict(rel_cache=1 + refresh, rel_resync=iters) if deferred
-                else dict(rel_cache=iters, rel_resync=2 * iters))
+                else dict(rel_cache=iters, rel_resync=(1 if main else 2) * iters))
+    if main:
+        want.update(rel_scores=1 + iters, rel_refresh=1 + iters + refresh,
+                    slot_stats=iters * main, slot_update=iters * main)
+    if classify:
+        want.update(rel_refresh=want["rel_refresh"] - refresh, rel_refresh_probit=refresh,
+                    probit_latent=iters - refresh)
     return want
 
 
@@ -1506,6 +1572,384 @@ def bs_kernel_checks(args, rec, dev, bs):
     del A, A_k, A_p, tail, C, SD, SC, sweep_in
     torch.cuda.empty_cache()
     return out
+
+
+def bs_ctx_data(dev, bs):
+    """bench_bs_ctx's data: bench_bs's relation, joins and targets with a
+    main table of two one-hot context fields (BS_CTX_SEED's draws, the
+    relation's features moved past the main table's 1,168), for regression
+    and for probit classification (bench_bs_c: the sign of the regression
+    target); its main blocks and relation layout as the BS engine cuts
+    them. Prints the block counts and shapes, the observed and unobserved
+    features and the learner's route."""
+    import numpy as np
+
+    from libfm_tpu_torch.data.dataset import Dataset
+    from libfm_tpu_torch.data.relation import RelationData, RelationJoin
+    from libfm_tpu_torch.learners.mcmc_rel_vector import RelLayout, main_layout
+    from libfm_tpu_torch.learners.mcmc_vector import MCMCVectorLearner
+    from libfm_tpu_torch.models.fm import FMConfig
+
+    train0, test0 = bs["train"], bs["test"]
+    rd0 = train0.relations[0].data
+    n_main = BS_DAYS + BS_HOURS
+    rd = RelationData(rd0.indptr, rd0.cols, rd0.vals, rd0.num_features)
+    rd.attr_offset = n_main
+    n = n_main + rd.num_features
+    ntr, nte = train0.num_rows, test0.num_rows
+    ctx = np.random.default_rng(BS_CTX_SEED)
+    gD = ctx.standard_normal(BS_DAYS)
+    gH = ctx.standard_normal(BS_HOURS)
+    day = ctx.integers(0, BS_DAYS, ntr + nte)
+    hour = ctx.integers(0, BS_HOURS, ntr + nte)
+    y_all = (np.concatenate([train0.target, test0.target]).astype(np.float64)
+             + BS_CTX_WEIGHT * gD[day] + BS_CTX_WEIGHT * gH[hour])
+    cols = np.stack([day, BS_DAYS + hour], axis=1).astype(np.int32)
+
+    def build(sl, join, y):
+        m = len(y)
+        ds = Dataset(np.arange(m + 1, dtype=np.int64) * 2, cols[sl].ravel(),
+                     np.ones(2 * m, np.float32), y, n_main)
+        ds.relations = [RelationJoin(rd, join.row_map)]
+        return ds
+
+    out = {}
+    for task, ys in ((0, y_all.astype(np.float32)),
+                     (1, np.where(y_all > 0, 1.0, -1.0).astype(np.float32))):
+        out[task] = (build(slice(0, ntr), train0.relations[0], ys[:ntr]),
+                     build(slice(ntr, None), test0.relations[0], ys[ntr:]))
+    train, test = out[0]
+    for ds in out[1]:
+        ds.min_target, ds.max_target = -1.0, 1.0
+    groups = np.zeros(n, np.int32)
+    lay = RelLayout(train.relations[0], test.relations[0], groups, n)
+    mains, main_unobs = main_layout(train, groups, n_main, dev)
+    probe = MCMCVectorLearner(FMConfig(num_features=n, num_factors=BS_FACTORS),
+                              verbose=False, device=dev)
+    probe.expand_max_ratio = 0.0
+    probe._route_relational(train, test)
+    exp_nnz = (ntr + nte) * (BS_W + 2)
+    main_shapes = [(b.F, int(b.slot_case.numel()),
+                    int((b.feat_off[1:] - b.feat_off[:-1]).max().item())) for b in mains]
+    observed = n - len(main_unobs) - len(lay.unobserved)
+    share = float((out[1][1].target > 0).mean())
+    print(f"bench_bs_ctx: {ntr} train and {nte} test cases, main table {n_main} features "
+          f"(day {BS_DAYS}, hour {BS_HOURS}), {n} features in all; main blocks (features, "
+          f"slots, most slots of a feature) {main_shapes}; {len(lay.blocks)} relation "
+          f"blocks; {observed} observed and {len(main_unobs) + len(lay.unobserved)} "
+          f"unobserved features; the join would expand to ~{exp_nnz} entries; "
+          f"relational_mode {probe.relational_mode} (expand_max_ratio 0); bench_bs_c: "
+          f"{share:.4f} of the test targets +1; regression test target sd "
+          f"{float(test.target.std()):.4f}")
+    if probe.relational_mode != "bs_vector":
+        fail(f"bench_bs_ctx routes to {probe.relational_mode}, not bs_vector")
+    return dict(train=train, test=test, train_c=out[1][0], test_c=out[1][1], layout=lay,
+                mains=mains, num_features=n, blocks=len(lay.blocks), main_blocks=len(mains),
+                main_shapes=main_shapes, observed=observed, positive_share=share)
+
+
+def bs_ctx_kernel_checks(args, rec, dev, ctx):
+    """Phase 3, bench_bs_ctx: rel_refresh with the main table's rows (train
+    and test modes; A per column within BS_CTX_A_TOL, the summed error
+    within BS_CTX_SUM_TOL), rel_refresh_probit (sampling on given
+    uniforms, and expectations: Q and the predictions, the latents as
+    config #4's fm_refresh probit check holds them, the correct count
+    equal), and on both main blocks slot_stats, schur_draw and slot_update
+    (K12's main half), each against its plain version, from a seeded P."""
+    from libfm_tpu_torch.data.vector_layout import padded_rows_layout
+    from libfm_tpu_torch.kernels import dense_update as du
+    from libfm_tpu_torch.kernels import rel_refresh as rr
+    from libfm_tpu_torch.kernels import schur_draw as sd
+    from libfm_tpu_torch.kernels import slot_stats as ss
+    from libfm_tpu_torch.kernels import slot_update as su
+    from libfm_tpu_torch.learners.mcmc_rel_vector import DevRel
+    from libfm_tpu_torch.ops.samplers import probit_latent as draw
+
+    train, test, lay, mains = ctx["train"], ctx["test"], ctx["layout"], ctx["mains"]
+    k, d, n = BS_FACTORS, BS_FACTORS + 1, ctx["num_features"]
+    T = k * (k + 1) // 2
+    GW = ss.gg_width(k)
+    nc, nte, nb = train.num_rows, test.num_rows, lay.nb
+    n_main = BS_DAYS + BS_HOURS
+    rel = DevRel(lay, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+    P = 0.1 * torch.randn(n, d, generator=g, device=dev)
+    w0 = torch.tensor(0.05, device=dev)
+    y = torch.as_tensor(train.target, device=dev)
+    y_c = torch.as_tensor(ctx["train_c"].target, device=dev)
+    out = []
+
+    def rows(ds):
+        ids, vals = padded_rows_layout(ds.indptr, ds.cols, ds.vals)
+        return dict(P=P, ids=torch.as_tensor(ids, device=dev),
+                    vals=torch.as_tensor(vals, device=dev))
+
+    main_tr, main_te = rows(train), rows(test)
+    L = main_tr["ids"].shape[1]
+    SC = rr.rel_scores(P, rel.indptr, rel.cols, rel.vals)
+    maps_tr, maps_te = rel.map_tr[None].contiguous(), rel.map_te[None].contiguous()
+    kw = dict(min_target=float(train.min_target), max_target=float(train.max_target))
+    sc_bytes = (nb + 1) * (k + 2) * 4 + n_main * d * 4
+
+    # ---- rel_refresh with main rows: train mode (the refresh), test mode
+    A, A_p = torch.empty(nc, d, device=dev), torch.empty(nc, d, device=dev)
+    m_k = rr.rel_refresh(SC, maps_tr, w0, A, y, **main_tr, **kw)
+    m_p = rr.rel_refresh_plain(SC, maps_tr, w0, A_p, y, **main_tr, **kw)
+    pt_k = rr.rel_refresh(SC, maps_te, w0, **main_te)
+    pt_p = rr.rel_refresh_plain(SC, maps_te, w0, **main_te)
+    torch.cuda.synchronize()
+    err_A = max(col_rel_err(A, A_p).item(),
+                ((pt_k - pt_p).abs().max() / pt_p.abs().max()).item())
+    err_sum = abs(m_k.item() - m_p.item()) / m_p.item()
+    row = kernel_row(
+        "rel_refresh", "libfm_tpu/learners/mcmc_rel_vector.py:777", err_A, BS_CTX_A_TOL,
+        cuda_ms(lambda: rr.rel_refresh(SC, maps_tr, w0, A, y, **main_tr, **kw), args.reps),
+        cuda_ms(lambda: rr.rel_refresh_plain(SC, maps_tr, w0, A_p, y, **main_tr, **kw),
+                args.reps),
+        nbytes=nc * (d * 4 + 4 + 4 + L * 8) + sc_bytes,
+        flops=nc * (L * (4 * k + 2) + 2 * k + 8), lib_ms=None,
+        timed="one train-mode launch at bench_bs_ctx (the refresh), main rows",
+        label=" (bench_bs_ctx, main rows)", source="libfm_tpu_torch/csrc/rel_refresh.cu")
+    row.update(config="bench_bs_ctx", error_sum_rel_err=err_sum,
+               error_sum_tolerance=BS_CTX_SUM_TOL,
+               library_note="none: no one call gathers the main rows and the joined "
+               "rows' scores",
+               test_mode_ms=cuda_ms(lambda: rr.rel_refresh(SC, maps_te, w0, **main_te),
+                                    args.reps),
+               test_mode_bound_ms=bound_ms(nte * (4 + 4 + L * 8) + sc_bytes, 0)[0])
+    print(f"rel_refresh (bench_bs_ctx) summed error {err_sum:.3g} (tol {BS_CTX_SUM_TOL:g}); "
+          f"test mode ({nte} cases) ms={row['test_mode_ms']:.4f} "
+          f"bound_ms={row['test_mode_bound_ms']:.4f} (bytes)")
+    if not err_sum <= BS_CTX_SUM_TOL:
+        fail(f"rel_refresh with main rows: the summed error lies {err_sum} from the plain "
+             f"version's (> {BS_CTX_SUM_TOL})")
+    out.append(row)
+    del A_p
+
+    # ---- rel_refresh_probit: sampling (MCMC) and expectation (ALS)
+    U = torch.rand(nc, generator=g, device=dev)
+    cases = {}
+    for mode, u in (("sample", U), ("mean", None)):
+        A_k, A_p = torch.empty(nc, d, device=dev), torch.empty(nc, d, device=dev)
+        lat_k, lat_p = torch.empty(nc, device=dev), torch.empty(nc, device=dev)
+        pk = dict(probit=mode, U=u, **main_tr)
+        c_k = rr.rel_refresh(SC, maps_tr, w0, A_k, y_c, latent=lat_k, **pk)
+        c_p = rr.rel_refresh_plain(SC, maps_tr, w0, A_p, y_c, latent=lat_p, **pk)
+        torch.cuda.synchronize()
+        # the kernel's predictions, as e + latent (to an ulp); a draw more
+        # than LATENT_CHECKED from its mean turns that ulp into more than 1e-5
+        pred_k = A_k[:, 0] + lat_k
+        lat_ref = draw(pred_k, y_c, u)
+        near = ((lat_ref - pred_k).abs() <= LATENT_CHECKED if u is not None
+                else torch.ones_like(y_c, dtype=torch.bool))
+        err = max(
+            col_rel_err(A_k[:, 1:], A_p[:, 1:]).item(),
+            (pred_k - (A_p[:, 0] + lat_p)).abs().max().item(),
+            ((lat_k - lat_ref).abs() / lat_ref.abs().clamp_min(1.0))[near].max().item(),
+            float(not ((lat_k >= 0) == (y_c >= 0)).all()),
+        )
+        cases[mode] = dict(
+            max_abs_err=err, correct_kernel=c_k.item(), correct_plain=c_p.item(),
+            cases_beyond_latent_check=int((~near).sum().item()),
+            ms=cuda_ms(lambda: rr.rel_refresh(SC, maps_tr, w0, A_k, y_c, latent=lat_k,
+                                              **pk), args.reps),
+            plain_ms=cuda_ms(lambda: rr.rel_refresh_plain(SC, maps_tr, w0, A_p, y_c,
+                                                          latent=lat_p, **pk), args.reps))
+        print(f"rel_refresh_probit ({mode}): err {err:.3g} (Q 1e-4 per column, pred 1e-4 "
+              f"absolute, latents 1e-5 relative above 1 against the plain draw on the "
+              f"kernel's predictions where the draw lies within {LATENT_CHECKED} of its "
+              f"mean, all but {cases[mode]['cases_beyond_latent_check']} cases; every latent "
+              f"on y's side of 0), correct {c_k.item():.0f} (plain {c_p.item():.0f}), ms "
+              f"{cases[mode]['ms']:.4f} plain {cases[mode]['plain_ms']:.4f}")
+        if c_k.item() != c_p.item():
+            fail(f"rel_refresh_probit ({mode}): correct count {c_k.item()} against the plain "
+                 f"version's {c_p.item()}")
+        del A_k, A_p, lat_k, lat_p
+    row = kernel_row(
+        "rel_refresh_probit", "libfm_tpu/learners/mcmc_rel_vector.py:816",
+        max(c["max_abs_err"] for c in cases.values()), 1e-4,
+        cases["sample"]["ms"], cases["sample"]["plain_ms"],
+        # maps, main ids and values, y, U and the latents, the rows of A
+        nbytes=nc * (4 + L * 8 + 3 * 4 + d * 4) + sc_bytes,
+        flops=nc * (L * (4 * k + 2) + 2 * k + 8 + 40), lib_ms=None,
+        timed="one probit train-mode launch at bench_bs_c (sampling), main rows",
+        source="libfm_tpu_torch/csrc/rel_refresh.cu")
+    row.update(config="bench_bs_c", cases=cases,
+               library_note="none: no one call computes the gathered forward and draws "
+               "the truncated normals")
+    out.append(row)
+
+    # ---- K12's main half on both main blocks, from the refreshed A
+    GG = [torch.empty(b.F, GW, device=dev) for b in mains]
+    errs = []
+    for b, G in zip(mains, GG):
+        ss.slot_stats(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id, GG=G,
+                      pieces=b.pieces)
+        Gp = ss.slot_stats_plain(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id)
+        torch.cuda.synchronize()
+        errs.append(ss.gg_rel_err(G, Gp, k))
+        del Gp
+
+    def run_stats(fn):
+        def go():
+            for b, G in zip(mains, GG):
+                fn(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id, GG=G,
+                   pieces=b.pieces)
+        return go
+
+    E = sum(int(b.slot_case.numel()) for b in mains)
+    F = sum(b.F for b in mains)
+    timed = f"one iteration's launches at bench_bs_ctx: one per main block ({len(mains)})"
+    row = kernel_row(
+        "slot_stats", "libfm_tpu/learners/mcmc_rel_vector.py:910", max(errs), 1e-4,
+        cuda_ms(run_stats(ss.slot_stats), args.reps),
+        cuda_ms(run_stats(ss.slot_stats_plain), args.reps, warmup=1),
+        nbytes=E * (8 + d * 4) + F * (4 + 8 + k * 4 + GW * 4),
+        flops=E * (2 * T + 7 * k + 4), lib_ms=None, timed=timed,
+        label=" (bench_bs_ctx main blocks)")
+    row.update(config="bench_bs_ctx", rel_err_per_block=errs,
+               library_note="none: the per-feature Gram over a ragged slot list is no one "
+               "call")
+    out.append(row)
+
+    alpha = torch.tensor(2.0, device=dev)
+    bound = 1e6 * max(1.0, abs(kw["min_target"]), abs(kw["max_target"]))
+    sys_in = []
+    for b, G in zip(mains, GG):
+        sys_in.append((G, P[b.features].contiguous(), torch.full((b.F, d), 5.0, device=dev),
+                       0.01 * torch.randn(b.F, d, generator=g, device=dev),
+                       torch.randn(b.F, d, generator=g, device=dev)))
+    errs, nrej = [], 0
+    for G, theta, lam, mu, z in sys_in:
+        for samp in (True, False):
+            tk, rk = sd.schur_draw(G, theta, lam, mu, z, alpha, do_sample=samp, bound=bound)
+            tp, rp = sd.schur_draw_plain(G, theta, lam, mu, z, alpha, do_sample=samp,
+                                         bound=bound)
+            torch.cuda.synchronize()
+            errs.append(((tk - tp).abs().max() / tp.abs().max().clamp_min(1.0)).item())
+            if not torch.equal(rk, rp):
+                fail("bench_bs_ctx: schur_draw's reject flags differ from the plain version's")
+            nrej += int(rk.sum().item())
+
+    def run_draw(fn):
+        def go():
+            for G, theta, lam, mu, z in sys_in:
+                fn(G, theta, lam, mu, z, alpha, do_sample=True, bound=bound)
+        return go
+
+    S_lib = [sd.schur_system(G, theta, lam, mu, alpha)[0] for G, theta, lam, mu, _ in sys_in]
+    rhs_lib = [torch.randn(S.shape[0], k, 1, generator=g, device=dev) for S in S_lib]
+
+    def run_lib():
+        for S, r in zip(S_lib, rhs_lib):
+            Lf = torch.linalg.cholesky(S)
+            yv = torch.linalg.solve_triangular(Lf, r, upper=False)
+            torch.linalg.solve_triangular(Lf.transpose(-1, -2), yv, upper=True)
+
+    row = kernel_row(
+        "schur_draw", "libfm_tpu/learners/mcmc_rel_vector.py:945", max(errs), 1e-3,
+        cuda_ms(run_draw(sd.schur_draw), args.reps),
+        cuda_ms(run_draw(sd.schur_draw_plain), args.reps),
+        nbytes=F * (GW * 4 + 5 * d * 4 + 4), flops=F * (k ** 3 / 3 + 6 * k * k),
+        lib_ms=cuda_ms(run_lib, args.reps), timed=timed,
+        label=" (bench_bs_ctx main blocks)")
+    row.update(config="bench_bs_ctx", rejected_in_check=nrej,
+               library_note="torch.linalg.cholesky + two solve_triangular on the same "
+               "systems")
+    out.append(row)
+    if nrej:
+        fail(f"bench_bs_ctx: schur_draw rejected {nrej} draws at the check state")
+    del S_lib, rhs_lib
+
+    tabs = []
+    for G, theta, lam, mu, z in sys_in:
+        tnew, _ = sd.schur_draw(G, theta, lam, mu, z, alpha, do_sample=True, bound=bound)
+        tabs.append(du.update_table(theta, tnew))
+
+    def run_upd(fn, A_):
+        def go():
+            for b, tab in zip(mains, tabs):
+                fn(A_, b.slot_case, b.slot_val, b.slot_feat, tab)
+        return go
+
+    A_k, A_p = A.clone(), A.clone()
+    run_upd(su.slot_update, A_k)()
+    run_upd(su.slot_update_plain, A_p)()
+    torch.cuda.synchronize()
+    row = kernel_row(
+        "slot_update", "libfm_tpu/learners/mcmc_rel_vector.py:956",
+        col_rel_err(A_k, A_p).item(), 1e-5,
+        cuda_ms(run_upd(su.slot_update, A_k), args.reps),
+        cuda_ms(run_upd(su.slot_update_plain, A_p), args.reps, warmup=1),
+        nbytes=E * (12 + 2 * d * 4) + sum((b.F + 1) * (d + 1) * 4 for b in mains),
+        flops=E * (4 * k + 6), lib_ms=None, timed=timed,
+        label=" (bench_bs_ctx main blocks)")
+    row.update(config="bench_bs_ctx",
+               library_note="none: no one PyTorch call gathers the slots' rows of A, dots "
+               "them with their features' table rows and adds the rows back")
+    out.append(row)
+    del A, A_k, A_p, GG, sys_in, tabs, SC, main_tr, main_te
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_bench_bs_ctx(args, rec, dev, counts, done, bs):
+    """bench_bs_ctx: its data, its kernel checks (returns their rows) and
+    its four paths with their exact launches into `counts`: ALS 3 and MCMC
+    4 iterations at each task, every one on the resync path with no test
+    tail."""
+    from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner, MCMCVectorLearner
+
+    t0 = time.perf_counter()
+    ctx = bs_ctx_data(dev, bs)
+    t0 = done("bench_bs_ctx data", t0)
+    table = bs_ctx_kernel_checks(args, rec, dev, ctx)
+    t0 = done("bench_bs_ctx kernel checks", t0)
+    rec["bench_bs_ctx"] = {key: ctx[key] for key in (
+        "num_features", "blocks", "main_blocks", "main_shapes", "observed",
+        "positive_share")}
+    nblk, nmain = ctx["blocks"], ctx["main_blocks"]
+    c_bs = dict(factors=BS_FACTORS, num_features=ctx["num_features"],
+                flags=dict(expand_max_ratio=0.0))
+    reg = dict(regw=5.0, regv=5.0)
+    paths = (
+        ("als_bs_ctx", ALSVectorLearner, 0, BS_CTX_ALS_ITERS, reg),
+        ("mcmc_bs_ctx", MCMCVectorLearner, 0, BS_CTX_MCMC_ITERS, {}),
+        ("als_bs_c", ALSVectorLearner, 1, BS_CTX_ALS_ITERS, reg),
+        ("mcmc_bs_c", MCMCVectorLearner, 1, BS_CTX_MCMC_ITERS, {}),
+    )
+    for name, cls, task, iters, kw in paths:
+        data = (ctx["train_c"], ctx["test_c"]) if task else (ctx["train"], ctx["test"])
+        learner, counts[name] = run_learner(
+            cls, name, data, args, rec, iters=iters, task=task,
+            want=bs_want(iters, nblk, False, main=nmain, classify=bool(task)), **kw, **c_bs)
+        if (learner.relational_mode, learner.incr_test, learner.deferred) != (
+                "bs_vector", False, False):
+            fail(f"{name}: routed to {learner.relational_mode}, test tail "
+                 f"{learner.incr_test}, deferred path {learner.deferred}")
+        hist = rec[name]["history"]
+        if name == "als_bs_ctx" and not hist[-1]["train"] < hist[0]["train"]:
+            fail(f"{name}: train RMSE did not fall: {[h['train'] for h in hist]}")
+        if name == "mcmc_bs_ctx":
+            sd_te = float(data[1].target.std())
+            print(f"{name}: test_all after {iters} iterations {hist[-1]['test_all']:.6f}, "
+                  f"the test targets' sd {sd_te:.6f}")
+            if not hist[-1]["test_all"] < sd_te:
+                fail(f"{name}: test_all {hist[-1]['test_all']} is not below the test "
+                     f"targets' sd {sd_te}")
+        if name == "mcmc_bs_c":
+            larger = max(ctx["positive_share"], 1.0 - ctx["positive_share"])
+            print(f"{name}: test accuracy after {iters} iterations "
+                  f"{hist[-1]['test_all']:.6f}, the larger class's share {larger:.6f}")
+            if not hist[-1]["test_all"] > larger:
+                fail(f"{name}: test accuracy {hist[-1]['test_all']} is not above the "
+                     f"larger class's share {larger}")
+        del learner
+        t0 = done(f"bench_bs_ctx {name} path", t0)
+    del ctx
+    return table
+
 
 
 def lockstep_err(P0, w0, batches, kw, lr0, reg0):
@@ -2417,11 +2861,14 @@ def run_k4b_paths(args, rec, data, counts, done):
         done(f"config #3 {name} path", t0)
 
 
-def run_quality(args, rec, counts, done):
+def run_quality(args, rec, dev, counts, done):
     """--quality: MCMCVectorLearner to bench.py's 24 iterations at configs
     #3, #4 and #5 (bench_ml, bench_ctr, bench_largevocab), each with its
     path's kernels and no other; prints each final test_all beside its
-    quality target and numpy's version. Returns the readings."""
+    quality target and numpy's version. Then bench_bs_ctx and bench_bs_c
+    to 24 iterations, which have no published target: their test RMSE
+    beside the test targets' sd, their accuracy beside the larger class's
+    share. Returns the readings."""
     import numpy as np
 
     from libfm_tpu_torch.data.synth import movielens_like
@@ -2453,6 +2900,27 @@ def run_quality(args, rec, counts, done):
               f"{'met' if met else 'missed'} ({got - target:+.4g}); numpy {np.__version__}; "
               f"test_all by iteration {[round(h['test_all'], 6) for h in hist]}")
         done(f"config {config} quality run", t0)
+    t0 = time.perf_counter()
+    ctx = bs_ctx_data(dev, bs_data(dev))
+    t0 = done("bench_bs_ctx data", t0)
+    for name, task in (("quality_bs_ctx", 0), ("quality_bs_c", 1)):
+        data = (ctx["train_c"], ctx["test_c"]) if task else (ctx["train"], ctx["test"])
+        _, counts[name] = run_learner(
+            MCMCVectorLearner, name, data, args, rec, iters=QUALITY_ITERS, task=task,
+            factors=BS_FACTORS, num_features=ctx["num_features"], exact=False,
+            flags=dict(expand_max_ratio=0.0))
+        hist = rec[name]["history"]
+        floor = (max(ctx["positive_share"], 1.0 - ctx["positive_share"]) if task
+                 else float(data[1].target.std()))
+        out[name] = dict(config="bench_bs_c" if task else "bench_bs_ctx",
+                         test_all=hist[-1]["test_all"], target=None,
+                         metric="test accuracy" if task else "test RMSE",
+                         baseline=floor, seconds=[h["time"] for h in hist])
+        print(f"quality at {out[name]['config']}: {out[name]['metric']} (test_all) after "
+              f"{QUALITY_ITERS} iterations {hist[-1]['test_all']:.6f} (no published target; "
+              f"{'the larger class share' if task else 'the test targets sd'} {floor:.6f}); "
+              f"test_all by iteration {[round(h['test_all'], 6) for h in hist]}")
+        t0 = done(f"{out[name]['config']} quality run", t0)
     return out
 
 
@@ -2500,8 +2968,9 @@ def run_bench_bs(args, rec, dev, counts, done):
         MCMCVectorLearner, "mcmc_bs_resync", (bs["train"], bs["test"]), args, rec,
         iters=BS_RESYNC_ITERS, want=bs_want(BS_RESYNC_ITERS, bs["blocks"], False),
         flags=dict(bs_deferred=False), **c_bs)
-    del bs
     done("bench_bs MCMC resync path", t0)
+    table += run_bench_bs_ctx(args, rec, dev, counts, done, bs)
+    del bs
     return table
 
 
@@ -2522,8 +2991,9 @@ def main(argv=None) -> int:
                     help="only build the kernels and run config #5's dual_draw "
                     "check; print its row as one JSON line")
     ap.add_argument("--bench-bs", action="store_true",
-                    help="only build the kernels and run bench_bs: its kernel checks "
-                    "and its three paths; print the rows and launches as one JSON line")
+                    help="only build the kernels and run bench_bs and bench_bs_ctx: "
+                    "their kernel checks and their three and four paths; print the rows "
+                    "and launches as one JSON line")
     ap.add_argument("--quality", action="store_true",
                     help="only build the kernels and run MCMC to bench.py's 24 "
                     "iterations at configs #3, #4 and #5; print each test_all beside "
@@ -2571,7 +3041,7 @@ def main(argv=None) -> int:
     if args.quality:
         import numpy as np
 
-        quality = run_quality(args, rec, {}, done)
+        quality = run_quality(args, rec, dev, {}, done)
         print(f"phase seconds: { {key: round(v, 2) for key, v in phase.items()} }")
         print(json.dumps({"card": smi, "numpy": np.__version__, "quality": quality}))
         return 0
@@ -2666,7 +3136,8 @@ def main(argv=None) -> int:
             json.dump(rec, f, indent=1)
     print(json.dumps({"kernels": table}))
     for name in ("als", "mcmc", "mcmc_scatter", "mcmc_tail", "als_4", "mcmc_4", "mcmc_5",
-                 "als_bs", "mcmc_bs", "mcmc_bs_resync"):
+                 "als_bs", "mcmc_bs", "mcmc_bs_resync", "als_bs_ctx", "mcmc_bs_ctx",
+                 "als_bs_c", "mcmc_bs_c"):
         print(f"{name} per-iteration seconds on {smi}: "
               f"{[round(h['time'], 6) for h in rec[name]['history']]}")
     for name in SGD_CONFIGS:

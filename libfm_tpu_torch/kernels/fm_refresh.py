@@ -37,6 +37,23 @@ def probit_correct(pred, y):
     return (((p >= 0.5) & (y > 0.0)) | ((p < 0.5) & (y < 0.0))).to(pred.dtype)
 
 
+def write_train_rows(A, pred, Q, y, min_target, max_target, probit=None, U=None,
+                     latent=None):
+    """The train mode's output, shared by the plain versions of fm_refresh
+    and rel_refresh: A = [pred - y | Q] and the clipped squared error
+    summed; in a probit mode A = [pred - latent | Q], the latents written
+    and the correct cases counted."""
+    A[:, 1:] = Q
+    if probit is not None:
+        lat = probit_latent(pred, y, U if probit == "sample" else None)
+        A[:, 0] = pred - lat
+        latent.copy_(lat)
+        return probit_correct(pred, y).sum()
+    A[:, 0] = pred - y
+    err = pred.clamp(min_target, max_target) - y
+    return (err * err).sum()
+
+
 def fm_refresh_plain(P, ids, vals, w0, y=None, A=None, *, use_linear=True,
                      use_bias=True, min_target=0.0, max_target=0.0, probit=None,
                      U=None, latent=None):
@@ -53,15 +70,7 @@ def fm_refresh_plain(P, ids, vals, w0, y=None, A=None, *, use_linear=True,
         pred = pred + w0
     if A is None:
         return pred
-    A[:, 1:] = Q
-    if probit is not None:
-        lat = probit_latent(pred, y, U if probit == "sample" else None)
-        A[:, 0] = pred - lat
-        latent.copy_(lat)
-        return probit_correct(pred, y).sum()
-    A[:, 0] = pred - y
-    err = pred.clamp(min_target, max_target) - y
-    return (err * err).sum()
+    return write_train_rows(A, pred, Q, y, min_target, max_target, probit, U, latent)
 
 
 def fm_refresh(P, ids, vals, w0, y=None, A=None, *, use_linear=True,

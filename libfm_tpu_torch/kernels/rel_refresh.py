@@ -2,10 +2,10 @@
 and the FM forward over joined block rows. CUDA source: csrc/rel_refresh.cu.
 
 Replace, in libfm_tpu/learners/mcmc_rel_vector.py, `_rel_scores` (the
-per-block-row scores of one relation), `_chunk_pred` with the regression
-branch of `refresh_A_and_train_metric`, its test-tail `te_chunk` and
-`predict_test` (K12, the relation half): with an empty main table every
-case's FM forward is a sum of its joined block rows' scores.
+per-block-row scores of one relation), `_chunk_pred` with both branches
+of `refresh_A_and_train_metric` (regression and probit), its test-tail
+`te_chunk` and `predict_test` (K12): every case's FM forward is a sum of
+its main-table entries' terms and its joined block rows' scores.
 
 A score table SC [nb+1, k+2] holds per block row b of a relation
 [qB (k) | sqB | linB]: qB = sum x V[col], sqB = sum x^2 |V[col]|^2,
@@ -19,18 +19,20 @@ import ctypes
 import torch
 
 from libfm_tpu_torch.kernels import Kernel, check, on_cuda, ptr
+from libfm_tpu_torch.kernels.fm_refresh import PROBIT_MODES, write_train_rows
 from libfm_tpu_torch.ops.segment import sorted_index_add_
 
 SCORES = Kernel(
     "rel_scores", "rel_scores_launch",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3,
 )
-REFRESH = Kernel(
-    "rel_refresh", "rel_refresh_launch",
-    [ctypes.c_void_p] * 6
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-       ctypes.c_float, ctypes.c_float, ctypes.c_int],
-)
+_REFRESH_ARGS = ([ctypes.c_void_p] * 12
+                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                    ctypes.c_int, ctypes.c_int])
+REFRESH = Kernel("rel_refresh", "rel_refresh_launch", _REFRESH_ARGS)
+#: the same entry point in its probit train mode, counted apart
+PROBIT_REFRESH = Kernel("rel_refresh_probit", "rel_refresh_launch", _REFRESH_ARGS)
 #: length of the train mode's per-CTA error partials (the kernel's grid is
 #: at most this; it writes 0 past its grid, so the sum is over a fixed length)
 _PARTS = 4096
@@ -71,14 +73,21 @@ def rel_scores(P, indptr, cols, vals, *, use_linear=True):
     return SC
 
 
-def rel_refresh_plain(SC, maps, w0, A, y=None, *, use_linear=True, use_bias=True,
-                      min_target=0.0, max_target=0.0):
+def rel_refresh_plain(SC, maps, w0, A=None, y=None, *, P=None, ids=None, vals=None,
+                      use_linear=True, use_bias=True, min_target=0.0, max_target=0.0,
+                      probit=None, U=None, latent=None):
     """The plain PyTorch version; same contract as `rel_refresh`."""
     k = SC.shape[1] - 2
-    nc = maps.shape[1]
+    nc = maps.shape[1] if ids is None else ids.shape[0]
     Q = torch.zeros(nc, k, dtype=SC.dtype, device=SC.device)
     sq = torch.zeros(nc, dtype=SC.dtype, device=SC.device)
     lin = torch.zeros(nc, dtype=SC.dtype, device=SC.device)
+    if ids is not None:  # the main entries first, as the JAX engine's _chunk_pred
+        rows = P[ids.long()]  # [nc, L, k+1]
+        vx = rows[..., 1:] * vals[..., None]
+        Q = vx.sum(dim=1)
+        sq = (vx * vx).sum(dim=(1, 2))
+        lin = (rows[..., 0] * vals).sum(dim=1)
     for m in maps.long():
         g = SC[m]
         Q = Q + g[:, :k]
@@ -89,47 +98,84 @@ def rel_refresh_plain(SC, maps, w0, A, y=None, *, use_linear=True, use_bias=True
         pred = pred + lin
     if use_bias:
         pred = pred + w0
-    A[:, 1:] = Q
+    if A is None:
+        return pred
     if y is None:
         A[:, 0] = pred
+        A[:, 1:] = Q
         return None
-    A[:, 0] = pred - y
-    err = pred.clamp(min_target, max_target) - y
-    return (err * err).sum()
+    return write_train_rows(A, pred, Q, y, min_target, max_target, probit, U, latent)
 
 
-def rel_refresh(SC, maps, w0, A, y=None, *, use_linear=True, use_bias=True,
-                min_target=0.0, max_target=0.0):
+def rel_refresh(SC, maps, w0, A=None, y=None, *, P=None, ids=None, vals=None,
+                use_linear=True, use_bias=True, min_target=0.0, max_target=0.0,
+                probit=None, U=None, latent=None):
     """The FM forward of cases joined to block rows, from the score tables
     of every relation stacked in SC [rows, k+2] (`rel_scores`' tables, one
     under the other) and maps int32 [R, nc]: case c's row in SC for each
-    relation (its join map plus that relation's first row in SC). Per case
-    Q = sum_r qB, pred = 1/2 (|Q|^2 - sum_r sqB) + sum_r linB + w0.
+    relation (its join map plus that relation's first row in SC); with a
+    main table also the case's own entries, padded rows ids int32 and vals
+    float32 [nc, L] (padding: value 0) into P = [w | V] [n, k+1]. Per case
+    Q = sum_l x_l V[id_l] + sum_r qB_r,
+    pred = 1/2 (|Q|^2 - sum_l x_l^2 |V[id_l]|^2 - sum_r sqB_r)
+           + sum_l x_l w[id_l] + sum_r linB_r + w0.
 
-    Train mode (y [nc] given): writes A [nc, k+1] = [pred - y | Q] and
-    returns the squared error of the predictions clipped to
+    Train mode (A [nc, k+1] and y [nc] given): writes A = [pred - y | Q]
+    and returns the squared error of the predictions clipped to
     [min_target, max_target], summed (0-dim tensor).
-    Tail mode (y None): writes A = [pred | Q] and returns None.
+    Probit train mode (classification; `probit` "sample" with uniforms
+    U [nc] in [0, 1), or "mean"): each case's latent is a draw of
+    N(pred, 1) truncated to [0, inf) where y >= 0 and to (-inf, 0] where
+    y < 0, or that truncated normal's expectation; writes latent [nc] and
+    A = [pred - latent | Q] and returns the number of cases with
+    Phi(pred) >= 0.5 and y > 0 or Phi(pred) < 0.5 and y < 0 (0-dim
+    tensor). It counts its launches apart, as `rel_refresh_probit`.
+    Tail mode (A given, y None): writes A = [pred | Q] and returns None.
+    Test mode (A and y None): returns pred [nc].
     """
-    tensors = [SC, maps, w0, A] + ([y] if y is not None else [])
+    if probit is not None and (probit not in PROBIT_MODES or y is None or A is None
+                               or latent is None or (probit == "sample") != (U is not None)):
+        raise ValueError(f"probit={probit!r} needs A, y, latent and (sampling) U")
+    if y is not None and A is None:
+        raise ValueError("train mode (y given) needs A")
+    if (ids is None) != (vals is None) or (ids is not None and P is None):
+        raise ValueError("main rows need P, ids and vals")
+    tensors = [SC, maps, w0] + [t for t in (A, y, P, ids, vals, U, latent) if t is not None]
     if not on_cuda(*tensors):
-        return rel_refresh_plain(SC, maps, w0, A, y, use_linear=use_linear,
-                                 use_bias=use_bias, min_target=min_target,
-                                 max_target=max_target)
-    R, nc = maps.shape
+        return rel_refresh_plain(SC, maps, w0, A, y, P=P, ids=ids, vals=vals,
+                                 use_linear=use_linear, use_bias=use_bias,
+                                 min_target=min_target, max_target=max_target,
+                                 probit=probit, U=U, latent=latent)
+    R = maps.shape[0]
+    nc = maps.shape[1] if ids is None else ids.shape[0]
+    L = 0 if ids is None else ids.shape[1]
     k = SC.shape[1] - 2
     check(SC, "SC", torch.float32)
-    check(maps, "maps", torch.int32)
+    check(maps, "maps", torch.int32, (R, nc))
     check(w0, "w0", torch.float32, ())
-    check(A, "A", torch.float32, (nc, k + 1))
+    if A is not None:
+        check(A, "A", torch.float32, (nc, k + 1))
     if y is not None:
         check(y, "y", torch.float32, (nc,))
+    if ids is not None:
+        check(P, "P", torch.float32, (P.shape[0], k + 1))
+        check(ids, "ids", torch.int32)
+        check(vals, "vals", torch.float32, (nc, L))
+    if probit is not None:
+        check(latent, "latent", torch.float32, (nc,))
+        if U is not None:
+            check(U, "U", torch.float32, (nc,))
     if not 1 <= k <= 128:
         raise ValueError(f"k={k}: the CUDA kernels take 1 <= k <= 128")
-    part = torch.empty(_PARTS, dtype=torch.float32, device=SC.device) if y is not None else None
+    pred = None if A is not None else torch.empty(nc, dtype=torch.float32,
+                                                  device=SC.device)
     if nc == 0:
-        return None if y is None else torch.zeros((), dtype=torch.float32, device=SC.device)
-    REFRESH.launch(ptr(SC), ptr(maps), ptr(w0), ptr(y), ptr(A), ptr(part), nc, R, k,
-                   int(use_linear), int(use_bias), float(min_target), float(max_target),
-                   _PARTS)
-    return None if y is None else part.sum()
+        return (pred if A is None else None if y is None
+                else torch.zeros((), dtype=torch.float32, device=SC.device))
+    part = torch.empty(_PARTS, dtype=torch.float32, device=SC.device) if y is not None else None
+    (REFRESH if probit is None else PROBIT_REFRESH).launch(
+        ptr(SC), ptr(maps), ptr(w0), ptr(y), ptr(A), ptr(pred), ptr(part), ptr(P),
+        ptr(ids), ptr(vals), ptr(U), ptr(latent), nc, R, L, k, int(use_linear),
+        int(use_bias), float(min_target), float(max_target), _PARTS,
+        PROBIT_MODES.get(probit, 0))
+    return pred if A is None else None if y is None else part.sum()

@@ -9,37 +9,48 @@ expanded entries).
 
 State on the device:
 - P = [w | V] [n, k+1], the packed parameter table;
-- A = [e | Q] [num_train, k+1], the per-case residual and factor sums;
+- A = [e | Q] [num_train, k+1], the per-case residual and factor sums
+  (classification: e = pred - latent, with the probit latent of every
+  train case);
 - the test tail [num_test, k+1] = [pred | Q], kept current by the same
-  per-case updates as A (the incremental test prediction);
+  per-case updates as A (the incremental test prediction; only with an
+  empty main table);
 - per relation, block-row tables of b = 0..nb (row nb a zero sentinel):
   the frozen caches C (`rel_cache`) and SD = [s | dQB], the per-row shift
   of every case joined to the row since C was taken (kernels/rel_sweep.py
   gives the algebra).
 
 One iteration, in the JAX engine's order (`draw_all`, `one_step`):
-alpha, w0 and the hyperpriors (plain torch), then per relation:
+alpha, w0 and the hyperpriors (plain torch), then per main-table
+conflict-free block (`sweep_main_block`, over the train cases):
+  slot_stats  (each feature's GG from its slots' rows of A),
+  schur_draw  (the blocked Cholesky draw of its theta),
+  slot_update (the draw's update of the slots' rows of A),
+then per relation:
   rel_cache   (C from A: the resync path only, every iteration),
   per conflict-free block (over block rows, in the JAX engine's order):
     rel_stats   (each feature's GG from C and SD),
-    schur_draw  (the blocked Cholesky draw of its theta),
+    schur_draw,
     rel_update  (the draw's shift into SD),
   rel_resync  (SD into A and the test tail: the resync path only),
-then the unobserved features, the test prediction and, every
-`refresh_every` iterations, rel_scores + rel_refresh (A and the tail
-rebuilt from P) and, on the deferred path, a fresh C and a zero SD.
+then the unobserved features, the test prediction (from the tail, or
+rel_scores + rel_refresh's test mode over the test cases' main entries
+and joined rows) and, every `refresh_every` iterations, rel_scores +
+rel_refresh (A and the tail rebuilt from P; for classification its
+probit mode, which resamples the latents) and, on the deferred path, a
+fresh C and a zero SD. Classification resamples the latents between
+refreshes too, from pred = e + latent (probit_latent).
 
-The deferred path (one relation, regression, the JAX engine's gate)
-keeps C and SD across iterations: alpha, w0 and the train metric between
-refreshes come from closed-form block-row sums (`deferred_sums`), and
-the test prediction is the frozen tail plus SD (`rel_resync`'s read-only
-mode). On CPU tensors each kernel wrapper runs its plain PyTorch version.
+The deferred path (one relation, regression, no main table, the JAX
+engine's gate) keeps C and SD across iterations: alpha, w0 and the train
+metric between refreshes come from closed-form block-row sums
+(`deferred_sums`), and the test prediction is the frozen tail plus SD
+(`rel_resync`'s read-only mode). On CPU tensors each kernel wrapper runs
+its plain PyTorch version.
 
-This slice runs pure block structure (an empty main table) with any
-number of relations, regression, MCMC and ALS. What it does not take
-raises NotImplementedError with its ROADMAP item: main-table features
-beside relations and BS classification (M9); a mesh (M13), checkpoints
-and rlog (M7) raise in the learner's constructor.
+This engine runs any number of relations beside a main table or none,
+regression and probit classification, MCMC and ALS. A mesh (M13),
+checkpoints and rlog (M7) raise in the learner's constructor.
 """
 
 from __future__ import annotations
@@ -49,12 +60,17 @@ import torch
 
 from libfm_tpu_torch.data.batching import conflict_free_blocks, feature_slots
 from libfm_tpu_torch.data.dataset import Dataset
+from libfm_tpu_torch.data.vector_layout import padded_rows_layout
 from libfm_tpu_torch.kernels.case_stats import triu
+from libfm_tpu_torch.kernels.dense_update import update_table
+from libfm_tpu_torch.kernels.pieces import Pieces
+from libfm_tpu_torch.kernels.probit_latent import probit_latent
 from libfm_tpu_torch.kernels.rel_cache import case_lists, rel_cache
 from libfm_tpu_torch.kernels.rel_refresh import rel_refresh, rel_scores
 from libfm_tpu_torch.kernels.rel_sweep import rel_resync, rel_stats, rel_update
 from libfm_tpu_torch.kernels.schur_draw import schur_draw
-from libfm_tpu_torch.kernels.slot_stats import gg_width
+from libfm_tpu_torch.kernels.slot_stats import gg_width, slot_stats
+from libfm_tpu_torch.kernels.slot_update import slot_update
 from libfm_tpu_torch.learners.mcmc import (
     HYPER,
     attr_groups,
@@ -68,7 +84,7 @@ from libfm_tpu_torch.learners.mcmc import (
     step_metrics,
 )
 from libfm_tpu_torch.ops import samplers
-from libfm_tpu_torch.tasks import TASK_REGRESSION
+from libfm_tpu_torch.tasks import TASK_CLASSIFICATION
 from libfm_tpu_torch.utils.timers import iter_clocks
 
 #: the cache build pads no case list here, but the routing keeps the JAX
@@ -220,24 +236,52 @@ def deferred_sums(C, SD, wnum):
 
 
 def check_relational(learner, train, test) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for what the
-    BS vector engine of this slice does not take."""
-    if train.nnz or test.nnz:
-        raise NotImplementedError(
-            "main-table features beside relations (the JAX engine's "
-            "sweep_main_block) wait for ROADMAP M9"
-        )
-    if learner.task != TASK_REGRESSION:
-        raise NotImplementedError(
-            "relational (BS) classification waits for ROADMAP M9"
-        )
+    """Raise ValueError where train and test do not join the same
+    relations."""
     if len(train.relations) != len(test.relations):
         raise ValueError("train and test must join the same relations")
 
 
+class MainBlock:
+    """One conflict-free block of the main table's features (over the train
+    cases), on the device: `features` (global ids, long and int32
+    `feat_id`), `groups`, the per-feature slot lists `feat_off`,
+    `slot_case`, `slot_val` (`batching.feature_slots`, as RelBlock builds
+    its entry lists), `slot_feat` (each slot's feature within the block,
+    for `slot_update`) and `pieces` (their cut for `slot_stats`)."""
+
+    def __init__(self, block, groups, device):
+        def t(x, dtype=None):
+            return torch.as_tensor(x, dtype=dtype, device=device)
+
+        off, sc, sv = feature_slots(block)
+        self.F = len(block.features)
+        self.features = t(block.features, torch.long)
+        self.feat_id = t(block.features, torch.int32)
+        self.groups = t(np.asarray(groups), torch.long)
+        self.feat_off = t(off)
+        self.slot_case = t(sc)
+        self.slot_val = t(sv)
+        self.slot_feat = t(np.repeat(np.arange(self.F, dtype=np.int32), np.diff(off)))
+        self.pieces = Pieces(off, device)
+
+
+def main_layout(train, attr_group_np, n_main: int, device):
+    """The main table's conflict-free blocks in the JAX engine's order
+    (`conflict_free_blocks` over the train cases, the table's own groups)
+    and its features in no block (global ids, int64)."""
+    blocks = conflict_free_blocks(train, attr_group=attr_group_np[:max(train.num_features, 1)])
+    observed = np.zeros(max(n_main, 1), dtype=bool)
+    for b in blocks:
+        observed[b.features] = True
+    unobserved = np.nonzero(~observed[:n_main])[0].astype(np.int64)
+    return [MainBlock(b, attr_group_np[b.features], device) for b in blocks], unobserved
+
+
 def learn_relational_vector(learner, train, test):
     """Run the BS vector MCMC/ALS loop for `learner` (MCMCVectorLearner)
-    on pure block-structure regression data; returns the history."""
+    on block-structure data, regression or probit classification, with
+    or without main-table features; returns the history."""
     check_relational(learner, train, test)
     cfg = learner.cfg
     dev, gen, f32 = learner.device, learner.generator, torch.float32
@@ -250,16 +294,18 @@ def learn_relational_vector(learner, train, test):
     draw_bound = samplers.DRAW_BOUND * max(1.0, abs(min_t), abs(max_t))
     use_linear, use_bias = cfg.use_linear, cfg.use_bias
     nc_train, nc_test = train.num_rows, test.num_rows
+    classify = learner.task == TASK_CLASSIFICATION
 
     attr_group_np, attr_group, num_attr_per_group = attr_groups(learner.attr_group_np, n, dev)
     G = num_attr_per_group.shape[0]
     lays = [RelLayout(jt, je, attr_group_np, n)
             for jt, je in zip(train.relations, test.relations)]
     rels = [DevRel(lay, dev) for lay in lays]
-    # features in no block: the main table's (all of them: it is empty)
-    # and each relation's unobserved ones, as the JAX engine lists them
+    mains, main_unobs = main_layout(train, attr_group_np, lays[0].attr_offset, dev)
+    # features in no block: the main table's and each relation's, as the
+    # JAX engine lists them
     unobserved = torch.as_tensor(
-        np.concatenate([np.arange(lays[0].attr_offset)] + [lay.unobserved for lay in lays]),
+        np.concatenate([main_unobs] + [lay.unobserved for lay in lays]),
         dtype=torch.long, device=dev)
     # the relations' score tables stack in one table for rel_refresh; the
     # maps [R, nc] point into it
@@ -276,55 +322,97 @@ def learn_relational_vector(learner, train, test):
     y_test = torch.as_tensor(test.target, dtype=f32, device=dev)
     nec = learner.num_eval_cases if learner.num_eval_cases is not None else nc_test
     eval_mask = (torch.arange(nc_test, device=dev) < nec).to(f32)
-    incr_test = nc_test > 0 and learner.bs_incr_test
-    deferred = len(rels) == 1 and incr_test and learner.bs_deferred
+    # the JAX engine's gates: the main sweeps would leave the tail stale, and
+    # the deferred sums hold for one relation's regression residuals only
+    incr_test = not mains and nc_test > 0 and learner.bs_incr_test
+    deferred = (not classify and len(rels) == 1 and not mains and incr_test
+                and learner.bs_deferred)
+    learner.incr_test, learner.deferred = incr_test, deferred
 
     P, st = initial_state(learner, learner.init_params, n, k, G, nc_test)
+
+    def main_rows(ds):
+        """rel_refresh's main-table arguments: the padded rows (ids, vals)
+        [nc, L] and P; none for an empty main table."""
+        if not ds.nnz:
+            return {}
+        ids, vals = padded_rows_layout(ds.indptr, ds.cols, ds.vals)
+        return dict(P=P, ids=torch.as_tensor(ids, device=dev),
+                    vals=torch.as_tensor(vals, device=dev))
+
+    rows_tr, rows_te = main_rows(train), main_rows(test)
     A = torch.empty(nc_train, d, dtype=f32, device=dev)
-    tail = torch.empty(nc_test, d, dtype=f32, device=dev)
-    GG_buf = torch.empty(max([b.F for r in rels for b in r.blocks], default=0),
-                         gg_width(k), dtype=f32, device=dev)
+    tail = torch.empty(nc_test, d, dtype=f32, device=dev) if incr_test else None
+    GG_buf = torch.empty(max([b.F for r in rels for b in r.blocks] + [b.F for b in mains],
+                             default=0), gg_width(k), dtype=f32, device=dev)
     fwd = dict(use_linear=use_linear, use_bias=use_bias)
+    probit = None if not classify else "sample" if do_sample else "mean"
 
     def scores():
         return torch.cat([rel_scores(P, r.indptr, r.cols, r.vals, use_linear=use_linear)
                           for r in rels])
 
-    def refresh():
-        """A and the test tail from P (rel_scores, rel_refresh); returns
-        the clipped squared train error, summed."""
-        SC = scores()
+    def refresh(SC, U=None, latent=None):
+        """A and the test tail from P (rel_refresh); returns the clipped
+        squared train error summed, or with `latent` (the probit mode)
+        the count of correct train cases."""
         m = rel_refresh(SC, maps_tr, st["w0"], A, y_train, min_target=min_t,
-                        max_target=max_t, **fwd)
+                        max_target=max_t, probit=None if latent is None else probit,
+                        U=U, latent=latent, **rows_tr, **fwd)
         if incr_test:
-            rel_refresh(SC, maps_te, st["w0"], tail, **fwd)
+            rel_refresh(SC, maps_te, st["w0"], tail, **rows_te, **fwd)
         return m
 
     def new_sd(r):
         return torch.zeros(r.nb + 1, d, dtype=f32, device=dev)
 
-    refresh()
+    # the initial refresh takes e = pred - y for both tasks (the JAX
+    # engine's init refresh): the latents start at y
+    refresh(scores())
+    latent = y_train.clone() if classify else None
     if deferred:
         relc = rel_cache(A, rels[0].case_off, rels[0].case_ids)
         SD_def = new_sd(rels[0])
 
+    def prior_rows(groups, hyper):
+        """Each feature's prior precision and mean [F, k+1]; without the
+        linear term w is frozen (infinite precision at mean 0)."""
+        w_mu, w_lambda, v_mu, v_lambda = hyper
+        lam = torch.cat([w_lambda[groups][:, None], v_lambda[groups]], dim=1)
+        mu_pr = torch.cat([w_mu[groups][:, None], v_mu[groups]], dim=1)
+        if not use_linear:
+            lam[:, 0] = 1e30
+            mu_pr[:, 0] = 0.0
+        return lam, mu_pr
+
+    def draw(GG, theta_old, groups, alpha, hyper):
+        lam, mu_pr = prior_rows(groups, hyper)
+        z = torch.randn(theta_old.shape[0], d, generator=gen, device=dev) if do_sample else None
+        return schur_draw(GG, theta_old, lam, mu_pr, z, alpha, do_sample=do_sample,
+                          bound=draw_bound)
+
+    def sweep_main(blk, alpha, hyper):
+        """Joint draws for one main-table block (the JAX engine's
+        sweep_main_block: the slot path, always): updates A and P in place
+        and returns the number of rejected draws."""
+        theta_old = P[blk.features]
+        GG = slot_stats(A, P, blk.feat_off, blk.slot_case, blk.slot_val, blk.feat_id,
+                        use_linear=use_linear, GG=GG_buf, pieces=blk.pieces)
+        theta_new, rj = draw(GG, theta_old, blk.groups, alpha, hyper)
+        slot_update(A, blk.slot_case, blk.slot_val, blk.slot_feat,
+                    update_table(theta_old, theta_new))
+        P[blk.features] = theta_new
+        return rj.sum()
+
     def sweep_relation(r, alpha, hyper, C, SD):
         """One Gibbs sweep over a relation's blocks; updates P and SD in
         place and returns the number of rejected draws."""
-        w_mu, w_lambda, v_mu, v_lambda = hyper
         rej = torch.zeros((), dtype=torch.int64, device=dev)
         for blk in r.blocks:
             theta_old = P[blk.features]
-            lam = torch.cat([w_lambda[blk.groups][:, None], v_lambda[blk.groups]], dim=1)
-            mu_pr = torch.cat([w_mu[blk.groups][:, None], v_mu[blk.groups]], dim=1)
-            if not use_linear:
-                lam[:, 0] = 1e30
-                mu_pr[:, 0] = 0.0
             GG = rel_stats(C, SD, r.wnum, blk.feat_off, blk.entry_b, blk.entry_x,
                            blk.feat_id, P, use_linear=use_linear, GG=GG_buf)
-            z = torch.randn(blk.F, d, generator=gen, device=dev) if do_sample else None
-            theta_new, rj = schur_draw(GG, theta_old, lam, mu_pr, z, alpha,
-                                       do_sample=do_sample, bound=draw_bound)
+            theta_new, rj = draw(GG, theta_old, blk.groups, alpha, hyper)
             rel_update(SD, blk.entry_b, blk.entry_x, blk.entry_f, theta_old, theta_new)
             P[blk.features] = theta_new
             rej += rj.sum()
@@ -355,6 +443,8 @@ def learn_relational_vector(learner, train, test):
             w0 = w0_new
         hyper, r = draw_sweep_hyperpriors(learner, P, attr_group, num_attr_per_group, st)
         rej = rej + r
+        for blk in mains:
+            rej = rej + sweep_main(blk, alpha, hyper)
         for rel in rels:
             if deferred:
                 rej = rej + sweep_relation(rel, alpha, hyper, relc, SD_def)
@@ -373,20 +463,28 @@ def learn_relational_vector(learner, train, test):
     def one_step(it, do_refresh):
         nonlocal relc, SD_def
         rej = draw_all()
+        # one set of block scores serves the test prediction and the
+        # refresh (the same P), as in the JAX engine
+        SC = scores() if do_refresh or not incr_test else None
         if deferred:
             pred_test = rel_resync(SD_def, rels[0].map_te, tail, read_only=True)
         elif incr_test:
             pred_test = tail[:, 0].clone()
         else:
-            out = torch.empty(nc_test, d, dtype=f32, device=dev)
-            rel_refresh(scores(), maps_te, st["w0"], out, **fwd)
-            pred_test = out[:, 0]
+            pred_test = rel_refresh(SC, maps_te, st["w0"], **rows_te, **fwd)
+        U = (torch.rand(nc_train, generator=gen, device=dev)
+             if classify and do_sample else None)
         if do_refresh:
-            m = refresh()
-            train_metric = torch.sqrt(m / max(nc_train, 1))
+            m = refresh(SC, U, latent)
+            train_metric = (m / max(nc_train, 1) if classify
+                            else torch.sqrt(m / max(nc_train, 1)))
             if deferred:
                 relc = rel_cache(A, rels[0].case_off, rels[0].case_ids)
                 SD_def.zero_()
+        elif classify:
+            # the sweeps keep e = pred - latent current: resample the
+            # latents from pred = e + latent (the JAX engine's fast path)
+            train_metric = probit_latent(A, latent, y_train, U) / max(nc_train, 1)
         elif deferred:
             # the closed-form e^2 sum, without the target clamp (the
             # refresh iterations report the clamped metric), as the JAX

@@ -270,18 +270,21 @@ class MCMCVectorLearner(MCMCLearner):
         self.case_major_stats = case_major_stats
         self.case_reorder = False
         # the incremental test tail, off by default as in the JAX engine;
-        # incr_test says whether the last learn() ran it
+        # incr_test says whether the last learn() ran a tail (this one, or
+        # the BS engine's)
         self.flat_incr_test = False
         self.incr_test = False
         self.init_params = init_params
         # relational (BS) routing (`_route_relational`) and the BS vector
         # engine's paths (learners/mcmc_rel_vector.py): the deferred path
-        # for one relation, the incremental test tail
+        # for one relation, the incremental test tail; `deferred` says
+        # whether the last learn() on the BS engine took the deferred path
         self.relational_mode = None
         self.expand_max_ratio = 8.0
         self.bs_vector = True
         self.bs_deferred = True
         self.bs_incr_test = True
+        self.deferred = False
 
     def _check_supported(self, train, test):
         _base.check_num_features(self.cfg, train, test)

@@ -25,6 +25,11 @@ one-hot and valued, a twentieth and all of the cases covered, against its
 plain version and dense_update on the same block; dense_update on the
 incremental test tail's view of A; ALS with dense_update=False and with
 the test tail on the card against the CPU, with exact launches.
+rel_refresh with main rows beside two relations (k 8-128, L 1 and 3, rows
+with no main entry, train, tail and test modes) and its
+probit mode (sampling and expectations), and the BS ALS with a main
+table, regression and probit, on the card against the CPU with exact
+launches.
 Tolerances as in chip_smoke.py: fp32 sums taken in another order.
 """
 
@@ -1505,6 +1510,107 @@ def test_rel_scores_and_refresh_kernels_match_plain(cuda, k, use_linear):
     torch.cuda.synchronize()
 
 
+def _main_forward(cuda, rng, k, L, nc=2500, n_main=40):
+    """rel_refresh's inputs with main rows beside two relations: (SC, maps,
+    w0, P, ids, vals) on the card. Rows of 0 to L main entries padded with
+    value 0 (case 0 has none, case 1 all L), valued entries."""
+    from libfm_tpu_torch.data.vector_layout import padded_rows_layout
+    from libfm_tpu_torch.kernels import rel_refresh as rr
+
+    lens = rng.integers(0, L + 1, nc)
+    lens[0], lens[1] = 0, L
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    cols = np.concatenate([np.sort(rng.choice(n_main, m, replace=False)) for m in lens])
+    ids, vals = padded_rows_layout(indptr, cols.astype(np.int32),
+                                   rng.normal(1.0, 0.5, len(cols)).astype(np.float32))
+    joins = [_relation(rng, 50, 7, 120, nc, offset=n_main),
+             _relation(rng, 30, 4, 90, nc, offset=n_main + 120)]
+    P = torch.as_tensor(rng.normal(0, 0.3, (n_main + 210, k + 1)), dtype=torch.float32,
+                        device=cuda)
+    SC, maps, first = [], [], 0
+    for j in joins:
+        rd = j.data
+        SC.append(rr.rel_scores_plain(P, *_to(cuda, rd.indptr, (rd.cols + rd.attr_offset)
+                                                  .astype(np.int32), rd.vals)))
+        maps.append(j.row_map.astype(np.int64) + first)
+        first += rd.num_cases + 1
+    return (torch.cat(SC), torch.as_tensor(np.stack(maps).astype(np.int32), device=cuda),
+            torch.tensor(0.3, device=cuda), P, *_to(cuda, ids, vals))
+
+
+@pytest.mark.parametrize("k", [8, 32, 128])
+@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("use_linear", [True, False])
+def test_rel_refresh_main_rows_kernel_matches_plain(cuda, k, L, use_linear):
+    """Main rows beside two relations in one rel_refresh launch: train,
+    tail and test modes against the plain version (A per column within
+    1e-4 of the column's largest value, the summed error within 1e-6
+    relative, as chip_smoke.py holds them at bench_bs_ctx), the same bits
+    on a second launch; the test mode's predictions equal the tail mode's."""
+    from libfm_tpu_torch.kernels import rel_refresh as rr
+
+    rng = np.random.default_rng(100 * k + L)
+    SC, maps, w0, P, ids, vals = _main_forward(cuda, rng, k, L)
+    nc = ids.shape[0]
+    main = dict(P=P, ids=ids, vals=vals, use_linear=use_linear)
+    y = torch.as_tensor(rng.normal(0, 1, nc), dtype=torch.float32, device=cuda)
+    kw = dict(min_target=-2.0, max_target=2.0)
+    A_k, A_p = (torch.empty(nc, k + 1, device=cuda) for _ in range(2))
+    m_k = rr.rel_refresh(SC, maps, w0, A_k, y, **kw, **main)
+    m_k2 = rr.rel_refresh(SC, maps, w0, A_k.clone(), y, **kw, **main)
+    m_p = rr.rel_refresh_plain(SC, maps, w0, A_p, y, **kw, **main)
+    assert _col_rel_err(A_k, A_p) < 1e-4
+    assert abs(m_k.item() - m_p.item()) <= 1e-6 * m_p.item()
+    assert torch.equal(m_k, m_k2)
+    T_k, T_p = (torch.empty(nc, k + 1, device=cuda) for _ in range(2))
+    rr.rel_refresh(SC, maps, w0, T_k, **main)
+    rr.rel_refresh_plain(SC, maps, w0, T_p, **main)
+    assert _col_rel_err(T_k, T_p) < 1e-4
+    p_k = rr.rel_refresh(SC, maps, w0, **main)
+    assert torch.equal(p_k, T_k[:, 0])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", [8, 32, 128])
+@pytest.mark.parametrize("mode", ["sample", "mean"])
+def test_rel_refresh_probit_kernel_matches_plain(cuda, k, mode):
+    """rel_refresh's probit train mode with main rows, counted apart: Q and
+    the predictions (e + latent) within 1e-4, the latents within 1e-5
+    relative above 1 of the plain draw on the kernel's predictions where
+    the draw lies within 2.5 of its mean (config #4's rule in
+    chip_smoke.py), every latent on y's side of 0, the correct count
+    equal to the plain version's, one rel_refresh_probit launch."""
+    from libfm_tpu_torch.kernels import rel_refresh as rr
+    from libfm_tpu_torch.ops.samplers import probit_latent
+
+    rng = np.random.default_rng(7 * k)
+    SC, maps, w0, P, ids, vals = _main_forward(cuda, rng, k, 3)
+    nc = ids.shape[0]
+    y = torch.as_tensor(np.where(rng.random(nc) < 0.5, 1.0, -1.0), dtype=torch.float32,
+                        device=cuda)
+    U = (torch.as_tensor(rng.random(nc), dtype=torch.float32, device=cuda)
+         if mode == "sample" else None)
+    A_k, A_p = (torch.empty(nc, k + 1, device=cuda) for _ in range(2))
+    l_k, l_p = (torch.empty(nc, device=cuda) for _ in range(2))
+    before = kernels.launch_counts()
+    c_k = rr.rel_refresh(SC, maps, w0, A_k, y, P=P, ids=ids, vals=vals, probit=mode, U=U,
+                         latent=l_k)
+    after = kernels.launch_counts()
+    c_p = rr.rel_refresh_plain(SC, maps, w0, A_p, y, P=P, ids=ids, vals=vals, probit=mode,
+                               U=U, latent=l_p)
+    assert after["rel_refresh_probit"] == before["rel_refresh_probit"] + 1
+    assert after["rel_refresh"] == before["rel_refresh"]
+    assert (A_k[:, 1:] - A_p[:, 1:]).abs().max().item() < 1e-4
+    pred_k = A_k[:, 0] + l_k
+    assert (pred_k - (A_p[:, 0] + l_p)).abs().max().item() < 1e-4
+    ref = probit_latent(pred_k, y, U)
+    near = (ref - pred_k).abs() <= 2.5 if U is not None else torch.ones_like(y, dtype=bool)
+    assert ((l_k - ref).abs() / ref.abs().clamp_min(1.0))[near].max().item() < 1e-5
+    assert ((l_k >= 0) == (y >= 0)).all()
+    assert c_k.item() == c_p.item()
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("k", REL_KS)
 def test_rel_cache_kernel_matches_float64(cuda, k):
     """Every cache entry within (the row's cases + 2) roundings of its sum
@@ -1615,3 +1721,56 @@ def test_bs_als_on_cuda_follows_the_cpu_trajectory(cuda, deferred):
     for hc, hg in zip(hist["cpu"], hist["cuda"]):
         assert abs(hc["test_this"] - hg["test_this"]) < 1e-4
         assert abs(hc["train"] - hg["train"]) < 1e-4
+
+
+@pytest.mark.parametrize("task", [0, 1])
+def test_bs_als_with_main_table_on_cuda_follows_the_cpu_trajectory(cuda, task):
+    """The BS vector engine's ALS with a main table of two one-hot fields
+    (20 and 7 values) beside one relation, regression and probit, on the
+    card against the CPU from the same parameters, 5 iterations; the
+    kernels it launches, exactly: the main blocks' slot_stats, schur_draw
+    and slot_update every iteration, no tail, the probit refreshes and
+    fast steps."""
+    from libfm_tpu_torch.data.dataset import Dataset
+    from libfm_tpu_torch.learners.mcmc import dispatch_chunks
+
+    rng = np.random.default_rng(5)
+    n_main, nf, nc, nte = 27, 150, 4000, 800
+    join = _relation(rng, 64, 6, nf, nc + nte, offset=n_main)
+    main = np.stack([rng.integers(0, 20, nc + nte), 20 + rng.integers(0, 7, nc + nte)], 1)
+    y = rng.normal(0, 1, nc + nte).astype(np.float32)
+    if task:
+        y = np.where(y > 0, 1.0, -1.0).astype(np.float32)
+
+    def ds(sl):
+        m = len(y[sl])
+        d = Dataset(np.arange(m + 1, dtype=np.int64) * 2, main[sl].ravel().astype(np.int32),
+                    np.ones(2 * m, np.float32), y[sl], n_main)
+        d.relations = [join.permuted(np.arange(nc + nte)[sl])]
+        return d
+
+    train, test = ds(slice(0, nc)), ds(slice(nc, None))
+    n = n_main + nf
+    init = (np.float32(0.0), rng.normal(0, 0.1, n).astype(np.float32),
+            rng.normal(0, 0.1, (n, 8)).astype(np.float32))
+    hist = {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        lr = ALSVectorLearner(FMConfig(num_features=n, num_factors=8, regw=1.0, regv=1.0),
+                              task=task, num_iter=5, seed=1, verbose=False, device=dev,
+                              init_params=[torch.as_tensor(x) for x in init])
+        lr.expand_max_ratio = 0.0
+        hist[dev] = lr.learn(train, test)
+        assert (lr.relational_mode, lr.incr_test, lr.deferred) == ("bs_vector", False, False)
+    counts = {name: c for name, c in kernels.launch_counts().items() if c}
+    nblk = counts["rel_stats"] // 5
+    refresh = len(dispatch_chunks(0, 5, lr.refresh_every))
+    want = dict(rel_scores=6, rel_refresh=6 + refresh, rel_stats=5 * nblk,
+                schur_draw=5 * (nblk + 2), rel_update=5 * nblk, rel_cache=5, rel_resync=5,
+                slot_stats=10, slot_update=10)
+    if task:
+        want.update(rel_refresh=6, rel_refresh_probit=refresh, probit_latent=5 - refresh)
+    assert counts == want
+    for hc, hg in zip(hist["cpu"], hist["cuda"]):
+        for key in ("test_this", "test_this_m2", "train"):
+            assert abs(hc[key] - hg[key]) < 1e-4

@@ -110,8 +110,8 @@ def test_importing_kernels_builds_nothing():
     assert set(reg) == {"fm_refresh", "fm_refresh_probit", "slot_stats", "case_stats",
                         "schur_draw", "dual_draw", "dense_update", "probit_latent",
                         "sgd_step", "table_scatter", "table_read", "sgda_step",
-                        "sgda_lambda", "rel_scores", "rel_refresh", "rel_cache",
-                        "rel_stats", "rel_update", "rel_resync", "slot_update"}
+                        "sgda_lambda", "rel_scores", "rel_refresh", "rel_refresh_probit",
+                        "rel_cache", "rel_stats", "rel_update", "rel_resync", "slot_update"}
     assert kernels._lib is None
     assert sorted(p.name for p in kernels.CSRC_DIR.glob("*.cu")) == [
         "case_stats.cu", "dense_update.cu", "dual_draw.cu", "fm_refresh.cu",
@@ -190,6 +190,16 @@ def _cpu_calls():
         "rel_scores": lambda: rr.rel_scores(P, indptr, rcols, torch.ones(6)),
         "rel_refresh": lambda: rr.rel_refresh(torch.ones(5, k + 2), rmap[None], w0,
                                               torch.zeros(5, k + 1), torch.ones(5)),
+        # main rows beside the relation: the first 5 cases' padded rows
+        "rel_refresh_main": lambda: rr.rel_refresh(
+            torch.ones(5, k + 2), rmap[None], w0, torch.zeros(5, k + 1), torch.ones(5), P=P,
+            ids=ids[:5], vals=vals[:5]),
+        "rel_refresh_test": lambda: rr.rel_refresh(torch.ones(5, k + 2), rmap[None], w0, P=P,
+                                                   ids=ids[:5], vals=vals[:5]),
+        "rel_refresh_probit": lambda: rr.rel_refresh(
+            torch.ones(5, k + 2), rmap[None], w0, torch.zeros(5, k + 1),
+            torch.tensor([1.0, -1.0, 1.0, -1.0, 1.0]), P=P, ids=ids[:5], vals=vals[:5],
+            probit="sample", U=torch.rand(5, generator=g), latent=torch.zeros(5)),
         "rel_cache": lambda: rc.rel_cache(A[:5], case_off, case_ids),
         "rel_stats": lambda: rs.rel_stats(C, SD, torch.ones(5), torch.tensor([0, 2]), eb,
                                           torch.ones(2), fid[:1], P),
@@ -232,8 +242,9 @@ def _cpu_calls():
                                   "case_stats", "schur_draw", "dual_draw", "dense_update",
                                   "probit_latent", "sgd_step", "table_scatter",
                                   "table_read", "sgda_step", "sgda_lambda", "rel_scores",
-                                  "rel_refresh", "rel_cache", "rel_stats", "rel_update",
-                                  "rel_resync", "slot_update"])
+                                  "rel_refresh", "rel_refresh_main", "rel_refresh_test",
+                                  "rel_refresh_probit", "rel_cache", "rel_stats",
+                                  "rel_update", "rel_resync", "slot_update"])
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(name):
     kernels.import_all()
     before = kernels.launch_counts()

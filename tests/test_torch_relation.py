@@ -15,9 +15,13 @@ and plain kernel versions, against the JAX package, on the CPU.
   part's largest value); `rel_update_plain` then `rel_resync_plain`
   equals `dense_update_plain` on the expanded cases; `deferred_sums`
   equals the sums over the resynced residuals;
-- what the slice does not take raises NotImplementedError naming its
-  ROADMAP item.
+- BS classification and main-table features beside relations run on the
+  BS engine (tests/test_torch_bs_main.py and
+  tests/test_torch_bs_classification.py hold them to JAX); what the
+  port does not take raises NotImplementedError naming its ROADMAP item.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -312,6 +316,17 @@ def test_deferred_sums_equal_the_resynced_sums():
 # ---- what the slice does not take
 
 
+def _binarised(train, test):
+    """The problem with targets +1 where y > 0 and -1 elsewhere (copies)."""
+    out = []
+    for ds in (train, test):
+        ds = copy.copy(ds)
+        ds.target = np.where(ds.target > 0, 1.0, -1.0).astype(np.float32)
+        ds.min_target, ds.max_target = -1.0, 1.0
+        out.append(ds)
+    return out
+
+
 def test_out_of_slice_relational_cases_raise():
     train, test, nf = _single_rel_problem(seed=9)
     ttr, tte = to_port(train, test)
@@ -322,14 +337,17 @@ def test_out_of_slice_relational_cases_raise():
         lr.expand_max_ratio = 0.0
         return lr
 
-    with pytest.raises(NotImplementedError, match="classification waits for ROADMAP M9"):
-        fat(task=TASK_CLASSIFICATION).learn(ttr, tte)
+    # BS classification and main-table features beside relations run
+    # (tests/test_torch_bs_main.py holds them to JAX); the rest raises
+    ctr = fat(task=TASK_CLASSIFICATION)
+    ctr.learn(*to_port(*_binarised(train, test)))
+    assert ctr.relational_mode == "bs_vector" and np.isfinite(ctr.history[-1]["test_all"])
     gtr, gte, gnf = _general_bs_problem()
-    with pytest.raises(NotImplementedError, match="main-table features .* ROADMAP M9"):
-        lr = MCMCVectorLearner(FMConfig(num_features=gnf, num_factors=2), num_iter=1,
-                               verbose=False, device="cpu")
-        lr.expand_max_ratio = 0.0
-        lr.learn(*to_port(gtr, gte))
+    lr = MCMCVectorLearner(FMConfig(num_features=gnf, num_factors=2), num_iter=1,
+                           verbose=False, device="cpu")
+    lr.expand_max_ratio = 0.0
+    lr.learn(*to_port(gtr, gte))
+    assert lr.relational_mode == "bs_vector" and np.isfinite(lr.history[-1]["test_all"])
     off = fat()
     off.bs_vector = False
     with pytest.raises(NotImplementedError, match="exact BS engine.*M10"):
