@@ -6,6 +6,8 @@
     python3 chip_smoke.py --config5-kernels   # config #5's dual_draw check only
     python3 chip_smoke.py --bench-bs          # bench_bs's and bench_bs_ctx's kernel
                                               # checks and paths only
+    python3 chip_smoke.py --exact             # the exact engines' kernel checks and
+                                              # paths only
     python3 chip_smoke.py --quality           # MCMC 24 iterations at #3, #4, #5 against
                                               # bench.py's quality targets, and at
                                               # bench_bs_ctx and bench_bs_c
@@ -106,6 +108,16 @@ What it does, in order (any failed phase exits non-zero):
      probit check holds them, the correct count equal to the plain
      version's); on both main blocks (K12's main half) slot_stats (GG
      within 1e-4 per part), schur_draw (1e-3) and slot_update (1e-5).
+   - the exact engines (K11): coord_draw, w and v (factor k/2), on config
+     #3's two blocks and on config #4's block with the longest feature
+     (its slot count printed), rel_coord_draw w and v on bench_bs_ctx's 23
+     relation blocks (the caches from rel_cache over [e | Q_0] and
+     [e | q'], qB a column of the score table), sampling and ALS, block by
+     block from the same state as the plain version and the plain version
+     in float64: within 1e-5, or 3 times the float32 plain version's own
+     distance from float64 where larger; the rejection counts equal, a
+     second launch the same bits; rel_cache at k = 1 over [e | q'] against
+     float64 (its yardstick one torch.bmm of the pre-gathered rows).
 4. Path phase. Resets the launch counters before each run and reads them
    after it; each run must launch its own kernels, and no other: ALSVectorLearner (3
    iterations) and MCMCVectorLearner (4) at config #3 (regression, slot
@@ -130,7 +142,16 @@ What it does, in order (any failed phase exits non-zero):
    rel_refresh_probit, probit_latent at 1 and 2; test accuracy above the
    larger class's share), each on the resync path with no test tail and
    exactly its launches (the main blocks' slot_stats, schur_draw and
-   slot_update once an iteration each); SGDLearner for 3 epochs
+   slot_update once an iteration each); the exact engines: ALSLearner (3
+   iterations, regw = regv = 5; train RMSE must fall) and MCMCLearner (4;
+   test_all below the test targets' sd) at config #3, MCMCLearner (4)
+   probit at config #4 (accuracy above the larger class's share), at
+   bench_bs_ctx ALSLearner (3) and MCMCLearner (4) and at bench_bs_c
+   MCMCLearner (4) on the exact BS engine, and ALSVectorLearner (3) with
+   bs_vector=False at bench_bs (relational_mode "bs"), each with exactly
+   its launches (coord_draw and rel_coord_draw once a block for w and for
+   each factor, rel_cache 1 + k an iteration, the refreshes) and each
+   reading printed beside the vector engine's run; SGDLearner for 3 epochs
    at config #1 (regression) and config #4b (classification); SGDALearner for 3 epochs
    at config #1's settings (8M train rows, 1M validation, 1M test) and
    #4b's (1.6M, 200K, 200K), which must launch sgda_step and
@@ -162,7 +183,8 @@ file. `--config3-kernels` builds the kernels and runs config #3's kernel
 checks alone, and prints their rows as one JSON line; `--config5-kernels`
 does the same for config #5's dual_draw check, and `--bench-bs` runs
 bench_bs's kernel checks and three paths and bench_bs_ctx's kernel checks
-and four paths alone. All three use only the
+and four paths alone, and `--exact` the exact engines' kernel checks and
+seven paths (building their data). All four use only the
 wrappers' and learners' public calls, so they also time another version
 of the package (a checkout of an earlier commit) when copied into that
 checkout's root.
@@ -280,6 +302,15 @@ BS_CTX_ALS_ITERS, BS_CTX_MCMC_ITERS = 3, 4
 # rel_refresh with main rows against its plain version: A per column
 # (1e-4 of the column's largest value), the summed error 1e-6 relative
 BS_CTX_A_TOL, BS_CTX_SUM_TOL = 1e-4, 1e-6
+# the exact engines' draws (coord_draw, rel_coord_draw) against their plain
+# versions from one state with the same normals: theta and the caches, the
+# largest difference over max(1, the plain version's largest magnitude).
+# The per-feature sums run in another float32 order (a CTA's strided
+# partials against a pairwise sum in slot order)
+EXACT_TOL = 1e-5
+# ... or, where larger, this many times the float32 plain version's own
+# distance from the plain version in float64 on the same launch
+EXACT_SLACK = 3.0
 # config #3's K4b paths against the `mcmc` run of the same seed (the same
 # draws; only the order of float32 sums differs): the slot scatter within
 # the JAX test's own band (tests/test_mcmc_vector.py:213-232), the
@@ -317,6 +348,12 @@ EXPECTED.update({name: EXPECTED["mcmc_bs"] | {"slot_stats", "slot_update"}
                  for name in ("als_bs_ctx", "mcmc_bs_ctx")})
 EXPECTED.update({name: EXPECTED["mcmc_bs_ctx"] | {"rel_refresh_probit", "probit_latent"}
                  for name in ("als_bs_c", "mcmc_bs_c")})
+EXPECTED.update({name: {"coord_draw", "fm_refresh"} for name in ("als_exact_3", "exact_3")})
+EXPECTED["exact_4"] = {"coord_draw", "fm_refresh", "fm_refresh_probit"}
+EXPECTED["bs_fallback"] = {"rel_coord_draw", "rel_cache", "rel_scores", "rel_refresh"}
+EXPECTED.update({name: EXPECTED["bs_fallback"] | {"coord_draw"}
+                 for name in ("als_exact_bs_ctx", "exact_bs_ctx")})
+EXPECTED["exact_bs_c"] = EXPECTED["exact_bs_ctx"] | {"rel_refresh_probit"}
 EXPECTED.update(quality_3=EXPECTED["mcmc"], quality_4=EXPECTED["mcmc_4"],
                 quality_5=EXPECTED["mcmc_5"], quality_bs_ctx=EXPECTED["mcmc_bs_ctx"],
                 quality_bs_c=EXPECTED["mcmc_bs_c"])
@@ -1509,6 +1546,15 @@ def bs_kernel_checks(args, rec, dev, bs):
     stat_err, upd_err, stat_tol = res["stat_err"], res["upd_err"], res["stat_tol"]
     rec["bs_sweep"] = check_bs_draws(res, "the check state (P = 0.1 randn, alpha 2, "
                                      "lambda 5)")
+    # the deferred path's closed-form sums (plain torch, float64: K10's
+    # `_deferred_sums`), timed at this SD; bound: C, SD and wnum read once
+    from libfm_tpu_torch.learners.mcmc_rel_vector import deferred_sums
+
+    rec["deferred_sums"] = dict(
+        ms=cuda_ms(lambda: deferred_sums(C, SD, rel.wnum), args.reps),
+        bound_ms=bound_ms((nb + 1) * (CW + d + 1) * 4, 0)[0])
+    print(f"deferred_sums (plain torch, float64): ms={rec['deferred_sums']['ms']:.4f} "
+          f"bound_ms={rec['deferred_sums']['bound_ms']:.4f} (bytes)")
 
     def run_stats(fn):
         def go():
@@ -1895,10 +1941,10 @@ def bs_ctx_kernel_checks(args, rec, dev, ctx):
 
 
 def run_bench_bs_ctx(args, rec, dev, counts, done, bs):
-    """bench_bs_ctx: its data, its kernel checks (returns their rows) and
-    its four paths with their exact launches into `counts`: ALS 3 and MCMC
-    4 iterations at each task, every one on the resync path with no test
-    tail."""
+    """bench_bs_ctx: its data, its kernel checks and its four paths with
+    their exact launches into `counts`: ALS 3 and MCMC 4 iterations at each
+    task, every one on the resync path with no test tail. Returns the
+    checks' rows and the data."""
     from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner, MCMCVectorLearner
 
     t0 = time.perf_counter()
@@ -1947,8 +1993,7 @@ def run_bench_bs_ctx(args, rec, dev, counts, done, bs):
                      f"larger class's share {larger}")
         del learner
         t0 = done(f"bench_bs_ctx {name} path", t0)
-    del ctx
-    return table
+    return table, ctx
 
 
 
@@ -2769,7 +2814,7 @@ def run_learner(cls, name, data, args, rec, factors=FACTORS, iters=None, groups=
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     prof = None
-    if args.profile and name.startswith("mcmc"):
+    if args.profile and name.startswith(("mcmc", "exact")):
         from torch.profiler import ProfilerActivity, profile
 
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -2925,11 +2970,12 @@ def run_quality(args, rec, dev, counts, done):
 
 
 def run_bench_bs(args, rec, dev, counts, done):
-    """bench_bs: its data, the kernel checks at its shapes (returns their
-    rows) and the three paths (their launches into `counts`): ALS 9
-    iterations and MCMC 24 on the deferred path, the draw check again at
-    the state MCMC ends in, MCMC 4 on the resync path. `done(name, t0)`
-    records a phase's seconds."""
+    """bench_bs: its data, the kernel checks at its shapes and the three
+    paths (their launches into `counts`): ALS 9 iterations and MCMC 24 on
+    the deferred path, the draw check again at the state MCMC ends in, MCMC
+    4 on the resync path; then bench_bs_ctx's (`run_bench_bs_ctx`).
+    `done(name, t0)` records a phase's seconds. Returns the checks' rows
+    and the data of bench_bs and bench_bs_ctx."""
     from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner, MCMCVectorLearner
 
     t0 = time.perf_counter()
@@ -2969,8 +3015,424 @@ def run_bench_bs(args, rec, dev, counts, done):
         iters=BS_RESYNC_ITERS, want=bs_want(BS_RESYNC_ITERS, bs["blocks"], False),
         flags=dict(bs_deferred=False), **c_bs)
     done("bench_bs MCMC resync path", t0)
-    table += run_bench_bs_ctx(args, rec, dev, counts, done, bs)
-    del bs
+    ctx_table, ctx = run_bench_bs_ctx(args, rec, dev, counts, done, bs)
+    return table + ctx_table, bs, ctx
+
+
+# ---- the exact engines (K11): coord_draw and rel_coord_draw
+
+
+def exact_draw_row(args, dev, name, label, config, blocks, state, run_block, parts, nbytes,
+                   flops, timed):
+    """One kernel row of the exact engines' draws. `state` holds every float
+    input (parameters, caches, hyperparameters, the normals `z` of all
+    blocks end to end); `run_block(fn, s, i, rej, sample)` launches block
+    i's draws on `s` in place, and `parts(s)` lists the outputs held. Block
+    by block in lockstep, sampling and ALS: the kernel, the plain version
+    and the plain version in float64 each run block i from the kernel's
+    state so far. Held: the kernel within the stated tolerance of the
+    float32 plain version (the largest difference over max(1, the plain
+    output's largest magnitude)): EXACT_TOL, or EXACT_SLACK times the float32
+    plain version's own distance from float64 where that is larger (a
+    posterior mean cancels, mean = -s2 (alpha (num - theta den) - mu
+    lambda), and the sums' f32 order moves it by that much); the
+    rejection counts equal; a second kernel launch the same bits."""
+    from libfm_tpu_torch.kernels import coord_draw as cd
+
+    kern = cd.coord_draw if name == "coord_draw" else cd.rel_coord_draw
+    plain = cd.coord_draw_plain if name == "coord_draw" else cd.rel_coord_draw_plain
+
+    def clone(s, dtype=None):
+        return {key: v.to(dtype) if dtype else v.clone() for key, v in s.items()}
+
+    def dist(a, b):
+        return max(((x.double() - y.double()).abs().max()
+                    / y.double().abs().max().clamp_min(1.0)).item()
+                   for x, y in zip(parts(a), parts(b)))
+
+    errs, nrej, worst = {}, 0, dict(err=0.0, tol=EXACT_TOL)
+    for sample in (True, False):
+        s = clone(state)
+        err_k64 = err_p64 = 0.0
+        for i, b in enumerate(blocks):
+            sp, sk2, s64 = clone(s), clone(s), clone(s, torch.float64)
+            rk, rp, rk2, r64 = (torch.zeros(b.F, dtype=torch.int32, device=dev)
+                                for _ in range(4))
+            run_block(kern, s, i, rk, sample)
+            run_block(plain, sp, i, rp, sample)
+            run_block(kern, sk2, i, rk2, sample)
+            run_block(plain, s64, i, r64, sample)
+            torch.cuda.synchronize()
+            err, e_p64 = dist(s, sp), dist(sp, s64)
+            tol = max(EXACT_TOL, EXACT_SLACK * e_p64)
+            if err / tol > worst["err"] / worst["tol"]:
+                worst.update(err=err, tol=tol)
+            err_k64, err_p64 = max(err_k64, dist(s, s64)), max(err_p64, e_p64)
+            if not torch.equal(rk, rp):
+                fail(f"{name}{label}: block {i}'s rejection counts differ from the plain "
+                     "version's")
+            if any(not torch.equal(s[key], sk2[key]) for key in s) or not torch.equal(rk, rk2):
+                fail(f"{name}{label}: a second launch from the same state gave other bits")
+            nrej += int(rk.sum().item())
+            del sp, sk2, s64
+        errs["sample" if sample else "als"] = dict(kernel_from_float64=err_k64,
+                                                    plain_from_float64=err_p64)
+        del s
+    if nrej:
+        fail(f"{name}{label}: {nrej} draws rejected at the check state")
+    s_k, s_p = clone(state), clone(state)
+    rej = [torch.zeros(b.F, dtype=torch.int32, device=dev) for b in blocks]
+
+    def run_all(fn, s):
+        def go():
+            for i in range(len(blocks)):
+                run_block(fn, s, i, rej[i], True)
+        return go
+
+    print(f"{name}{label}: largest distance from the float64 plain version, kernel / "
+          f"float32 plain: {errs}")
+    row = kernel_row(
+        name, config["replaces"], worst["err"], worst["tol"],
+        cuda_ms(run_all(kern, s_k), args.reps),
+        cuda_ms(run_all(plain, s_p), args.reps, warmup=1),
+        nbytes=nbytes, flops=flops, lib_ms=None, timed=timed, label=label,
+        source="libfm_tpu_torch/csrc/coord_draw.cu")
+    row.update(config=config["name"], mode=config["mode"], err_from_float64=errs,
+               tolerance_note=f"{EXACT_TOL:g}, or {EXACT_SLACK:g} times the float32 plain "
+               "version's distance from float64 on the same launch where larger; each "
+               "block from the same state",
+               library_note="none: no one call gathers a block's cache rows, sums them "
+               "per feature, draws and scatters the updates back")
+    del s_k, s_p
+    return row
+
+
+def exact_flat_checks(args, dev, config, train, groups, k, longest_only):
+    """Phase 3, the flat exact engine: coord_draw w and v (factor k/2, whose
+    q lies in another 32-byte sector of A's row than e, as most factors'
+    do) on the
+    config's blocks (or on the block with the longest feature alone),
+    from P = 0.1 randn and the A = [e | Q] that fm_refresh writes from it,
+    alpha 1 / var(e), lambda 5 and mu 0 in every group."""
+    import numpy as np
+
+    from libfm_tpu_torch.kernels import fm_refresh as fr
+    from libfm_tpu_torch.learners.mcmc import exact_layout, padded_rows
+
+    n, nc, d = train.num_features, train.num_rows, k + 1
+    groups = groups if groups is not None else np.zeros(n, np.int32)
+    blocks, _ = exact_layout(train, groups, 128, dev)
+    longest = [int((b.feat_off[1:] - b.feat_off[:-1]).max().item()) for b in blocks]
+    if longest_only:
+        i = int(np.argmax(longest))
+        blocks, longest = [blocks[i]], [longest[i]]
+    E = sum(int(b.slot_row.numel()) for b in blocks)
+    F = sum(b.F for b in blocks)
+    z_off = np.cumsum([0] + [b.F for b in blocks])
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 3)
+    P = 0.1 * torch.randn(n, d, generator=g, device=dev)
+    ids, vals = padded_rows(train, dev)
+    y = torch.as_tensor(train.target, device=dev)
+    w0 = torch.tensor(float(train.target.mean()), device=dev)
+    A = torch.empty(nc, d, device=dev)
+    fr.fm_refresh(P, ids, vals, w0, y, A, min_target=float(train.min_target),
+                  max_target=float(train.max_target))
+    del ids, vals
+    G = int(groups.max()) + 1
+    state = dict(P=P, A=A, lam=torch.full((G,), 5.0, device=dev),
+                 mu=torch.zeros(G, device=dev), alpha=(1.0 / A[:, 0].var()).reshape(()),
+                 z=torch.randn(F, generator=g, device=dev))
+    bound = 1e6 * max(1.0, abs(float(train.min_target)), abs(float(train.max_target)))
+    print(f"{config}: exact-engine blocks (features, slots, longest feature's slots) "
+          f"{[(b.F, int(b.slot_row.numel()), m) for b, m in zip(blocks, longest)]}")
+
+    def mode_fns(mode):
+        col = 0 if mode == "w" else 1 + k // 2
+
+        def run_block(fn, s, i, rej, sample):
+            b = blocks[i]
+            fn(s["P"][:, col], b.feat_off, b.slot_row, b.slot_val, b.feat_id, b.group_id,
+               s["lam"], s["mu"], s["alpha"], s["z"][z_off[i]:z_off[i + 1]] if sample else None,
+               rej, bound=bound, e=s["A"][:, 0], q=None if mode == "w" else s["A"][:, col])
+
+        def parts(s):
+            return [s["P"][:, col], s["A"][:, 0]] + ([s["A"][:, col]] if mode == "v" else [])
+        return run_block, parts
+
+    rows = []
+    where = ("the block with the longest feature" if longest_only
+             else f"{len(blocks)} blocks")
+    for mode, per_slot in (("v", 24), ("w", 16)):
+        rows.append(exact_draw_row(
+            args, dev, "coord_draw", f" ({config}, {mode})",
+            dict(name=config, mode=mode,
+                 replaces="libfm_tpu/learners/mcmc.py:" + ("281" if mode == "v" else "254")),
+            blocks, state, *mode_fns(mode),
+            nbytes=E * per_slot + F * 36, flops=E * (10 if mode == "v" else 4) + F * 12,
+            timed=f"one {'factor' if mode == 'v' else 'w sweep'}'s launches on {where}"))
+        rows[-1].update(blocks=len(blocks), slots=E, features=F,
+                        longest_feature_slots=max(longest))
+    if longest_only:
+        print(f"{config}: the longest feature holds {max(longest)} of its block's {E} slots; "
+              f"coord_draw v {rows[0]['ms']:.4f} ms, w {rows[1]['ms']:.4f} ms for the block")
+    del P, A, state
+    torch.cuda.empty_cache()
+    return rows
+
+
+def exact_rel_checks(args, dev, ctx):
+    """Phase 3, the exact BS engine at bench_bs_ctx: rel_coord_draw w (we
+    from rel_cache over A's first two columns) and v (factor f = k/2:
+    rel_cache over [e | q'], qB the score table's column f) on the relation's 23
+    blocks, and rel_cache at k = 1 against the float64 plain version, from
+    P = 0.1 randn and the A that rel_refresh writes with the main rows."""
+    import numpy as np
+
+    from libfm_tpu_torch.kernels import rel_cache as rc
+    from libfm_tpu_torch.kernels import rel_refresh as rr
+    from libfm_tpu_torch.kernels.case_stats import err_over_magnitudes
+    from libfm_tpu_torch.learners.mcmc import padded_rows
+    from libfm_tpu_torch.learners.mcmc_rel_vector import RelLayout
+    from libfm_tpu_torch.learners.mcmc_relational import ExactRel
+
+    train, test, n = ctx["train"], ctx["test"], ctx["num_features"]
+    k, d = BS_FACTORS, BS_FACTORS + 1
+    nc = train.num_rows
+    lay = RelLayout(train.relations[0], test.relations[0], np.zeros(n, np.int32), n,
+                    by_shape=False)
+    rel = ExactRel(lay, dev)
+    nb = rel.nb
+    blocks = rel.blocks
+    E = sum(int(b.slot_row.numel()) for b in blocks)
+    F = sum(b.F for b in blocks)
+    z_off = np.cumsum([0] + [b.F for b in blocks])
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+    P = 0.1 * torch.randn(n, d, generator=g, device=dev)
+    ids, vals = padded_rows(train, dev)
+    y = torch.as_tensor(train.target, device=dev)
+    w0 = torch.tensor(float(train.target.mean()), device=dev)
+    SC = rr.rel_scores(P, rel.indptr, rel.cols, rel.vals)
+    A = torch.empty(nc, d, device=dev)
+    rr.rel_refresh(SC, rel.map_tr.to(torch.int32)[None].contiguous(), w0, A, y, P=P,
+                   ids=ids, vals=vals, min_target=float(train.min_target),
+                   max_target=float(train.max_target))
+    del ids, vals
+    yb = 0.5 * ((SC[:, :k] * SC[:, :k]).sum(dim=1) - SC[:, k]) + SC[:, k + 1]
+    C_w = rc.rel_cache(A[:, :2].contiguous(), rel.case_off, rel.case_ids)
+    f = k // 2
+    T = torch.stack([A[:, 0], A[:, 1 + f] - SC[rel.map_tr, f]], dim=1)
+    C_v = rc.rel_cache(T, rel.case_off, rel.case_ids)
+    const = dict(lam=torch.full((1,), 5.0, device=dev), mu=torch.zeros(1, device=dev),
+                 alpha=(1.0 / A[:, 0].var()).reshape(()), wnum=rel.wnum,
+                 z=torch.randn(F, generator=g, device=dev))
+    bound = 1e6 * max(1.0, abs(float(train.min_target)), abs(float(train.max_target)))
+
+    def run_block(fn, s, i, rej, sample):
+        b = blocks[i]
+        C = s["C"]
+        extra = {} if "SC" not in s else dict(
+            weq=C[:, 3], wc=C[:, 2], wc_sqr=C[:, 4], qb=s["SC"][:, f])
+        fn(s["P"][:, 0 if "SC" not in s else 1 + f], b.feat_off, b.slot_row, b.slot_val,
+           b.feat_id, b.group_id, s["lam"], s["mu"], s["alpha"],
+           s["z"][z_off[i]:z_off[i + 1]] if sample else None, rej, bound=bound, we=C[:, 0],
+           wnum=s["wnum"], yb=s["yb"], **extra)
+
+    def parts(s):
+        if "SC" not in s:
+            return [s["P"][:, 0], s["yb"], s["C"][:, 0]]
+        return [s["P"][:, 1 + f], s["yb"], s["C"][:, 0], s["C"][:, 3], s["SC"][:, f]]
+
+    print(f"bench_bs_ctx: the exact BS engine's {len(blocks)} relation blocks over {nb} "
+          f"block rows, {F} features, {E} entries")
+    rows = [
+        exact_draw_row(
+            args, dev, "rel_coord_draw", " (bench_bs_ctx, v)",
+            dict(name="bench_bs_ctx", mode="v",
+                 replaces="libfm_tpu/learners/mcmc_relational.py:156"),
+            blocks, dict(P=P, C=C_v, yb=yb, SC=SC, **const), run_block, parts,
+            nbytes=E * 52 + F * 36, flops=E * 24 + F * 12,
+            timed=f"one factor's launches: one per relation block ({len(blocks)})"),
+        exact_draw_row(
+            args, dev, "rel_coord_draw", " (bench_bs_ctx, w)",
+            dict(name="bench_bs_ctx", mode="w",
+                 replaces="libfm_tpu/learners/mcmc_relational.py:129"),
+            blocks, dict(P=P, C=C_w, yb=yb, **const), run_block, parts,
+            nbytes=E * 28 + F * 36, flops=E * 6 + F * 12,
+            timed=f"the w sweep's launches: one per relation block ({len(blocks)})"),
+    ]
+    for r in rows:
+        r.update(blocks=len(blocks), slots=E, features=F)
+
+    # ---- rel_cache at k = 1: the per-block-row sums of [e | q']
+    ref, scale = rc.rel_cache_reference(T, rel.case_off, rel.case_ids)
+    counts = np.diff(lay.case_off)
+    lmax = int(counts.max())
+    err = err_over_magnitudes(C_v, ref, scale)
+    del ref, scale
+    rowid = torch.as_tensor(np.repeat(np.arange(nb), counts), device=dev)
+    pos = torch.as_tensor(np.arange(nc) - np.repeat(lay.case_off[:-1], counts), device=dev)
+    R = torch.zeros(nb, lmax, 3, device=dev)
+    R[rowid, pos, 0] = 1.0
+    R[rowid, pos, 1:] = T[rel.case_ids.long()]
+    lib = cuda_ms(lambda: torch.bmm(R.transpose(1, 2), R), args.reps)
+    del R, rowid, pos
+    row = kernel_row(
+        "rel_cache", "libfm_tpu/learners/mcmc_relational.py:544", err, 2 * (lmax + 2) * U32,
+        cuda_ms(lambda: rc.rel_cache(T, rel.case_off, rel.case_ids), args.reps),
+        cuda_ms(lambda: rc.rel_cache_plain(T, rel.case_off, rel.case_ids), args.reps),
+        nbytes=nc * (2 * 4 + 4) + (nb + 1) * 8 + (nb + 1) * 5 * 4, flops=2 * nc * 5,
+        lib_ms=lib, timed="one launch: the exact BS engine's per-row sums of one factor",
+        label=" (k = 1, bench_bs_ctx)", source="libfm_tpu_torch/csrc/rel_cache.cu")
+    row.update(config="bench_bs_ctx", k=1, most_cases_on_a_row=lmax,
+               library_note=f"torch.bmm(R^T, R) of the pre-gathered rows [1 | e | q'], "
+               f"zero-padded to [nb, {lmax}, 3], fp32; the gather not timed",
+               tolerance_note="2 (most cases on a row + 2) float32 roundings of each "
+               "entry's sum of magnitudes, against float64")
+    rows.append(row)
+    del P, A, T, SC, C_v, C_w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flat_exact_want(iters, blocks, k, probit=False):
+    """The flat exact engine's launches: coord_draw once a block for w and
+    for each factor, fm_refresh at the set-up and twice an iteration (test
+    and train mode; probit: the train mode counted as fm_refresh_probit)."""
+    return dict(coord_draw=iters * blocks * (1 + k),
+                fm_refresh=1 + iters * (1 if probit else 2),
+                fm_refresh_probit=iters if probit else 0)
+
+
+def bs_exact_want(iters, mains, blocks, k, probit=False):
+    """The exact BS engine's launches (one relation): coord_draw on the main
+    blocks and rel_coord_draw on the relation's, once for w and for each
+    factor; rel_cache 1 + k an iteration; rel_scores at the set-up and once
+    an iteration; rel_refresh at the set-up and twice an iteration (probit:
+    the train mode counted as rel_refresh_probit)."""
+    return dict(coord_draw=iters * mains * (1 + k), rel_coord_draw=iters * blocks * (1 + k),
+                rel_cache=iters * (1 + k), rel_scores=1 + iters,
+                rel_refresh=1 + iters * (1 if probit else 2),
+                rel_refresh_probit=iters if probit else 0)
+
+
+def beside(rec, name, vector, key="test_all"):
+    """Print run `name`'s readings by iteration beside the vector engine's
+    run `vector` (where this invocation ran it)."""
+    got = [round(h[key], 6) for h in rec[name]["history"]]
+    other = rec.get(vector)
+    vec = ([round(h[key], 6) for h in other["history"][:len(got)]] if other
+           else "not run in this invocation")
+    print(f"{name}: {key} by iteration {got}; the vector engine's {vector} {vec}; seconds "
+          f"an iteration {[round(h['time'], 6) for h in rec[name]['history']]}")
+
+
+def run_exact(args, rec, dev, counts, done, data=None, ctr=None, bs=None, ctx=None):
+    """The exact engines (K11): the kernel checks (returns their rows) and
+    the paths, each with its exact launches into `counts`: ALS 3 and MCMC 4
+    iterations at config #3, MCMC 4 (probit) at config #4, ALS 3 and MCMC 4
+    at bench_bs_ctx and MCMC 4 at bench_bs_c on the exact BS engine, and the
+    vector learner's fallback to it at bench_bs (bs_vector off, ALS 3).
+    Builds the data it is not given."""
+    from libfm_tpu_torch.data.synth import movielens_like
+    from libfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+    from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner
+
+    t0 = time.perf_counter()
+    if data is None:
+        data = movielens_like(USERS, ITEMS, RATINGS, seed=SEED)
+        t0 = done("config #3 data", t0)
+    if ctr is None:
+        ctr = ctr_data()
+        t0 = done("config #4 data", t0)
+    if bs is None:
+        bs = bs_data(dev)
+        t0 = done("bench_bs data", t0)
+    if ctx is None:
+        ctx = bs_ctx_data(dev, bs)
+        t0 = done("bench_bs_ctx data", t0)
+    table = exact_flat_checks(args, dev, "config #3", data[0], None, FACTORS, False)
+    table += exact_flat_checks(args, dev, "config #4", ctr[0], ctr[2], CTR_FACTORS, True)
+    table += exact_rel_checks(args, dev, ctx)
+    t0 = done("exact kernel checks", t0)
+
+    reg = dict(regw=5.0, regv=5.0)
+    _, counts["als_exact_3"] = run_learner(
+        ALSLearner, "als_exact_3", data, args, rec, iters=ALS_ITERS,
+        want=flat_exact_want(ALS_ITERS, 2, FACTORS), **reg)
+    hist = rec["als_exact_3"]["history"]
+    if not hist[-1]["train"] < hist[0]["train"]:
+        fail(f"als_exact_3: train RMSE did not fall: {[h['train'] for h in hist]}")
+    beside(rec, "als_exact_3", "als", "train")
+    t0 = done("config #3 exact ALS path", t0)
+    sd3 = float(data[1].target.std())
+    _, counts["exact_3"] = run_learner(MCMCLearner, "exact_3", data, args, rec,
+                                       iters=MCMC_ITERS,
+                                       want=flat_exact_want(MCMC_ITERS, 2, FACTORS))
+    beside(rec, "exact_3", "mcmc")
+    got = rec["exact_3"]["history"][-1]["test_all"]
+    print(f"exact_3: test_all after {MCMC_ITERS} iterations {got:.6f}, the test targets' "
+          f"sd {sd3:.6f}")
+    if not got < sd3:
+        fail(f"exact_3: test_all {got} is not below the test targets' sd {sd3}")
+    t0 = done("config #3 exact MCMC path", t0)
+    _, counts["exact_4"] = run_learner(
+        MCMCLearner, "exact_4", ctr, args, rec, factors=CTR_FACTORS, iters=CTR_MCMC_ITERS,
+        groups=ctr[2], task=1, want=flat_exact_want(CTR_MCMC_ITERS, CTR_FIELDS, CTR_FACTORS,
+                                                    probit=True))
+    beside(rec, "exact_4", "mcmc_4")
+    share = float((ctr[1].target > 0).mean())
+    larger = max(share, 1.0 - share)
+    got = rec["exact_4"]["history"][-1]["test_all"]
+    print(f"exact_4: test accuracy after {CTR_MCMC_ITERS} iterations {got:.6f}, the larger "
+          f"class's share {larger:.6f}")
+    if not got > larger:
+        fail(f"exact_4: test accuracy {got} is not above the larger class's share {larger}")
+    t0 = done("config #4 exact MCMC path", t0)
+
+    c_bs = dict(factors=BS_FACTORS, num_features=ctx["num_features"])
+    nblk, nmain = ctx["blocks"], ctx["main_blocks"]
+    paths = (("als_exact_bs_ctx", ALSLearner, 0, BS_CTX_ALS_ITERS, reg, "als_bs_ctx"),
+             ("exact_bs_ctx", MCMCLearner, 0, BS_CTX_MCMC_ITERS, {}, "mcmc_bs_ctx"),
+             ("exact_bs_c", MCMCLearner, 1, BS_CTX_MCMC_ITERS, {}, "mcmc_bs_c"))
+    for name, cls, task, iters, kw, vector in paths:
+        pair = (ctx["train_c"], ctx["test_c"]) if task else (ctx["train"], ctx["test"])
+        _, counts[name] = run_learner(
+            cls, name, pair, args, rec, iters=iters, task=task,
+            want=bs_exact_want(iters, nmain, nblk, BS_FACTORS, probit=bool(task)), **kw,
+            **c_bs)
+        hist = rec[name]["history"]
+        beside(rec, name, vector, "train" if cls is ALSLearner else "test_all")
+        if cls is ALSLearner and not hist[-1]["train"] < hist[0]["train"]:
+            fail(f"{name}: train RMSE did not fall: {[h['train'] for h in hist]}")
+        if name == "exact_bs_ctx":
+            sd_te = float(pair[1].target.std())
+            print(f"{name}: test_all after {iters} iterations {hist[-1]['test_all']:.6f}, "
+                  f"the test targets' sd {sd_te:.6f}")
+            if not hist[-1]["test_all"] < sd_te:
+                fail(f"{name}: test_all {hist[-1]['test_all']} is not below the test "
+                     f"targets' sd {sd_te}")
+        if name == "exact_bs_c":
+            larger = max(ctx["positive_share"], 1.0 - ctx["positive_share"])
+            print(f"{name}: test accuracy after {iters} iterations "
+                  f"{hist[-1]['test_all']:.6f}, the larger class's share {larger:.6f}")
+            if not hist[-1]["test_all"] > larger:
+                fail(f"{name}: test accuracy {hist[-1]['test_all']} is not above the "
+                     f"larger class's share {larger}")
+        t0 = done(f"bench_bs_ctx {name} path", t0)
+    learner, counts["bs_fallback"] = run_learner(
+        ALSVectorLearner, "bs_fallback", (bs["train"], bs["test"]), args, rec,
+        iters=BS_CTX_ALS_ITERS, want=bs_exact_want(BS_CTX_ALS_ITERS, 0, bs["blocks"],
+                                                   BS_FACTORS),
+        factors=BS_FACTORS, num_features=BS_NF, flags=dict(bs_vector=False), **reg)
+    if learner.relational_mode != "bs":
+        fail(f"bs_fallback: routed to {learner.relational_mode}, not the exact BS engine")
+    hist = rec["bs_fallback"]["history"]
+    if not hist[-1]["train"] < hist[0]["train"]:
+        fail(f"bs_fallback: train RMSE did not fall: {[h['train'] for h in hist]}")
+    beside(rec, "bs_fallback", "als_bs", "train")
+    done("bench_bs exact fallback path", t0)
     return table
 
 
@@ -2994,6 +3456,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and run bench_bs and bench_bs_ctx: "
                     "their kernel checks and their three and four paths; print the rows "
                     "and launches as one JSON line")
+    ap.add_argument("--exact", action="store_true",
+                    help="only build the kernels and run the exact engines' kernel "
+                    "checks and paths (configs #3 and #4, bench_bs_ctx, bench_bs_c, the "
+                    "fallback at bench_bs); print the rows as one JSON line")
     ap.add_argument("--quality", action="store_true",
                     help="only build the kernels and run MCMC to bench.py's 24 "
                     "iterations at configs #3, #4 and #5; print each test_all beside "
@@ -3047,7 +3513,17 @@ def main(argv=None) -> int:
         return 0
     if args.bench_bs:
         counts = {}
-        table = run_bench_bs(args, rec, dev, counts, done)
+        table, _, _ = run_bench_bs(args, rec, dev, counts, done)
+        fill_launches(table, counts)
+        print(f"phase seconds: { {key: round(v, 2) for key, v in phase.items()} }")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(rec, kernels=table, phase_seconds=phase), f, indent=1)
+        print(json.dumps({"card": smi, "kernels": table}))
+        return 0
+    if args.exact:
+        counts = {}
+        table = run_exact(args, rec, dev, counts, done)
         fill_launches(table, counts)
         print(f"phase seconds: { {key: round(v, 2) for key, v in phase.items()} }")
         if args.out:
@@ -3113,7 +3589,10 @@ def main(argv=None) -> int:
                       dual_draw=lv_blocks["dual"]))
     del lv
     t0 = done("config #5 MCMC path", t0)
-    table += run_bench_bs(args, rec, dev, counts, done)
+    bs_table, bs, ctx = run_bench_bs(args, rec, dev, counts, done)
+    table += bs_table
+    table += run_exact(args, rec, dev, counts, done, data=data, ctr=ctr, bs=bs, ctx=ctx)
+    del bs, ctx
     t0 = time.perf_counter()
     counts["sgd_1"] = run_sgd("sgd_1", data, args, rec)
     t0 = done("SGD #1 path", t0)
@@ -3137,7 +3616,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": table}))
     for name in ("als", "mcmc", "mcmc_scatter", "mcmc_tail", "als_4", "mcmc_4", "mcmc_5",
                  "als_bs", "mcmc_bs", "mcmc_bs_resync", "als_bs_ctx", "mcmc_bs_ctx",
-                 "als_bs_c", "mcmc_bs_c"):
+                 "als_bs_c", "mcmc_bs_c", "als_exact_3", "exact_3", "exact_4",
+                 "als_exact_bs_ctx", "exact_bs_ctx", "exact_bs_c", "bs_fallback"):
         print(f"{name} per-iteration seconds on {smi}: "
               f"{[round(h['time'], 6) for h in rec[name]['history']]}")
     for name in SGD_CONFIGS:

@@ -24,6 +24,7 @@ __version__ = "0.1.0"
 
 from libfm_tpu_torch.data.dataset import Dataset  # noqa: E402
 from libfm_tpu_torch.device import resolve_device  # noqa: E402
+from libfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner  # noqa: E402
 from libfm_tpu_torch.learners.mcmc_vector import (  # noqa: E402
     ALSVectorLearner,
     MCMCVectorLearner,
@@ -47,6 +48,8 @@ __all__ = [
     "FMConfig",
     "init_fm",
     "fm_batch_predict",
+    "MCMCLearner",
+    "ALSLearner",
     "MCMCVectorLearner",
     "ALSVectorLearner",
     "SGDLearner",

@@ -210,7 +210,7 @@ def padded_width(k: int) -> int:
 def import_all() -> dict:
     """Import every kernel module so REGISTRY lists them all."""
     from libfm_tpu_torch.kernels import (  # noqa: F401
-        case_stats, dense_update, dual_draw, fm_refresh, probit_latent, rel_cache,
+        case_stats, coord_draw, dense_update, dual_draw, fm_refresh, probit_latent, rel_cache,
         rel_refresh, rel_sweep, schur_draw, sgd_step, sgda_lambda, sgda_step, slot_stats,
         slot_update, table_read, table_scatter,
     )

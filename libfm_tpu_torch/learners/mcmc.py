@@ -1,18 +1,20 @@
-"""ALS / MCMC (Gibbs) learner: configuration surface and shared draws.
+"""ALS / MCMC (Gibbs) learner and the flat exact engine.
 
-The port's counterpart of `libfm_tpu.learners.mcmc`. This slice carries
-the learner's configuration surface (constructor, `set_regularization`,
-per-iteration logging, `predict`, `get_params`), the hyperparameter
-draws (`draw_alpha`, `draw_alpha_from_sum`, `draw_theta_hyperpriors`), the refresh cadence
-(`dispatch_chunks`), the masked test metrics (RMSE/MAE for
-regression, accuracy/log10-likelihood and AUC for probit
-classification) and the steps the two vector engines share (the
-initial state, the w0, hyperprior and unobserved-feature draws, the
-per-iteration metrics). The flat vector engine
-(`learners/mcmc_vector.py`) and the BS one (`learners/mcmc_rel_vector.py`)
-run on top of it. The exact per-coordinate
-engine (`-engine exact`) is not ported: `MCMCLearner.learn` raises
-(ROADMAP M10).
+The port of `libfm_tpu.learners.mcmc`. It carries the learner's
+configuration surface (constructor, `set_regularization`, per-iteration
+logging, `predict`, `get_params`), the hyperparameter draws
+(`draw_alpha`, `draw_alpha_from_sum`, `draw_theta_hyperpriors`), the
+refresh cadence (`dispatch_chunks`), the masked test metrics (RMSE/MAE
+for regression, accuracy/log10-likelihood and AUC for probit
+classification), the steps every engine shares (the initial state, the
+w0, hyperprior and unobserved-feature draws, the per-iteration metrics)
+and the exact per-coordinate engine (`-engine exact`, `MCMCLearner` /
+`ALSLearner`): libFM's Gibbs scan, one coordinate of w, then of each
+factor of V, at a time, drawn in parallel within a conflict-free block
+(`coord_draw`), the caches A = [e | Q] re-predicted every iteration
+(`fm_refresh`). Relational (BS) data runs on the exact BS engine
+(learners/mcmc_relational.py). The vector engines (learners/mcmc_vector.py,
+learners/mcmc_rel_vector.py) run on top of the shared steps.
 
 ALS is MCMC with do_sample=False, do_multilevel=False — posterior means
 instead of draws (libFM src/libfm/libfm.cpp:135-139).
@@ -25,12 +27,18 @@ from functools import partial
 import numpy as np
 import torch
 
+from libfm_tpu_torch.data.batching import conflict_free_blocks, feature_slots
+from libfm_tpu_torch.data.vector_layout import padded_rows_layout
 from libfm_tpu_torch.device import resolve_device
+from libfm_tpu_torch.kernels.coord_draw import coord_draw
+from libfm_tpu_torch.kernels.fm_refresh import fm_refresh
+from libfm_tpu_torch.learners import base as _base
 from libfm_tpu_torch.learners.base import rmse_mae
 from libfm_tpu_torch.models.fm import FMConfig, FMParams, init_fm
 from libfm_tpu_torch.ops import samplers
 from libfm_tpu_torch.ops.segment import seg_sum
 from libfm_tpu_torch.tasks import TASK_CLASSIFICATION, TASK_REGRESSION
+from libfm_tpu_torch.utils.timers import iter_clocks
 
 
 #: the hyperparameters a sweep draws with (`draw_sweep_hyperpriors`'
@@ -329,6 +337,196 @@ def step_metrics(lrn, st, it, pred_test, train_metric, rej, y_test, eval_mask):
 
 
 # --------------------------------------------------------------------------
+# The exact engines' blocks and draws (flat below, BS in
+# learners/mcmc_relational.py)
+# --------------------------------------------------------------------------
+
+#: the CUDA kernels of the refreshes take k <= 128
+MAX_FACTORS_CUDA = 128
+
+
+class CoordBlock:
+    """One conflict-free block on the device, as `coord_draw` and
+    `rel_coord_draw` read it: its features (global ids: `features` long,
+    `feat_id` int32), their groups (`group_id` int32), the per-feature slot
+    lists `feat_off` int64 [F+1], `slot_row` int32 (train cases, or block
+    rows) and `slot_val` float32, and `rejected`, the block's slice of the
+    engine's rejection counters (`attach_counters`)."""
+
+    def __init__(self, features, groups, feat_off, slot_row, slot_val, device):
+        def t(x, dtype):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+        self.F = len(features)
+        self.features = t(features, torch.long)
+        self.feat_id = t(features, torch.int32)
+        self.group_id = t(groups, torch.int32)
+        self.feat_off = t(feat_off, torch.int64)
+        self.slot_row = t(slot_row, torch.int32)
+        self.slot_val = t(slot_val, torch.float32)
+        self.rejected = None
+
+    @classmethod
+    def from_feature_block(cls, block, attr_group_np, device):
+        off, rows, vals = feature_slots(block)
+        return cls(block.features, attr_group_np[block.features], off, rows, vals, device)
+
+
+def attach_counters(blocks, device):
+    """One zeroed int32 rejection counter a feature of `blocks`; each
+    block's `rejected` is its slice. Returns the whole buffer, which the
+    engine sums and zeroes once an iteration."""
+    buf = torch.zeros(sum(b.F for b in blocks), dtype=torch.int32, device=device)
+    o = 0
+    for b in blocks:
+        b.rejected = buf[o:o + b.F]
+        o += b.F
+    return buf
+
+
+def draw_block(lrn, kernel, blk, theta, lam, mu, alpha, bound, **caches):
+    """One block's draws with `kernel` (`coord_draw` or `rel_coord_draw`)
+    on the parameter column `theta`, the normals drawn from the learner's
+    generator first (none under ALS)."""
+    z = (torch.randn(blk.F, generator=lrn.generator, device=theta.device)
+         if lrn.do_sample else None)
+    kernel(theta, blk.feat_off, blk.slot_row, blk.slot_val, blk.feat_id, blk.group_id, lam,
+           mu, alpha, z, blk.rejected, bound=bound, **caches)
+
+
+def padded_rows(ds, device):
+    """`fm_refresh`'s (ids, vals) [nc, L] for the cases of `ds`."""
+    ids, vals = padded_rows_layout(ds.indptr, ds.cols, ds.vals)
+    return torch.as_tensor(ids, device=device), torch.as_tensor(vals, device=device)
+
+
+def exact_layout(train, attr_group_np, max_blocks: int, device):
+    """The flat exact engine's blocks (`conflict_free_blocks` over the
+    train cases, in the JAX engine's order) and the features in no block
+    (int64). Above `max_blocks` blocks the JAX engine draws the largest
+    max_blocks one by one and the rest under one lax.scan (a bound on
+    XLA's program size), all in the order of a stable sort by entry count,
+    descending; the port draws every block in one loop, in that order."""
+    blocks = conflict_free_blocks(train, attr_group=attr_group_np)
+    observed = np.zeros(len(attr_group_np), dtype=bool)
+    for b in blocks:
+        observed[b.features] = True
+    if len(blocks) > max_blocks:
+        order = np.argsort([-len(b.entry_rows) for b in blocks], kind="stable")
+        blocks = [blocks[i] for i in order]
+    return ([CoordBlock.from_feature_block(b, attr_group_np, device) for b in blocks],
+            np.nonzero(~observed)[0].astype(np.int64))
+
+
+def learn_exact(lrn, train, test):
+    """The flat exact engine (JAX mcmc.py `learn`, `draw_all`, `iteration`)
+    for `lrn`, regression or probit classification; returns the history.
+
+    State on the device: P = [w | V] [n, k+1] and A = [e | Q] [num_train,
+    k+1] (e = pred - y, or pred - latent under probit). One iteration:
+    alpha, w0 (e moves with it), the hyperpriors, one `coord_draw` w
+    launch a block, the unobserved features, then for each factor f one
+    `coord_draw` v launch a block on (e, q = A[:, 1+f]); then the
+    re-prediction: `fm_refresh`'s test mode, and its train mode (A
+    rewritten, the clipped squared error) or probit mode (the latents
+    drawn, or their expectations under ALS, and the correct count)."""
+    cfg = lrn.cfg
+    dev, gen, f32 = lrn.device, lrn.generator, torch.float32
+    n, k = cfg.num_features, cfg.num_factors
+    lrn.min_target, lrn.max_target = train.min_target, train.max_target
+    min_t, max_t = float(lrn.min_target), float(lrn.max_target)
+    bound = samplers.DRAW_BOUND * max(1.0, abs(min_t), abs(max_t))
+    use_linear = cfg.use_linear
+    classify = lrn.task == TASK_CLASSIFICATION
+    nc_train, nc_test = train.num_rows, test.num_rows
+
+    attr_group_np, attr_group, num_attr_per_group = attr_groups(lrn.attr_group_np, n, dev)
+    blocks, unobserved = exact_layout(train, attr_group_np, lrn.max_blocks, dev)
+    unobserved = torch.as_tensor(unobserved, device=dev)
+    rejected = attach_counters(blocks, dev)
+    tr_ids, tr_vals = padded_rows(train, dev)
+    te_ids, te_vals = padded_rows(test, dev)
+    y_train = torch.as_tensor(train.target, dtype=f32, device=dev)
+    y_test = torch.as_tensor(test.target, dtype=f32, device=dev)
+    nec = lrn.num_eval_cases if lrn.num_eval_cases is not None else nc_test
+    eval_mask = (torch.arange(nc_test, device=dev) < nec).to(f32)
+
+    P, st = initial_state(lrn, lrn.init_params, n, k, num_attr_per_group.shape[0], nc_test)
+    A = torch.empty(nc_train, k + 1, dtype=f32, device=dev)
+    fwd = dict(use_linear=use_linear, use_bias=cfg.use_bias)
+    clip = dict(min_target=min_t, max_target=max_t)
+    # the initial prediction takes e = pred - y for both tasks (libFM
+    # fm_learn_mcmc_simultaneous.h:70-86): the latents start at y
+    fm_refresh(P, tr_ids, tr_vals, st["w0"], y_train, A, **clip, **fwd)
+    latent = y_train.clone() if classify else None
+    probit = None if not classify else "sample" if lrn.do_sample else "mean"
+
+    def draw_all():
+        e = A[:, 0]
+        alpha, rej = draw_alpha(gen, e, nc_train, st["alpha"], lrn.alpha_0, lrn.gamma_0,
+                                lrn.do_multilevel, lrn.do_sample)
+        w0 = st["w0"]
+        if cfg.use_bias:
+            w0_new, r = draw_w0(lrn, e.sum(), nc_train, w0, alpha, bound)
+            rej = rej + r
+            A[:, 0] += w0_new - w0
+            w0 = w0_new
+        # V's hyperpriors and the unobserved features' V are drawn here
+        # with w's; the JAX engine draws them after the w sweep (the
+        # hyperpriors) and after each factor's blocks (the unobserved).
+        # Neither reads what the w sweep changes and the unobserved
+        # features touch no case, so the distribution and the ALS
+        # trajectory are the same
+        hyper, r = draw_sweep_hyperpriors(lrn, P, attr_group, num_attr_per_group, st)
+        rej = rej + r
+        w_mu, w_lambda, v_mu, v_lambda = hyper
+        if use_linear:
+            for blk in blocks:
+                draw_block(lrn, coord_draw, blk, P[:, 0], w_lambda, w_mu, alpha, bound, e=e)
+        rej = rej + draw_unobserved(lrn, P, unobserved, attr_group, hyper, bound)
+        for f in range(k):
+            # factor f's q is A's column 1+f: the last re-prediction wrote
+            # it from V[:, f], which nothing has changed since, and each
+            # block's draws keep it current. It is the JAX engine's rebuilt
+            # q (add_main_q) up to the order of f32 sums
+            q = A[:, 1 + f]
+            for blk in blocks:
+                draw_block(lrn, coord_draw, blk, P[:, 1 + f], v_lambda[:, f], v_mu[:, f],
+                           alpha, bound, e=e, q=q)
+        st.update(w0=w0, alpha=alpha, **dict(zip(HYPER, hyper)))
+        return rej
+
+    def one_step(it):
+        rej = draw_all()
+        w0 = st["w0"]
+        pred_test = fm_refresh(P, te_ids, te_vals, w0, **fwd)
+        U = torch.rand(nc_train, generator=gen, device=dev) if probit == "sample" else None
+        m = fm_refresh(P, tr_ids, tr_vals, w0, y_train, A, probit=probit, U=U,
+                       latent=latent, **clip, **fwd)
+        train_metric = m / max(nc_train, 1) if classify else torch.sqrt(m / max(nc_train, 1))
+        rej = rej + rejected.sum()
+        rejected.zero_()
+        return step_metrics(lrn, st, it, pred_test, train_metric, rej, y_test, eval_mask)
+
+    return run_iterations(lrn, one_step, P, st)
+
+
+def run_iterations(lrn, one_step, P, st):
+    """The exact engines' loop: `one_step(it)` for every iteration, timed
+    and logged; the final state kept for predict() and get_params()."""
+    lrn.history = []
+    for it in range(lrn.num_iter):
+        c0 = iter_clocks(lrn.device)
+        # a named range for torch.profiler traces (chip_smoke.py --profile)
+        with torch.profiler.record_function(f"iteration {it}"):
+            metrics = one_step(it)
+        c1 = iter_clocks(lrn.device)
+        lrn._log_iteration(it, metrics, tuple(b - a for a, b in zip(c0, c1)))
+    lrn._final_state = dict(st, w=P[:, 0].clone(), V=P[:, 1:].clone())
+    return lrn.history
+
+
+# --------------------------------------------------------------------------
 # The learner
 # --------------------------------------------------------------------------
 
@@ -340,6 +538,9 @@ class MCMCLearner:
     do_sample=False, do_multilevel=False -> ALS
     Runs on `device` (default CUDA; raises when CUDA is absent) with one
     `torch.Generator` on that device, seeded from `seed`.
+    `init_params=(w0, w, V)` (numpy arrays or tensors) starts the chain
+    from the given parameters instead of the learner's own N(init_mean,
+    init_stdev) draw (see convert.params_from_jax).
     """
 
     def __init__(
@@ -354,10 +555,12 @@ class MCMCLearner:
         rlog=None,
         verbose: bool = True,
         attr_group: np.ndarray | None = None,
+        max_blocks: int = 128,
         dtype=None,
         checkpoint_path: str | None = None,
         checkpoint_every: int = 0,
         device=None,
+        init_params=None,
     ):
         if rlog is not None:
             raise NotImplementedError("rlog output waits for ROADMAP M7")
@@ -372,6 +575,7 @@ class MCMCLearner:
         self.seed = seed
         self.rlog = None
         self.verbose = verbose
+        self.max_blocks = max_blocks
         self.dtype = dtype or cfg.dtype
         if self.dtype != torch.float32:
             raise NotImplementedError("the port runs in float32 only")
@@ -399,6 +603,7 @@ class MCMCLearner:
         # -load_model warm start: only the loaded w0 and V take effect
         # for the MCMC family (libfm.cpp:262-268, :283)
         self.warm_start = None  # FMParams | None
+        self.init_params = init_params
 
     def set_regularization(self, reg: list[float], num_groups: int):
         """libFM's reg-arity rules: 0 / 1 / 3 / (1 + 2*num_groups) values
@@ -426,11 +631,29 @@ class MCMCLearner:
                 f"-regular expects 0, 1, 3 or {1 + 2 * num_groups} values"
             )
 
+    def _check_supported(self, train, test):
+        _base.check_num_features(self.cfg, train, test)
+        k = self.cfg.num_factors
+        why = None
+        if not hasattr(train, "indptr") or not hasattr(test, "indptr"):
+            why = "streaming data waits for ROADMAP M7"
+        elif k < 1:
+            why = "the pure linear model (k=0) waits for ROADMAP M7"
+        elif self.device.type == "cuda" and k > MAX_FACTORS_CUDA:
+            why = f"the CUDA kernels take k <= {MAX_FACTORS_CUDA}"
+        if why:
+            raise NotImplementedError(why)
+
     def learn(self, train, test):
-        raise NotImplementedError(
-            "the exact per-coordinate engine (-engine exact) waits for "
-            "ROADMAP M10; use MCMCVectorLearner / ALSVectorLearner"
-        )
+        """The exact engine (`-engine exact`): the flat one, or for
+        relational (BS) data the exact BS engine
+        (learners/mcmc_relational.py). Returns the history."""
+        self._check_supported(train, test)
+        if getattr(train, "relations", None):
+            from libfm_tpu_torch.learners.mcmc_relational import learn_relational
+
+            return learn_relational(self, train, test)
+        return learn_exact(self, train, test)
 
     # ----------------------------------------------------------- reporting
     def _log_iteration(self, it, metrics, dt):
@@ -483,3 +706,12 @@ class MCMCLearner:
     def get_params(self) -> FMParams:
         st = self._final_state
         return FMParams(w0=st["w0"], w=st["w"], v=st["V"])
+
+
+class ALSLearner(MCMCLearner):
+    """ALS = MCMC with expectation updates and fixed hyperpriors."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("do_sample", False)
+        kwargs.setdefault("do_multilevel", False)
+        super().__init__(*args, **kwargs)

@@ -60,7 +60,6 @@ import torch
 
 from libfm_tpu_torch.data.batching import conflict_free_blocks, feature_slots
 from libfm_tpu_torch.data.dataset import Dataset
-from libfm_tpu_torch.data.vector_layout import padded_rows_layout
 from libfm_tpu_torch.kernels.case_stats import triu
 from libfm_tpu_torch.kernels.dense_update import update_table
 from libfm_tpu_torch.kernels.pieces import Pieces
@@ -81,6 +80,7 @@ from libfm_tpu_torch.learners.mcmc import (
     draw_unobserved,
     draw_w0,
     initial_state,
+    padded_rows,
     step_metrics,
 )
 from libfm_tpu_torch.ops import samplers
@@ -130,15 +130,17 @@ class RelBlock:
 
 
 class RelLayout:
-    """The host layout of one relation (the JAX engine's `_build_rel_layout`):
-    its conflict-free blocks in the order the JAX engine sweeps them
-    (grouped by power-of-two shape, in order of that shape), `wnum`
+    """The host layout of one relation (the JAX engines' `_build_rel_layout`):
+    its conflict-free blocks in the order the JAX vector engine sweeps them
+    (grouped by power-of-two shape, in order of that shape; with
+    `by_shape` False in `conflict_free_blocks`' order, the exact BS
+    engine's), `wnum`
     [nb+1] (train cases joined to each row, the sentinel 0), its design
     matrix by block row, the join maps, one CSR list of train cases a
     block row (`case_off`, `case_ids`) and its unobserved features
     (global ids)."""
 
-    def __init__(self, join_tr, join_te, attr_group, n: int):
+    def __init__(self, join_tr, join_te, attr_group, n: int, by_shape: bool = True):
         rd = join_tr.data
         nb = rd.num_cases
         for which, join in (("train", join_tr), ("test", join_te)):
@@ -157,7 +159,7 @@ class RelLayout:
             observed[b.features] = True
         shape = [(_pow2_at_least(len(b.features)), _pow2_at_least(len(b.entry_rows)))
                  for b in blocks]
-        order = sorted(range(len(blocks)), key=lambda i: shape[i])  # stable
+        order = sorted(range(len(blocks)), key=lambda i: shape[i] if by_shape else 0)  # stable
         self.nb = nb
         self.attr_offset = rd.attr_offset
         self.blocks = [RelBlock(blocks[i], rd.attr_offset,
@@ -266,16 +268,41 @@ class MainBlock:
         self.pieces = Pieces(off, device)
 
 
-def main_layout(train, attr_group_np, n_main: int, device):
-    """The main table's conflict-free blocks in the JAX engine's order
-    (`conflict_free_blocks` over the train cases, the table's own groups)
-    and its features in no block (global ids, int64)."""
+def main_blocks(train, attr_group_np, n_main: int):
+    """The main table's conflict-free blocks in the JAX engines' order
+    (`conflict_free_blocks` over the train cases, the table's own groups,
+    host FeatureBlocks) and its features in no block (global ids, int64)."""
     blocks = conflict_free_blocks(train, attr_group=attr_group_np[:max(train.num_features, 1)])
     observed = np.zeros(max(n_main, 1), dtype=bool)
     for b in blocks:
         observed[b.features] = True
-    unobserved = np.nonzero(~observed[:n_main])[0].astype(np.int64)
+    return blocks, np.nonzero(~observed[:n_main])[0].astype(np.int64)
+
+
+def main_layout(train, attr_group_np, n_main: int, device):
+    """`main_blocks` with each block on the device (MainBlock)."""
+    blocks, unobserved = main_blocks(train, attr_group_np, n_main)
     return [MainBlock(b, attr_group_np[b.features], device) for b in blocks], unobserved
+
+
+def main_rows(ds, P, device):
+    """rel_refresh's main-table arguments for the cases of `ds`: the padded
+    rows (ids, vals) [nc, L] and P; none for an empty main table."""
+    if not ds.nnz:
+        return {}
+    ids, vals = padded_rows(ds, device)
+    return dict(P=P, ids=ids, vals=vals)
+
+
+def stacked_maps(lays, which: str, nc: int, device):
+    """rel_refresh's maps int32 [R, nc] for the join maps `which`
+    ("row_map_train" or "row_map_test") of the relations `lays`: the
+    relations' score tables stack in one table, one under the other, and
+    each map points into its relation's part."""
+    first = np.cumsum([0] + [lay.nb + 1 for lay in lays])
+    maps = [getattr(lay, which).astype(np.int64) + f for lay, f in zip(lays, first)]
+    return torch.as_tensor(np.stack(maps).astype(np.int32).reshape(len(lays), nc),
+                           device=device)
 
 
 def learn_relational_vector(learner, train, test):
@@ -307,17 +334,8 @@ def learn_relational_vector(learner, train, test):
     unobserved = torch.as_tensor(
         np.concatenate([main_unobs] + [lay.unobserved for lay in lays]),
         dtype=torch.long, device=dev)
-    # the relations' score tables stack in one table for rel_refresh; the
-    # maps [R, nc] point into it
-    first = np.cumsum([0] + [lay.nb + 1 for lay in lays])
-
-    def stacked_maps(which, nc):
-        maps = [getattr(lay, which).astype(np.int64) + f for lay, f in zip(lays, first)]
-        return torch.as_tensor(np.stack(maps).astype(np.int32).reshape(len(lays), nc),
-                               device=dev)
-
-    maps_tr = stacked_maps("row_map_train", nc_train)
-    maps_te = stacked_maps("row_map_test", nc_test)
+    maps_tr = stacked_maps(lays, "row_map_train", nc_train, dev)
+    maps_te = stacked_maps(lays, "row_map_test", nc_test, dev)
     y_train = torch.as_tensor(train.target, dtype=f32, device=dev)
     y_test = torch.as_tensor(test.target, dtype=f32, device=dev)
     nec = learner.num_eval_cases if learner.num_eval_cases is not None else nc_test
@@ -331,16 +349,7 @@ def learn_relational_vector(learner, train, test):
 
     P, st = initial_state(learner, learner.init_params, n, k, G, nc_test)
 
-    def main_rows(ds):
-        """rel_refresh's main-table arguments: the padded rows (ids, vals)
-        [nc, L] and P; none for an empty main table."""
-        if not ds.nnz:
-            return {}
-        ids, vals = padded_rows_layout(ds.indptr, ds.cols, ds.vals)
-        return dict(P=P, ids=torch.as_tensor(ids, device=dev),
-                    vals=torch.as_tensor(vals, device=dev))
-
-    rows_tr, rows_te = main_rows(train), main_rows(test)
+    rows_tr, rows_te = main_rows(train, P, dev), main_rows(test, P, dev)
     A = torch.empty(nc_train, d, dtype=f32, device=dev)
     tail = torch.empty(nc_test, d, dtype=f32, device=dev) if incr_test else None
     GG_buf = torch.empty(max([b.F for r in rels for b in r.blocks] + [b.F for b in mains],

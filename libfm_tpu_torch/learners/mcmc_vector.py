@@ -47,11 +47,12 @@ steps aside silently where the JAX engine's does (a block on the slot
 scatter, a test case holding two features of one block, a one-hot block
 meeting a test value other than 1). Relational (BS) data is routed as the
 JAX engine routes it (`_route_relational`): thin joins are expanded and
-run here, fat ones on the BS vector engine (learners/mcmc_rel_vector.py).
-What it does not take raises NotImplementedError with the ROADMAP item it
-waits for: case reordering and slabs (M7), the pure linear model (M7),
-streaming data (M7), the exact BS engine (M10), a mesh (M13),
-checkpoints and rlog (M7).
+run here, fat ones on the BS vector engine (learners/mcmc_rel_vector.py)
+or, with bs_vector off or a skewed join, on the exact BS engine
+(learners/mcmc_relational.py). What it does not take raises
+NotImplementedError with the ROADMAP item it waits for: case reordering
+and slabs (M7), the pure linear model (M7), streaming data (M7), a mesh
+(M13), checkpoints and rlog (M7).
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ from libfm_tpu_torch.data.batching import (
     split_feature_slots,
 )
 from libfm_tpu_torch.data.relation import expand_join, expansion_cost
-from libfm_tpu_torch.data.vector_layout import padded_rows_layout, single_segment_widths
+from libfm_tpu_torch.data.vector_layout import single_segment_widths
 from libfm_tpu_torch.kernels.case_stats import case_stats, moment_width
 from libfm_tpu_torch.kernels.dense_update import dense_update, update_table
 from libfm_tpu_torch.kernels.dual_draw import DualPlan, dual_draw
@@ -76,7 +77,6 @@ from libfm_tpu_torch.kernels.probit_latent import probit_latent
 from libfm_tpu_torch.kernels.schur_draw import schur_draw
 from libfm_tpu_torch.kernels.slot_stats import gg_width, slot_stats
 from libfm_tpu_torch.kernels.slot_update import slot_update
-from libfm_tpu_torch.learners import base as _base
 from libfm_tpu_torch.learners.mcmc import (
     HYPER,
     MCMCLearner,
@@ -87,6 +87,7 @@ from libfm_tpu_torch.learners.mcmc import (
     draw_unobserved,
     draw_w0,
     initial_state,
+    padded_rows,
     step_metrics,
 )
 from libfm_tpu_torch.learners.mcmc_rel_vector import (
@@ -94,12 +95,11 @@ from libfm_tpu_torch.learners.mcmc_rel_vector import (
     bs_vector_skew,
     learn_relational_vector,
 )
+from libfm_tpu_torch.learners.mcmc_relational import learn_relational
 from libfm_tpu_torch.ops import samplers
 from libfm_tpu_torch.tasks import TASK_CLASSIFICATION
 from libfm_tpu_torch.utils.timers import iter_clocks
 
-#: the CUDA kernels take k <= 128
-MAX_FACTORS_CUDA = 128
 #: the JAX engine's case-major chunk (`_cu_chunk`): the case count that
 #: the case-major gate's cost term pads to
 CU_CHUNK = 1 << 17
@@ -238,17 +238,13 @@ def tail_columns(features, onehot: bool, test, num_features: int):
 
 
 class MCMCVectorLearner(MCMCLearner):
-    """MCMC/ALS with joint (w_j, v_j) vector draws on one device.
-
-    `init_params=(w0, w, V)` (numpy arrays or tensors) starts the chain
-    from the given parameters instead of the learner's own N(init_mean,
-    init_stdev) draw (see convert.params_from_jax)."""
+    """MCMC/ALS with joint (w_j, v_j) vector draws on one device
+    (`init_params` as MCMCLearner's)."""
 
     ALS_DEFAULT_REFRESH = 8
 
     def __init__(self, *args, widths=(32, 256), mesh=None, dual_draws=True,
-                 dense_update=True, refresh_every=None, case_major_stats=True,
-                 init_params=None, **kwargs):
+                 dense_update=True, refresh_every=None, case_major_stats=True, **kwargs):
         super().__init__(*args, **kwargs)
         if mesh is not None:
             raise NotImplementedError("mesh (multi-GPU) waits for ROADMAP M13")
@@ -274,7 +270,6 @@ class MCMCVectorLearner(MCMCLearner):
         # the BS engine's)
         self.flat_incr_test = False
         self.incr_test = False
-        self.init_params = init_params
         # relational (BS) routing (`_route_relational`) and the BS vector
         # engine's paths (learners/mcmc_rel_vector.py): the deferred path
         # for one relation, the incremental test tail; `deferred` says
@@ -287,19 +282,9 @@ class MCMCVectorLearner(MCMCLearner):
         self.deferred = False
 
     def _check_supported(self, train, test):
-        _base.check_num_features(self.cfg, train, test)
-        k = self.cfg.num_factors
-        why = None
-        if not hasattr(train, "indptr") or not hasattr(test, "indptr"):
-            why = "streaming data waits for ROADMAP M7"
-        elif self.case_reorder:
-            why = "case reordering and slab gathers wait for ROADMAP M7"
-        elif k < 1:
-            why = "the pure linear model (k=0) waits for ROADMAP M7"
-        elif self.device.type == "cuda" and k > MAX_FACTORS_CUDA:
-            why = f"the CUDA kernels take k <= {MAX_FACTORS_CUDA}"
-        if why:
-            raise NotImplementedError(why)
+        if self.case_reorder:
+            raise NotImplementedError("case reordering and slab gathers wait for ROADMAP M7")
+        super()._check_supported(train, test)
 
     def _route_relational(self, train, test):
         """Route block-structure (BS) data as the JAX engine does
@@ -308,9 +293,9 @@ class MCMCVectorLearner(MCMCLearner):
         that train and test share counted once) is expanded and runs on
         the flat engine ("expanded"); a fatter one runs on the BS vector
         engine ("bs_vector") when `bs_vector` is on and the join's skew is
-        at most MAX_SKEW; anything else would take the JAX package's exact
-        BS engine, which waits for ROADMAP M10. Sets `relational_mode` and
-        returns the (train, test) the flat engine runs on."""
+        at most MAX_SKEW, and on the exact BS engine ("bs",
+        learners/mcmc_relational.py) else. Sets `relational_mode` and
+        returns the (train, test) the engine runs on."""
         exp_nnz, bs_nnz = expansion_cost(train)
         exp_nnz_te, bs_nnz_te = expansion_cost(test)
         shared_nnz = sum(
@@ -325,13 +310,9 @@ class MCMCVectorLearner(MCMCLearner):
                 print(f"BS join expanded: {exp_total} entries (BS form {bs_total}); "
                       "vector sweeps")
             return expand_join(train), expand_join(test)
-        if self.bs_vector and bs_vector_skew(train) <= MAX_SKEW:
-            self.relational_mode = "bs_vector"
-            return train, test
-        raise NotImplementedError(
-            "fat relational blocks with bs_vector off or a join skew above "
-            f"{MAX_SKEW:g} take the exact BS engine, which waits for ROADMAP M10"
-        )
+        vector = self.bs_vector and bs_vector_skew(train) <= MAX_SKEW
+        self.relational_mode = "bs_vector" if vector else "bs"
+        return train, test
 
     # ------------------------------------------------------------ learn
     def learn(self, train, test):
@@ -340,6 +321,11 @@ class MCMCVectorLearner(MCMCLearner):
             train, test = self._route_relational(train, test)
             if self.relational_mode == "bs_vector":
                 return learn_relational_vector(self, train, test)
+            if self.relational_mode == "bs":
+                # the exact BS engine: libFM's per-coordinate draws over
+                # block rows, whose cost does not grow with the join's skew
+                self.incr_test = self.deferred = False
+                return learn_relational(self, train, test)
         cfg = self.cfg
         dev = self.device
         gen = self.generator
@@ -382,12 +368,8 @@ class MCMCVectorLearner(MCMCLearner):
         self.incr_test = incr_te
         unobserved = torch.as_tensor(np.nonzero(~observed)[0], dtype=torch.long, device=dev)
 
-        def _rows(ds):
-            ids, vals = padded_rows_layout(ds.indptr, ds.cols, ds.vals)
-            return torch.as_tensor(ids, device=dev), torch.as_tensor(vals, device=dev)
-
-        tr_ids, tr_pv = _rows(train)
-        te_ids, te_pv = _rows(test)
+        tr_ids, tr_pv = padded_rows(train, dev)
+        te_ids, te_pv = padded_rows(test, dev)
         y_train = torch.as_tensor(train.target, dtype=f32, device=dev)
         y_test = torch.as_tensor(test.target, dtype=f32, device=dev)
         nec = self.num_eval_cases if self.num_eval_cases is not None else nc_test

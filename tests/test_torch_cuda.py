@@ -1774,3 +1774,228 @@ def test_bs_als_with_main_table_on_cuda_follows_the_cpu_trajectory(cuda, task):
     for hc, hg in zip(hist["cpu"], hist["cuda"]):
         for key in ("test_this", "test_this_m2", "train"):
             assert abs(hc[key] - hg[key]) < 1e-4
+
+
+# ---- the exact engines (K11): coord_draw, rel_coord_draw, the learners
+
+CD_KS = [1, 8, 64, 128]
+
+
+def _coord_inputs(dev, rng, k, F=300, nc=20000, skewed=True):
+    """A valued conflict-free block (Zipf slot counts up to 300, one
+    feature of 5,000 slots, one of none), its CoordBlock, P [n, k+1] and
+    A [nc, k+1] random, lambda / mu over 3 groups, the normals."""
+    from libfm_tpu_torch.learners.mcmc import CoordBlock
+
+    blk = _block(rng, nc, F, 2 * F, skewed)
+    counts = np.bincount(blk.entry_feat, minlength=F)
+    counts[0], counts[1] = 5000, 0
+    rows = rng.permutation(nc)[:counts.sum()].astype(np.int32)
+    off = np.zeros(F + 1, np.int64)
+    np.cumsum(counts, out=off[1:])
+    vals = rng.normal(1.0, 0.5, len(rows)).astype(np.float32)
+    groups = rng.integers(0, 3, F).astype(np.int32)
+    cb = CoordBlock(blk.features, groups, off, rows, vals, dev)
+    n = 2 * F
+    P = torch.as_tensor(rng.normal(0, 0.3, (n, k + 1)), dtype=torch.float32, device=dev)
+    A = torch.as_tensor(rng.normal(0, 1, (nc, k + 1)), dtype=torch.float32, device=dev)
+    lam = torch.as_tensor(rng.uniform(0.5, 3, (3, k)), dtype=torch.float32, device=dev)
+    mu = torch.as_tensor(rng.normal(0, 0.1, (3, k)), dtype=torch.float32, device=dev)
+    z = torch.as_tensor(rng.normal(0, 1, F), dtype=torch.float32, device=dev)
+    return cb, P, A, lam, mu, z
+
+
+@pytest.mark.parametrize("k", CD_KS)
+@pytest.mark.parametrize("mode", ["w", "v"])
+@pytest.mark.parametrize("sample", [True, False])
+def test_coord_draw_kernel_matches_plain(cuda, k, mode, sample):
+    """coord_draw on a strided column of P and of A (row stride k+1), the
+    hyperparameters a column of [3, k]: theta, e and q within 1e-5 of the
+    plain version, the rejection counts equal, a second launch the same
+    bits."""
+    from libfm_tpu_torch.kernels import coord_draw as cd
+
+    rng = np.random.default_rng(k)
+    cb, P, A, lam, mu, z = _coord_inputs(cuda, rng, k)
+    col = 0 if mode == "w" else k  # the last factor
+    alpha = torch.tensor(1.3, device=cuda)
+    outs = []
+    for fn in (cd.coord_draw, cd.coord_draw_plain, cd.coord_draw):
+        Pc, Ac = P.clone(), A.clone()
+        rej = torch.zeros(cb.F, dtype=torch.int32, device=cuda)
+        fn(Pc[:, col], cb.feat_off, cb.slot_row, cb.slot_val, cb.feat_id, cb.group_id,
+           lam[:, k - 1], mu[:, k - 1], alpha, z if sample else None, rej, bound=1e6,
+           e=Ac[:, 0], q=None if mode == "w" else Ac[:, col])
+        outs.append((Pc, Ac, rej))
+    torch.cuda.synchronize()
+    (Pk, Ak, rk), (Pp, Ap, rp), (Pk2, Ak2, rk2) = outs
+    for x, y in ((Pk, Pp), (Ak, Ap)):
+        assert ((x - y).abs().max() / y.abs().max().clamp_min(1.0)).item() <= 1e-5
+    assert torch.equal(rk, rp)
+    assert torch.equal(Pk, Pk2) and torch.equal(Ak, Ak2) and torch.equal(rk, rk2)
+    assert (Pk[:, col] != P[:, col]).sum().item() == cb.F  # every feature drawn
+
+
+def test_coord_draw_kernel_rejects_what_plain_rejects(cuda):
+    """A near-zero lambda and alpha 0: draws of sd ~1e3 past a bound of 1
+    keep the old theta, counted as the plain version counts them."""
+    from libfm_tpu_torch.kernels import coord_draw as cd
+
+    rng = np.random.default_rng(3)
+    cb, P, A, _, _, z = _coord_inputs(cuda, rng, 8)
+    lam = torch.full((3,), 1e-6, device=cuda)
+    mu = torch.zeros(3, device=cuda)
+    res = []
+    for fn in (cd.coord_draw, cd.coord_draw_plain):
+        Pc, Ac = P.clone(), A.clone()
+        rej = torch.zeros(cb.F, dtype=torch.int32, device=cuda)
+        fn(Pc[:, 1], cb.feat_off, cb.slot_row, cb.slot_val, cb.feat_id, cb.group_id, lam,
+           mu, torch.tensor(0.0, device=cuda), z, rej, bound=1.0, e=Ac[:, 0], q=Ac[:, 1])
+        res.append((Pc, rej))
+    assert torch.equal(res[0][1], res[1][1]) and int(res[0][1].sum()) > cb.F // 2
+    assert torch.equal(res[0][0], res[1][0])
+
+
+@pytest.mark.parametrize("k", CD_KS)
+@pytest.mark.parametrize("mode", ["w", "v"])
+def test_rel_coord_draw_kernel_matches_plain(cuda, k, mode):
+    """rel_coord_draw over a relation's blocks in turn, the caches in
+    rel_cache's table (stride 5) and qB a column of a score table (stride
+    k+2): theta and every cache within 1e-5 of the plain version."""
+    from libfm_tpu_torch.kernels import coord_draw as cd
+    from libfm_tpu_torch.kernels.rel_cache import rel_cache
+    from libfm_tpu_torch.learners.mcmc_rel_vector import RelLayout
+    from libfm_tpu_torch.learners.mcmc_relational import ExactRel
+
+    rng = np.random.default_rng(10 + k)
+    nb, nf, nc = 64, 150, 3000
+    join = _relation(rng, nb, 6, nf, nc)
+    rel = ExactRel(RelLayout(join, join, np.zeros(nf, np.int32), nf, by_shape=False), cuda)
+    P = torch.as_tensor(rng.normal(0, 0.3, (nf, k + 1)), dtype=torch.float32, device=cuda)
+    T = torch.as_tensor(rng.normal(0, 1, (nc, 2)), dtype=torch.float32, device=cuda)
+    C = rel_cache(T, rel.case_off, rel.case_ids)
+    SC = torch.as_tensor(rng.normal(0, 0.5, (nb + 1, k + 2)), dtype=torch.float32,
+                         device=cuda)
+    yb = torch.as_tensor(rng.normal(0, 0.5, nb + 1), dtype=torch.float32, device=cuda)
+    lam, mu = torch.full((1,), 2.0, device=cuda), torch.zeros(1, device=cuda)
+    alpha = torch.tensor(1.1, device=cuda)
+    zs = [torch.as_tensor(rng.normal(0, 1, b.F), dtype=torch.float32, device=cuda)
+          for b in rel.blocks]
+    outs = []
+    for fn in (cd.rel_coord_draw, cd.rel_coord_draw_plain):
+        s = dict(P=P.clone(), C=C.clone(), SC=SC.clone(), yb=yb.clone())
+        rejs = []
+        for b, z in zip(rel.blocks, zs):
+            rej = torch.zeros(b.F, dtype=torch.int32, device=cuda)
+            extra = ({} if mode == "w" else
+                     dict(qb=s["SC"][:, k - 1], weq=s["C"][:, 3], wc=s["C"][:, 2],
+                          wc_sqr=s["C"][:, 4]))
+            fn(s["P"][:, 0 if mode == "w" else k], b.feat_off, b.slot_row, b.slot_val,
+               b.feat_id, b.group_id, lam, mu, alpha, z, rej, bound=1e6, we=s["C"][:, 0],
+               wnum=rel.wnum, yb=s["yb"], **extra)
+            rejs.append(rej)
+        outs.append((s, torch.cat(rejs)))
+    torch.cuda.synchronize()
+    (sk, rk), (sp, rp) = outs
+    for key in sk:
+        err = ((sk[key] - sp[key]).abs().max() / sp[key].abs().max().clamp_min(1.0)).item()
+        assert err <= 1e-5, (key, err)
+    assert torch.equal(rk, rp)
+
+
+def test_rel_cache_kernel_at_k1_matches_plain(cuda):
+    """rel_cache over [e | q'] (k = 1, its smallest compiled width) on a
+    join whose row 0 holds most cases and row 1 none."""
+    from libfm_tpu_torch.kernels.case_stats import err_over_magnitudes
+    from libfm_tpu_torch.kernels.rel_cache import rel_cache, rel_cache_reference
+    from libfm_tpu_torch.learners.mcmc_rel_vector import RelLayout
+    from libfm_tpu_torch.learners.mcmc_relational import ExactRel
+
+    rng = np.random.default_rng(2)
+    nb, nf, nc = 64, 150, 5000
+    join = _relation(rng, nb, 6, nf, nc)
+    rel = ExactRel(RelLayout(join, join, np.zeros(nf, np.int32), nf, by_shape=False), cuda)
+    T = torch.as_tensor(rng.normal(0, 1, (nc, 2)), dtype=torch.float32, device=cuda)
+    C = rel_cache(T, rel.case_off, rel.case_ids)
+    ref, scale = rel_cache_reference(T, rel.case_off, rel.case_ids)
+    lmax = int((rel.case_off[1:] - rel.case_off[:-1]).max())
+    assert C.shape == (nb + 1, 5)
+    assert err_over_magnitudes(C, ref, scale) <= 2 * (lmax + 2) * 2.0 ** -24
+    assert not C[1].any() and not C[nb].any()
+
+
+@pytest.mark.parametrize("task", [0, 1])
+def test_exact_als_on_cuda_follows_the_cpu_trajectory(cuda, task):
+    """ALSLearner (the flat exact engine), regression and probit, on the
+    card against the CPU from the same parameters, 5 iterations: coord_draw
+    once a block for w and each factor, fm_refresh (and its probit mode)
+    as the engine needs."""
+    from libfm_tpu_torch.learners.mcmc import ALSLearner
+
+    train, test, groups = ctr_like(6, 200, 20000, seed=2)
+    n, k = train.num_features, 8
+    rng = np.random.default_rng(0)
+    init = (np.float32(0.0), rng.normal(0, 0.1, n).astype(np.float32),
+            rng.normal(0, 0.1, (n, k)).astype(np.float32))
+    hist = {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        lr = ALSLearner(FMConfig(num_features=n, num_factors=k, regw=1.0, regv=1.0),
+                        task=task, num_iter=5, seed=1, verbose=False, device=dev,
+                        attr_group=groups, init_params=init)
+        hist[dev] = lr.learn(train, test)
+    counts = {name: c for name, c in kernels.launch_counts().items() if c}
+    want = dict(coord_draw=5 * 6 * (1 + k), fm_refresh=11 - 5 * task)
+    if task:
+        want["fm_refresh_probit"] = 5
+    assert counts == want
+    for hc, hg in zip(hist["cpu"], hist["cuda"]):
+        for key in ("test_this", "test_this_m2", "train"):
+            assert abs(hc[key] - hg[key]) < 1e-4
+
+
+@pytest.mark.parametrize("task", [0, 1])
+def test_exact_bs_als_on_cuda_follows_the_cpu_trajectory(cuda, task):
+    """ALSLearner on relational data (the exact BS engine) with a main
+    table of one one-hot field beside one relation, regression and
+    probit, on the card against the CPU, 4 iterations, with its exact
+    launches."""
+    from libfm_tpu_torch.data.dataset import Dataset
+    from libfm_tpu_torch.learners.mcmc import ALSLearner
+
+    rng = np.random.default_rng(6)
+    n_main, nf, nc, nte, k = 20, 150, 4000, 800, 8
+    join = _relation(rng, 64, 6, nf, nc + nte, offset=n_main)
+    main = rng.integers(0, n_main, nc + nte).astype(np.int32)
+    y = rng.normal(0, 1, nc + nte).astype(np.float32)
+    if task:
+        y = np.where(y > 0, 1.0, -1.0).astype(np.float32)
+
+    def ds(sl):
+        m = len(y[sl])
+        d = Dataset(np.arange(m + 1, dtype=np.int64), main[sl], np.ones(m, np.float32),
+                    y[sl], n_main)
+        d.relations = [join.permuted(np.arange(nc + nte)[sl])]
+        return d
+
+    train, test = ds(slice(0, nc)), ds(slice(nc, None))
+    n = n_main + nf
+    init = (np.float32(0.0), rng.normal(0, 0.1, n).astype(np.float32),
+            rng.normal(0, 0.1, (n, k)).astype(np.float32))
+    hist = {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        lr = ALSLearner(FMConfig(num_features=n, num_factors=k, regw=1.0, regv=1.0),
+                        task=task, num_iter=4, seed=1, verbose=False, device=dev,
+                        init_params=init)
+        hist[dev] = lr.learn(train, test)
+    counts = {name: c for name, c in kernels.launch_counts().items() if c}
+    nrel = counts["rel_coord_draw"] // (4 * (1 + k))
+    want = dict(coord_draw=4 * (1 + k), rel_coord_draw=4 * nrel * (1 + k),
+                rel_cache=4 * (1 + k), rel_scores=5, rel_refresh=9 - 4 * task)
+    if task:
+        want["rel_refresh_probit"] = 4
+    assert counts == want and nrel >= 2
+    for hc, hg in zip(hist["cpu"], hist["cuda"]):
+        for key in ("test_this", "test_this_m2", "train"):
+            assert abs(hc[key] - hg[key]) < 1e-4

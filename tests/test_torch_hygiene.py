@@ -22,6 +22,7 @@ import libfm_tpu_torch
 from libfm_tpu_torch import kernels
 from libfm_tpu_torch.convert import params_from_jax
 from libfm_tpu_torch.device import resolve_device
+from libfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
 from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner, MCMCVectorLearner
 from libfm_tpu_torch.learners.sgd import SGDLearner
 from libfm_tpu_torch.models.fm import FMConfig
@@ -59,11 +60,12 @@ def test_port_file_list_is_complete():
             "case_stats.py", "probit_latent.py", "dual_draw.py", "sgda.py",
             "sgda_step.py", "sgda_lambda.py", "chip_smoke.py", "relation.py",
             "mcmc_rel_vector.py", "rel_refresh.py", "rel_cache.py",
-            "rel_sweep.py", "slot_update.py"} <= names
+            "rel_sweep.py", "slot_update.py", "coord_draw.py",
+            "mcmc_relational.py"} <= names
 
 
 @pytest.mark.parametrize("args", [[], ["--config3-kernels"], ["--config5-kernels"],
-                                  ["--bench-bs"], ["--quality"]])
+                                  ["--bench-bs"], ["--quality"], ["--exact"]])
 def test_chip_smoke_without_cuda_fails_and_prints_no_result(args):
     """Without a CUDA device chip_smoke.py exits non-zero before it
     builds or runs anything, and prints nothing on its standard output."""
@@ -92,6 +94,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ALSVectorLearner(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
+        MCMCLearner(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ALSLearner(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
         SGDLearner(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         SGDLearner(cfg, device="cuda")
@@ -101,6 +107,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
     train, test = _relational_data()
     with pytest.raises(RuntimeError, match="CUDA"):
         ALSVectorLearner(FMConfig(num_features=6, num_factors=2)).learn(train, test)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ALSLearner(FMConfig(num_features=6, num_factors=2)).learn(train, test)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -111,10 +119,11 @@ def test_importing_kernels_builds_nothing():
                         "schur_draw", "dual_draw", "dense_update", "probit_latent",
                         "sgd_step", "table_scatter", "table_read", "sgda_step",
                         "sgda_lambda", "rel_scores", "rel_refresh", "rel_refresh_probit",
-                        "rel_cache", "rel_stats", "rel_update", "rel_resync", "slot_update"}
+                        "rel_cache", "rel_stats", "rel_update", "rel_resync", "slot_update",
+                        "coord_draw", "rel_coord_draw"}
     assert kernels._lib is None
     assert sorted(p.name for p in kernels.CSRC_DIR.glob("*.cu")) == [
-        "case_stats.cu", "dense_update.cu", "dual_draw.cu", "fm_refresh.cu",
+        "case_stats.cu", "coord_draw.cu", "dense_update.cu", "dual_draw.cu", "fm_refresh.cu",
         "probit_latent.cu", "rel_cache.cu", "rel_refresh.cu", "rel_sweep.cu",
         "schur_draw.cu", "sgd_step.cu", "sgda_lambda.cu", "sgda_step.cu", "slot_stats.cu",
         "slot_update.cu", "table_read.cu", "table_scatter.cu"]
@@ -139,6 +148,7 @@ def _relational_data():
 
 def _cpu_calls():
     from libfm_tpu_torch.kernels import case_stats as cs
+    from libfm_tpu_torch.kernels import coord_draw as cd
     from libfm_tpu_torch.kernels import dense_update as du
     from libfm_tpu_torch.kernels import dual_draw as dd
     from libfm_tpu_torch.kernels import fm_refresh as fr
@@ -186,7 +196,20 @@ def _cpu_calls():
     SD = torch.full((5, k + 1), 0.1)
     eb = torch.tensor([0, 2], dtype=torch.int32)
     ef = torch.tensor([0, 1], dtype=torch.int32)
+    cfeat = torch.tensor([1, 4], dtype=torch.int32)
+    cgrp = torch.zeros(2, dtype=torch.int32)
+    draw = (off, sc, sv, cfeat, cgrp, torch.ones(1), torch.zeros(1), torch.tensor(1.0),
+            torch.randn(2, generator=g), torch.zeros(2, dtype=torch.int32))
+    # two features over 5 block rows, 3 and 2 slots
+    rel_draw = (torch.tensor([0, 3, 5]), torch.arange(5, dtype=torch.int32),
+                torch.ones(5)) + draw[3:]
+    nbc = torch.ones(5)
     return {
+        "coord_draw": lambda: (cd.coord_draw(P[:, 1], *draw, bound=1e6, e=A[:, 0],
+                                             q=A[:, 1]), P)[1],
+        "rel_coord_draw": lambda: (cd.rel_coord_draw(
+            P[:, 1], *rel_draw, bound=1e6, we=nbc.clone(), wnum=nbc, yb=nbc.clone(),
+            qb=nbc.clone(), weq=nbc.clone(), wc=nbc, wc_sqr=nbc), P)[1],
         "rel_scores": lambda: rr.rel_scores(P, indptr, rcols, torch.ones(6)),
         "rel_refresh": lambda: rr.rel_refresh(torch.ones(5, k + 2), rmap[None], w0,
                                               torch.zeros(5, k + 1), torch.ones(5)),
@@ -244,7 +267,8 @@ def _cpu_calls():
                                   "table_read", "sgda_step", "sgda_lambda", "rel_scores",
                                   "rel_refresh", "rel_refresh_main", "rel_refresh_test",
                                   "rel_refresh_probit", "rel_cache", "rel_stats",
-                                  "rel_update", "rel_resync", "slot_update"])
+                                  "rel_update", "rel_resync", "slot_update", "coord_draw",
+                                  "rel_coord_draw"])
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(name):
     kernels.import_all()
     before = kernels.launch_counts()

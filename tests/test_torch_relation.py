@@ -4,8 +4,7 @@ and plain kernel versions, against the JAX package, on the CPU.
 - data: `expand_join`, `expansion_cost`, `RelationJoin.permuted` and
   `bs_vector_skew` equal JAX's exactly; so do the layout's blocks (in the
   JAX engine's sweep order) and `wnum`; the learner routes
-  (`relational_mode`, or the raise) as JAX's does for the same data and
-  flags;
+  (`relational_mode`) as JAX's does for the same data and flags;
 - plain versions against what they replace, on data expanded by
   `expand_join` (the identities in the JAX engine's docstring,
   libfm_tpu/learners/mcmc_rel_vector.py:15-54): `rel_refresh_plain` over
@@ -17,7 +16,8 @@ and plain kernel versions, against the JAX package, on the CPU.
   equals the sums over the resynced residuals;
 - BS classification and main-table features beside relations run on the
   BS engine (tests/test_torch_bs_main.py and
-  tests/test_torch_bs_classification.py hold them to JAX); what the
+  tests/test_torch_bs_classification.py hold them to JAX), bs_vector off
+  on the exact BS engine (tests/test_torch_exact_relational.py); what the
   port does not take raises NotImplementedError naming its ROADMAP item.
 """
 
@@ -144,8 +144,8 @@ ROUTES = [("single", {}), ("single", dict(expand_max_ratio=0.0)),
 @pytest.mark.parametrize("name,flags", ROUTES)
 def test_routing_matches_jax(name, flags, monkeypatch):
     """relational_mode as JAX decides it for the same data and flags (the
-    JAX engines are stopped right after the decision); where JAX takes its
-    exact BS engine ("bs") the port raises naming ROADMAP M10."""
+    JAX engines are stopped right after the decision), the exact BS
+    engine ("bs") included."""
     train, test, nf = PROBLEMS[name]()
 
     def stop(*a, **kw):
@@ -164,10 +164,6 @@ def test_routing_matches_jax(name, flags, monkeypatch):
     for key, v in flags.items():
         setattr(tl, key, v)
     ttr, tte = to_port(train, test)
-    if jl.relational_mode == "bs":
-        with pytest.raises(NotImplementedError, match="M10"):
-            tl._route_relational(ttr, tte)
-        return
     tl._route_relational(ttr, tte)
     assert tl.relational_mode == jl.relational_mode
 
@@ -337,8 +333,9 @@ def test_out_of_slice_relational_cases_raise():
         lr.expand_max_ratio = 0.0
         return lr
 
-    # BS classification and main-table features beside relations run
-    # (tests/test_torch_bs_main.py holds them to JAX); the rest raises
+    # BS classification, main-table features beside relations and the
+    # exact BS engine run (tests/test_torch_bs_main.py and
+    # tests/test_torch_exact_relational.py hold them to JAX); the rest raises
     ctr = fat(task=TASK_CLASSIFICATION)
     ctr.learn(*to_port(*_binarised(train, test)))
     assert ctr.relational_mode == "bs_vector" and np.isfinite(ctr.history[-1]["test_all"])
@@ -350,8 +347,8 @@ def test_out_of_slice_relational_cases_raise():
     assert lr.relational_mode == "bs_vector" and np.isfinite(lr.history[-1]["test_all"])
     off = fat()
     off.bs_vector = False
-    with pytest.raises(NotImplementedError, match="exact BS engine.*M10"):
-        off.learn(ttr, tte)
+    off.learn(ttr, tte)
+    assert off.relational_mode == "bs" and np.isfinite(off.history[-1]["test_all"])
     with pytest.raises(NotImplementedError, match="M13"):
         MCMCVectorLearner(cfg, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="M7"):
