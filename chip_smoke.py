@@ -111,13 +111,20 @@ What it does, in order (any failed phase exits non-zero):
    - the exact engines (K11): coord_draw, w and v (factor k/2), on config
      #3's two blocks and on config #4's block with the longest feature
      (its slot count printed), rel_coord_draw w and v on bench_bs_ctx's 23
-     relation blocks (the caches from rel_cache over [e | Q_0] and
-     [e | q'], qB a column of the score table), sampling and ALS, block by
-     block from the same state as the plain version and the plain version
-     in float64: within 1e-5, or 3 times the float32 plain version's own
-     distance from float64 where larger; the rejection counts equal, a
-     second launch the same bits; rel_cache at k = 1 over [e | q'] against
-     float64 (its yardstick one torch.bmm of the pre-gathered rows).
+     relation blocks (the caches from rel_cache_cols over A's columns e,
+     Q_0 and over e, q', qB a column of the score table), sampling and
+     ALS, block by block from the same state as the plain version and the
+     plain version in float64: within 1e-5, or 3 times the float32 plain
+     version's own distance from float64 where larger; the rejection
+     counts equal, a second launch the same bits. Each block under its
+     launch plan (DrawPlan: short features a warp, medium a CTA, long in
+     pieces with a second launch; #3 has short and medium features, #4's
+     block all three classes), the relation blocks (short) also under
+     plans that make every feature medium or cut it into pieces of 2, so
+     that every class is held in every mode; at #3 the v launches also
+     timed with the short class cut at 64 and 128 slots. rel_cache_cols
+     (rel_cache's narrow form at k = 1) over e and q' against float64 (its
+     yardstick one torch.bmm of the pre-gathered rows).
 4. Path phase. Resets the launch counters before each run and reads them
    after it; each run must launch its own kernels, and no other: ALSVectorLearner (3
    iterations) and MCMCVectorLearner (4) at config #3 (regression, slot
@@ -150,7 +157,8 @@ What it does, in order (any failed phase exits non-zero):
    MCMCLearner (4) on the exact BS engine, and ALSVectorLearner (3) with
    bs_vector=False at bench_bs (relational_mode "bs"), each with exactly
    its launches (coord_draw and rel_coord_draw once a block for w and for
-   each factor, rel_cache 1 + k an iteration, the refreshes) and each
+   each factor, twice on a block with a long feature, rel_cache 1 + k an
+   iteration, the refreshes) and each
    reading printed beside the vector engine's run; SGDLearner for 3 epochs
    at config #1 (regression) and config #4b (classification); SGDALearner for 3 epochs
    at config #1's settings (8M train rows, 1M validation, 1M test) and
@@ -3023,24 +3031,33 @@ def run_bench_bs(args, rec, dev, counts, done):
 
 
 def exact_draw_row(args, dev, name, label, config, blocks, state, run_block, parts, nbytes,
-                   flops, timed):
+                   flops, timed, forced=None):
     """One kernel row of the exact engines' draws. `state` holds every float
     input (parameters, caches, hyperparameters, the normals `z` of all
-    blocks end to end); `run_block(fn, s, i, rej, sample)` launches block
-    i's draws on `s` in place, and `parts(s)` lists the outputs held. Block
-    by block in lockstep, sampling and ALS: the kernel, the plain version
-    and the plain version in float64 each run block i from the kernel's
-    state so far. Held: the kernel within the stated tolerance of the
-    float32 plain version (the largest difference over max(1, the plain
-    output's largest magnitude)): EXACT_TOL, or EXACT_SLACK times the float32
-    plain version's own distance from float64 where that is larger (a
-    posterior mean cancels, mean = -s2 (alpha (num - theta den) - mu
-    lambda), and the sums' f32 order moves it by that much); the
-    rejection counts equal; a second kernel launch the same bits."""
+    blocks end to end); `run_block(fn, s, i, rej, sample, plan)` launches
+    block i's draws on `s` in place under `plan`, and `parts(s)` lists the
+    outputs held. Block by block in lockstep, sampling and ALS: the kernel,
+    the plain version and the plain version in float64 each run block i
+    from the kernel's state so far. Held: the kernel within the stated
+    tolerance of the float32 plain version (the largest difference over
+    max(1, the plain output's largest magnitude)): EXACT_TOL, or
+    EXACT_SLACK times the float32 plain version's own distance from
+    float64 where that is larger (a posterior mean cancels, mean = -s2
+    (alpha (num - theta den) - mu lambda), and the sums' f32 order moves
+    it by that much); the rejection counts equal; a second kernel launch
+    the same bits. Under each block's own plan, and again under each of
+    `forced` (name -> DrawPlan keyword arguments: thresholds that move
+    the features to a longer class); timed under the blocks' own plans.
+    The row records the features each plan put in each class."""
     from libfm_tpu_torch.kernels import coord_draw as cd
 
     kern = cd.coord_draw if name == "coord_draw" else cd.rel_coord_draw
     plain = cd.coord_draw_plain if name == "coord_draw" else cd.rel_coord_draw_plain
+    plan_sets = {"kernel": [b.plan for b in blocks]}
+    for key, kw in (forced or {}).items():
+        plan_sets[key] = [cd.DrawPlan(b.feat_off, dev, **kw) for b in blocks]
+    classes = {key: {c: sum(p.classes()[c] for p in plans) for c in ("short", "medium", "long")}
+               for key, plans in plan_sets.items()}
 
     def clone(s, dtype=None):
         return {key: v.to(dtype) if dtype else v.clone() for key, v in s.items()}
@@ -3051,33 +3068,36 @@ def exact_draw_row(args, dev, name, label, config, blocks, state, run_block, par
                    for x, y in zip(parts(a), parts(b)))
 
     errs, nrej, worst = {}, 0, dict(err=0.0, tol=EXACT_TOL)
-    for sample in (True, False):
-        s = clone(state)
-        err_k64 = err_p64 = 0.0
-        for i, b in enumerate(blocks):
-            sp, sk2, s64 = clone(s), clone(s), clone(s, torch.float64)
-            rk, rp, rk2, r64 = (torch.zeros(b.F, dtype=torch.int32, device=dev)
-                                for _ in range(4))
-            run_block(kern, s, i, rk, sample)
-            run_block(plain, sp, i, rp, sample)
-            run_block(kern, sk2, i, rk2, sample)
-            run_block(plain, s64, i, r64, sample)
-            torch.cuda.synchronize()
-            err, e_p64 = dist(s, sp), dist(sp, s64)
-            tol = max(EXACT_TOL, EXACT_SLACK * e_p64)
-            if err / tol > worst["err"] / worst["tol"]:
-                worst.update(err=err, tol=tol)
-            err_k64, err_p64 = max(err_k64, dist(s, s64)), max(err_p64, e_p64)
-            if not torch.equal(rk, rp):
-                fail(f"{name}{label}: block {i}'s rejection counts differ from the plain "
-                     "version's")
-            if any(not torch.equal(s[key], sk2[key]) for key in s) or not torch.equal(rk, rk2):
-                fail(f"{name}{label}: a second launch from the same state gave other bits")
-            nrej += int(rk.sum().item())
-            del sp, sk2, s64
-        errs["sample" if sample else "als"] = dict(kernel_from_float64=err_k64,
-                                                    plain_from_float64=err_p64)
-        del s
+    for key, plans in plan_sets.items():
+        for sample in (True, False):
+            s = clone(state)
+            err_k64 = err_p64 = 0.0
+            for i, (b, plan) in enumerate(zip(blocks, plans)):
+                sp, sk2, s64 = clone(s), clone(s), clone(s, torch.float64)
+                rk, rp, rk2, r64 = (torch.zeros(b.F, dtype=torch.int32, device=dev)
+                                    for _ in range(4))
+                run_block(kern, s, i, rk, sample, plan)
+                run_block(plain, sp, i, rp, sample, plan)
+                run_block(kern, sk2, i, rk2, sample, plan)
+                run_block(plain, s64, i, r64, sample, plan)
+                torch.cuda.synchronize()
+                err, e_p64 = dist(s, sp), dist(sp, s64)
+                tol = max(EXACT_TOL, EXACT_SLACK * e_p64)
+                if err / tol > worst["err"] / worst["tol"]:
+                    worst.update(err=err, tol=tol)
+                err_k64, err_p64 = max(err_k64, dist(s, s64)), max(err_p64, e_p64)
+                if not torch.equal(rk, rp):
+                    fail(f"{name}{label}, {key} plan: block {i}'s rejection counts differ "
+                         "from the plain version's")
+                if (any(not torch.equal(s[x], sk2[x]) for x in s)
+                        or not torch.equal(rk, rk2)):
+                    fail(f"{name}{label}, {key} plan: a second launch from the same state "
+                         "gave other bits")
+                nrej += int(rk.sum().item())
+                del sp, sk2, s64
+            errs[f"{key} plan, {'sample' if sample else 'als'}"] = dict(
+                kernel_from_float64=err_k64, plain_from_float64=err_p64)
+            del s
     if nrej:
         fail(f"{name}{label}: {nrej} draws rejected at the check state")
     s_k, s_p = clone(state), clone(state)
@@ -3085,12 +3105,12 @@ def exact_draw_row(args, dev, name, label, config, blocks, state, run_block, par
 
     def run_all(fn, s):
         def go():
-            for i in range(len(blocks)):
-                run_block(fn, s, i, rej[i], True)
+            for i, b in enumerate(blocks):
+                run_block(fn, s, i, rej[i], True, b.plan)
         return go
 
-    print(f"{name}{label}: largest distance from the float64 plain version, kernel / "
-          f"float32 plain: {errs}")
+    print(f"{name}{label}: features by class, under each plan held {classes}; largest "
+          f"distance from the float64 plain version, kernel / float32 plain: {errs}")
     row = kernel_row(
         name, config["replaces"], worst["err"], worst["tol"],
         cuda_ms(run_all(kern, s_k), args.reps),
@@ -3098,9 +3118,10 @@ def exact_draw_row(args, dev, name, label, config, blocks, state, run_block, par
         nbytes=nbytes, flops=flops, lib_ms=None, timed=timed, label=label,
         source="libfm_tpu_torch/csrc/coord_draw.cu")
     row.update(config=config["name"], mode=config["mode"], err_from_float64=errs,
+               classes=classes, launches_a_sweep=sum(b.plan.launches for b in blocks),
                tolerance_note=f"{EXACT_TOL:g}, or {EXACT_SLACK:g} times the float32 plain "
                "version's distance from float64 on the same launch where larger; each "
-               "block from the same state",
+               "block from the same state, under each plan held",
                library_note="none: no one call gathers a block's cache rows, sums them "
                "per feature, draws and scatters the updates back")
     del s_k, s_p
@@ -3113,15 +3134,21 @@ def exact_flat_checks(args, dev, config, train, groups, k, longest_only):
     do) on the
     config's blocks (or on the block with the longest feature alone),
     from P = 0.1 randn and the A = [e | Q] that fm_refresh writes from it,
-    alpha 1 / var(e), lambda 5 and mu 0 in every group."""
+    alpha 1 / var(e), lambda 5 and mu 0 in every group; each block under
+    its own plan (config #3: short and medium features; #4's block also
+    long ones). At config #3 the v launches are also timed with the short
+    class cut at 64 and 128 slots (the rest medium). Returns the rows and
+    the coord_draw launches of one sweep over all the config's blocks."""
     import numpy as np
 
+    from libfm_tpu_torch.kernels import coord_draw as cd
     from libfm_tpu_torch.kernels import fm_refresh as fr
     from libfm_tpu_torch.learners.mcmc import exact_layout, padded_rows
 
     n, nc, d = train.num_features, train.num_rows, k + 1
     groups = groups if groups is not None else np.zeros(n, np.int32)
     blocks, _ = exact_layout(train, groups, 128, dev)
+    sweep_launches = sum(b.plan.launches for b in blocks)
     longest = [int((b.feat_off[1:] - b.feat_off[:-1]).max().item()) for b in blocks]
     if longest_only:
         i = int(np.argmax(longest))
@@ -3140,25 +3167,50 @@ def exact_flat_checks(args, dev, config, train, groups, k, longest_only):
                   max_target=float(train.max_target))
     del ids, vals
     G = int(groups.max()) + 1
-    state = dict(P=P, A=A, lam=torch.full((G,), 5.0, device=dev),
-                 mu=torch.zeros(G, device=dev), alpha=(1.0 / A[:, 0].var()).reshape(()),
+    # e and factor k/2's q as the engines' draws hold them (draw_caches: side
+    # by side), and in A's columns (a row apart; the first version's layout)
+    fv = 1 + k // 2
+    state = dict(P=P, EQ=torch.stack([A[:, 0], A[:, fv]], dim=1),
+                 lam=torch.full((G,), 5.0, device=dev), mu=torch.zeros(G, device=dev),
+                 alpha=(1.0 / A[:, 0].var()).reshape(()),
                  z=torch.randn(F, generator=g, device=dev))
     bound = 1e6 * max(1.0, abs(float(train.min_target)), abs(float(train.max_target)))
     print(f"{config}: exact-engine blocks (features, slots, longest feature's slots) "
           f"{[(b.F, int(b.slot_row.numel()), m) for b, m in zip(blocks, longest)]}")
 
-    def mode_fns(mode):
-        col = 0 if mode == "w" else 1 + k // 2
+    def mode_fns(mode, on_a=False):
+        col = 0 if mode == "w" else fv
 
-        def run_block(fn, s, i, rej, sample):
+        def caches(s):
+            return (s["A"][:, 0], s["A"][:, fv]) if on_a else (s["EQ"][:, 0], s["EQ"][:, 1])
+
+        def run_block(fn, s, i, rej, sample, plan):
             b = blocks[i]
+            e, q = caches(s)
             fn(s["P"][:, col], b.feat_off, b.slot_row, b.slot_val, b.feat_id, b.group_id,
                s["lam"], s["mu"], s["alpha"], s["z"][z_off[i]:z_off[i + 1]] if sample else None,
-               rej, bound=bound, e=s["A"][:, 0], q=None if mode == "w" else s["A"][:, col])
+               rej, bound=bound, e=e, q=None if mode == "w" else q, plan=plan)
 
         def parts(s):
-            return [s["P"][:, col], s["A"][:, 0]] + ([s["A"][:, col]] if mode == "v" else [])
+            e, q = caches(s)
+            return [s["P"][:, col], e] + ([q] if mode == "v" else [])
         return run_block, parts
+
+    def timed(mode, plans=None, on_a=False):
+        """The kernel's time over the blocks (their own plans, or `plans`),
+        from a copy of the state."""
+        run_block = mode_fns(mode, on_a)[0]
+        s = {key: v.clone() for key, v in state.items()}
+        if on_a:
+            s["A"] = A.clone()
+        rej = [torch.zeros(b.F, dtype=torch.int32, device=dev) for b in blocks]
+
+        def go():
+            for i, b in enumerate(blocks):
+                run_block(cd.coord_draw, s, i, rej[i], True, plans[i] if plans else b.plan)
+        ms = cuda_ms(go, args.reps)
+        del s
+        return ms
 
     rows = []
     where = ("the block with the longest feature" if longest_only
@@ -3170,23 +3222,55 @@ def exact_flat_checks(args, dev, config, train, groups, k, longest_only):
                  replaces="libfm_tpu/learners/mcmc.py:" + ("281" if mode == "v" else "254")),
             blocks, state, *mode_fns(mode),
             nbytes=E * per_slot + F * 36, flops=E * (10 if mode == "v" else 4) + F * 12,
-            timed=f"one {'factor' if mode == 'v' else 'w sweep'}'s launches on {where}"))
+            timed=f"one {'factor' if mode == 'v' else 'w sweep'}'s launches on {where}, "
+            "e and q side by side (draw_caches)"))
         rows[-1].update(blocks=len(blocks), slots=E, features=F,
-                        longest_feature_slots=max(longest))
-    if longest_only:
-        print(f"{config}: the longest feature holds {max(longest)} of its block's {E} slots; "
-              f"coord_draw v {rows[0]['ms']:.4f} ms, w {rows[1]['ms']:.4f} ms for the block")
+                        longest_feature_slots=max(longest),
+                        ms_on_A_columns=timed(mode, on_a=True))
+    print(f"{config}: coord_draw v / w on e and q side by side {rows[0]['ms']:.4f} / "
+          f"{rows[1]['ms']:.4f} ms, on A's columns {rows[0]['ms_on_A_columns']:.4f} / "
+          f"{rows[1]['ms_on_A_columns']:.4f} ms" + (
+              f"; the longest feature holds {max(longest)} of the block's {E} slots"
+              if longest_only else ""))
+    if not longest_only:
+        # the short class's threshold: v launches with shorter ones
+        by_short = {}
+        for short_max in (64, 128, cd.SHORT_MAX):
+            plans = [cd.DrawPlan(b.feat_off, dev, short_max=short_max) for b in blocks]
+            by_short[short_max] = dict(ms=timed("v", plans),
+                                       short=sum(p.n_short for p in plans))
+        print(f"{config}: coord_draw v by the short class's most slots (ms, short "
+              f"features): {by_short}")
+        rows[0]["v_ms_by_short_max"] = by_short
+        # the access pattern alone: torch's gathers and scatters of one v
+        # factor's e and q over every block's slots, 4 launches, on each layout
+        at = torch.cat([b.slot_row for b in blocks]).long()
+
+        def scattered(T, c0, c1):
+            def go():
+                e_, q_ = T[at, c0], T[at, c1]
+                T[at, c0] = e_
+                T[at, c1] = q_
+            return cuda_ms(go, args.reps)
+        pattern = dict(side_by_side=scattered(state["EQ"], 0, 1), A_columns=scattered(A, 0, fv))
+        print(f"{config}: torch's gathers and scatters of the same slots' e and q (4 "
+              f"launches) {pattern} ms")
+        rows[0]["scattered_sectors_ms"] = pattern
+        del at
     del P, A, state
     torch.cuda.empty_cache()
-    return rows
+    return rows, sweep_launches
 
 
 def exact_rel_checks(args, dev, ctx):
     """Phase 3, the exact BS engine at bench_bs_ctx: rel_coord_draw w (we
-    from rel_cache over A's first two columns) and v (factor f = k/2:
-    rel_cache over [e | q'], qB the score table's column f) on the relation's 23
-    blocks, and rel_cache at k = 1 against the float64 plain version, from
-    P = 0.1 randn and the A that rel_refresh writes with the main rows."""
+    from rel_cache_cols over A's first two columns) and v (factor f = k/2:
+    rel_cache_cols over e and q', qB the score table's column f) on the
+    relation's 23 blocks, under their own plans (short features) and under
+    forced ones (every feature medium; cut into pieces of 2 slots), and
+    rel_cache_cols (rel_cache at k = 1) against the float64 plain version,
+    from P = 0.1 randn and the A that rel_refresh writes with the main
+    rows. Returns the rows and the rel_coord_draw launches of one sweep."""
     import numpy as np
 
     from libfm_tpu_torch.kernels import rel_cache as rc
@@ -3220,16 +3304,18 @@ def exact_rel_checks(args, dev, ctx):
                    max_target=float(train.max_target))
     del ids, vals
     yb = 0.5 * ((SC[:, :k] * SC[:, :k]).sum(dim=1) - SC[:, k]) + SC[:, k + 1]
-    C_w = rc.rel_cache(A[:, :2].contiguous(), rel.case_off, rel.case_ids)
     f = k // 2
-    T = torch.stack([A[:, 0], A[:, 1 + f] - SC[rel.map_tr, f]], dim=1)
-    C_v = rc.rel_cache(T, rel.case_off, rel.case_ids)
+    # e and q as the engine's draws hold them (draw_caches: side by side)
+    EQ = torch.stack([A[:, 0], A[:, 1 + f]], dim=1)
+    e, qd = EQ[:, 0], EQ[:, 1] - SC[rel.map_tr, f]
+    C_w = rc.rel_cache_cols(e, A[:, 1], rel.case_off, rel.case_ids)
+    C_v = rc.rel_cache_cols(e, qd, rel.case_off, rel.case_ids)
     const = dict(lam=torch.full((1,), 5.0, device=dev), mu=torch.zeros(1, device=dev),
                  alpha=(1.0 / A[:, 0].var()).reshape(()), wnum=rel.wnum,
                  z=torch.randn(F, generator=g, device=dev))
     bound = 1e6 * max(1.0, abs(float(train.min_target)), abs(float(train.max_target)))
 
-    def run_block(fn, s, i, rej, sample):
+    def run_block(fn, s, i, rej, sample, plan):
         b = blocks[i]
         C = s["C"]
         extra = {} if "SC" not in s else dict(
@@ -3237,7 +3323,10 @@ def exact_rel_checks(args, dev, ctx):
         fn(s["P"][:, 0 if "SC" not in s else 1 + f], b.feat_off, b.slot_row, b.slot_val,
            b.feat_id, b.group_id, s["lam"], s["mu"], s["alpha"],
            s["z"][z_off[i]:z_off[i + 1]] if sample else None, rej, bound=bound, we=C[:, 0],
-           wnum=s["wnum"], yb=s["yb"], **extra)
+           wnum=s["wnum"], yb=s["yb"], plan=plan, **extra)
+
+    # the relation's features are short; these move them to the other classes
+    forced = dict(medium=dict(short_max=0), pieces=dict(short_max=0, piece_len=2))
 
     def parts(s):
         if "SC" not in s:
@@ -3253,19 +3342,22 @@ def exact_rel_checks(args, dev, ctx):
                  replaces="libfm_tpu/learners/mcmc_relational.py:156"),
             blocks, dict(P=P, C=C_v, yb=yb, SC=SC, **const), run_block, parts,
             nbytes=E * 52 + F * 36, flops=E * 24 + F * 12,
-            timed=f"one factor's launches: one per relation block ({len(blocks)})"),
+            timed=f"one factor's launches: one per relation block ({len(blocks)})",
+            forced=forced),
         exact_draw_row(
             args, dev, "rel_coord_draw", " (bench_bs_ctx, w)",
             dict(name="bench_bs_ctx", mode="w",
                  replaces="libfm_tpu/learners/mcmc_relational.py:129"),
             blocks, dict(P=P, C=C_w, yb=yb, **const), run_block, parts,
             nbytes=E * 28 + F * 36, flops=E * 6 + F * 12,
-            timed=f"the w sweep's launches: one per relation block ({len(blocks)})"),
+            timed=f"the w sweep's launches: one per relation block ({len(blocks)})",
+            forced=forced),
     ]
     for r in rows:
         r.update(blocks=len(blocks), slots=E, features=F)
 
-    # ---- rel_cache at k = 1: the per-block-row sums of [e | q']
+    # ---- rel_cache at k = 1 (rel_cache_cols): the per-block-row sums of e, q'
+    T = torch.stack([e, qd], dim=1)
     ref, scale = rc.rel_cache_reference(T, rel.case_off, rel.case_ids)
     counts = np.diff(lay.case_off)
     lmax = int(counts.max())
@@ -3280,35 +3372,43 @@ def exact_rel_checks(args, dev, ctx):
     del R, rowid, pos
     row = kernel_row(
         "rel_cache", "libfm_tpu/learners/mcmc_relational.py:544", err, 2 * (lmax + 2) * U32,
-        cuda_ms(lambda: rc.rel_cache(T, rel.case_off, rel.case_ids), args.reps),
-        cuda_ms(lambda: rc.rel_cache_plain(T, rel.case_off, rel.case_ids), args.reps),
+        cuda_ms(lambda: rc.rel_cache_cols(e, qd, rel.case_off, rel.case_ids), args.reps),
+        cuda_ms(lambda: rc.rel_cache_cols_plain(e, qd, rel.case_off, rel.case_ids),
+                args.reps),
         nbytes=nc * (2 * 4 + 4) + (nb + 1) * 8 + (nb + 1) * 5 * 4, flops=2 * nc * 5,
-        lib_ms=lib, timed="one launch: the exact BS engine's per-row sums of one factor",
+        lib_ms=lib, timed="one launch: the exact BS engine's per-row sums of one factor "
+        "(rel_cache_cols over e, stride 2, and q')",
         label=" (k = 1, bench_bs_ctx)", source="libfm_tpu_torch/csrc/rel_cache.cu")
-    row.update(config="bench_bs_ctx", k=1, most_cases_on_a_row=lmax,
+    if not torch.equal(C_v, rc.rel_cache_cols(e, qd, rel.case_off, rel.case_ids)):
+        fail("rel_cache (k = 1, bench_bs_ctx): a second launch gave other bits")
+    row.update(config="bench_bs_ctx", k=1, most_cases_on_a_row=lmax, form="narrow",
                library_note=f"torch.bmm(R^T, R) of the pre-gathered rows [1 | e | q'], "
                f"zero-padded to [nb, {lmax}, 3], fp32; the gather not timed",
                tolerance_note="2 (most cases on a row + 2) float32 roundings of each "
                "entry's sum of magnitudes, against float64")
     rows.append(row)
-    del P, A, T, SC, C_v, C_w
+    sweep_launches = sum(b.plan.launches for b in blocks)
+    del P, A, T, SC, C_v, C_w, e, qd, EQ
     torch.cuda.empty_cache()
-    return rows
+    return rows, sweep_launches
 
 
-def flat_exact_want(iters, blocks, k, probit=False):
-    """The flat exact engine's launches: coord_draw once a block for w and
-    for each factor, fm_refresh at the set-up and twice an iteration (test
-    and train mode; probit: the train mode counted as fm_refresh_probit)."""
-    return dict(coord_draw=iters * blocks * (1 + k),
+def flat_exact_want(iters, sweep, k, probit=False):
+    """The flat exact engine's launches: coord_draw's `sweep` launches (one
+    a block, two on a block with a long feature) for w and for each
+    factor, fm_refresh at the set-up and twice an iteration (test and
+    train mode; probit: the train mode counted as fm_refresh_probit)."""
+    return dict(coord_draw=iters * sweep * (1 + k),
                 fm_refresh=1 + iters * (1 if probit else 2),
                 fm_refresh_probit=iters if probit else 0)
 
 
 def bs_exact_want(iters, mains, blocks, k, probit=False):
     """The exact BS engine's launches (one relation): coord_draw on the main
-    blocks and rel_coord_draw on the relation's, once for w and for each
-    factor; rel_cache 1 + k an iteration; rel_scores at the set-up and once
+    blocks and rel_coord_draw on the relation's, `mains` and `blocks`
+    launches a sweep (one a block, two on a block with a long feature),
+    for w and for each factor; rel_cache 1 + k an iteration; rel_scores at
+    the set-up and once
     an iteration; rel_refresh at the set-up and twice an iteration (probit:
     the train mode counted as rel_refresh_probit)."""
     return dict(coord_draw=iters * mains * (1 + k), rel_coord_draw=iters * blocks * (1 + k),
@@ -3352,15 +3452,33 @@ def run_exact(args, rec, dev, counts, done, data=None, ctr=None, bs=None, ctx=No
     if ctx is None:
         ctx = bs_ctx_data(dev, bs)
         t0 = done("bench_bs_ctx data", t0)
-    table = exact_flat_checks(args, dev, "config #3", data[0], None, FACTORS, False)
-    table += exact_flat_checks(args, dev, "config #4", ctr[0], ctr[2], CTR_FACTORS, True)
-    table += exact_rel_checks(args, dev, ctx)
+    table, sweep3 = exact_flat_checks(args, dev, "config #3", data[0], None, FACTORS, False)
+    rows, sweep4 = exact_flat_checks(args, dev, "config #4", ctr[0], ctr[2], CTR_FACTORS,
+                                     True)
+    table += rows
+    rows, main_sweep = exact_flat_checks(args, dev, "bench_bs_ctx main", ctx["train"], None,
+                                         BS_FACTORS, False)
+    table += rows
+    rows, rel_sweep = exact_rel_checks(args, dev, ctx)
+    table += rows
+    # every class of the plan held in every mode
+    held = {}
+    for row in table:
+        for classes in row.get("classes", {}).values():
+            held.setdefault((row["name"], row["mode"]), set()).update(
+                c for c, nf in classes.items() if nf)
+    missing = {key: {"short", "medium", "long"} - got for key, got in held.items()
+               if got != {"short", "medium", "long"}}
+    if missing or len(held) != 4:
+        fail(f"exact kernel checks: classes not held (kernel, mode): {missing or held}")
+    print(f"exact engines: launches a sweep, coord_draw at #3 {sweep3}, #4 {sweep4}, "
+          f"bench_bs_ctx's main blocks {main_sweep}; rel_coord_draw {rel_sweep}")
     t0 = done("exact kernel checks", t0)
 
     reg = dict(regw=5.0, regv=5.0)
     _, counts["als_exact_3"] = run_learner(
         ALSLearner, "als_exact_3", data, args, rec, iters=ALS_ITERS,
-        want=flat_exact_want(ALS_ITERS, 2, FACTORS), **reg)
+        want=flat_exact_want(ALS_ITERS, sweep3, FACTORS), **reg)
     hist = rec["als_exact_3"]["history"]
     if not hist[-1]["train"] < hist[0]["train"]:
         fail(f"als_exact_3: train RMSE did not fall: {[h['train'] for h in hist]}")
@@ -3369,7 +3487,7 @@ def run_exact(args, rec, dev, counts, done, data=None, ctr=None, bs=None, ctx=No
     sd3 = float(data[1].target.std())
     _, counts["exact_3"] = run_learner(MCMCLearner, "exact_3", data, args, rec,
                                        iters=MCMC_ITERS,
-                                       want=flat_exact_want(MCMC_ITERS, 2, FACTORS))
+                                       want=flat_exact_want(MCMC_ITERS, sweep3, FACTORS))
     beside(rec, "exact_3", "mcmc")
     got = rec["exact_3"]["history"][-1]["test_all"]
     print(f"exact_3: test_all after {MCMC_ITERS} iterations {got:.6f}, the test targets' "
@@ -3379,7 +3497,7 @@ def run_exact(args, rec, dev, counts, done, data=None, ctr=None, bs=None, ctx=No
     t0 = done("config #3 exact MCMC path", t0)
     _, counts["exact_4"] = run_learner(
         MCMCLearner, "exact_4", ctr, args, rec, factors=CTR_FACTORS, iters=CTR_MCMC_ITERS,
-        groups=ctr[2], task=1, want=flat_exact_want(CTR_MCMC_ITERS, CTR_FIELDS, CTR_FACTORS,
+        groups=ctr[2], task=1, want=flat_exact_want(CTR_MCMC_ITERS, sweep4, CTR_FACTORS,
                                                     probit=True))
     beside(rec, "exact_4", "mcmc_4")
     share = float((ctr[1].target > 0).mean())
@@ -3392,7 +3510,6 @@ def run_exact(args, rec, dev, counts, done, data=None, ctr=None, bs=None, ctx=No
     t0 = done("config #4 exact MCMC path", t0)
 
     c_bs = dict(factors=BS_FACTORS, num_features=ctx["num_features"])
-    nblk, nmain = ctx["blocks"], ctx["main_blocks"]
     paths = (("als_exact_bs_ctx", ALSLearner, 0, BS_CTX_ALS_ITERS, reg, "als_bs_ctx"),
              ("exact_bs_ctx", MCMCLearner, 0, BS_CTX_MCMC_ITERS, {}, "mcmc_bs_ctx"),
              ("exact_bs_c", MCMCLearner, 1, BS_CTX_MCMC_ITERS, {}, "mcmc_bs_c"))
@@ -3400,7 +3517,8 @@ def run_exact(args, rec, dev, counts, done, data=None, ctr=None, bs=None, ctx=No
         pair = (ctx["train_c"], ctx["test_c"]) if task else (ctx["train"], ctx["test"])
         _, counts[name] = run_learner(
             cls, name, pair, args, rec, iters=iters, task=task,
-            want=bs_exact_want(iters, nmain, nblk, BS_FACTORS, probit=bool(task)), **kw,
+            want=bs_exact_want(iters, main_sweep, rel_sweep, BS_FACTORS, probit=bool(task)),
+            **kw,
             **c_bs)
         hist = rec[name]["history"]
         beside(rec, name, vector, "train" if cls is ALSLearner else "test_all")
@@ -3421,9 +3539,10 @@ def run_exact(args, rec, dev, counts, done, data=None, ctr=None, bs=None, ctx=No
                 fail(f"{name}: test accuracy {hist[-1]['test_all']} is not above the "
                      f"larger class's share {larger}")
         t0 = done(f"bench_bs_ctx {name} path", t0)
+    # bench_bs's relation: the blocks bench_bs_ctx's relation has
     learner, counts["bs_fallback"] = run_learner(
         ALSVectorLearner, "bs_fallback", (bs["train"], bs["test"]), args, rec,
-        iters=BS_CTX_ALS_ITERS, want=bs_exact_want(BS_CTX_ALS_ITERS, 0, bs["blocks"],
+        iters=BS_CTX_ALS_ITERS, want=bs_exact_want(BS_CTX_ALS_ITERS, 0, rel_sweep,
                                                    BS_FACTORS),
         factors=BS_FACTORS, num_features=BS_NF, flags=dict(bs_vector=False), **reg)
     if learner.relational_mode != "bs":

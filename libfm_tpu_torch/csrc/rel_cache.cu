@@ -28,6 +28,23 @@
 // holds it now is shared memory: two reads a multiply-add (~37 warp-wide
 // reads a case at k = 32); register tiles of the outer product, as
 // slot_stats has, would cut them.
+//
+// The narrow form, k <= 2 (rel_cache_cols_launch): the exact BS engine's
+// per-row sums over [e | q'] (k = 1, 5 sums; libfm_tpu/learners/
+// mcmc_relational.py:540-547), 1 + k launches an iteration. On the
+// template above a CTA of 256 threads owned those 5 sums, staged the
+// cases 32 at a time through shared memory with three barriers a stage,
+// and the caller copied the two columns into an [nc, 2] table first: 0.0935
+// ms at bench_bs_ctx against 0.0925 for its torch.bmm (H100 80GB HBM3,
+// 700 W). Bound: bytes, the case id and two floats a case (12 MB at 1M
+// cases, each float a random sector), 0.0036 ms counted as bytes read.
+// Here one warp owns a block row, 8 rows a CTA: its lanes stride over the
+// row's cases, a lane's loads for kNarrowUnroll cases issued before its
+// first sum, its 2 + 2k + k(k+1)/2 sums in registers; a shuffle tree in
+// fixed order adds the lanes' sums and lane 0 writes the row. No shared
+// memory, no barrier; e and each q column are read where they lie (any
+// stride), so the caller copies nothing. It takes 0.0214 ms there, the
+// bmm 0.0930 (H100 80GB HBM3, 700 W; chip_smoke.py --exact).
 
 #include "common.cuh"
 
@@ -124,7 +141,89 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kNarrowWarps = 8;   // block rows a CTA
+constexpr int kNarrowUnroll = 4;  // cases a lane has in flight
+
+struct Cols {
+  const float* e;
+  long long se;
+  const float* q[2];
+  long long sq[2];
+};
+
+template <int K>
+__global__ void __launch_bounds__(kNarrowWarps * 32)
+    rel_cache_narrow_kernel(Cols c, const long long* __restrict__ case_off,
+                            const int* __restrict__ case_ids, float* __restrict__ C, int nb) {
+  constexpr int W = cache_width(K);
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kNarrowWarps + threadIdx.x / 32;
+  if (b > nb) return;
+  float acc[W];
+#pragma unroll
+  for (int o = 0; o < W; ++o) acc[o] = 0.0f;
+  const long long lo = b < nb ? case_off[b] : 0, hi = b < nb ? case_off[b + 1] : 0;
+  for (long long c0 = lo + lane; c0 < hi; c0 += 32 * kNarrowUnroll) {
+    int id[kNarrowUnroll];
+#pragma unroll
+    for (int u = 0; u < kNarrowUnroll; ++u) {
+      const long long i = c0 + 32 * u;
+      id[u] = i < hi ? case_ids[i] : -1;
+    }
+    float ev[kNarrowUnroll], qv[kNarrowUnroll][K];
+#pragma unroll
+    for (int u = 0; u < kNarrowUnroll; ++u) {
+      const long long r = id[u] < 0 ? 0 : id[u];
+      ev[u] = id[u] < 0 ? 0.0f : c.e[r * c.se];
+#pragma unroll
+      for (int i = 0; i < K; ++i) qv[u][i] = id[u] < 0 ? 0.0f : c.q[i][r * c.sq[i]];
+    }
+#pragma unroll
+    for (int u = 0; u < kNarrowUnroll; ++u) {
+      if (id[u] < 0) continue;
+      const float e = ev[u];
+      acc[0] = __fadd_rn(acc[0], e);
+      acc[1] = fmaf(e, e, acc[1]);
+      int o = 2 + 2 * K;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        acc[2 + i] = __fadd_rn(acc[2 + i], qv[u][i]);
+        acc[2 + K + i] = fmaf(qv[u][i], e, acc[2 + K + i]);
+#pragma unroll
+        for (int j = i; j < K; ++j, ++o) acc[o] = fmaf(qv[u][i], qv[u][j], acc[o]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < W; ++o) acc[o] = libfm::warp_sum(acc[o]);
+  if (lane == 0) {
+    float* out = C + (long long)b * W;
+#pragma unroll
+    for (int o = 0; o < W; ++o) out[o] = acc[o];
+  }
+}
+
 }  // namespace
+
+// The narrow form, k = 1 or 2: C [nb+1, 2 + 2k + k(k+1)/2] out, the sums
+// of u = [1 | e | q0 (| q1)] over each row's cases, each column read at
+// its own stride (floats); q1 null for k = 1.
+extern "C" int rel_cache_cols_launch(const float* e, long long se, const float* q0,
+                                     long long sq0, const float* q1, long long sq1, int k,
+                                     const long long* case_off, const int* case_ids, float* C,
+                                     int nb, cudaStream_t stream) {
+  if (k < 1 || k > 2 || nb < 0 || !e || !q0 || (k == 2 && !q1) || !case_off || !C ||
+      (nb > 0 && !case_ids))
+    return (int)cudaErrorInvalidValue;
+  const Cols c{e, se, {q0, q1}, {sq0, sq1}};
+  const unsigned grid = (unsigned)((nb + kNarrowWarps) / kNarrowWarps);  // nb + 1 rows
+  constexpr int threads = kNarrowWarps * 32;
+  if (k == 1)
+    rel_cache_narrow_kernel<1><<<grid, threads, 0, stream>>>(c, case_off, case_ids, C, nb);
+  else
+    rel_cache_narrow_kernel<2><<<grid, threads, 0, stream>>>(c, case_off, case_ids, C, nb);
+  return (int)cudaGetLastError();
+}
 
 // C [nb+1, 2 + 2k + k(k+1)/2] out; A [nc, k+1]; case_off int64 [nb+1],
 // case_ids int32; kp = the padded width (16, 32, 64 or 128) holding k.

@@ -122,15 +122,20 @@ def library() -> ctypes.CDLL:
 
 
 class Kernel:
-    """One CUDA kernel's C entry point and its launch counter."""
+    """One CUDA kernel's C entry point and its launch counter. A second
+    entry point of the same kernel (another form of it) passes
+    `count_as`, the Kernel whose counter its launches add to; it is not
+    registered apart."""
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, symbol: str, argtypes: list, count_as=None):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
-        REGISTRY[name] = self
+        self._counter = count_as or self
+        if count_as is None:
+            REGISTRY[name] = self
 
     def launch(self, *args) -> None:
         """Call the C entry point on the current CUDA stream; raise if the
@@ -146,7 +151,7 @@ class Kernel:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: cudaError {err}"
             )
-        self.launches += 1
+        self._counter.launches += 1
 
 
 def reset_launch_counts() -> None:

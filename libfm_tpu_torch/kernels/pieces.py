@@ -26,13 +26,16 @@ class Pieces:
     feature, the feature's first scratch row, the feature's pieces), in
     the order the kernels' CTAs take them: features of many pieces first
     (their last piece also adds the others: the longest chain). Only
-    features of several pieces take scratch rows: `rows` of them. The
-    ticket, one int a feature, is zero between calls; the scratch is
-    allocated at its first use and kept."""
+    features of several pieces take scratch rows: `rows` of them, and
+    their pieces are the first `rows` of `order`. The ticket, one int a
+    feature, is zero between calls; the scratch is allocated at its first
+    use and kept. `piece_len` (PIECE_LEN unless a kernel takes shorter
+    pieces) is the most slots a piece holds."""
 
-    def __init__(self, feat_off, device):
+    def __init__(self, feat_off, device, piece_len: int = PIECE_LEN):
         off = feat_off.cpu().numpy() if torch.is_tensor(feat_off) else np.asarray(feat_off)
-        per = np.maximum(1, -(-np.diff(off) // PIECE_LEN))
+        self.piece_len = piece_len
+        per = np.maximum(1, -(-np.diff(off) // piece_len))
         multi = np.where(per > 1, per, 0)
         base = np.cumsum(multi) - multi
         feats = np.argsort(-per, kind="stable")

@@ -14,6 +14,11 @@ A = [e | Q]
 with the sentinel row nb = 0. JAX's slab layout of the same sums (a
 layout for the TPU's gather cost) is not carried over: the sums are the
 same, in another f32 order.
+
+At k <= 2 (the exact BS engine's k = 1: its per-row sums of e and q',
+libfm_tpu/learners/mcmc_relational.py:540-547) a narrow form of the
+kernel runs, one warp a block row; `rel_cache_cols` gives it e and q' as
+two columns at any stride, so nothing is copied first.
 """
 
 from __future__ import annotations
@@ -31,6 +36,12 @@ KERNEL = Kernel(
     "rel_cache", "rel_cache_launch",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3,
 )
+_P, _L = ctypes.c_void_p, ctypes.c_longlong
+#: the narrow form (k <= 2, columns at any stride), counted as rel_cache
+NARROW = Kernel("rel_cache", "rel_cache_cols_launch",
+                [_P, _L] * 3 + [ctypes.c_int] + [_P] * 3 + [ctypes.c_int], count_as=KERNEL)
+#: the widest k the narrow form takes
+NARROW_MAX_K = 2
 #: cases a step of the plain version sums (bounds its [chunk, CW] rows)
 _PLAIN_CHUNK = 1 << 15
 
@@ -67,6 +78,12 @@ def rel_cache_plain(A, case_off, case_ids):
     return C
 
 
+def rel_cache_cols_plain(e, q, case_off, case_ids):
+    """The plain PyTorch version of `rel_cache_cols`: `rel_cache_plain` on
+    the stacked columns [e | q]."""
+    return rel_cache_plain(torch.stack([e, q], dim=1), case_off, case_ids)
+
+
 def rel_cache_reference(A, case_off, case_ids):
     """The plain version in float64, and beside it every entry's sum of
     magnitudes (the same sums over |A|). Returns (C, scale), float64."""
@@ -86,5 +103,37 @@ def rel_cache(A, case_off, case_ids):
     check(case_off, "case_off", torch.int64, (nb + 1,))
     check(case_ids, "case_ids", torch.int32)
     C = torch.empty(nb + 1, cache_width(k), dtype=torch.float32, device=A.device)
-    KERNEL.launch(ptr(A), ptr(case_off), ptr(case_ids), ptr(C), nb, k, padded_width(k))
+    if k <= NARROW_MAX_K:
+        _narrow(A[:, 0], [A[:, 1 + i] for i in range(k)], case_off, case_ids, C)
+    else:
+        KERNEL.launch(ptr(A), ptr(case_off), ptr(case_ids), ptr(C), nb, k, padded_width(k))
+    return C
+
+
+def _narrow(e, qs, case_off, case_ids, C):
+    """One launch of the narrow form over the columns e and qs (1-D
+    float32, any stride) into C."""
+    s = [(t.data_ptr(), t.stride(0)) for t in qs] + [(None, 0)] * (NARROW_MAX_K - len(qs))
+    NARROW.launch(e.data_ptr(), e.stride(0), *s[0], *s[1], len(qs), ptr(case_off),
+                  ptr(case_ids), ptr(C), case_off.shape[0] - 1)
+
+
+def rel_cache_cols(e, q, case_off, case_ids):
+    """`rel_cache` at k = 1 over the columns e and q (1-D float32 [nc], any
+    stride: a column of A, or a tensor of its own), without stacking them:
+    C [nb+1, 5] = [sum e | sum e^2 | sum q | sum q e | sum q^2] over each
+    block row's cases; row nb is 0."""
+    if not on_cuda(e, q, case_off, case_ids):
+        return rel_cache_cols_plain(e, q, case_off, case_ids)
+    nb = case_off.shape[0] - 1
+    for t, name in ((e, "e"), (q, "q")):
+        if t.dtype != torch.float32 or t.dim() != 1:
+            raise TypeError(f"{name}: expected a 1-D float32 tensor, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    if e.shape != q.shape:
+        raise ValueError(f"e {tuple(e.shape)} and q {tuple(q.shape)} differ in length")
+    check(case_off, "case_off", torch.int64, (nb + 1,))
+    check(case_ids, "case_ids", torch.int32)
+    C = torch.empty(nb + 1, cache_width(1), dtype=torch.float32, device=e.device)
+    _narrow(e, [q], case_off, case_ids, C)
     return C

@@ -30,7 +30,7 @@ import torch
 from libfm_tpu_torch.data.batching import conflict_free_blocks, feature_slots
 from libfm_tpu_torch.data.vector_layout import padded_rows_layout
 from libfm_tpu_torch.device import resolve_device
-from libfm_tpu_torch.kernels.coord_draw import coord_draw
+from libfm_tpu_torch.kernels.coord_draw import DrawPlan, coord_draw
 from libfm_tpu_torch.kernels.fm_refresh import fm_refresh
 from libfm_tpu_torch.learners import base as _base
 from libfm_tpu_torch.learners.base import rmse_mae
@@ -350,8 +350,9 @@ class CoordBlock:
     `rel_coord_draw` read it: its features (global ids: `features` long,
     `feat_id` int32), their groups (`group_id` int32), the per-feature slot
     lists `feat_off` int64 [F+1], `slot_row` int32 (train cases, or block
-    rows) and `slot_val` float32, and `rejected`, the block's slice of the
-    engine's rejection counters (`attach_counters`)."""
+    rows) and `slot_val` float32, the kernel's launch plan (`plan`, a
+    DrawPlan) and `rejected`, the block's slice of the engine's rejection
+    counters (`attach_counters`)."""
 
     def __init__(self, features, groups, feat_off, slot_row, slot_val, device):
         def t(x, dtype):
@@ -364,6 +365,7 @@ class CoordBlock:
         self.feat_off = t(feat_off, torch.int64)
         self.slot_row = t(slot_row, torch.int32)
         self.slot_val = t(slot_val, torch.float32)
+        self.plan = DrawPlan(np.asarray(feat_off), device)
         self.rejected = None
 
     @classmethod
@@ -384,6 +386,16 @@ def attach_counters(blocks, device):
     return buf
 
 
+def draw_caches(nc, device):
+    """The exact engines' working copy of e and one factor's q, [nc, 2]:
+    the draws of an iteration read and write e and q here rather than in
+    A = [e | Q], where they lie a row (k+1 floats) apart, so that a slot's
+    two values share one 32-byte sector of the card's memory. Each factor
+    copies its q in from A (written by the last re-prediction); e goes
+    back to A when the draws end."""
+    return torch.empty(nc, 2, dtype=torch.float32, device=device)
+
+
 def draw_block(lrn, kernel, blk, theta, lam, mu, alpha, bound, **caches):
     """One block's draws with `kernel` (`coord_draw` or `rel_coord_draw`)
     on the parameter column `theta`, the normals drawn from the learner's
@@ -391,7 +403,7 @@ def draw_block(lrn, kernel, blk, theta, lam, mu, alpha, bound, **caches):
     z = (torch.randn(blk.F, generator=lrn.generator, device=theta.device)
          if lrn.do_sample else None)
     kernel(theta, blk.feat_off, blk.slot_row, blk.slot_val, blk.feat_id, blk.group_id, lam,
-           mu, alpha, z, blk.rejected, bound=bound, **caches)
+           mu, alpha, z, blk.rejected, bound=bound, plan=blk.plan, **caches)
 
 
 def padded_rows(ds, device):
@@ -423,10 +435,12 @@ def learn_exact(lrn, train, test):
     for `lrn`, regression or probit classification; returns the history.
 
     State on the device: P = [w | V] [n, k+1] and A = [e | Q] [num_train,
-    k+1] (e = pred - y, or pred - latent under probit). One iteration:
-    alpha, w0 (e moves with it), the hyperpriors, one `coord_draw` w
-    launch a block, the unobserved features, then for each factor f one
-    `coord_draw` v launch a block on (e, q = A[:, 1+f]); then the
+    k+1] (e = pred - y, or pred - latent under probit); the draws work on
+    a copy of e and of one factor's q side by side (`draw_caches`). One
+    iteration: alpha, w0 (e moves with it), the hyperpriors, one
+    `coord_draw` w call a block (one launch, two on a block with a long
+    feature), the unobserved features, then for each factor f one
+    `coord_draw` v call a block on (e, q = A[:, 1+f]); then the
     re-prediction: `fm_refresh`'s test mode, and its train mode (A
     rewritten, the clipped squared error) or probit mode (the latents
     drawn, or their expectations under ALS, and the correct count)."""
@@ -453,6 +467,7 @@ def learn_exact(lrn, train, test):
 
     P, st = initial_state(lrn, lrn.init_params, n, k, num_attr_per_group.shape[0], nc_test)
     A = torch.empty(nc_train, k + 1, dtype=f32, device=dev)
+    EQ = draw_caches(nc_train, dev)
     fwd = dict(use_linear=use_linear, use_bias=cfg.use_bias)
     clip = dict(min_target=min_t, max_target=max_t)
     # the initial prediction takes e = pred - y for both tasks (libFM
@@ -462,14 +477,15 @@ def learn_exact(lrn, train, test):
     probit = None if not classify else "sample" if lrn.do_sample else "mean"
 
     def draw_all():
-        e = A[:, 0]
+        e, q = EQ[:, 0], EQ[:, 1]
+        e.copy_(A[:, 0])
         alpha, rej = draw_alpha(gen, e, nc_train, st["alpha"], lrn.alpha_0, lrn.gamma_0,
                                 lrn.do_multilevel, lrn.do_sample)
         w0 = st["w0"]
         if cfg.use_bias:
             w0_new, r = draw_w0(lrn, e.sum(), nc_train, w0, alpha, bound)
             rej = rej + r
-            A[:, 0] += w0_new - w0
+            e += w0_new - w0
             w0 = w0_new
         # V's hyperpriors and the unobserved features' V are drawn here
         # with w's; the JAX engine draws them after the w sweep (the
@@ -489,10 +505,12 @@ def learn_exact(lrn, train, test):
             # it from V[:, f], which nothing has changed since, and each
             # block's draws keep it current. It is the JAX engine's rebuilt
             # q (add_main_q) up to the order of f32 sums
-            q = A[:, 1 + f]
+            q.copy_(A[:, 1 + f])
             for blk in blocks:
                 draw_block(lrn, coord_draw, blk, P[:, 1 + f], v_lambda[:, f], v_mu[:, f],
                            alpha, bound, e=e, q=q)
+        # the re-prediction rewrites A; q's last values are not read again
+        A[:, 0] = e
         st.update(w0=w0, alpha=alpha, **dict(zip(HYPER, hyper)))
         return rej
 

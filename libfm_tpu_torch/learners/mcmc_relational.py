@@ -20,12 +20,14 @@ State on the device:
 One iteration, in the JAX engine's order:
   alpha, w0 (e moves with it) and the hyperpriors (plain torch);
   the w sweep: `coord_draw` (w) on each main-table block, then per
-    relation `rel_cache` over [e | Q_0] (we: each block row's sum of e),
-    `rel_coord_draw` (w) on each of its blocks and e += (y_b - y_old)[map];
+    relation `rel_cache_cols` over A's columns e and Q_0 (we: each block
+    row's sum of e), `rel_coord_draw` (w) on each of its blocks and
+    e += (y_b - y_old)[map];
   the unobserved features;
-  per factor f, with q = A[:, 1+f]: `coord_draw` (v) on each main block;
-    per relation q' = q - qB[map], `rel_cache` over [e | q'] (its columns
-    sum e, e q', q' and q'^2 a block row: we, weq, wc, wc_sqr),
+  per factor f, with q = A[:, 1+f] (e and q worked on in `draw_caches`,
+    side by side): `coord_draw` (v) on each main block;
+    per relation q' = q - qB[map], `rel_cache_cols` over e and q' (its
+    columns sum e, e q', q' and q'^2 a block row: we, weq, wc, wc_sqr),
     `rel_coord_draw` (v) on each of its blocks, then
     e += (y_b - y_old)[map] + q' (qB - qB_old)[map] and q = q' + qB[map];
   the re-prediction: `rel_scores`, then `rel_refresh`'s test mode and its
@@ -44,12 +46,13 @@ import numpy as np
 import torch
 
 from libfm_tpu_torch.kernels.coord_draw import coord_draw, rel_coord_draw
-from libfm_tpu_torch.kernels.rel_cache import rel_cache
+from libfm_tpu_torch.kernels.rel_cache import rel_cache_cols
 from libfm_tpu_torch.kernels.rel_refresh import rel_refresh, rel_scores
 from libfm_tpu_torch.learners.mcmc import (
     HYPER,
     CoordBlock,
     attach_counters,
+    draw_caches,
     attr_groups,
     draw_alpha,
     draw_block,
@@ -129,6 +132,7 @@ def learn_relational(lrn, train, test):
     P, st = initial_state(lrn, lrn.init_params, n, k, num_attr_per_group.shape[0], nc_test)
     rows_tr, rows_te = main_rows(train, P, dev), main_rows(test, P, dev)
     A = torch.empty(nc_train, k + 1, dtype=f32, device=dev)
+    EQ = draw_caches(nc_train, dev)
     fwd = dict(use_linear=use_linear, use_bias=cfg.use_bias)
     clip = dict(min_target=min_t, max_target=max_t)
     probit = None if not classify else "sample" if lrn.do_sample else "mean"
@@ -154,14 +158,15 @@ def learn_relational(lrn, train, test):
     cur = dict(parts=parts, y_bs=y_bs)
 
     def draw_all():
-        e = A[:, 0]
+        e, q = EQ[:, 0], EQ[:, 1]
+        e.copy_(A[:, 0])
         alpha, rej = draw_alpha(gen, e, nc_train, st["alpha"], lrn.alpha_0, lrn.gamma_0,
                                 lrn.do_multilevel, lrn.do_sample)
         w0 = st["w0"]
         if cfg.use_bias:
             w0_new, r = draw_w0(lrn, e.sum(), nc_train, w0, alpha, bound)
             rej = rej + r
-            A[:, 0] += w0_new - w0
+            e += w0_new - w0
             w0 = w0_new
         hyper, r = draw_sweep_hyperpriors(lrn, P, attr_group, num_attr_per_group, st)
         rej = rej + r
@@ -170,20 +175,20 @@ def learn_relational(lrn, train, test):
             for blk in mains:
                 draw_block(lrn, coord_draw, blk, P[:, 0], w_lambda, w_mu, alpha, bound, e=e)
             for rel, y_b in zip(rels, cur["y_bs"]):
-                # we: each block row's sum of e, rel_cache's first column
-                C = rel_cache(A[:, :2].contiguous(), rel.case_off, rel.case_ids)
+                # we: each block row's sum of e, the caches' first column
+                C = rel_cache_cols(e, A[:, 1], rel.case_off, rel.case_ids)
                 y_old = y_b.clone()
                 for blk in rel.blocks:
                     draw_block(lrn, rel_coord_draw, blk, P[:, 0], w_lambda, w_mu, alpha,
                                bound, we=C[:, 0], wnum=rel.wnum, yb=y_b)
                 # e follows its block row's new prediction
-                A[:, 0] += (y_b - y_old)[rel.map_tr]
+                e += (y_b - y_old)[rel.map_tr]
         rej = rej + draw_unobserved(lrn, P, unobserved, attr_group, hyper, bound)
         for f in range(k):
             # q is A's column 1+f and each relation's qB the column f of
             # its score table, both from the re-prediction: V[:, f] has not
             # changed since (learners/mcmc.py `learn_exact`)
-            q = A[:, 1 + f]
+            q.copy_(A[:, 1 + f])
             theta, lam, mu = P[:, 1 + f], v_lambda[:, f], v_mu[:, f]
             for blk in mains:
                 draw_block(lrn, coord_draw, blk, theta, lam, mu, alpha, bound, e=e, q=q)
@@ -192,14 +197,16 @@ def learn_relational(lrn, train, test):
                 qd = q - qb[rel.map_tr]  # q without the relation's part
                 # per block row: sum e | sum e^2 | wc = sum q' | weq = sum q' e
                 # | wc_sqr = sum q'^2
-                C = rel_cache(torch.stack([e, qd], dim=1), rel.case_off, rel.case_ids)
+                C = rel_cache_cols(e, qd, rel.case_off, rel.case_ids)
                 y_old, qb_old = y_b.clone(), qb.clone()
                 for blk in rel.blocks:
                     draw_block(lrn, rel_coord_draw, blk, theta, lam, mu, alpha, bound,
                                we=C[:, 0], weq=C[:, 3], wc=C[:, 2], wc_sqr=C[:, 4],
                                wnum=rel.wnum, yb=y_b, qb=qb)
-                A[:, 0] = e + (y_b - y_old)[rel.map_tr] + qd * (qb - qb_old)[rel.map_tr]
-                A[:, 1 + f] = qd + qb[rel.map_tr]
+                e.copy_(e + (y_b - y_old)[rel.map_tr] + qd * (qb - qb_old)[rel.map_tr])
+                q.copy_(qd + qb[rel.map_tr])
+        # the re-prediction rewrites A; q's last values are not read again
+        A[:, 0] = e
         st.update(w0=w0, alpha=alpha, **dict(zip(HYPER, hyper)))
         return rej
 

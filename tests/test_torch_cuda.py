@@ -29,7 +29,10 @@ rel_refresh with main rows beside two relations (k 8-128, L 1 and 3, rows
 with no main entry, train, tail and test modes) and its
 probit mode (sampling and expectations), and the BS ALS with a main
 table, regression and probit, on the card against the CPU with exact
-launches.
+launches. The exact engines' coord_draw and rel_coord_draw under launch
+plans that put a block's features in each class (a warp, a CTA, pieces
+with a second launch), in each mode; rel_cache's narrow form over two
+columns (rel_cache_cols), strided and contiguous.
 Tolerances as in chip_smoke.py: fp32 sums taken in another order.
 """
 
@@ -1903,6 +1906,129 @@ def test_rel_coord_draw_kernel_matches_plain(cuda, k, mode):
     assert torch.equal(rk, rp)
 
 
+#: plans that put the features of `_coord_inputs`' block in each class:
+#: the kernel's thresholds (short, medium and one long feature of 5,000
+#: slots), every feature medium (and the long one), every feature of more
+#: than 3 slots cut into pieces of 3
+CD_PLANS = {"kernel": {}, "medium": dict(short_max=0), "pieces": dict(short_max=0, piece_len=3)}
+
+
+@pytest.mark.parametrize("plan_kw", sorted(CD_PLANS))
+@pytest.mark.parametrize("mode", ["w", "v"])
+def test_coord_draw_holds_each_class_of_its_plan(cuda, plan_kw, mode):
+    """coord_draw at k = 32 under plans that put the block's features in
+    each class (short a warp, medium a CTA, long in pieces with a second
+    launch): within 1e-5 of the plain version, the rejection counts
+    equal, a second launch the same bits, the launches the plan's."""
+    from libfm_tpu_torch.kernels import coord_draw as cd
+
+    k = 32
+    rng = np.random.default_rng(21)
+    cb, P, A, lam, mu, z = _coord_inputs(cuda, rng, k)
+    plan = cd.DrawPlan(cb.feat_off, cuda, **CD_PLANS[plan_kw])
+    classes = plan.classes()
+    assert classes["long"] > 0 and classes["medium"] > 0
+    assert classes["short"] > 1 if plan_kw == "kernel" else classes["short"] == 1  # empty
+    col = 0 if mode == "w" else k // 2
+    alpha = torch.tensor(1.3, device=cuda)
+    outs = []
+    for fn in (cd.coord_draw, cd.coord_draw_plain, cd.coord_draw):
+        Pc, Ac = P.clone(), A.clone()
+        rej = torch.zeros(cb.F, dtype=torch.int32, device=cuda)
+        before = kernels.launch_counts()["coord_draw"]
+        fn(Pc[:, col], cb.feat_off, cb.slot_row, cb.slot_val, cb.feat_id, cb.group_id,
+           lam[:, k // 2], mu[:, k // 2], alpha, z, rej, bound=1e6, e=Ac[:, 0],
+           q=None if mode == "w" else Ac[:, col], plan=plan)
+        made = kernels.launch_counts()["coord_draw"] - before
+        assert made == (plan.launches if fn is cd.coord_draw else 0)
+        outs.append((Pc, Ac, rej))
+    torch.cuda.synchronize()
+    (Pk, Ak, rk), (Pp, Ap, rp), (Pk2, Ak2, rk2) = outs
+    for x, y in ((Pk, Pp), (Ak, Ap)):
+        assert ((x - y).abs().max() / y.abs().max().clamp_min(1.0)).item() <= 1e-5
+    assert torch.equal(rk, rp)
+    assert torch.equal(Pk, Pk2) and torch.equal(Ak, Ak2) and torch.equal(rk, rk2)
+    assert not plan.pieces.ticket.any()  # left zero for the next call
+
+
+@pytest.mark.parametrize("plan_kw", sorted(CD_PLANS))
+@pytest.mark.parametrize("mode", ["w", "v"])
+def test_rel_coord_draw_holds_each_class_of_its_plan(cuda, plan_kw, mode):
+    """rel_coord_draw (k = 8) on one block of a relation whose features
+    lie on up to ~60 rows, under plans that put them in each class;
+    every cache within 1e-5 of the plain version, a second launch the
+    same bits."""
+    from libfm_tpu_torch.kernels import coord_draw as cd
+    from libfm_tpu_torch.kernels.rel_cache import rel_cache_cols
+    from libfm_tpu_torch.learners.mcmc_rel_vector import RelLayout
+    from libfm_tpu_torch.learners.mcmc_relational import ExactRel
+
+    k = 8
+    rng = np.random.default_rng(30)
+    nb, nf, nc = 400, 40, 6000
+    join = _relation(rng, nb, 6, nf, nc)
+    rel = ExactRel(RelLayout(join, join, np.zeros(nf, np.int32), nf, by_shape=False), cuda)
+    b = max(rel.blocks, key=lambda blk: blk.slot_row.numel())
+    plan = cd.DrawPlan(b.feat_off, cuda, **CD_PLANS[plan_kw])
+    P = torch.as_tensor(rng.normal(0, 0.3, (nf, k + 1)), dtype=torch.float32, device=cuda)
+    T = torch.as_tensor(rng.normal(0, 1, (nc, 2)), dtype=torch.float32, device=cuda)
+    C = rel_cache_cols(T[:, 0], T[:, 1], rel.case_off, rel.case_ids)
+    SC = torch.as_tensor(rng.normal(0, 0.5, (nb + 1, k + 2)), dtype=torch.float32,
+                         device=cuda)
+    yb = torch.as_tensor(rng.normal(0, 0.5, nb + 1), dtype=torch.float32, device=cuda)
+    lam, mu = torch.full((1,), 2.0, device=cuda), torch.zeros(1, device=cuda)
+    alpha = torch.tensor(1.1, device=cuda)
+    z = torch.as_tensor(rng.normal(0, 1, b.F), dtype=torch.float32, device=cuda)
+    outs = []
+    for fn in (cd.rel_coord_draw, cd.rel_coord_draw_plain, cd.rel_coord_draw):
+        s = dict(P=P.clone(), C=C.clone(), SC=SC.clone(), yb=yb.clone())
+        rej = torch.zeros(b.F, dtype=torch.int32, device=cuda)
+        extra = ({} if mode == "w" else
+                 dict(qb=s["SC"][:, k // 2], weq=s["C"][:, 3], wc=s["C"][:, 2],
+                      wc_sqr=s["C"][:, 4]))
+        fn(s["P"][:, 0 if mode == "w" else 1 + k // 2], b.feat_off, b.slot_row, b.slot_val,
+           b.feat_id, b.group_id, lam, mu, alpha, z, rej, bound=1e6, we=s["C"][:, 0],
+           wnum=rel.wnum, yb=s["yb"], plan=plan, **extra)
+        outs.append((s, rej))
+    torch.cuda.synchronize()
+    (sk, rk), (sp, rp), (sk2, rk2) = outs
+    assert plan.classes()["short" if plan_kw == "kernel" else "medium"] > 0
+    assert plan_kw != "pieces" or plan.classes()["long"] > 0
+    for key in sk:
+        err = ((sk[key] - sp[key]).abs().max() / sp[key].abs().max().clamp_min(1.0)).item()
+        assert err <= 1e-5, (key, err)
+        assert torch.equal(sk[key], sk2[key])
+    assert torch.equal(rk, rp) and torch.equal(rk, rk2)
+
+
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+def test_rel_cache_cols_kernel_matches_float64(cuda, layout):
+    """The narrow form over two columns (of a [nc, 5] table, stride 5, or
+    tensors of their own) on a join whose row 0 holds most cases and row 1
+    none: within (the row's cases + 2) roundings of each entry's sum of
+    magnitudes, one rel_cache launch, a second launch the same bits."""
+    from libfm_tpu_torch.kernels.case_stats import err_over_magnitudes
+    from libfm_tpu_torch.kernels.rel_cache import rel_cache_cols, rel_cache_reference
+    from libfm_tpu_torch.learners.mcmc_rel_vector import RelLayout
+    from libfm_tpu_torch.learners.mcmc_relational import ExactRel
+
+    rng = np.random.default_rng(12)
+    nb, nf, nc = 64, 150, 9000
+    join = _relation(rng, nb, 6, nf, nc)
+    rel = ExactRel(RelLayout(join, join, np.zeros(nf, np.int32), nf, by_shape=False), cuda)
+    T = torch.as_tensor(rng.normal(0, 1, (nc, 5)), dtype=torch.float32, device=cuda)
+    e, q = (T[:, 0], T[:, 3]) if layout == "strided" else (T[:, 0].clone(), T[:, 3].clone())
+    before = kernels.launch_counts()["rel_cache"]
+    C = rel_cache_cols(e, q, rel.case_off, rel.case_ids)
+    assert kernels.launch_counts()["rel_cache"] == before + 1
+    ref, scale = rel_cache_reference(torch.stack([e, q], dim=1), rel.case_off, rel.case_ids)
+    lmax = int((rel.case_off[1:] - rel.case_off[:-1]).max())
+    assert C.shape == (nb + 1, 5)
+    assert err_over_magnitudes(C, ref, scale) <= 2 * (lmax + 2) * U32
+    assert not C[1].any() and not C[nb].any()
+    assert torch.equal(C, rel_cache_cols(e, q, rel.case_off, rel.case_ids))
+
+
 def test_rel_cache_kernel_at_k1_matches_plain(cuda):
     """rel_cache over [e | q'] (k = 1, its smallest compiled width) on a
     join whose row 0 holds most cases and row 1 none."""
@@ -1930,7 +2056,7 @@ def test_exact_als_on_cuda_follows_the_cpu_trajectory(cuda, task):
     card against the CPU from the same parameters, 5 iterations: coord_draw
     once a block for w and each factor, fm_refresh (and its probit mode)
     as the engine needs."""
-    from libfm_tpu_torch.learners.mcmc import ALSLearner
+    from libfm_tpu_torch.learners.mcmc import ALSLearner, exact_layout
 
     train, test, groups = ctr_like(6, 200, 20000, seed=2)
     n, k = train.num_features, 8
@@ -1945,7 +2071,11 @@ def test_exact_als_on_cuda_follows_the_cpu_trajectory(cuda, task):
                         attr_group=groups, init_params=init)
         hist[dev] = lr.learn(train, test)
     counts = {name: c for name, c in kernels.launch_counts().items() if c}
-    want = dict(coord_draw=5 * 6 * (1 + k), fm_refresh=11 - 5 * task)
+    # one coord_draw launch a block, two on a block with a long feature
+    blocks, _ = exact_layout(train, groups, 128, "cpu")
+    assert len(blocks) == 6
+    want = dict(coord_draw=5 * sum(b.plan.launches for b in blocks) * (1 + k),
+                fm_refresh=11 - 5 * task)
     if task:
         want["fm_refresh_probit"] = 5
     assert counts == want
