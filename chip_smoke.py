@@ -8,6 +8,8 @@
                                               # checks and paths only
     python3 chip_smoke.py --exact             # the exact engines' kernel checks and
                                               # paths only
+    python3 chip_smoke.py --sgda              # SGDA's kernel checks and its two paths
+                                              # only
     python3 chip_smoke.py --quality           # MCMC 24 iterations at #3, #4, #5 against
                                               # bench.py's quality targets, and at
                                               # bench_bs_ctx and bench_bs_c
@@ -174,6 +176,9 @@ What it does, in order (any failed phase exits non-zero):
 6. Prints each phase's seconds, one {"kernels": [...]} line (launches on
    every path that runs each kernel), the per-iteration and per-epoch
    seconds, and as the last line {"ok": true, "device": {...}}.
+
+`--sgda` runs only SGDA's kernel checks (phase 3's SGDA part) and its two
+paths (phase 4's sgda_1 and sgda_4b, traced under `--profile`).
 
 `--quality` runs none of that but MCMCVectorLearner to bench.py's 24
 iterations (`_cycle_iters` with refresh_every 8) at configs #3, #4 and #5
@@ -3579,6 +3584,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and run the exact engines' kernel "
                     "checks and paths (configs #3 and #4, bench_bs_ctx, bench_bs_c, the "
                     "fallback at bench_bs); print the rows as one JSON line")
+    ap.add_argument("--sgda", action="store_true",
+                    help="only build the kernels and run SGDA's kernel checks (configs #1 "
+                    "and #4b) and its two paths; print the rows and launches as one JSON "
+                    "line")
     ap.add_argument("--quality", action="store_true",
                     help="only build the kernels and run MCMC to bench.py's 24 "
                     "iterations at configs #3, #4 and #5; print each test_all beside "
@@ -3645,6 +3654,27 @@ def main(argv=None) -> int:
         table = run_exact(args, rec, dev, counts, done)
         fill_launches(table, counts)
         print(f"phase seconds: { {key: round(v, 2) for key, v in phase.items()} }")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(rec, kernels=table, phase_seconds=phase), f, indent=1)
+        print(json.dumps({"card": smi, "kernels": table}))
+        return 0
+    if args.sgda:
+        from libfm_tpu_torch.data.synth import movielens_like
+
+        runs = sgda_data(movielens_like(USERS, ITEMS, RATINGS, seed=SEED), ctr_data())
+        t0 = done("config #1 / #4b data", t0)
+        table = sgda_kernel_checks(args, rec, dev, runs)
+        t0 = done("SGDA kernel checks", t0)
+        counts = {}
+        for name in SGDA_CONFIGS:
+            counts[name] = run_sgda(name, runs, args, rec)
+            t0 = done(f"SGDA {name} path", t0)
+        fill_launches(table, counts)
+        print(f"phase seconds: { {key: round(v, 2) for key, v in phase.items()} }")
+        for name in SGDA_CONFIGS:
+            print(f"{name} per-epoch seconds on {smi}: "
+                  f"{[round(h[3], 6) for h in rec[name]['history']]}")
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(dict(rec, kernels=table, phase_seconds=phase), f, indent=1)

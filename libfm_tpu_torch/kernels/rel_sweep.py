@@ -38,7 +38,7 @@ from libfm_tpu_torch.ops.segment import sorted_index_add_
 
 STATS = Kernel(
     "rel_stats", "rel_stats_launch",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4,
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5,
 )
 UPDATE = Kernel(
     "rel_update", "rel_update_launch",
@@ -48,6 +48,29 @@ RESYNC = Kernel(
     "rel_resync", "rel_resync_launch",
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int],
 )
+
+
+#: the most entries rel_stats stages at once (csrc: kMaxBatch, a warp each)
+MAX_BATCH = 8
+#: the bytes a batch of staged entries aims at (two batches are in flight)
+BATCH_BYTES = 12 * 1024
+
+
+def stats_slot(k: int) -> int:
+    """Floats of shared memory one staged entry takes in rel_stats (csrc:
+    stats_slot): its cache row and its SD row, each with room to keep
+    its source's offset within 16 bytes."""
+    return _round4(cache_width(k) + 3) + _round4(k + 4)
+
+
+def stats_batch(k: int) -> int:
+    """The entries of a feature rel_stats stages at once at k factors:
+    as many as fit in BATCH_BYTES, 1 to MAX_BATCH."""
+    return max(1, min(MAX_BATCH, BATCH_BYTES // (4 * stats_slot(k))))
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
 
 
 @lru_cache(maxsize=None)
@@ -150,7 +173,8 @@ def rel_stats(C, SD, wnum, feat_off, entry_b, entry_x, feat_id, P, *,
     if GG.shape[0] < F or GG.shape[1] != gg_width(k) or not GG.is_contiguous():
         raise ValueError(f"GG: shape {tuple(GG.shape)} cannot hold {F} rows")
     STATS.launch(ptr(C), ptr(SD), ptr(wnum), ptr(feat_off), ptr(entry_b), ptr(entry_x),
-                 ptr(feat_id), ptr(P), ptr(GG), F, k, padded_width(k), int(use_linear))
+                 ptr(feat_id), ptr(P), ptr(GG), F, k, padded_width(k), int(use_linear),
+                 stats_batch(k))
     return GG[:F]
 
 

@@ -36,9 +36,7 @@ import torch
 
 from libfm_tpu_torch.data.batching import BatchedCSR, batch_dataset
 from libfm_tpu_torch.data.dataset import Dataset
-from libfm_tpu_torch.kernels.sgda_lambda import (
-    MAX_GROUP_WIDTH, sgda_lambda, sgda_lambda_scratch,
-)
+from libfm_tpu_torch.kernels.sgda_lambda import sgda_lambda, sgda_lambda_scratch
 from libfm_tpu_torch.kernels.sgda_step import sgda_step, sgda_step_scratch
 from libfm_tpu_torch.kernels.table_scatter import ScatterScratch, longest_runs, table_scatter
 from libfm_tpu_torch.learners import base
@@ -176,14 +174,6 @@ class SGDALearner(SGDLearner):
         self.num_groups = int(groups.max()) + 1 if n else 1
         self.reg_w = None
         self.reg_v = None
-
-    def _check_supported(self, *datasets):
-        super()._check_supported(*datasets)
-        width = self.num_groups * (self.cfg.num_factors + 1)
-        if self.device.type == "cuda" and width > MAX_GROUP_WIDTH:
-            raise NotImplementedError(
-                f"the CUDA lambda step takes G * (1+k) <= {MAX_GROUP_WIDTH}, got "
-                f"{self.num_groups} * {self.cfg.num_factors + 1}")
 
     def learn(self, train: Dataset, test: Dataset, validation: Dataset = None):
         self._check_supported(train, test, validation)

@@ -19,8 +19,10 @@ blocks that cover no case or few tiles, the same bits on a second
 launch, and the inputs they refuse (A off 16 bytes, a table whose rows
 are not update_table's 16-byte pieces). SGDA's two kernels at k 1-128,
 G 1, 2, 13 and the most the lambda step takes, in each mode, with
-padded rows and on a batch of one id, the lambda step refusing more
-groups, and the learner against the CPU. slot_update (K4b) at k 4-128,
+padded rows and on a batch of one id, the lambda step at batches of
+1 to 32,768 rows and with S's columns in tiles (G (1+k) above 7,168),
+and the learner against the CPU. rel_stats on a feature of every block
+row (2,000 entries in many batches). slot_update (K4b) at k 4-128,
 one-hot and valued, a twentieth and all of the cases covered, against its
 plain version and dense_update on the same block; dense_update on the
 incremental test tail's view of A; ALS with dense_update=False and with
@@ -1230,16 +1232,17 @@ def test_als_classification_on_cuda_follows_the_cpu_trajectory(cuda):
 
 SGDA_KS = [1, 8, 16, 64, 128]
 SGDA_SHAPES = [("pair", 2), ("onehot", 13), ("general", 13)]
-SGDA_GROUPS = [1, 2, 13, "most"]  # "most": the largest G sgda_lambda takes at k
+SGDA_GROUPS = [1, 2, 13, "most"]  # "most": the most G sgda_lambda holds in one tile at k
 
 
-def _sgda_inputs(dev, rng, k, G, mode, L, task, n=400, B=1000, same_id=False):
-    """A padded batch (Zipf ids, or every id 7), its scatter plan, and a
-    state: P, Gc [n+1, 1+k] (row n a sentinel no step may write), w0, the
-    groups arange(n) % G and the regularizers, half 0, half in [0, 0.05)."""
+def _sgda_inputs(dev, rng, k, G, mode, L, task, n=400, B=1000, same_id=False, pad=7):
+    """A batch padded in its last `pad` rows (Zipf ids, or every id 7),
+    its scatter plan, and a state: P, Gc [n+1, 1+k] (row n a sentinel no
+    step may write), w0, the groups arange(n) % G and the regularizers,
+    half 0, half in [0, 0.05)."""
     from libfm_tpu_torch.learners.sgda import sgda_scatter_plan
 
-    ids, vals, y, mask = _sgd_batch(dev, rng, n, B, L, mode)
+    ids, vals, y, mask = _sgd_batch(dev, rng, n, B, L, mode, pad=pad)
     if same_id:
         ids = torch.where(mask[:, None], torch.full_like(ids, 7), ids)
     if task == 0:
@@ -1263,9 +1266,9 @@ def _sgda_inputs(dev, rng, k, G, mode, L, task, n=400, B=1000, same_id=False):
 
 
 def _most_groups(G, k):
-    from libfm_tpu_torch.kernels.sgda_lambda import MAX_GROUP_WIDTH
+    from libfm_tpu_torch.kernels.sgda_lambda import groups_in_one_tile
 
-    return MAX_GROUP_WIDTH // (k + 1) if G == "most" else G
+    return groups_in_one_tile(k) if G == "most" else G
 
 
 @pytest.mark.parametrize("k", SGDA_KS)
@@ -1320,40 +1323,75 @@ def test_sgda_lambda_kernel_matches_plain(cuda, k, mode, L, G, task):
     """reg_w and reg_v after one lambda step against the plain version: the
     largest difference over the largest step the plain version takes (the
     clamp at 0 moves neither further); the same bits on a second launch;
-    the ticket left at zero."""
+    the tickets left at zero."""
     from libfm_tpu_torch.kernels import sgda_lambda as sl
 
     G = _most_groups(G, k)
     rng = np.random.default_rng(1900 + k + L + G + task)
     s = _sgda_inputs(cuda, rng, k, G, mode, L, task)
+    regs, scratch = _lambda_step_twice(cuda, s, k, G, mode, task)
+    assert torch.equal(regs[0][0], regs[1][0]) and torch.equal(regs[0][1], regs[1][1])
+    assert (scratch[:sl.TICKET_FLOATS] == 0).all()
+    _hold_lambda_step(regs[0], regs[2], s)
+
+
+def _hold_lambda_step(got, plain, s):
+    """The kernel's regularizers within 1e-4 of the plain version's largest
+    step (the clamp at 0 moves neither further), and none negative."""
+    for j, old in ((1, s["reg_v"]), (0, s["reg_w"])):
+        step = (plain[j] - old).abs().max().item()
+        assert (got[j] - plain[j]).abs().max().item() <= 1e-4 * max(step, 1e-12)
+        assert (got[j] >= 0).all()
+
+
+def _lambda_step_twice(cuda, s, k, G, mode, task=0):
+    """Two kernel launches and the plain version from the same state:
+    (first, second, plain) regularizers, and the scratch."""
+    from libfm_tpu_torch.kernels import sgda_lambda as sl
+
     kw = dict(mode=mode, task=task, lr=0.05, min_target=1.0, max_target=5.0)
     args = (s["P"], s["Gc"], s["ids"], s["vals"], s["y"], s["mask"], s["w0"], s["groups"])
     regs = [(s["reg_w"].clone(), s["reg_v"].clone()) for _ in range(3)]
     scratch = sl.sgda_lambda_scratch(G, k, cuda)
+    before = kernels.launch_counts()["sgda_lambda"]
     sl.sgda_lambda(*args, *regs[0], scratch=scratch, **kw)
     sl.sgda_lambda(*args, *regs[1], scratch=scratch, **kw)
     sl.sgda_lambda_plain(*args, *regs[2], **kw)
     torch.cuda.synchronize()
-    assert torch.equal(regs[0][0], regs[1][0]) and torch.equal(regs[0][1], regs[1][1])
-    assert (scratch[-4:] == 0).all()
-    for j, old in ((1, s["reg_v"]), (0, s["reg_w"])):
-        step = (regs[2][j] - old).abs().max().item()
-        assert (regs[0][j] - regs[2][j]).abs().max().item() <= 1e-4 * max(step, 1e-12)
-        assert (regs[0][j] >= 0).all()
+    assert kernels.launch_counts()["sgda_lambda"] == before + 2
+    return regs, scratch
 
 
-@pytest.mark.parametrize("k", SGDA_KS)
-def test_sgda_lambda_kernel_refuses_more_groups(cuda, k):
+@pytest.mark.parametrize("k,G", [(128, 64), (16, 500)])
+@pytest.mark.parametrize("mode,L", SGDA_SHAPES)
+def test_sgda_lambda_kernel_takes_columns_in_tiles(cuda, k, G, mode, L):
+    """G (1+k) above 7,168, the first kernel's limit: S's columns in 2 and
+    3 tiles (one CTA an SM), against the plain version; the same bits on
+    a second launch; the tickets left at zero."""
     from libfm_tpu_torch.kernels import sgda_lambda as sl
 
-    G = sl.MAX_GROUP_WIDTH // (k + 1) + 1
-    s = _sgda_inputs(cuda, np.random.default_rng(k), k, G, "pair", 2, 0, B=50)
-    before = kernels.launch_counts()["sgda_lambda"]
-    with pytest.raises(ValueError, match="at most"):
-        sl.sgda_lambda(s["P"], s["Gc"], s["ids"], s["vals"], s["y"], s["mask"], s["w0"],
-                       s["groups"], s["reg_w"], s["reg_v"], mode="pair", task=0, lr=0.05,
-                       min_target=1.0, max_target=5.0)
-    assert kernels.launch_counts()["sgda_lambda"] == before
+    assert G * (k + 1) > 7168
+    assert sl.lambda_plan(1000, k, G, 132).tiles > 1
+    s = _sgda_inputs(cuda, np.random.default_rng(2900 + k + L), k, G, mode, L, 0, n=1500)
+    regs, scratch = _lambda_step_twice(cuda, s, k, G, mode)
+    assert torch.equal(regs[0][0], regs[1][0]) and torch.equal(regs[0][1], regs[1][1])
+    assert (scratch[:sl.TICKET_FLOATS] == 0).all()
+    _hold_lambda_step(regs[0], regs[2], s)
+
+
+@pytest.mark.parametrize("B", [1, 31, 8192, 32768])
+@pytest.mark.parametrize("k,G", [(8, 2), (16, 13), (64, 3)])
+@pytest.mark.parametrize("mode,L", SGDA_SHAPES)
+def test_sgda_lambda_kernel_at_each_batch_size(cuda, B, k, G, mode, L):
+    """Batches of 1 and 31 rows (one or two CTAs, the padded rows at the
+    end), and configs #1's and #4b's 8,192 and 32,768 (the grid at its
+    cap, two levels of the cross-CTA sum), against the plain version; the
+    same bits on a second launch."""
+    s = _sgda_inputs(cuda, np.random.default_rng(3900 + B + k + L), k, G, mode, L, 0, B=B,
+                     pad=min(7, B - 1))
+    regs, _ = _lambda_step_twice(cuda, s, k, G, mode)
+    assert torch.equal(regs[0][0], regs[1][0]) and torch.equal(regs[0][1], regs[1][1])
+    _hold_lambda_step(regs[0], regs[2], s)
 
 
 @pytest.mark.parametrize("k", [8, 64])
@@ -1385,13 +1423,15 @@ def test_sgda_kernels_on_a_batch_of_one_id(cuda, k, mode, L):
     assert (regs[0][1] - regs[1][1]).abs().max().item() <= 1e-4 * step
 
 
-@pytest.mark.parametrize("which", ["ml", "ctr"])
+@pytest.mark.parametrize("which", ["ml", "ctr", "wide"])
 def test_sgda_on_cuda_follows_the_cpu_trajectory(cuda, which):
     """SGDALearner on the card (kernels) against the CPU (plain versions)
     from the same parameters, 3 epochs: the metrics, regularizers and
     factors; on the card its batch loop launches sgda_step and
     table_scatter once a batch and, from the second epoch, sgda_lambda
-    once a batch, and besides them only fm_refresh (the evaluations)."""
+    once a batch, and besides them only fm_refresh (the evaluations).
+    "wide": a group a feature, 500 at k = 16 (G (1+k) = 8,500, above the
+    first kernel's 7,168: S's columns in tiles)."""
     from libfm_tpu_torch.data.batching import batch_dataset
     from libfm_tpu_torch.data.synth import ctr_like
     from libfm_tpu_torch.learners.sgda import SGDALearner
@@ -1400,6 +1440,10 @@ def test_sgda_on_cuda_follows_the_cpu_trajectory(cuda, which):
         train, test = movielens_like(300, 200, 30000, seed=5)
         groups = (np.arange(500) >= 300).astype(np.int32)
         task, lr, k = 0, 1e-4, 8
+    elif which == "wide":
+        train, test = movielens_like(300, 200, 30000, seed=5)
+        groups = np.arange(500, dtype=np.int32)
+        task, lr, k = 0, 1e-4, 16
     else:
         train, test, groups = ctr_like(13, 300, 20000, seed=5)
         task, lr, k = 1, 1e-3, 16
@@ -1437,14 +1481,17 @@ REL_KS = [1, 8, 32, 64, 128]
 U32 = 2.0 ** -24  # float32's unit roundoff
 
 
-def _relation(rng, nb, W, nf, nc, offset=0):
+def _relation(rng, nb, W, nf, nc, offset=0, every_row=False):
     """A relation of nb block rows of W valued entries over nf features,
     joined by nc cases: row 1 joined by no case, row 0 by most (skew just
-    under 16), and feature nf - 1 on exactly one row."""
+    under 16), and feature nf - 1 on exactly one row; with `every_row`,
+    feature 0 on all nb rows."""
     from libfm_tpu_torch.data.relation import RelationData, RelationJoin
 
     cols = np.stack([np.sort(rng.choice(nf - 1, W, replace=False)) for _ in range(nb)])
     cols[2, -1] = nf - 1
+    if every_row:
+        cols[:, 0] = 0  # each row's smallest column: the rows stay sorted
     rd = RelationData(np.arange(nb + 1) * W, cols.ravel(), rng.normal(0, 1, nb * W), nf)
     rd.attr_offset = offset
     heavy = int(15.5 * nc / nb)
@@ -1452,13 +1499,13 @@ def _relation(rng, nb, W, nf, nc, offset=0):
     return RelationJoin(rd, rng.permutation(m).astype(np.int32))
 
 
-def _rel_state(cuda, k, seed=0, nb=64, W=6, nf=150, nc=3000):
+def _rel_state(cuda, k, seed=0, nb=64, W=6, nf=150, nc=3000, every_row=False):
     """(P, A, layout, its device copy, C, SD) on the card: P and A random,
     C the plain caches of A, SD random with a zero sentinel row."""
     from libfm_tpu_torch.learners.mcmc_rel_vector import DevRel, RelLayout
 
     rng = np.random.default_rng(seed)
-    join = _relation(rng, nb, W, nf, nc)
+    join = _relation(rng, nb, W, nf, nc, every_row=every_row)
     lay = RelLayout(join, join, np.zeros(nf, np.int32), nf)
     rel = DevRel(lay, cuda)
     P = torch.as_tensor(rng.normal(0, 0.5, (nf, k + 1)), dtype=torch.float32, device=cuda)
@@ -1653,6 +1700,33 @@ def test_rel_stats_kernel_matches_float64(cuda, k, use_linear):
         assert torch.equal(G_k, rs.rel_stats(*args, use_linear=use_linear))
         ones += int((np.diff(hb.feat_off) == 1).sum())
     assert ones > 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", REL_KS)
+def test_rel_stats_kernel_on_a_feature_of_every_row(cuda, k):
+    """A relation whose feature 0 lies on all 2,000 block rows: a block of
+    that one feature, whose 2,000 entries rel_stats stages in many
+    batches (its rows and SD at every 16-byte offset), within (the
+    feature's entries + k + 8) roundings of each entry's sum of
+    magnitudes; a second launch gives the same bits."""
+    from libfm_tpu_torch.kernels import rel_sweep as rs
+    from libfm_tpu_torch.kernels.case_stats import err_over_magnitudes
+
+    nb = 2000
+    P, A, lay, rel, C, SD = _rel_state(cuda, k, seed=3, nb=nb, W=3, nf=300, nc=10000,
+                                       every_row=True)
+    longest = 0
+    for hb, blk in zip(lay.blocks, rel.blocks):
+        args = (C, SD, rel.wnum, blk.feat_off, blk.entry_b, blk.entry_x, blk.feat_id, P)
+        G_k = rs.rel_stats(*args)
+        ref, scale = rs.rel_stats_reference(*args)
+        emax = int(np.diff(hb.feat_off).max())
+        assert err_over_magnitudes(G_k, ref, scale) <= 2 * (emax + k + 8) * U32
+        assert torch.equal(G_k, rs.rel_stats(*args))
+        longest = max(longest, emax)
+        del ref, scale
+    assert longest == nb
     torch.cuda.synchronize()
 
 

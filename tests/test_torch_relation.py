@@ -11,7 +11,7 @@ and plain kernel versions, against the JAX package, on the CPU.
   `rel_scores_plain` equals `fm_refresh_plain` on the expanded rows;
   `rel_cache_plain` then `rel_stats_plain` at a non-zero SD equals
   `slot_stats_plain` over the expanded cases (float64, 1e-9 of each
-  part's largest value); `rel_update_plain` then `rel_resync_plain`
+  part's largest value), also for a feature on every block row; `rel_update_plain` then `rel_resync_plain`
   equals `dense_update_plain` on the expanded cases; `deferred_sums`
   equals the sums over the resynced residuals;
 - BS classification and main-table features beside relations run on the
@@ -81,11 +81,22 @@ def _skewed_problem():
     return train, test, nf
 
 
+def _every_row_problem():
+    """One relation of 300 rows of 4 entries with feature 0 on every row:
+    a conflict-free block of that one feature, whose entries are all the
+    rows (rel_stats takes them in many batches)."""
+    train, test, nf = _single_rel_problem(seed=11, NB=300, W=4, NF=80, NTR=1500)
+    rd = train.relations[0].data
+    rd.cols.reshape(300, 4)[:, 0] = 0  # each row's smallest column; rows stay sorted
+    return train, test, nf
+
+
 PROBLEMS = {
     "single": lambda: _single_rel_problem(seed=9),
     "two": lambda: make_relational_problem()[:2] + make_relational_problem()[4:],
     "general": _general_bs_problem,
     "skewed": _skewed_problem,
+    "every_row": _every_row_problem,
 }
 
 
@@ -251,14 +262,18 @@ def _part_err(G, ref, k):
                for a, b in zip(cuts, cuts[1:]))
 
 
-@pytest.mark.parametrize("name,k", [("single", 3), ("general", 4), ("general", 1)])
+@pytest.mark.parametrize("name,k", [("single", 3), ("general", 4), ("general", 1),
+                                    ("every_row", 1), ("every_row", 8), ("every_row", 32)])
 @pytest.mark.parametrize("use_linear", [True, False])
 def test_rel_cache_and_stats_plain_equal_slot_stats_on_expansion(name, k, use_linear):
     """GG from the frozen caches and SD equals slot_stats over the
-    expanded cases of the current A, every block (float64, 1e-9)."""
+    expanded cases of the current A, every block (float64, 1e-9); on
+    "every_row" a block's one feature has an entry on each block row."""
     _, exp, P, lay, C, SD, _, A = _sweep_state(name, k, seed=2)
     wnum = torch.as_tensor(lay.wnum)
     assert len(lay.blocks) > (1 if name == "general" else 0)
+    if name == "every_row":
+        assert max(int(np.diff(b.feat_off).max()) for b in lay.blocks) == lay.nb
     for blk in lay.blocks:
         G_rel = rel_stats_plain(C, SD, wnum, torch.as_tensor(blk.feat_off),
                                 torch.as_tensor(blk.entry_b), torch.as_tensor(blk.entry_x),

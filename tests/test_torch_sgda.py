@@ -23,6 +23,8 @@ kernels' plain versions).
   f32, the port's SGD and SGDA epochs against JAX's, each beside the
   float64 epoch: SGDA's w0 equals JAX's bit for bit, SGD's drifts no
   further than JAX's plus the one extra rounding a batch of its w0 line;
+- `sgda_lambda_plain` against JAX's `lambda_step` at G (1+k) above
+  7,168 (k = 16 with 500 groups, k = 128 with 64), in each mode;
 - the options outside this slice raise.
 """
 
@@ -243,6 +245,58 @@ def test_lambda_step_plain_matches_jax(mode, task, use_linear, G):
     if G == 13:
         assert (jv == 0).any() and (jv > 0).any()
         assert ((jv == 0) & (rv > 0)).any() or ((jv == 0) & (rv == 0)).any()
+
+
+# G (1+k) above 7,168, the most the lambda kernel took in one launch before
+# it took S's columns in tiles: k = 16 with 500 groups, k = 128 with 64
+WIDE = [(16, 500), (128, 64)]
+WIDE_N = 1200  # features of the wide cases: every group holds some
+
+
+@pytest.mark.parametrize("k,G", WIDE)
+@pytest.mark.parametrize("mode", ["pair", "onehot", "general"])
+def test_lambda_step_plain_matches_jax_at_many_groups(k, G, mode):
+    """sgda_lambda_plain against JAX's lambda_step with G (1+k) > 7,168:
+    the step on each regularizer within 1e-5 of its largest (f32 sums
+    over k = 128 factors taken in another order; a step of ~0.1 leaves
+    some values near 0, so a bound relative to each value would hold
+    nothing), and the same entries clamped at 0."""
+    assert G * (k + 1) > 7168
+    rng = np.random.default_rng(60 + k)
+    L = LS[mode]
+    ids = rng.integers(0, WIDE_N, (B, L)).astype(np.int32)
+    vals = (np.ones((B, L)) if mode != "general"
+            else rng.normal(1, 0.5, (B, L)) * (rng.random((B, L)) < 0.8)).astype(np.float32)
+    mask = np.ones(B, bool)
+    mask[B - PAD:] = False
+    ids[~mask] = 0
+    vals[~mask] = 0.0
+    y = (3.0 + rng.choice([-1.0, 1.0], B)).astype(np.float32)
+    f = np.float32
+    w0, w = f(0.3), rng.normal(0, 0.1, WIDE_N).astype(f)
+    V = rng.normal(0, 0.3, (WIDE_N, k)).astype(f)
+    gw, gv = rng.normal(0, 0.1, WIDE_N + 1).astype(f), rng.normal(0, 0.1, (WIDE_N + 1, k)).astype(f)
+    rw = (rng.random(G) * 0.05 * (rng.random(G) < 0.5)).astype(f)
+    rv = (rng.random((G, k)) * 0.05 * (rng.random((G, k)) < 0.5)).astype(f)
+    groups = _groups(G, WIDE_N)
+    lr, lims = 0.05, (1.0, 5.0)
+    cfg = JaxFMConfig(num_features=WIDE_N, num_factors=k)
+    jl = jsgda.SGDALearner(cfg, attr_group=groups, task=TASK_REGRESSION, verbose=False)
+    _, lam = jl._make_steps(jnp.float32(lr), *lims)
+    jw, jv = lam(JaxFMParams(jnp.asarray(w0), jnp.asarray(w), jnp.asarray(V)),
+                 (jnp.asarray(gw), jnp.asarray(gv)), (jnp.asarray(rw), jnp.asarray(rv)),
+                 tuple(jnp.asarray(a) for a in (ids, vals, y, mask)))
+    jw, jv = np.asarray(jw), np.asarray(jv)
+    P = torch.as_tensor(np.concatenate([w[:, None], V], axis=1))
+    Gc = torch.as_tensor(np.concatenate([gw[:, None], gv], axis=1))
+    reg_w, reg_v = torch.as_tensor(rw.copy()), torch.as_tensor(rv.copy())
+    sgda_lambda_plain(P, Gc, *(torch.as_tensor(a) for a in (ids, vals, y, mask)),
+                      torch.tensor(w0), torch.as_tensor(groups), reg_w, reg_v, mode=mode,
+                      task=TASK_REGRESSION, lr=lr, min_target=lims[0], max_target=lims[1])
+    _close(reg_v.numpy() - rv, jv - rv, rtol=1e-5)
+    _close(reg_w.numpy() - rw, jw - rw, rtol=1e-5)
+    np.testing.assert_array_equal(reg_v.numpy() == 0, jv == 0)
+    assert (jv != rv).any() and (jv == 0).any()
 
 
 # ---- the learner, 3 epochs against JAX
@@ -555,10 +609,6 @@ def test_out_of_slice_options_raise(monkeypatch):
     wide = tsgda.SGDALearner(FMConfig(num_features=10, num_factors=129), device="cuda")
     with pytest.raises(NotImplementedError, match="k <= 128"):
         wide.learn(tr, te, te)
-    many = tsgda.SGDALearner(FMConfig(num_features=500, num_factors=16),
-                             attr_group=np.arange(500), device="cuda")
-    with pytest.raises(NotImplementedError, match="G \\* \\(1\\+k\\)"):
-        many.learn(tr, te, te)
 
 
 def sgda_config1_epochs(ratings, seed=1, epochs=3):
