@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py            # configs #3, #4, #5, bench_bs(_ctx), #1, #4b; the probes
     python3 chip_smoke.py --config3-kernels   # config #3's kernel checks only
-    python3 chip_smoke.py --config5-kernels   # config #5's dual_draw check only
+    python3 chip_smoke.py --config4           # config #4's kernel checks and its MCMC
+                                              # path twice at one seed only
+    python3 chip_smoke.py --config5-kernels   # config #5's dual_draw check and the
+                                              # hyperprior group sums only
     python3 chip_smoke.py --bench-bs          # bench_bs's and bench_bs_ctx's kernel
                                               # checks and paths only
     python3 chip_smoke.py --exact             # the exact engines' kernel checks and
@@ -36,9 +39,10 @@ What it does, in order (any failed phase exits non-zero):
      (gather against streaming), and dense_update with skewed ids: every
      covered case on one of 4 rows, or on Zipf(1.2) ranks as ctr_like
      draws a field's values; slot_update (K4b, the slot scatter) on both
-     blocks' slot lists from the same A and tables, against its plain
-     version and against dense_update on the same blocks, timed beside
-     it; the incremental test tail on the 1M test rows: fm_refresh's
+     blocks' slots in case order (the learner's lists) from the same A
+     and tables, against its plain version and against dense_update on
+     the same blocks, timed beside it, and on the per-feature lists (the
+     same bits, timed beside it); the incremental test tail on the 1M test rows: fm_refresh's
      train mode with y = 0 (the refresh's te_chunk) and dense_update on
      the tail's rows, each against its plain version;
    - SGD: one whole epoch (sgd_step with the w0 update + table_scatter)
@@ -66,10 +70,12 @@ What it does, in order (any failed phase exits non-zero):
      epoch's launches;
    - config #4 (bench.py:236-277: MCMC probit classification, k=16, on
      #4b's data with its 13 field groups): case_stats on the 13 blocks
-     (one iteration's launches; slot_stats, which computes the same GG,
-     timed beside it; both, and the plain version in float32, held to
-     the plain version in float64 entry by entry over the entry's sum of
-     magnitudes), fm_refresh's probit train mode (latents drawn from
+     under their launch plans (one iteration's launches, a second one the
+     same bits; slot_stats, which computes the same GG, and
+     torch.index_select of the slots' rows alone timed beside it; both
+     kernels, and the plain version in float32, held to the plain version
+     in float64 entry by entry over the entry's sum of magnitudes),
+     fm_refresh's probit train mode (latents drawn from
      given uniforms, and as expectations) and probit_latent, each against
      its plain version on the same uniforms;
    - config #5 (bench.py:337-389, bench_largevocab: MCMC probit
@@ -80,7 +86,11 @@ What it does, in order (any failed phase exits non-zero):
      and checked against the JAX engine's rule reckoned straight from the
      train rows (features of 1 to 32 entries); the library
      yardstick is torch.linalg.cholesky_ex + torch.cholesky_solve on the
-     same c x c systems, grouped by c;
+     same c x c systems, grouped by c; and the hyperprior draws' group
+     sums at its shapes (1,040,000 features, k = 128, 26 groups; one
+     sweep's four sums): ops.segment.GroupSums, in a fixed order, against
+     the index_add_ it replaced, both against float64 (tol 1e-5 of the
+     magnitudes), two calls of GroupSums the same bits;
    - bench_bs (bench.py:392-455: relational regression, 1M train and 100K
      test cases joined to 4,000 block rows of 16 gaussian entries over
      20,000 features, k=32, rebuilt with numpy from default_rng(7); its
@@ -96,9 +106,8 @@ What it does, in order (any failed phase exits non-zero):
      each rel_update; rel_resync in write mode (train rows) and read-only
      (the test tail).
      The yardstick of rel_cache is one torch.bmm of the pre-gathered rows
-     [1 | e | Q]. The draw check runs again at the state mcmc_bs ends in
-     (phase 4), which moves from run to run: there the largest distance
-     is recorded, not gated.
+     [1 | e | Q]. The draw check runs again, with both gates, at the
+     state mcmc_bs ends in (phase 4), the same on every run.
    - bench_bs_ctx (bench_bs's data with a main table of two one-hot
      context fields, day of 1,000 and hour of 168, drawn from
      default_rng(8); 21,168 features; bench_bs_c its probit form, the
@@ -137,7 +146,9 @@ What it does, in order (any failed phase exits non-zero):
    an iteration, fm_refresh only to build and re-ground A; within 1e-4),
    and at config #4 (classification: case_stats 13 times an
    iteration, fm_refresh's probit mode at the refresh iterations and
-   probit_latent at the others), MCMCVectorLearner (4) at config #5
+   probit_latent at the others; the MCMC run twice at one seed, whose
+   P, w0, alpha, hyperpriors and test prediction sum must be equal bit
+   for bit), MCMCVectorLearner (4) at config #5
    (classification: slot_stats and schur_draw on each block's dense
    features, dual_draw on its dual ones, 26 blocks an iteration);
    at bench_bs ALSVectorLearner (9 iterations) and MCMCVectorLearner (24:
@@ -179,6 +190,8 @@ What it does, in order (any failed phase exits non-zero):
 
 `--sgda` runs only SGDA's kernel checks (phase 3's SGDA part) and its two
 paths (phase 4's sgda_1 and sgda_4b, traced under `--profile`).
+`--config4` runs only config #4's kernel checks and its MCMC path twice
+at one seed (the same bits).
 
 `--quality` runs none of that but MCMCVectorLearner to bench.py's 24
 iterations (`_cycle_iters` with refresh_every 8) at configs #3, #4 and #5
@@ -367,9 +380,17 @@ EXPECTED["bs_fallback"] = {"rel_coord_draw", "rel_cache", "rel_scores", "rel_ref
 EXPECTED.update({name: EXPECTED["bs_fallback"] | {"coord_draw"}
                  for name in ("als_exact_bs_ctx", "exact_bs_ctx")})
 EXPECTED["exact_bs_c"] = EXPECTED["exact_bs_ctx"] | {"rel_refresh_probit"}
+EXPECTED["mcmc_4_again"] = EXPECTED["mcmc_4"]
 EXPECTED.update(quality_3=EXPECTED["mcmc"], quality_4=EXPECTED["mcmc_4"],
                 quality_5=EXPECTED["mcmc_5"], quality_bs_ctx=EXPECTED["mcmc_bs_ctx"],
                 quality_bs_c=EXPECTED["mcmc_bs_c"])
+
+
+#: the first versions' times of case_stats (config #4's 13 blocks) and
+#: slot_update, as PERF.md §6 keeps them (H100 80GB HBM3, 700 W), printed
+#: beside this run's
+CASE_STATS_FIRST_MS = 3.229
+SLOT_UPDATE_FIRST_MS = {"config #3": 5.776, "bench_bs_ctx": 0.4640}
 
 
 def fail(msg: str) -> None:
@@ -545,11 +566,11 @@ def kernel_checks(args, rec, dev):
         errs.append(ss.gg_rel_err(G, Gp, k))
         del Gp
 
-    def run_stats(fn, GGs=GG_k, **kw):
+    def run_stats(fn, GGs=GG_k, plans=None, **kw):
         def go():
-            for b, G in zip(blocks, GGs):
+            for i, (b, G) in enumerate(zip(blocks, GGs)):
                 fn(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id, GG=G,
-                   pieces=b.pieces, **kw)
+                   pieces=b.pieces if plans is None else plans[i], **kw)
         return go
 
     E = sum(int(b.slot_case.numel()) for b in blocks)
@@ -568,18 +589,19 @@ def kernel_checks(args, rec, dev):
     if not all(b.onehot for b in blocks):
         fail("config #3: a block is not one-hot")
     GG_c = [torch.empty(b.F, GW, device=dev) for b in blocks]
-    run_stats(cs.case_stats, GG_c, onehot=True)()
+    plans = [cs.CaseStatsPlan(b.feat_off, k, dev) for b in blocks]
+    run_stats(cs.case_stats, GG_c, plans, onehot=True)()
     torch.cuda.synchronize()
     cs_err = max(ss.gg_rel_err(Gc, Gk, k) for Gc, Gk in zip(GG_c, GG_k))
     out[-1]["case_stats_same_blocks"] = dict(
-        ms=cuda_ms(run_stats(cs.case_stats, GG_c, onehot=True), args.reps),
+        ms=cuda_ms(run_stats(cs.case_stats, GG_c, plans, onehot=True), args.reps),
         rel_err_against_slot_stats=cs_err, tolerance=1e-4)
     print(f"case_stats on config #3's blocks: ms "
           f"{out[-1]['case_stats_same_blocks']['ms']:.4f} against slot_stats "
           f"{out[-1]['ms']:.4f}; GG rel err against slot_stats {cs_err:.3g} (tol 1e-4)")
     if not cs_err <= 1e-4:
         fail(f"case_stats and slot_stats disagree at config #3: {cs_err}")
-    del GG_c
+    del GG_c, plans
 
     # ---- C. schur_draw (both blocks; sampling mode, mean mode checked too)
     alpha = torch.tensor(2.0, device=dev)
@@ -718,52 +740,70 @@ def kernel_checks(args, rec, dev):
 
 
 def slot_update_check(args, dev, A, blocks, tabs, run_upd):
-    """Config #3's slot_update row: both blocks through their slot lists
-    (K4b, as the learner runs them with dense_update=False) from the same
-    A and update tables, against the plain version and against
-    dense_update on the same blocks, which is timed beside it. Tolerance
-    per column, the largest difference over the column's largest
+    """Config #3's slot_update row: both blocks through their slots in case
+    order (K4b, as the learner runs them with dense_update=False: each
+    block's own list, `case_order`) from the same A and update tables,
+    against the plain version and against dense_update on the same blocks,
+    which is timed beside it; the kernel on the per-feature lists (the
+    first version's order) timed beside it too, and held to the same bits.
+    Tolerance per column, the largest difference over the column's largest
     magnitude, 1e-5: each Q entry takes one float32 product and sum, each
     e entry a k-term dot product in another order."""
+    import numpy as np
+
     from libfm_tpu_torch.kernels import dense_update as du
     from libfm_tpu_torch.kernels import slot_update as su
 
     k, d = FACTORS, FACTORS + 1
-    feats = [torch.repeat_interleave(torch.arange(b.F, dtype=torch.int32, device=dev),
-                                     b.feat_off[1:] - b.feat_off[:-1]) for b in blocks]
+    by_feature, by_case = [], []
+    for b in blocks:
+        lists = (b.slot_case.cpu().numpy(), b.slot_val.cpu().numpy(),
+                 np.repeat(np.arange(b.F, dtype=np.int32), np.diff(b.feat_off.cpu().numpy())))
+        by_feature.append([torch.as_tensor(a, device=dev) for a in lists])
+        by_case.append([torch.as_tensor(a, device=dev) for a in su.case_order(*lists)])
 
-    def run_slots(fn, A_):
+    def run_slots(fn, A_, lists=by_case):
         def go():
-            for b, f, tab in zip(blocks, feats, tabs):
-                fn(A_, b.slot_case, b.slot_val, f, tab)
+            for (c, v, f), tab in zip(lists, tabs):
+                fn(A_, c, v, f, tab)
         return go
 
-    A_k, A_p, A_d = A.clone(), A.clone(), A.clone()
+    A_k, A_p, A_d, A_f = A.clone(), A.clone(), A.clone(), A.clone()
     run_slots(su.slot_update, A_k)()
     run_slots(su.slot_update_plain, A_p)()
     run_upd(du.dense_update, A_d)()
+    run_slots(su.slot_update, A_f, by_feature)()
     torch.cuda.synchronize()
     err = col_rel_err(A_k, A_p).item()
     err_dense = col_rel_err(A_k, A_d).item()
-    del A_d
-    E = sum(int(b.slot_case.numel()) for b in blocks)
+    same_bits = torch.equal(A_k, A_f)
+    del A_d, A_f
+    E = sum(int(c.numel()) for c, _, _ in by_case)
     row = kernel_row(
         "slot_update", "libfm_tpu/learners/mcmc_vector.py:1842", err, 1e-5,
         cuda_ms(run_slots(su.slot_update, A_k), args.reps),
         cuda_ms(run_slots(su.slot_update_plain, A_p), args.reps, warmup=1),
         nbytes=E * (12 + 2 * d * 4) + sum((b.F + 1) * (d + 1) * 4 for b in blocks),
         flops=E * (4 * k + 6), lib_ms=None,
-        timed="one iteration's launches at dense_update=False: one per block",
+        timed="one iteration's launches at dense_update=False: one per block, the slots "
+              "in case order",
     )
     row["library_note"] = ("none: no one PyTorch call gathers the slots' rows of A, dots "
                            "them with their features' table rows and adds the rows back")
     row["dense_update_same_blocks_ms"] = cuda_ms(run_upd(du.dense_update, A_k), args.reps)
+    row["feature_order_ms"] = cuda_ms(run_slots(su.slot_update, A_k, by_feature), args.reps)
     row["rel_err_against_dense_update"] = err_dense
-    print(f"slot_update on config #3's blocks ({E} slots): ms {row['ms']:.4f} against "
-          f"dense_update's {row['dense_update_same_blocks_ms']:.4f} on the same blocks; "
-          f"per-column error against dense_update {err_dense:.3g} (tol 1e-5)")
+    row["feature_order_same_bits"] = same_bits
+    print(f"slot_update on config #3's blocks ({E} slots, in case order): ms {row['ms']:.4f} "
+          f"against dense_update's {row['dense_update_same_blocks_ms']:.4f} on the same "
+          f"blocks and its own {row['feature_order_ms']:.4f} on the per-feature lists (the "
+          f"same bits: {same_bits}); per-column error against dense_update {err_dense:.3g} "
+          f"(tol 1e-5); the first version took {SLOT_UPDATE_FIRST_MS['config #3']} ms "
+          f"(PERF.md, on an H100 80GB HBM3 at 700 W)")
     if not err_dense <= 1e-5:
         fail(f"slot_update and dense_update disagree at config #3: {err_dense}")
+    if not same_bits:
+        fail("slot_update gives other bits on the per-feature lists than in case order")
     return row
 
 
@@ -882,7 +922,8 @@ def ctr_kernel_checks(args, rec, dev, ctr):
     heavy = [int((b.feat_off[1:] - b.feat_off[:-1]).max()) for b in blocks]
     print(f"config #4: {len(blocks)} blocks, case-major "
           f"{[b.case_major for b in blocks]}, one-hot {all(b.onehot for b in blocks)}, "
-          f"pieces {[b.pieces.count for b in blocks if b.case_major]}, longest slot list "
+          f"case_stats CTAs {[b.case_plan.count for b in blocks if b.case_major]}, longest "
+          f"slot list "
           f"{heavy} ({time.perf_counter() - t0:.1f} s)")
     if not all(b.case_major and b.onehot for b in blocks):
         fail("config #4: a block left the case-major path or is not one-hot")
@@ -906,7 +947,7 @@ def ctr_kernel_checks(args, rec, dev, ctr):
             for b, G in zip(blocks, GG_k):
                 r = fn(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id,
                        onehot=b.onehot, GG=G if fn is cs.case_stats else None,
-                       pieces=b.pieces)
+                       pieces=b.case_plan)
                 if keep:
                     GG_p.append(r)
         return go
@@ -950,13 +991,32 @@ def ctr_kernel_checks(args, rec, dev, ctr):
     row["plain_f32_err"] = max(errs_p)
     row["slot_stats_err_same_blocks"] = max(errs_s)
     row["slot_stats_ms_same_blocks"] = cuda_ms(run_ss, args.reps)
+    # the rows' gather alone, in the kernel's order: what reading A by the
+    # slot lists costs, with no sums
+    rows_out = [torch.empty(b.slot_case.numel(), d, device=dev) for b in blocks]
+
+    def gather():
+        for b, out_rows in zip(blocks, rows_out):
+            torch.index_select(A, 0, b.slot_case.long(), out=out_rows)
+
+    row["rows_gather_ms"] = cuda_ms(gather, args.reps)
+    del rows_out
     row["library_ms_none_because"] = ("no one PyTorch call sums the moment rows per feature "
                                       "and reconstructs GG")
     print(f"case_stats against the float64 plain version, over each entry's sum of "
           f"magnitudes: kernel {row['max_abs_err']:.3g}, plain version in float32 "
           f"{row['plain_f32_err']:.3g}, slot_stats {row['slot_stats_err_same_blocks']:.3g} "
           f"(tol {CASE_STATS_TOL:g}); slot_stats ms {row['slot_stats_ms_same_blocks']:.4f} "
-          f"against case_stats {row['ms']:.4f}")
+          f"against case_stats {row['ms']:.4f}; torch.index_select of the slots' rows "
+          f"alone {row['rows_gather_ms']:.4f}; the first version of case_stats took "
+          f"{CASE_STATS_FIRST_MS} ms (PERF.md, on an H100 80GB HBM3 at 700 W)")
+    same = run_cs(cs.case_stats)
+    GG_again = [G.clone() for G in GG_k]
+    same()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(GG_again, GG_k)):
+        fail("case_stats gives other bits on a second launch at config #4")
+    del GG_again
     if not row["slot_stats_err_same_blocks"] <= CASE_STATS_TOL:
         fail(f"slot_stats disagrees with the float64 plain version at config #4: "
              f"{row['slot_stats_err_same_blocks']}")
@@ -1368,13 +1428,12 @@ def bs_sweeps(rel, lay, C, P, alpha, lam_row, mu_row, g, bound):
                                x.square().mean().sqrt().item()])})
 
 
-def check_bs_draws(res, state, gate_max=True):
+def check_bs_draws(res, state):
     """Fails unless the draws of a checked `bs_sweeps` lie, in posterior
     standard deviations, no further from the float64 draws than 1.5 times
     the float32 plain version's own, by their root mean square over the
-    features and (with `gate_max`) by the largest distance, with none
-    rejected, and rel_stats and rel_update hold. Returns the numbers for
-    the record."""
+    features and by the largest distance, with none rejected, and
+    rel_stats and rel_update hold. Returns the numbers for the record."""
     # the draws amplify GG's float32 rounding: its reconstruction cancels
     # (Qq = M2 - v S3 - S3 v + m4 v v), so the float32 plain version's own
     # draws lie up to tenths of a posterior standard deviation from the
@@ -1382,10 +1441,10 @@ def check_bs_draws(res, state, gate_max=True):
     # plain version through ops.segment.sorted_index_add_), so at a fixed
     # state both distances are the same on every run; the kernel sums
     # sequentially, its rms ~1.25 x the plain version's at mcmc_bs's last
-    # state. That state moves from run to run (the chain's hyperprior sums
-    # add with atomics), and with it the largest distance of either
-    # version, one feature of 19K: it is gated at the fixed check state
-    # only, and recorded at the chain's
+    # state. The chain's sums too are taken in a fixed order (the
+    # hyperprior draws' group sums through ops.segment.GroupSums), so that
+    # state is the same on every run, and the largest distance is gated
+    # there as at the check state
     draw_tol = 1.5 * res["plain_rms"]
     max_tol = 1.5 * res["plain_max"]
     print(f"bench_bs draws at {state}: distances in posterior sd from the float64 draws "
@@ -1400,16 +1459,15 @@ def check_bs_draws(res, state, gate_max=True):
     if not res["kernel_rms"] <= draw_tol or res["rejected"]:
         fail(f"bench_bs at {state}: draws from rel_stats' GG lie {res['kernel_rms']} posterior "
              f"sd (rms) from float64 (> {draw_tol}) or were rejected ({res['rejected']})")
-    print(f"bench_bs draws at {state}: largest distance {res['kernel_max']:.4g} ("
-          f"{'tol' if gate_max else 'recorded; 1.5 x plain'} {max_tol:.4g}: 1.5 x the "
-          f"float32 plain version's {res['plain_max']:.6g})")
-    if gate_max and not res["kernel_max"] <= max_tol:
+    print(f"bench_bs draws at {state}: largest distance {res['kernel_max']:.4g} (tol "
+          f"{max_tol:.4g}: 1.5 x the float32 plain version's {res['plain_max']:.6g})")
+    if not res["kernel_max"] <= max_tol:
         fail(f"bench_bs at {state}: a draw from rel_stats' GG lies {res['kernel_max']} "
              f"posterior sd from float64 (> {max_tol})")
     if not res["stat_err"] <= res["stat_tol"] or not res["upd_err"] <= 1e-5:
         fail(f"bench_bs at {state}: rel_stats ({res['stat_err']} > {res['stat_tol']}) or "
              f"rel_update ({res['upd_err']} > 1e-5) disagrees")
-    return dict(res, state=state, draw_tol=draw_tol, max_tol=max_tol if gate_max else None)
+    return dict(res, state=state, draw_tol=draw_tol, max_tol=max_tol)
 
 
 def bs_chain_check(rec, dev, bs, learner):
@@ -1440,7 +1498,7 @@ def bs_chain_check(rec, dev, bs, learner):
     state = (f"mcmc_bs's last state (alpha {float(st['alpha']):.4g}, lambda_w "
              f"{float(st['w_lambda'][0]):.4g}, mean lambda_v "
              f"{float(st['v_lambda'].mean()):.4g})")
-    rec["bs_sweep_chain"] = check_bs_draws(res, state, gate_max=False)
+    rec["bs_sweep_chain"] = check_bs_draws(res, state)
     del C, P
     torch.cuda.empty_cache()
 
@@ -1929,7 +1987,7 @@ def bs_ctx_kernel_checks(args, rec, dev, ctx):
     def run_upd(fn, A_):
         def go():
             for b, tab in zip(mains, tabs):
-                fn(A_, b.slot_case, b.slot_val, b.slot_feat, tab)
+                fn(A_, b.upd_case, b.upd_val, b.upd_feat, tab)
         return go
 
     A_k, A_p = A.clone(), A.clone()
@@ -1947,6 +2005,9 @@ def bs_ctx_kernel_checks(args, rec, dev, ctx):
     row.update(config="bench_bs_ctx",
                library_note="none: no one PyTorch call gathers the slots' rows of A, dots "
                "them with their features' table rows and adds the rows back")
+    print(f"slot_update on bench_bs_ctx's main blocks, the slots in case order: ms "
+          f"{row['ms']:.4f}; the first version took {SLOT_UPDATE_FIRST_MS['bench_bs_ctx']} ms "
+          f"(PERF.md, on an H100 80GB HBM3 at 700 W)")
     out.append(row)
     del A, A_k, A_p, GG, sys_in, tabs, SC, main_tr, main_te
     torch.cuda.empty_cache()
@@ -2879,6 +2940,78 @@ def run_learner(cls, name, data, args, rec, factors=FACTORS, iters=None, groups=
     return learner, counts
 
 
+#: the final state two runs of one chain at one seed must share, bit for bit
+REPRO_KEYS = ("w0", "alpha", "w_mu", "w_lambda", "v_mu", "v_lambda", "w", "V", "pred_sum_all")
+
+
+def repro_check(args, rec, first, name, cls, data, **kw):
+    """The chain of learner `first` once more at the same seed, as run
+    `name`: fails unless its P = [w | V], w0, alpha, hyperpriors and test
+    prediction sum equal the first run's bit for bit (every sum of the
+    chain is taken in a fixed order). Returns the run's launches."""
+    learner, counts = run_learner(cls, name, data, args, rec, **kw)
+    a, b = first._final_state, learner._final_state
+    differ = [key for key in REPRO_KEYS if not torch.equal(a[key], b[key])]
+    rec[name]["same_bits"] = not differ
+    print(f"{name}: the chain again at seed {SEED}: {', '.join(REPRO_KEYS)} equal bit for "
+          f"bit: {not differ}; test_all {[h['test_all'] for h in rec[name]['history']]}")
+    if differ:
+        fail(f"{name}: a second run at one seed ends in other bits: {differ}")
+    return counts
+
+
+def group_sum_check(args, rec, dev, lv):
+    """The hyperprior draws' group sums at config #5's shapes (its
+    1,040,000 features, k = 128, its 26 field groups): one sweep's four
+    sums (w and V, each beside its squares) by GroupSums, in a fixed
+    order, against the index_add_ they replaced (float atomics on the
+    card), both held to float64 over each sum's magnitudes (tol 1e-5),
+    GroupSums twice the same bits."""
+    from libfm_tpu_torch.ops.segment import GroupSums, seg_sum
+
+    train, _, groups = lv
+    n, d = train.num_features, LV_FACTORS + 1
+    t0 = time.perf_counter()
+    gs = GroupSums(groups, int(groups.max()) + 1, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    P = 0.1 * torch.randn(n, d, generator=g, device=dev)
+    thetas = (P[:, 0], P[:, 0] ** 2, P[:, 1:], P[:, 1:] ** 2)
+
+    def fixed():
+        return [gs(x) for x in thetas]
+
+    def atomics():
+        return [seg_sum(x, gs.ids, gs.num_groups) for x in thetas]
+
+    a1, a2, b1, b2 = fixed(), fixed(), atomics(), atomics()
+    err = err_atomics = 0.0
+    for x, a, b in zip(thetas, a1, b1):
+        ref = seg_sum(x.double(), gs.ids, gs.num_groups)
+        mag = seg_sum(x.double().abs(), gs.ids, gs.num_groups).clamp_min(1e-300)
+        err = max(err, ((a.double() - ref).abs() / mag).max().item())
+        err_atomics = max(err_atomics, ((b.double() - ref).abs() / mag).max().item())
+    out = dict(
+        ms=cuda_ms(fixed, args.reps), index_add_ms=cuda_ms(atomics, args.reps),
+        err=err, index_add_err=err_atomics, tol=1e-5, setup_s=setup_s,
+        same_bits=all(torch.equal(x, y) for x, y in zip(a1, a2)),
+        index_add_same_bits=all(torch.equal(x, y) for x, y in zip(b1, b2)),
+        features=n, groups=gs.num_groups)
+    rec["group_sums_config5"] = out
+    print(f"hyperprior group sums at config #5 ({n} features, k = {LV_FACTORS}, "
+          f"{gs.num_groups} groups; one sweep's 4 sums): GroupSums {out['ms']:.4f} ms (set-up "
+          f"{setup_s:.2f} s; two calls the same bits: {out['same_bits']}; err {err:.3g} of "
+          f"the magnitudes, tol 1e-5) against index_add_ {out['index_add_ms']:.4f} ms (two "
+          f"calls the same bits: {out['index_add_same_bits']}; err {err_atomics:.3g})")
+    if not (err <= 1e-5 and out["same_bits"]):
+        fail(f"GroupSums at config #5: err {err} or other bits on a second call")
+    del P, thetas, a1, a2, b1, b2
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_k4b_paths(args, rec, data, counts, done):
     """Path phase, config #3's K4b paths: MCMC (4 iterations, the `mcmc`
     run's seed) with dense_update=False and with the incremental test
@@ -3573,6 +3706,10 @@ def main(argv=None) -> int:
     ap.add_argument("--config3-kernels", action="store_true",
                     help="only build the kernels and run config #3's kernel checks; "
                     "print their rows as one JSON line")
+    ap.add_argument("--config4", action="store_true",
+                    help="only build the kernels, run config #4's kernel checks and its "
+                    "MCMC path twice at one seed (the same bits); print the rows as one "
+                    "JSON line")
     ap.add_argument("--config5-kernels", action="store_true",
                     help="only build the kernels and run config #5's dual_draw "
                     "check; print its row as one JSON line")
@@ -3681,8 +3818,26 @@ def main(argv=None) -> int:
         print(json.dumps({"card": smi, "kernels": table}))
         return 0
     if args.config5_kernels:
-        row, _ = lv_kernel_checks(args, rec, dev, lv_data())
-        print(json.dumps({"card": smi, "kernels": [row]}))
+        lv = lv_data()
+        row, _ = lv_kernel_checks(args, rec, dev, lv)
+        sums = group_sum_check(args, rec, dev, lv)
+        print(json.dumps({"card": smi, "kernels": [row], "group_sums": sums}))
+        return 0
+    if args.config4:
+        ctr = ctr_data()
+        table = ctr_kernel_checks(args, rec, dev, ctr)
+        t0 = done("config #4 data and kernel checks", t0)
+        c4 = dict(factors=CTR_FACTORS, groups=ctr[2], task=1, iters=CTR_MCMC_ITERS,
+                  per_iter=dict(case_stats=CTR_FIELDS, schur_draw=CTR_FIELDS))
+        counts = {}
+        mcmc_4, counts["mcmc_4"] = run_learner(MCMCVectorLearner, "mcmc_4", ctr, args, rec,
+                                               **c4)
+        counts["mcmc_4_again"] = repro_check(args, rec, mcmc_4, "mcmc_4_again",
+                                             MCMCVectorLearner, ctr, **c4)
+        done("config #4 MCMC path twice", t0)
+        fill_launches(table, counts)
+        print(f"phase seconds: { {key: round(v, 2) for key, v in phase.items()} }")
+        print(json.dumps({"card": smi, "kernels": table}))
         return 0
     table, data = kernel_checks(args, rec, dev)
     t0 = done("config #3 data and kernel checks", t0)
@@ -3710,7 +3865,8 @@ def main(argv=None) -> int:
     t0 = done("config #5 data", t0)
     row, lv_blocks = lv_kernel_checks(args, rec, dev, lv)
     table.append(row)
-    t0 = done("config #5 kernel checks", t0)
+    group_sum_check(args, rec, dev, lv)
+    t0 = done("config #5 kernel checks and group sums", t0)
 
     counts = {}
     _, counts["als"] = run_learner(ALSVectorLearner, "als", data, args, rec,
@@ -3728,9 +3884,13 @@ def main(argv=None) -> int:
     _, counts["als_4"] = run_learner(ALSVectorLearner, "als_4", ctr, args, rec,
                                      iters=CTR_ALS_ITERS, regw=5.0, regv=5.0, **c4)
     t0 = done("config #4 ALS path", t0)
-    _, counts["mcmc_4"] = run_learner(MCMCVectorLearner, "mcmc_4", ctr, args, rec,
-                                      iters=CTR_MCMC_ITERS, **c4)
+    mcmc_4, counts["mcmc_4"] = run_learner(MCMCVectorLearner, "mcmc_4", ctr, args, rec,
+                                           iters=CTR_MCMC_ITERS, **c4)
     t0 = done("config #4 MCMC path", t0)
+    counts["mcmc_4_again"] = repro_check(args, rec, mcmc_4, "mcmc_4_again", MCMCVectorLearner,
+                                         ctr, iters=CTR_MCMC_ITERS, **c4)
+    del mcmc_4
+    t0 = done("config #4 MCMC path again (the same bits)", t0)
     _, counts["mcmc_5"] = run_learner(
         MCMCVectorLearner, "mcmc_5", lv, args, rec, factors=LV_FACTORS,
         iters=LV_MCMC_ITERS, groups=lv[2], task=1,
@@ -3763,7 +3923,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(rec, f, indent=1)
     print(json.dumps({"kernels": table}))
-    for name in ("als", "mcmc", "mcmc_scatter", "mcmc_tail", "als_4", "mcmc_4", "mcmc_5",
+    for name in ("als", "mcmc", "mcmc_scatter", "mcmc_tail", "als_4", "mcmc_4",
+                 "mcmc_4_again", "mcmc_5",
                  "als_bs", "mcmc_bs", "mcmc_bs_resync", "als_bs_ctx", "mcmc_bs_ctx",
                  "als_bs_c", "mcmc_bs_c", "als_exact_3", "exact_3", "exact_4",
                  "als_exact_bs_ctx", "exact_bs_ctx", "exact_bs_c", "bs_fallback"):

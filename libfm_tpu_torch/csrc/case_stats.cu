@@ -20,41 +20,46 @@
 // per-feature slot lists (sorted by case), which cover each case of the
 // block once, so A is read once. Bound on the H100 at config #4 (CTR,
 // 1.8M cases, k=16, 5,000 features a block): the A rows, 68 B a case
-// (122 MB), against ~200 FMA a case: bytes, ~0.04 ms a block. One-hot
+// (122 MB), against ~340 FMA a case: bytes, ~0.04 ms a block. One-hot
 // blocks do not read slot_val.
 //
 // Design (fp32 FMA on the CUDA cores, no atomics on floats):
-// - Pieces: a feature's slot list is cut into pieces of at most
-//   `piece_len` slots, one CTA a piece, so the Zipf head of a field (a
-//   fifth of the block's cases in one feature) spreads over many CTAs.
-//   The host orders the pieces so that features of many pieces start
-//   first (their last piece also adds the others: the longest chain).
-//   A piece of a feature with several writes its partial row to its
-//   scratch row (only such features have rows); the last of them to
-//   arrive (an integer ticket after a fence) adds all the feature's
-//   partials in piece order, so the result does not depend on which CTA
-//   finishes last, and resets the ticket for the next call
-//   (kernels/pieces.py makes the cut, the ticket and the scratch once a
-//   block).
-// - Staging: tiles of 64 slots (32 above k = 32), two stages, A rows
-//   gathered by 4-byte cp.async into rows of KP + 8 floats [Q (zero past
-//   k) | x^2, x e, x^3, x^4, x^2 e, e, x, 1]; padding slots (case ==
-//   num_rows) land as zeros. The slots' (case, x) are read a tile ahead
-//   of their gathers, into registers.
-// - Work items: an item is 4 adjacent columns of the moment row, taken
-//   with one 16-byte shared load a slot: Q_j0..j0+3 weighted by x^2 Q_i
-//   (the triangle), by x^2, x^3 or x e (the vectors), or the scalar
-//   extras. The tile's slots are split over G groups of threads (G = 8,
-//   4, 2 or 1 by the count of items); group 0 adds the groups' partials
-//   in group order.
-// - Sums: each tile's slots are summed plainly into a partial, and the
+// - A staged row is u = [x Q (zero past k) | x, x^2, e, 0 | 1, x, x^2, e]
+//   (KP + 8 floats, KP = k rounded up to 4, 8, 16, 32, 64 or 128), and
+//   every moment is a sum of 4 x 4 outer products of two 16-byte pieces
+//   of it: (x Q)_a (x Q)_b for the column blocks a <= b (the triangle),
+//   [x, x^2, e, 0] (x Q)_b (x^2 Q, x^3 Q, x e Q) and [x, x^2, e, 0]
+//   [1, x, x^2, e] (the scalars). An item is one such product: 16 FMA for
+//   two 16-byte shared loads a slot, (nb + 1)(nb + 2) / 2 items at
+//   nb = ceil(k / 4) (15 at k = 16).
+// - A team (a warp at k <= 32; the CTA's 256 threads above, where a
+//   thread's items would not fit a warp's registers) sums a run of one
+//   feature's slots: its threads hold the items, split into G groups that
+//   take every G-th staged row. Rows are gathered by 4-byte cp.async into
+//   a ring of 32-row stages (3 at KP <= 16, else 2), the slots' (case, x)
+//   read a stage ahead into registers; the team's first 32 threads then
+//   write each row's weights (and scale a valued row's Q by x).
+// - The launch plan (kernels/case_stats.py CaseStatsPlan, made once a
+//   block) gives each CTA either up to 256 / team short features (a team
+//   each, the longest first), or one piece of a long feature, whose
+//   teams take consecutive parts of the piece. Long pieces come first,
+//   features of many pieces first.
+// - Sums: each stage's rows are summed plainly into a partial, and the
 //   partials into the running sums with compensation (Kahan), in fp32:
 //   the reconstruction cancels, so the moments must be summed about as
 //   well as the JAX engine's one-hot products sum them (blocked, in chunks
-//   of 8,192 cases). A plain running sum over a feature's few thousand
-//   cases, as the first plain version took it, erred by 2.3e-4 of a
-//   column's largest value against float64 on a valued CTR block (the
-//   chunked product: 5e-6).
+//   of 8,192 cases). A piece adds its teams' sums, and a feature of
+//   several pieces its pieces' (written to scratch; the last piece to
+//   arrive, after an integer ticket and a fence, adds them with the whole
+//   CTA), always in the same order and with compensation, so the result
+//   does not depend on which CTA finishes last. The ticket is reset for
+//   the next call.
+// What the first version did (PERF.md, 3.229 ms for config #4's 13
+// blocks): one CTA of 256 threads a piece of at most 2,048 slots, ~5,900
+// CTAs a block, most of them for Zipf-tail features of a few slots; two
+// 64-slot stages; 49 items of 4 products each at k = 16, one scalar and
+// one 16-byte load for 4 FMA; the head feature's 158 pieces added by 64
+// threads of its last CTA.
 
 #include "common.cuh"
 
@@ -62,69 +67,133 @@ namespace {
 
 using libfm::kWarp;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / kWarp;
-constexpr int kStages = 2;  // tile t+1 in flight while tile t is summed
-constexpr int kExtra = 8;   // floats after the KP factor columns of a staged row
-// the extras of a staged row, at KP + these offsets
-enum { kX2 = 0, kXE = 1, kX3 = 2, kX4 = 3, kX2E = 4, kE = 5, kX = 6, kOne = 7 };
+constexpr int kRows = 32;  // rows a team stages at once
+constexpr int kExtra = 8;  // floats after the KP factor columns of a staged row
+// the extras of a staged row, at KP + these offsets: W = [x, x^2, e, 0],
+// V = [1, x, x^2, e]
+enum { kWx = 0, kWx2 = 1, kWe = 2, kWzero = 3, kVone = 4, kVx = 5, kVx2 = 6, kVe = 7 };
+
+// Per padded width: the team's threads, its slot groups, the items a
+// thread holds and the stages of its ring.
+template <int KP>
+struct Cfg;
+// kCtas: the CTAs an SM is built to hold (registers).
+template <>
+struct Cfg<4> {
+  static constexpr int kTeam = 32, kG = 8, kIPT = 1, kStages = 3, kCtas = 2;
+};
+template <>
+struct Cfg<8> {
+  static constexpr int kTeam = 32, kG = 4, kIPT = 1, kStages = 3, kCtas = 2;
+};
+template <>
+struct Cfg<16> {
+  static constexpr int kTeam = 32, kG = 2, kIPT = 1, kStages = 3, kCtas = 2;
+};
+template <>
+struct Cfg<32> {
+  static constexpr int kTeam = 32, kG = 1, kIPT = 2, kStages = 2, kCtas = 1;
+};
+template <>
+struct Cfg<64> {
+  static constexpr int kTeam = 256, kG = 1, kIPT = 1, kStages = 2, kCtas = 1;
+};
+template <>
+struct Cfg<128> {
+  static constexpr int kTeam = 256, kG = 1, kIPT = 3, kStages = 2, kCtas = 1;
+};
 
 __host__ __device__ inline int num_blocks4(int k) { return (k + 3) / 4; }
 
-// Items of the triangle: row i takes column groups j0 = 4 (i/4), ..., 4 (nb-1).
-__host__ __device__ inline int num_tri_items(int k) {
+__host__ __device__ inline int num_items(int k) {
   const int nb = num_blocks4(k);
-  int n = 0;
-  for (int i = 0; i < k; ++i) n += nb - i / 4;
-  return n;
+  return (nb + 1) * (nb + 2) / 2;
 }
 
-__host__ __device__ inline int num_vectors(int onehot) { return onehot ? 2 : 3; }
-
-__host__ __device__ inline int num_items(int k, int onehot) {
-  return num_tri_items(k) + num_vectors(onehot) * num_blocks4(k) + (onehot ? 1 : 2);
-}
+// Floats of a team's (or a piece's) sums: a 4 x 4 block an item.
+__host__ __device__ inline int flat_floats(int k) { return 16 * num_items(k); }
 
 __host__ __device__ inline int moment_width(int k, int onehot) {
   const int T = k * (k + 1) / 2;
   return onehot ? T + 2 * k + 2 : T + 3 * k + 5;
 }
 
-struct Item {
-  int kind;  // 0 triangle, 1 vector, 2 scalars, -1 none
-  int a;     // kind 0: row i; kind 1: vector v; kind 2: window
-  int wa, wb, base;  // weight row[wa] * row[wb], columns row[base .. base+3]
-};
-
+// A team's region of shared memory: its ring, reused for its moment row
+// and v (a short feature) or its sums (a piece).
 template <int KP>
-__device__ Item decode(int it, int k, int onehot) {
-  Item m{-1, 0, KP + kOne, KP + kOne, KP};
+__host__ __device__ inline int team_floats(int k, int onehot) {
+  const int ring = Cfg<KP>::kStages * kRows * (KP + kExtra);
+  const int mrow = libfm::round4(moment_width(k, onehot)) + KP;
+  const int nf = flat_floats(k);
+  const int m = ring > mrow ? ring : mrow;
+  return m > nf ? m : nf;
+}
+
+// The CTA's dynamic shared memory: the teams' regions, then a piece's
+// moment row and v.
+template <int KP>
+__host__ __device__ inline int cta_floats(int k, int onehot) {
+  return kThreads / Cfg<KP>::kTeam * team_floats<KP>(k, onehot) +
+         libfm::round4(moment_width(k, onehot)) + KP;
+}
+
+// Item it's column blocks: a <= b of the triangle, then the vectors
+// (a = nb) and the scalars (a = b = nb + 1).
+__device__ inline void item_blocks(int it, int k, int& a, int& b) {
   const int nb = num_blocks4(k);
-  const int ntri = num_tri_items(k);
-  const int nvec = num_vectors(onehot) * nb;
+  const int ntri = nb * (nb + 1) / 2;
   if (it < ntri) {
-    int i = 0, rem = it;
-    while (rem >= nb - i / 4) {
-      rem -= nb - i / 4;
-      ++i;
+    a = 0;
+    int rem = it;
+    while (rem >= nb - a) {
+      rem -= nb - a;
+      ++a;
     }
-    m.kind = 0;
-    m.a = i;
-    m.wa = KP + kX2;
-    m.wb = i;
-    m.base = 4 * (i / 4 + rem);
-  } else if (it < ntri + nvec) {
-    const int v = (it - ntri) / nb;
-    m.kind = 1;
-    m.a = v;
-    m.base = 4 * ((it - ntri) % nb);
-    // one-hot vectors: Q (x^2 == 1) and e Q (x e == e); valued: x^2 Q, x^3 Q, x e Q
-    m.wa = KP + (v == 0 ? kX2 : (onehot || v == 2) ? kXE : kX3);
-  } else if (it < ntri + nvec + (onehot ? 1 : 2)) {
-    m.kind = 2;
-    m.a = it - ntri - nvec;
-    m.base = KP + 4 * m.a;  // [x^2, x e, x^3, x^4] or [x^2 e, ...]
+    b = a + rem;
+  } else if (it < ntri + nb) {
+    a = nb;
+    b = it - ntri;
+  } else {
+    a = b = nb + 1;
   }
-  return m;
+}
+
+// Item it's two 16-byte pieces of a staged row: W at wo, V at vo.
+template <int KP>
+__device__ inline void item_offsets(int it, int k, int& wo, int& vo) {
+  int a, b;
+  item_blocks(it, k, a, b);
+  const int nb = num_blocks4(k);
+  wo = a < nb ? 4 * a : KP;
+  vo = a <= nb ? 4 * b : KP + 4;
+}
+
+// The place in the moment row (the JAX engine's layout) of entry (r, c)
+// of item it's 4 x 4 sum W_r V_c; -1 where it is no moment.
+__device__ inline int moment_index(int it, int r, int c, int k, int onehot) {
+  int a, b;
+  item_blocks(it, k, a, b);
+  const int nb = num_blocks4(k);
+  const int T = k * (k + 1) / 2;
+  if (a < nb) {  // (x Q_i)(x Q_j)
+    const int i = 4 * a + r, j = 4 * b + c;
+    return i <= j && j < k ? libfm::tri_index(i, j, k) : -1;
+  }
+  if (a == nb) {  // [x, x^2, e] x Q_j: x^2 Q, x^3 Q, x e Q (one-hot: Q, Q, e Q)
+    const int j = 4 * b + c;
+    if (j >= k) return -1;
+    if (onehot) return r == 0 ? T + j : r == 2 ? T + k + j : -1;
+    return r < 3 ? T + r * k + j : -1;
+  }
+  // [x, x^2, e, 0] x [1, x, x^2, e]
+  const int sc = onehot ? T + 2 * k : T + 3 * k;
+  if (r == 0 && c == 1) return sc;  // x^2 (one-hot: the count)
+  if (onehot) return r == 0 && c == 3 ? sc + 1 : -1;  // e
+  if (r == 0 && c == 2) return sc + 1;  // x^3
+  if (r == 1 && c == 2) return sc + 2;  // x^4
+  if (r == 0 && c == 3) return sc + 3;  // x e
+  if (r == 1 && c == 3) return sc + 4;  // x^2 e
+  return -1;
 }
 
 // s (less the remainder c) += v, compensated
@@ -135,266 +204,182 @@ __device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
   s = t;
 }
 
-template <int KP>
-struct Cfg {
-  static constexpr int kTile = KP <= 32 ? 64 : 32;  // slots a stage
-  static constexpr int kRowsPerWarp = kTile / kWarps;  // rows a warp gathers a tile
-  static constexpr int kRow = KP + kExtra;
-  static constexpr int kStage = kTile * kRow;
-};
-
-// Dynamic shared memory in floats: the stage ring, reused after the last
-// tile for the groups' partials and then for the moment row and v.
-template <int KP>
-__host__ inline int smem_floats(int k, int onehot, int G) {
-  const int ring = kStages * Cfg<KP>::kStage;  // room for the partials too
-  const int red = G > 1 ? G * num_items(k, onehot) * 4 : 0;
-  const int mom = libfm::round4(moment_width(k, onehot)) + KP;
-  int m = ring > red ? ring : red;
-  return m > mom ? m : mom;
+template <int TEAM>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (TEAM == kWarp)
+    __syncwarp();
+  else
+    __syncthreads();
 }
 
-template <int KP, int IPT, int G>
-__global__ void __launch_bounds__(kThreads)
-    case_stats_kernel(const float* __restrict__ A, const float* __restrict__ P,
-                      const long long* __restrict__ feat_off,
-                      const int* __restrict__ slot_case, const float* __restrict__ slot_val,
-                      const int* __restrict__ feat_id, const int4* __restrict__ order,
-                      float* __restrict__ scratch, int* __restrict__ ticket,
-                      float* __restrict__ GG, int piece_len, int k, int onehot,
-                      int use_linear, long long num_rows) {
+// One team's sums over slots [lo, hi) of the block's lists, into acc
+// (compensation folded in; with G > 1 the groups' sums added into group
+// 0's threads in group order). ttid: the thread's place in the team.
+template <int KP>
+__device__ __forceinline__ void team_sum(float* ring, const float* __restrict__ A,
+                                         const int* __restrict__ slot_case,
+                                         const float* __restrict__ slot_val, long long lo,
+                                         long long hi, int k, int onehot, long long num_rows,
+                                         int ttid, float (&acc)[Cfg<KP>::kIPT][16]) {
   using C = Cfg<KP>;
-  constexpr int GT = kThreads / G;  // threads a group
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int s_last;
-  const int tid = threadIdx.x;
-  const int lane = tid % kWarp, warp = tid / kWarp;
-  const int g = tid / GT, tig = tid % GT;
+  constexpr int TEAM = C::kTeam, G = C::kG, IPT = C::kIPT, NS = C::kStages;
+  constexpr int GT = TEAM / G;  // threads a group
+  constexpr int W = TEAM / kWarp, RW = kRows / W;  // warps; rows a warp gathers a stage
+  constexpr int ROW = KP + kExtra, STAGE = kRows * ROW;
+  static_assert(GT * IPT >= (KP / 4 + 1) * (KP / 4 + 2) / 2, "a team holds every item");
+  static_assert(G == 1 || TEAM == kWarp, "groups are added by warp shuffles");
+  const int g = ttid / GT, tig = ttid % GT;
+  const int w = ttid / kWarp, lane = ttid % kWarp;
   const int d = k + 1;
-  const int NI = num_items(k, onehot);
+  const int NI = num_items(k);
+  const int nst = hi > lo ? (int)((hi - lo + kRows - 1) / kRows) : 0;
 
-  // this CTA's piece: (feature, rank within the feature, the feature's
-  // first scratch row, its pieces), launched in the host's order
-  // (features of many pieces first: they finish last)
-  const int4 fr = order[blockIdx.x];
-  const int f = fr.x;
-  const int p0 = fr.z;
-  const int piece = p0 + fr.y;  // its row of scratch
-  const int npieces = fr.w;
-  const long long flo = feat_off[f], fhi = feat_off[f + 1];
-  const long long lo = flo + (long long)fr.y * piece_len;
-  const long long hi = min(lo + (long long)piece_len, fhi);
-  constexpr int kTile = C::kTile;
-  const int ntiles = hi > lo ? (int)((hi - lo + kTile - 1) / kTile) : 0;
+  // columns k..KP-1 of every staged row stay zero (a warp team writes
+  // them with each stage)
+  if constexpr (TEAM > kWarp)
+    for (int idx = ttid; idx < NS * kRows; idx += TEAM)
+      for (int c = k; c < KP; ++c) ring[idx * ROW + c] = 0.0f;
 
-  // every staged row: zero factor columns past k, zero extras, the 1
-  for (int idx = tid; idx < kStages * kTile; idx += kThreads) {
-    float* row = smem + idx * C::kRow;
-    for (int c = k; c < KP; ++c) row[c] = 0.0f;
-    for (int c = 0; c < kExtra; ++c) row[KP + c] = c == kOne ? 1.0f : 0.0f;
+  int wo[IPT], vo[IPT];
+  bool on[IPT];
+#pragma unroll
+  for (int m = 0; m < IPT; ++m) {
+    const int it = tig + GT * m;
+    on[m] = it < NI;
+    wo[m] = vo[m] = 0;
+    if (on[m]) item_offsets<KP>(it, k, wo[m], vo[m]);
   }
-  __syncthreads();
+  float cmp[IPT][16];
+#pragma unroll
+  for (int m = 0; m < IPT; ++m)
+#pragma unroll
+    for (int q = 0; q < 16; ++q) acc[m][q] = cmp[m][q] = 0.0f;
 
-  // Warp w gathers slots w, w + 8, w + 16, ... of a tile: e, Q and x.
-  // Their (case, x) are read a tile ahead, lane i holding row w + 8 i, so
-  // that no gather waits on the read of its case.
-  auto load_index = [&](int t, long long& c, float& x) {
-    const long long pos = lo + (long long)t * kTile + warp + kWarps * lane;
+  // Warp w gathers rows w, w + W, ... of a stage; their (case, x) are read
+  // a stage ahead, lane i holding row w + W i, so that no gather waits on
+  // the read of its case. Padding rows (past hi, or case == num_rows)
+  // land as zeros. A warp team copies 32 / KP rows' factor columns an
+  // instruction (KP lanes a row, zeros past k), then every row's e.
+  auto load_index = [&](int s, long long& c, float& x) {
+    const long long pos = lo + (long long)s * kRows + w + W * lane;
     c = num_rows;
     x = 0.0f;
-    if (t < ntiles && lane < C::kRowsPerWarp && pos < hi) {
+    if (s < nst && lane < RW && pos < hi) {
       c = slot_case[pos];
       x = onehot ? 1.0f : slot_val[pos];
     }
   };
-  auto fetch = [&](int t, long long c_reg, float x_reg) {
-    float* st = smem + (t % kStages) * C::kStage;
-#pragma unroll
-    for (int r = 0; r < C::kRowsPerWarp; ++r) {
-      const int s = warp + kWarps * r;
-      const long long c = __shfl_sync(libfm::kFullMask, c_reg, r);
-      const float x = __shfl_sync(libfm::kFullMask, x_reg, r);
-      const bool real = c < num_rows;
-      const float* src = A + (real ? c : 0) * d;
-      float* row = st + s * C::kRow;
-      for (int e = lane; e < d; e += kWarp)
-        libfm::cp_async4(e == 0 ? row + KP + kE : row + e - 1, src + e, real ? 4 : 0);
-      if (lane == 0) row[KP + kX] = real ? x : 0.0f;
+  auto fetch = [&](int s, long long c_reg, float x_reg) {
+    float* st = ring + (s % NS) * STAGE;
+    if constexpr (TEAM == kWarp) {
+      if (s < nst) {
+        constexpr int RPI = kWarp / (KP < kWarp ? KP : kWarp);  // rows an instruction
+        const int sub = lane / KP, col = lane % KP;
+#pragma unroll 4
+        for (int i = 0; i < kRows; i += RPI) {
+          const long long c = __shfl_sync(libfm::kFullMask, c_reg, i + sub);
+          const bool real = c < num_rows && col < k;
+          libfm::cp_async4(st + (i + sub) * ROW + col, A + (real ? c * d + 1 + col : 0),
+                           real ? 4 : 0);
+        }
+        const bool real = c_reg < num_rows;
+        float* row = st + lane * ROW;
+        libfm::cp_async4(row + KP + kWe, A + (real ? c_reg * d : 0), real ? 4 : 0);
+        row[KP + kWx] = real ? x_reg : 0.0f;
+      }
+    } else if (s < nst) {
+      for (int i = 0; i < RW; ++i) {
+        const long long c = __shfl_sync(libfm::kFullMask, c_reg, i);
+        const float x = __shfl_sync(libfm::kFullMask, x_reg, i);
+        const bool real = c < num_rows;
+        const float* src = A + (real ? c : 0) * d;
+        float* row = st + (w + W * i) * ROW;
+        for (int e = lane; e < d; e += kWarp)
+          libfm::cp_async4(e == 0 ? row + KP + kWe : row + e - 1, src + e, real ? 4 : 0);
+        if (lane == 0) row[KP + kWx] = real ? x : 0.0f;
+      }
     }
     libfm::cp_async_commit();
   };
 
-  Item item[IPT];
-#pragma unroll
-  for (int m = 0; m < IPT; ++m) item[m] = decode<KP>(tig + GT * m, k, onehot);
-  float acc[IPT][4], cmp[IPT][4];  // compensated sums: acc - cmp
-#pragma unroll
-  for (int m = 0; m < IPT; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = cmp[m][c] = 0.0f;
-
   long long c_next;
   float x_next;
-  load_index(0, c_next, x_next);
-  if (ntiles > 0) fetch(0, c_next, x_next);
-  load_index(1, c_next, x_next);
-  for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) {
-      fetch(t + 1, c_next, x_next);
-      load_index(t + 2, c_next, x_next);
-      libfm::cp_async_wait<1>();
-    } else {
-      libfm::cp_async_wait<0>();
-    }
-    __syncthreads();
-    float* st = smem + (t % kStages) * C::kStage;
-    const int n = (int)min((long long)kTile, hi - lo - (long long)t * kTile);
-    if (tid < kTile) {  // the weights of slot tid
-      float* row = st + tid * C::kRow;
-      const float x = row[KP + kX], e = row[KP + kE];
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    load_index(s, c_next, x_next);
+    fetch(s, c_next, x_next);
+  }
+  load_index(NS - 1, c_next, x_next);
+  for (int s = 0; s < nst; ++s) {
+    fetch(s + NS - 1, c_next, x_next);
+    load_index(s + NS, c_next, x_next);
+    libfm::cp_async_wait<NS - 1>();
+    team_sync<TEAM>();
+    float* st = ring + (s % NS) * STAGE;
+    if (ttid < kRows) {  // row ttid's weights; a valued row's Q scaled by x
+      float* row = st + ttid * ROW;
+      const float x = row[KP + kWx], e = row[KP + kWe];
       const float x2 = x * x;
-      row[KP + kX2] = x2;
-      row[KP + kXE] = x * e;
-      row[KP + kX3] = x2 * x;
-      row[KP + kX4] = x2 * x2;
-      row[KP + kX2E] = x2 * e;
+      if (!onehot)
+        for (int c = 0; c < k; ++c) row[c] *= x;
+      row[KP + kWx2] = x2;
+      row[KP + kWzero] = 0.0f;
+      row[KP + kVone] = 1.0f;
+      row[KP + kVx] = x;
+      row[KP + kVx2] = x2;
+      row[KP + kVe] = e;
     }
-    __syncthreads();
-    // the tile's partial sums (at most kTile / G slots each), then added
-    // into the running sums with compensation
-    float part[IPT][4];
+    team_sync<TEAM>();
+    const int n = (int)min((long long)kRows, hi - lo - (long long)s * kRows);
+    float part[IPT][16];
 #pragma unroll
     for (int m = 0; m < IPT; ++m)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) part[m][c] = 0.0f;
-    for (int s = g; s < n; s += G) {
-      const float* row = st + s * C::kRow;
+      for (int q = 0; q < 16; ++q) part[m][q] = 0.0f;
+    for (int r = g; r < n; r += G) {
+      const float* row = st + r * ROW;
 #pragma unroll
       for (int m = 0; m < IPT; ++m) {
-        if (item[m].kind < 0) continue;
-        const float w = row[item[m].wa] * row[item[m].wb];
-        const float4 q = *reinterpret_cast<const float4*>(row + item[m].base);
-        part[m][0] += w * q.x;
-        part[m][1] += w * q.y;
-        part[m][2] += w * q.z;
-        part[m][3] += w * q.w;
+        if (!on[m]) continue;
+        const float4 a = *reinterpret_cast<const float4*>(row + wo[m]);
+        const float4 b = *reinterpret_cast<const float4*>(row + vo[m]);
+        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) part[m][4 * i + j] = fmaf(av[i], bv[j], part[m][4 * i + j]);
       }
     }
 #pragma unroll
     for (int m = 0; m < IPT; ++m)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) kahan_add(acc[m][c], cmp[m][c], part[m][c]);
-    __syncthreads();  // the stage is refilled by the next iteration's fetch
+      for (int q = 0; q < 16; ++q) kahan_add(acc[m][q], cmp[m][q], part[m][q]);
+    team_sync<TEAM>();  // the stage is refilled by the next iteration's fetch
   }
+  libfm::cp_async_wait<0>();
 
-  // each sum with its remainder folded in; then the groups' partials,
-  // added by group 0 in group order
 #pragma unroll
   for (int m = 0; m < IPT; ++m)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      acc[m][c] = __fsub_rn(acc[m][c], cmp[m][c]);
-      cmp[m][c] = 0.0f;
-    }
-  if (G > 1) {
-#pragma unroll
-    for (int m = 0; m < IPT; ++m) {
-      const int it = tig + GT * m;
-      if (it < NI)
-        for (int c = 0; c < 4; ++c) smem[(g * NI + it) * 4 + c] = acc[m][c];
-    }
-    __syncthreads();
-    if (g == 0) {
-#pragma unroll
-      for (int m = 0; m < IPT; ++m) {
-        const int it = tig + GT * m;
-        if (it < NI)
-          for (int c = 0; c < 4; ++c) {
-            float v = smem[it * 4 + c], r = 0.0f;
-            for (int h = 1; h < G; ++h) kahan_add(v, r, smem[(h * NI + it) * 4 + c]);
-            acc[m][c] = __fsub_rn(v, r);
-          }
+    for (int q = 0; q < 16; ++q) {
+      const float own = __fsub_rn(acc[m][q], cmp[m][q]);
+      float v = own;
+      if constexpr (G > 1) {  // the groups of a warp, added in group order
+        float r = 0.0f;
+        for (int h = 1; h < G; ++h)
+          kahan_add(v, r, __shfl_sync(libfm::kFullMask, own, (tig + GT * h) % kWarp));
+        v = __fsub_rn(v, r);
       }
+      acc[m][q] = v;
     }
-    __syncthreads();
-  }
+}
 
-  if (npieces > 1) {
-    // publish this piece's row; the last piece to arrive adds them all
-    if (g == 0) {
-#pragma unroll
-      for (int m = 0; m < IPT; ++m) {
-        const int it = tig + GT * m;
-        if (it < NI)
-          *reinterpret_cast<float4*>(scratch + ((long long)piece * NI + it) * 4) =
-              make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-      }
-    }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) s_last = atomicAdd(ticket + f, 1) == npieces - 1;
-    __syncthreads();
-    if (!s_last) return;
-    __threadfence();
-    if (g == 0) {
-#pragma unroll
-      for (int m = 0; m < IPT; ++m) {
-        const int it = tig + GT * m;
-        if (it < NI) {
-          float v[4] = {0.0f, 0.0f, 0.0f, 0.0f}, r[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          for (int q = 0; q < npieces; ++q) {
-            const float4 u = __ldcg(
-                reinterpret_cast<const float4*>(scratch + ((long long)(p0 + q) * NI + it) * 4));
-            kahan_add(v[0], r[0], u.x);
-            kahan_add(v[1], r[1], u.y);
-            kahan_add(v[2], r[2], u.z);
-            kahan_add(v[3], r[3], u.w);
-          }
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[m][c] = __fsub_rn(v[c], r[c]);
-        }
-      }
-    }
-    if (tid == 0) ticket[f] = 0;  // every piece has arrived: ready for the next call
-  }
-
-  // the moment row in the JAX engine's layout, then v
+// GG row `out` from the moment row M and v (shared memory), by threads
+// t0, t0 + nt, ...
+__device__ __forceinline__ void reconstruct(const float* M, const float* vs, float* out,
+                                            int k, int onehot, int use_linear, int t0,
+                                            int nt) {
   const int T = k * (k + 1) / 2;
-  float* M = smem;
-  float* vs = smem + libfm::round4(moment_width(k, onehot));
-  if (g == 0) {
-#pragma unroll
-    for (int m = 0; m < IPT; ++m) {
-      const Item& I = item[m];
-      if (I.kind == 0) {
-        for (int c = 0; c < 4; ++c) {
-          const int j = I.base + c;
-          if (j >= I.a && j < k) M[libfm::tri_index(I.a, j, k)] = acc[m][c];
-        }
-      } else if (I.kind == 1) {
-        for (int c = 0; c < 4; ++c) {
-          const int j = I.base + c;
-          if (j < k) M[T + I.a * k + j] = acc[m][c];
-        }
-      } else if (I.kind == 2) {
-        if (onehot) {  // [x^2, x e] = [1, e]
-          M[T + 2 * k] = acc[m][0];
-          M[T + 2 * k + 1] = acc[m][1];
-        } else if (I.a == 0) {  // [x^2, x e, x^3, x^4] -> x^2, x^3, x^4, x e
-          M[T + 3 * k] = acc[m][0];
-          M[T + 3 * k + 1] = acc[m][2];
-          M[T + 3 * k + 2] = acc[m][3];
-          M[T + 3 * k + 3] = acc[m][1];
-        } else {
-          M[T + 3 * k + 4] = acc[m][0];
-        }
-      }
-    }
-  }
-  const long long fid = feat_id[f];
-  for (int i = tid; i < k; i += kThreads) vs[i] = P[fid * d + 1 + i];
-  __syncthreads();
-
   const float* S2 = M + T;
   const float* S3 = onehot ? S2 : M + T + k;
   const float* SQe = onehot ? M + T + k : M + T + 2 * k;
@@ -405,8 +390,7 @@ __global__ void __launch_bounds__(kThreads)
   const float mxe = onehot ? M[sc + 1] : M[sc + 3];
   const float m2e = onehot ? mxe : M[sc + 4];
   const int GW = libfm::gg_width(k);
-  float* out = GG + (long long)f * GW;
-  for (int c = tid; c < GW; c += kThreads) {
+  for (int c = t0; c < GW; c += nt) {
     float r;
     if (c < T) {
       // (i, j) of packed position c
@@ -434,65 +418,169 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int KP, int IPT, int G>
+template <int KP>
+__global__ void __launch_bounds__(kThreads, Cfg<KP>::kCtas)
+    case_stats_kernel(const float* __restrict__ A, const float* __restrict__ P,
+                      const long long* __restrict__ feat_off,
+                      const int* __restrict__ slot_case, const float* __restrict__ slot_val,
+                      const int* __restrict__ feat_id, const int4* __restrict__ cta,
+                      const int* __restrict__ short_feats, float* __restrict__ scratch,
+                      int* __restrict__ ticket, float* __restrict__ GG, int piece_len, int k,
+                      int onehot, int use_linear, long long num_rows) {
+  using C = Cfg<KP>;
+  constexpr int TEAM = C::kTeam, TEAMS = kThreads / TEAM, IPT = C::kIPT;
+  constexpr int GT = TEAM / C::kG;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  const int tm = tid / TEAM, ttid = tid % TEAM;
+  const int tig = ttid % GT;
+  const bool lead = ttid < GT;  // group 0: holds the team's sums
+  const int d = k + 1;
+  const int NI = num_items(k), NF = flat_floats(k);
+  const int MW = moment_width(k, onehot);
+  const int TF = team_floats<KP>(k, onehot);
+  float* region = smem + tm * TF;
+  const int GW = libfm::gg_width(k);
+  float acc[IPT][16];
+
+  const int4 desc = cta[blockIdx.x];
+  if (desc.x < 0) {
+    // up to TEAMS short features, one a team: the team sums it and writes
+    // its GG row
+    if (tm >= desc.y) return;
+    const int f = short_feats[-1 - desc.x + tm];
+    team_sum<KP>(region, A, slot_case, slot_val, feat_off[f], feat_off[f + 1], k, onehot,
+                 num_rows, ttid, acc);
+    team_sync<TEAM>();
+    float* M = region;
+    float* vs = region + libfm::round4(MW);
+    if (lead) {
+#pragma unroll
+      for (int m = 0; m < IPT; ++m) {
+        const int it = tig + GT * m;
+        if (it >= NI) continue;
+        for (int q = 0; q < 16; ++q) {
+          const int at = moment_index(it, q / 4, q % 4, k, onehot);
+          if (at >= 0) M[at] = acc[m][q];
+        }
+      }
+    }
+    const long long fid = feat_id[f];
+    for (int i = ttid; i < k; i += TEAM) vs[i] = P[fid * d + 1 + i];
+    team_sync<TEAM>();
+    reconstruct(M, vs, GG + (long long)f * GW, k, onehot, use_linear, ttid, TEAM);
+    return;
+  }
+
+  // a piece of a long feature: the teams take consecutive parts of it
+  const int f = desc.x, rank = desc.y, base = desc.z, npieces = desc.w;
+  const long long flo = feat_off[f] + (long long)rank * piece_len;
+  const long long fhi = min(flo + (long long)piece_len, feat_off[f + 1]);
+  const long long part = (fhi - flo + TEAMS - 1) / TEAMS;
+  const long long lo = min(flo + tm * part, fhi);
+  team_sum<KP>(region, A, slot_case, slot_val, lo, min(lo + part, fhi), k, onehot, num_rows,
+               ttid, acc);
+  team_sync<TEAM>();
+  if (lead) {
+#pragma unroll
+    for (int m = 0; m < IPT; ++m) {
+      const int it = tig + GT * m;
+      if (it >= NI) continue;
+#pragma unroll
+      for (int q = 0; q < 16; ++q) region[it * 16 + q] = acc[m][q];
+    }
+  }
+  __syncthreads();
+
+  // the piece's sums: its teams' in team order
+  float* M = smem + TEAMS * TF;
+  float* vs = M + libfm::round4(MW);
+  auto piece_sum = [&](int i) {
+    float v = 0.0f, r = 0.0f;
+    for (int t = 0; t < TEAMS; ++t) kahan_add(v, r, smem[t * TF + i]);
+    return __fsub_rn(v, r);
+  };
+  if (npieces > 1) {
+    // publish them; the last piece to arrive adds every piece's, in piece order
+    float* mine = scratch + (long long)(base + rank) * NF;
+    for (int i = tid; i < NF; i += kThreads) mine[i] = piece_sum(i);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) s_last = atomicAdd(ticket + f, 1) == npieces - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    for (int i = tid; i < NF; i += kThreads) {
+      const int at = moment_index(i / 16, (i % 16) / 4, i % 4, k, onehot);
+      if (at < 0) continue;
+      const float* src = scratch + (long long)base * NF + i;
+      float v = 0.0f, r = 0.0f;
+#pragma unroll 8
+      for (int q = 0; q < npieces; ++q) kahan_add(v, r, __ldcg(src + (long long)q * NF));
+      M[at] = __fsub_rn(v, r);
+    }
+    if (tid == 0) ticket[f] = 0;  // every piece has arrived: ready for the next call
+  } else {
+    for (int i = tid; i < NF; i += kThreads) {
+      const int at = moment_index(i / 16, (i % 16) / 4, i % 4, k, onehot);
+      if (at >= 0) M[at] = piece_sum(i);
+    }
+  }
+  const long long fid = feat_id[f];
+  for (int i = tid; i < k; i += kThreads) vs[i] = P[fid * d + 1 + i];
+  __syncthreads();
+  reconstruct(M, vs, GG + (long long)f * GW, k, onehot, use_linear, tid, kThreads);
+}
+
+template <int KP>
 int launch(const float* A, const float* P, const long long* feat_off, const int* slot_case,
-           const float* slot_val, const int* feat_id, const int4* order, float* scratch,
-           int* ticket, float* GG, int npieces, int piece_len, int k, int onehot,
+           const float* slot_val, const int* feat_id, const int4* cta, const int* short_feats,
+           float* scratch, int* ticket, float* GG, int ncta, int piece_len, int k, int onehot,
            int use_linear, long long num_rows, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)smem_floats<KP>(k, onehot, G);
-  auto kern = case_stats_kernel<KP, IPT, G>;
+  const size_t smem = sizeof(float) * (size_t)cta_floats<KP>(k, onehot);
+  auto kern = case_stats_kernel<KP>;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<npieces, kThreads, smem, stream>>>(A, P, feat_off, slot_case, slot_val, feat_id,
-                                            order, scratch, ticket, GG, piece_len, k, onehot,
-                                            use_linear, num_rows);
+  kern<<<ncta, kThreads, smem, stream>>>(A, P, feat_off, slot_case, slot_val, feat_id, cta,
+                                         short_feats, scratch, ticket, GG, piece_len, k, onehot,
+                                         use_linear, num_rows);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// GG [Fd, T+2k+2] written row by row, one CTA a piece. feat_off [Fd+1]
-// (int64) cuts slot_case/slot_val into per-feature slot lists; feat_id
-// [Fd] is each feature's row in P = [w | V]; order [npieces] (int4,
-// kernels/pieces.py) lists every piece once as (feature, rank within the
-// feature, the feature's first scratch row, the feature's pieces: feature
-// f has ceil(count/piece_len), at least one), in the order the CTAs take
-// them. ticket [Fd] must be zero and is left zero; scratch holds 4 *
-// num_items(k, onehot) floats (kernels.case_stats.scratch_floats) for
-// each piece of a feature of several, 16-byte aligned.
+// GG [Fd, T+2k+2] written row by row. feat_off [Fd+1] (int64) cuts
+// slot_case/slot_val into per-feature slot lists; feat_id [Fd] is each
+// feature's row in P = [w | V]. The launch plan (kernels/case_stats.py
+// CaseStatsPlan) lists the CTAs, cta [ncta] (int4, 16-byte aligned):
+// (-1 - s, n, 0, 0) takes the n short features short_feats[s .. s+n), a
+// team each; (f, rank, base, npieces) takes slots [rank * piece_len,
+// (rank + 1) * piece_len) of feature f's list, whose npieces pieces (if
+// several) write their sums to scratch rows base .. base + npieces of
+// 16 * num_items(k) floats. ticket [Fd] must be zero and is left zero.
 // onehot: every slot value is 1 (the moment row drops x's powers, and
 // slot_val is not read).
 extern "C" int case_stats_launch(const float* A, const float* P, const long long* feat_off,
                                  const int* slot_case, const float* slot_val,
-                                 const int* feat_id, const int* order, float* scratch,
-                                 int* ticket, float* GG,
-                                 int Fd, int npieces, int piece_len,
-                                 int k, int onehot, int use_linear, long long num_rows,
-                                 cudaStream_t stream) {
-  if (k < 1 || k > libfm::kMaxK || piece_len < 1 || npieces < Fd ||
-      ((reinterpret_cast<uintptr_t>(scratch) | reinterpret_cast<uintptr_t>(order)) & 15) != 0)
+                                 const int* feat_id, const int* cta, const int* short_feats,
+                                 float* scratch, int* ticket, float* GG, int ncta,
+                                 int piece_len, int k, int onehot, int use_linear,
+                                 long long num_rows, cudaStream_t stream) {
+  if (k < 1 || k > libfm::kMaxK || piece_len < 1 || ncta < 0 ||
+      (reinterpret_cast<uintptr_t>(cta) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  if (Fd == 0) return (int)cudaSuccess;
-  const int NI = num_items(k, onehot);
-#define CASE_STATS_LAUNCH(KP, IPT, G)                                                     \
-  launch<KP, IPT, G>(A, P, feat_off, slot_case, slot_val, feat_id,                        \
-                     reinterpret_cast<const int4*>(order), scratch, ticket, GG, npieces,    \
-                     piece_len, k, onehot, use_linear, num_rows, stream)
-  if (k <= 8) return CASE_STATS_LAUNCH(8, 1, 8);
-  if (k <= 16) return NI <= 32 ? CASE_STATS_LAUNCH(16, 1, 8) : CASE_STATS_LAUNCH(16, 1, 4);
-  if (k <= 32) {
-    if (NI <= 64) return CASE_STATS_LAUNCH(32, 1, 4);
-    if (NI <= 128) return CASE_STATS_LAUNCH(32, 1, 2);
-    return CASE_STATS_LAUNCH(32, 1, 1);
-  }
-  if (k <= 64) {
-    if (NI <= 256) return CASE_STATS_LAUNCH(64, 1, 1);
-    if (NI <= 512) return CASE_STATS_LAUNCH(64, 2, 1);
-    return CASE_STATS_LAUNCH(64, 3, 1);
-  }
-  if (NI <= 768) return CASE_STATS_LAUNCH(128, 3, 1);
-  if (NI <= 1280) return CASE_STATS_LAUNCH(128, 5, 1);
-  return CASE_STATS_LAUNCH(128, 9, 1);
+  if (ncta == 0) return (int)cudaSuccess;
+#define CASE_STATS_LAUNCH(KP)                                                                 \
+  launch<KP>(A, P, feat_off, slot_case, slot_val, feat_id, reinterpret_cast<const int4*>(cta), \
+             short_feats, scratch, ticket, GG, ncta, piece_len, k, onehot, use_linear,         \
+             num_rows, stream)
+  if (k <= 4) return CASE_STATS_LAUNCH(4);
+  if (k <= 8) return CASE_STATS_LAUNCH(8);
+  if (k <= 16) return CASE_STATS_LAUNCH(16);
+  if (k <= 32) return CASE_STATS_LAUNCH(32);
+  if (k <= 64) return CASE_STATS_LAUNCH(64);
+  return CASE_STATS_LAUNCH(128);
 #undef CASE_STATS_LAUNCH
 }

@@ -15,7 +15,9 @@ aa = m2, ae = m x e (qa, aa, ae zero without the linear term).
 The plain version reads A in case order with a per-case stats id (the
 JAX engine's `stats_map`: the case's feature, out of range where the
 case holds none) and sums the moment rows per feature; the kernel runs
-the same sums over the per-feature slot lists.
+the same sums over the per-feature slot lists, under a launch plan made
+once a block (`CaseStatsPlan`): short features a team each (a warp at
+k <= 32), several to a CTA, long ones in pieces of a CTA each.
 """
 
 from __future__ import annotations
@@ -27,14 +29,21 @@ import numpy as np
 import torch
 
 from libfm_tpu_torch.kernels import Kernel, check, on_cuda, ptr
-from libfm_tpu_torch.kernels.pieces import PIECE_LEN, Pieces
 from libfm_tpu_torch.kernels.slot_stats import gg_width
 
 KERNEL = Kernel(
     "case_stats", "case_stats_launch",
-    [ctypes.c_void_p] * 10
-    + [ctypes.c_int] * 6 + [ctypes.c_longlong],
+    [ctypes.c_void_p] * 11
+    + [ctypes.c_int] * 5 + [ctypes.c_longlong],
 )
+#: threads of a CTA; rows a team stages at once (csrc/case_stats.cu)
+CTA_THREADS = 256
+STAGE_ROWS = 32
+#: the most slots of a short feature at k <= 32: one warp sums it
+SHORT_LEN = 512
+#: slots of a long feature's piece, one CTA each: at k <= 32 its 8 warps
+#: take 512 each, above it the CTA takes the piece as one team
+PIECE_SLOTS = {True: 4096, False: 2048}
 #: cases a one-hot product of the plain version sums (the JAX engine's
 #: case-major chunk, `CUS`)
 CASE_CHUNK = 8192
@@ -52,17 +61,122 @@ def moment_width(k: int, onehot: bool) -> int:
     return T + 2 * k + 2 if onehot else T + 3 * k + 5
 
 
-def scratch_floats(k: int, onehot: bool) -> int:
-    """Floats of the kernel's scratch row of a piece: 4 a work item (four
-    adjacent moment columns), as csrc/case_stats.cu numbers them."""
+def padded_k(k: int) -> int:
+    """The width the kernel stages a row's factors at: 4, 8, ..., 128."""
+    if not 1 <= k <= 128:
+        raise ValueError(f"k={k}: the CUDA kernels take 1 <= k <= 128")
+    return max(4, 1 << (k - 1).bit_length())
+
+
+def team_threads(k: int) -> int:
+    """The threads that sum one run of slots: a warp at k <= 32, the CTA
+    above (a thread's share of the items would not fit a warp's registers)."""
+    return 32 if k <= 32 else CTA_THREADS
+
+
+def num_items(k: int) -> int:
+    """The kernel's items: 4 x 4 outer products of two 16-byte pieces of a
+    staged row, over nb = ceil(k / 4) column blocks: the triangle's
+    nb (nb + 1) / 2, nb vector blocks and the scalars."""
     nb = -(-k // 4)
-    tri = sum(nb - i // 4 for i in range(k))
-    return 4 * (tri + (2 if onehot else 3) * nb + (1 if onehot else 2))
+    return (nb + 1) * (nb + 2) // 2
+
+
+def scratch_floats(k: int) -> int:
+    """Floats of the kernel's scratch row of a piece: a 4 x 4 sum an item."""
+    return 16 * num_items(k)
+
+
+def smem_bytes(k: int, onehot: bool) -> int:
+    """A CTA's dynamic shared memory (csrc/case_stats.cu `cta_floats`): a
+    region a team (its ring of stages, reused for its moment row and v or
+    its sums), then a piece's moment row and v."""
+    kp = padded_k(k)
+    stages = 3 if kp <= 16 else 2
+    mrow = -(-moment_width(k, onehot) // 4) * 4 + kp
+    team = max(stages * STAGE_ROWS * (kp + 8), mrow, scratch_floats(k))
+    return 4 * (CTA_THREADS // team_threads(k) * team + mrow)
+
+
+class CaseStatsPlan:
+    """The kernel's launch plan for one block's lists (feat_off [Fd+1]) at
+    k factors, made once a block.
+
+    A feature of at most `short_len` slots (SHORT_LEN at k <= 32, else a
+    piece) is short: one team sums it, `teams` (256 / team_threads) of
+    them to a CTA, the longest first. A longer one is cut into pieces of
+    `piece_len` slots (PIECE_SLOTS), one CTA each, whose teams take
+    consecutive parts of it. `cta` int32 [count, 4] lists the CTAs in
+    launch order, long pieces first (features of many pieces first): a
+    piece as (feature, rank, first scratch row, the feature's pieces), a
+    CTA of short features as (-1 - s, n, 0, 0), features `short[s:s+n]`.
+    Only features of several pieces take scratch rows (`rows` of them);
+    the ticket, one int a feature, is zero between calls; the scratch is
+    allocated at its first use and kept."""
+
+    def __init__(self, feat_off, k: int, device):
+        off = feat_off.cpu().numpy() if torch.is_tensor(feat_off) else np.asarray(feat_off)
+        counts = np.diff(off).astype(np.int64)
+        self.k = k
+        self.team = team_threads(k)
+        self.teams = CTA_THREADS // self.team
+        self.piece_len = PIECE_SLOTS[k <= 32]
+        self.short_len = SHORT_LEN if k <= 32 else self.piece_len
+        long_ = counts > self.short_len
+        per = np.where(long_, -(-counts // self.piece_len), 0)
+        feats = np.argsort(-per, kind="stable")[:int(long_.sum())]
+        multi = np.where(per[feats] > 1, per[feats], 0)
+        base = np.cumsum(multi) - multi
+        f = np.repeat(feats, per[feats])
+        rank = np.arange(len(f)) - np.repeat(np.cumsum(per[feats]) - per[feats], per[feats])
+        pieces = np.stack([f, rank, np.repeat(base, per[feats]), per[f]], axis=1)
+        short = np.flatnonzero(~long_)
+        short = short[np.argsort(-counts[short], kind="stable")]
+        starts = np.arange(0, len(short), self.teams)
+        groups = np.stack([-1 - starts, np.minimum(self.teams, len(short) - starts),
+                           0 * starts, 0 * starts], axis=1)
+        cta = np.concatenate([pieces.reshape(-1, 4), groups.reshape(-1, 4)]).astype(np.int32)
+        self.count = len(cta)
+        self.rows = int(multi.sum())
+        self.cta = torch.as_tensor(cta.reshape(-1), device=device).reshape(-1, 4)
+        self.short = torch.as_tensor(np.append(short, 0).astype(np.int32), device=device)
+        self.ticket = torch.zeros(len(counts), dtype=torch.int32, device=device)
+        self._scratch = None
+
+    def scratch(self) -> torch.Tensor:
+        """The pieces' scratch: `rows` rows of scratch_floats(k) (at least
+        one row, so that its pointer is real)."""
+        if self._scratch is None:
+            self._scratch = torch.empty(max(self.rows, 1) * scratch_floats(self.k),
+                                        dtype=torch.float32, device=self.ticket.device)
+        return self._scratch
+
+    def team_runs(self, feat_off) -> np.ndarray:
+        """[runs, 3] (feature, lo, hi): the runs of slots the kernel's
+        teams sum, as csrc/case_stats.cu cuts them from this plan (a piece
+        split into `teams` parts of equal length, the last ones shorter or
+        empty)."""
+        off = feat_off.cpu().numpy() if torch.is_tensor(feat_off) else np.asarray(feat_off)
+        short = self.short.cpu().numpy()
+        runs = []
+        for f, rank, _, _ in self.cta.cpu().numpy():
+            if f < 0:
+                for g in short[-1 - f:-1 - f + rank]:
+                    runs.append((g, off[g], off[g + 1]))
+                continue
+            flo = off[f] + rank * self.piece_len
+            fhi = min(flo + self.piece_len, off[f + 1])
+            part = -(-(fhi - flo) // self.teams)
+            for t in range(self.teams):
+                lo = min(flo + t * part, fhi)
+                runs.append((f, lo, min(lo + part, fhi)))
+        return np.asarray(runs, dtype=np.int64).reshape(-1, 3)
 
 
 def case_stats_plain(A, P, feat_off, slot_case, slot_val, feat_id, *, onehot,
                      use_linear=True, GG=None, pieces=None):
-    """The plain PyTorch version; same contract as `case_stats`."""
+    """The plain PyTorch version; same contract as `case_stats` (`pieces`,
+    the kernel's plan, is not read)."""
     del pieces
     k = P.shape[1] - 1
     nc = A.shape[0]
@@ -177,8 +291,9 @@ def case_stats(A, P, feat_off, slot_case, slot_val, feat_id, *, onehot,
     into per-feature slot lists (case == nc: padding); feat_id int32 [Fd]
     is each feature's global id; `onehot` says every slot value is 1 (the
     moment row drops x's powers; slot_val is not read). On the card
-    `pieces` (`Pieces(feat_off, device)`, made once a block) is made here
-    when not given. GG may be passed to write into (its first Fd rows).
+    `pieces` is the kernel's launch plan (`CaseStatsPlan(feat_off, k,
+    device)`, made once a block), made here when not given. GG may be
+    passed to write into (its first Fd rows).
     """
     tensors = [A, P, feat_off, slot_case, slot_val, feat_id]
     if not on_cuda(*tensors):
@@ -195,18 +310,18 @@ def case_stats(A, P, feat_off, slot_case, slot_val, feat_id, *, onehot,
     check(feat_id, "feat_id", torch.int32)
     if not 1 <= k <= 128:
         raise ValueError(f"k={k}: the CUDA kernels take 1 <= k <= 128")
-    if pieces is None:
-        pieces = Pieces(feat_off, A.device)
-    check(pieces.order, "order", torch.int32, (pieces.count, 4))
-    check(pieces.ticket, "ticket", torch.int32, (Fd,))
+    plan = CaseStatsPlan(feat_off, k, A.device) if pieces is None else pieces
+    if plan.team != team_threads(k) or plan.k != k:
+        raise ValueError(f"the plan was made for k={plan.k}, not {k}")
+    check(plan.cta, "cta", torch.int32, (plan.count, 4))
+    check(plan.ticket, "ticket", torch.int32, (Fd,))
     if GG is None:
         GG = torch.empty(Fd, gg_width(k), dtype=torch.float32, device=A.device)
     if GG.shape[0] < Fd or GG.shape[1] != gg_width(k) or not GG.is_contiguous():
         raise ValueError(f"GG: shape {tuple(GG.shape)} cannot hold {Fd} rows")
     KERNEL.launch(
         ptr(A), ptr(P), ptr(feat_off), ptr(slot_case), ptr(slot_val), ptr(feat_id),
-        ptr(pieces.order), ptr(pieces.scratch(scratch_floats(k, onehot))),
-        ptr(pieces.ticket), ptr(GG), Fd, pieces.count, PIECE_LEN, k, int(onehot),
-        int(use_linear), A.shape[0],
+        ptr(plan.cta), ptr(plan.short), ptr(plan.scratch()), ptr(plan.ticket), ptr(GG),
+        plan.count, plan.piece_len, k, int(onehot), int(use_linear), A.shape[0],
     )
     return GG[:Fd]

@@ -1,5 +1,5 @@
 """The cut of a block's per-feature slot lists into pieces, one CTA a
-piece, shared by the statistics kernels `slot_stats` and `case_stats`.
+piece, that `slot_stats` (and `coord_draw`'s plan) takes.
 
 A feature's slot list is cut into pieces of at most PIECE_LEN slots, so
 that a long list (the Zipf head of a CTR field: a fifth of a block's

@@ -36,7 +36,7 @@ from libfm_tpu_torch.learners import base as _base
 from libfm_tpu_torch.learners.base import rmse_mae
 from libfm_tpu_torch.models.fm import FMConfig, FMParams, init_fm
 from libfm_tpu_torch.ops import samplers
-from libfm_tpu_torch.ops.segment import seg_sum
+from libfm_tpu_torch.ops.segment import GroupSums
 from libfm_tpu_torch.tasks import TASK_CLASSIFICATION, TASK_REGRESSION
 from libfm_tpu_torch.utils.timers import iter_clocks
 
@@ -91,21 +91,20 @@ def draw_alpha_from_sum(generator, sum_e2, num_cases, alpha, alpha_0, gamma_0,
     return torch.where(ok, proposal, alpha), (~ok).sum()
 
 
-def draw_theta_hyperpriors(generator, theta, attr_group, num_attr_per_group,
-                           mu_cur, lambda_cur, alpha_0, gamma_0, beta_0, mu_0,
-                           do_sample):
+def draw_theta_hyperpriors(generator, theta, groups, mu_cur, lambda_cur, alpha_0, gamma_0,
+                           beta_0, mu_0, do_sample):
     """Draw (lambda, mu) per group for theta [n] (w; lambda, mu [G]) or
     theta [n, k] (V, each factor on its own; lambda, mu [G, k]): lambda
     first with the current mu, then mu with the new lambda (libFM
     fm_learn_mcmc.h:444-445; draw_w_lambda :980-1017, draw_w_mu
-    :941-978). Returns (lambda, mu, rejected count)."""
-    G = num_attr_per_group.shape[0]
-    num_attr_per_group = num_attr_per_group.reshape((G,) + (1,) * (theta.dim() - 1))
-    sum_theta = seg_sum(theta, attr_group, G)
-    dev = theta - mu_cur[attr_group]
-    lambda_gamma = (
-        beta_0 * (mu_cur - mu_0) ** 2 + gamma_0 + seg_sum(dev * dev, attr_group, G)
-    )
+    :941-978). `groups` (ops.segment.GroupSums) holds each row's group
+    and sums each group's rows in a fixed order, so the draws take the
+    same bits on every run. Returns (lambda, mu, rejected count)."""
+    G = groups.num_groups
+    num_attr_per_group = groups.count.reshape((G,) + (1,) * (theta.dim() - 1))
+    sum_theta = groups(theta)
+    dev = theta - mu_cur[groups.ids]
+    lambda_gamma = beta_0 * (mu_cur - mu_0) ** 2 + gamma_0 + groups(dev * dev)
     lambda_alpha = alpha_0 + num_attr_per_group + 1.0
     if do_sample:
         lam_prop = samplers.gamma(generator, lambda_alpha / 2.0, lambda_gamma / 2.0)
@@ -185,17 +184,13 @@ def _masked_auc(p, y, mask):
 
 
 def attr_groups(attr_group_np, n, device):
-    """(attr_group_np [n], attr_group long [n], num_attr_per_group
-    float32 [G]) on `device`; one group when `attr_group_np` is None."""
+    """(attr_group_np [n], groups): the features' groups on the host and
+    on `device` (`GroupSums`: each feature's group `ids`, the groups'
+    `count` and their sums in a fixed order); one group when
+    `attr_group_np` is None."""
     if attr_group_np is None:
         attr_group_np = np.zeros(n, dtype=np.int32)
-    G = int(attr_group_np.max()) + 1
-    return (
-        attr_group_np,
-        torch.as_tensor(attr_group_np, dtype=torch.long, device=device),
-        torch.as_tensor(np.bincount(attr_group_np, minlength=G).astype(np.float32),
-                        device=device),
-    )
+    return attr_group_np, GroupSums(attr_group_np, int(attr_group_np.max()) + 1, device)
 
 
 def initial_state(lrn, init_params, n, k, G, nc_test):
@@ -253,10 +248,10 @@ def draw_w0(lrn, sum_e, num_cases, w0, alpha, bound):
     return samplers.finite_or(prop, w0, bound=bound)
 
 
-def draw_sweep_hyperpriors(lrn, P, attr_group, num_attr_per_group, st):
+def draw_sweep_hyperpriors(lrn, P, group_sums, st):
     """(w_mu, w_lambda, v_mu, v_lambda) for the sweep: drawn per group
-    from P = [w | V] with do_multilevel, else the state's lambdas at mean
-    mu_0. Returns (that tuple, rejected)."""
+    (`group_sums`, a GroupSums) from P = [w | V] with do_multilevel, else the
+    state's lambdas at mean mu_0. Returns (that tuple, rejected)."""
     w_mu, w_lambda = st["w_mu"], st["w_lambda"]
     v_mu, v_lambda = st["v_mu"], st["v_lambda"]
     rej = torch.zeros((), dtype=torch.int64, device=P.device)
@@ -266,11 +261,11 @@ def draw_sweep_hyperpriors(lrn, P, attr_group, num_attr_per_group, st):
     hp = (lrn.alpha_0, lrn.gamma_0, lrn.beta_0, lrn.mu_0, lrn.do_sample)
     if lrn.cfg.use_linear:
         w_lambda, w_mu, r = draw_theta_hyperpriors(
-            lrn.generator, P[:, 0], attr_group, num_attr_per_group, w_mu, w_lambda, *hp,
+            lrn.generator, P[:, 0], group_sums, w_mu, w_lambda, *hp,
         )
         rej += r
     v_lambda, v_mu, r = draw_theta_hyperpriors(
-        lrn.generator, P[:, 1:], attr_group, num_attr_per_group, v_mu, v_lambda, *hp,
+        lrn.generator, P[:, 1:], group_sums, v_mu, v_lambda, *hp,
     )
     return (w_mu, w_lambda, v_mu, v_lambda), rej + r
 
@@ -454,7 +449,8 @@ def learn_exact(lrn, train, test):
     classify = lrn.task == TASK_CLASSIFICATION
     nc_train, nc_test = train.num_rows, test.num_rows
 
-    attr_group_np, attr_group, num_attr_per_group = attr_groups(lrn.attr_group_np, n, dev)
+    attr_group_np, group_sums = attr_groups(lrn.attr_group_np, n, dev)
+    attr_group = group_sums.ids
     blocks, unobserved = exact_layout(train, attr_group_np, lrn.max_blocks, dev)
     unobserved = torch.as_tensor(unobserved, device=dev)
     rejected = attach_counters(blocks, dev)
@@ -465,7 +461,7 @@ def learn_exact(lrn, train, test):
     nec = lrn.num_eval_cases if lrn.num_eval_cases is not None else nc_test
     eval_mask = (torch.arange(nc_test, device=dev) < nec).to(f32)
 
-    P, st = initial_state(lrn, lrn.init_params, n, k, num_attr_per_group.shape[0], nc_test)
+    P, st = initial_state(lrn, lrn.init_params, n, k, group_sums.num_groups, nc_test)
     A = torch.empty(nc_train, k + 1, dtype=f32, device=dev)
     EQ = draw_caches(nc_train, dev)
     fwd = dict(use_linear=use_linear, use_bias=cfg.use_bias)
@@ -493,7 +489,7 @@ def learn_exact(lrn, train, test):
         # Neither reads what the w sweep changes and the unobserved
         # features touch no case, so the distribution and the ALS
         # trajectory are the same
-        hyper, r = draw_sweep_hyperpriors(lrn, P, attr_group, num_attr_per_group, st)
+        hyper, r = draw_sweep_hyperpriors(lrn, P, group_sums, st)
         rej = rej + r
         w_mu, w_lambda, v_mu, v_lambda = hyper
         if use_linear:

@@ -69,7 +69,7 @@ from libfm_tpu_torch.kernels.rel_refresh import rel_refresh, rel_scores
 from libfm_tpu_torch.kernels.rel_sweep import rel_resync, rel_stats, rel_update
 from libfm_tpu_torch.kernels.schur_draw import schur_draw
 from libfm_tpu_torch.kernels.slot_stats import gg_width, slot_stats
-from libfm_tpu_torch.kernels.slot_update import slot_update
+from libfm_tpu_torch.kernels.slot_update import case_order, slot_update
 from libfm_tpu_torch.learners.mcmc import (
     HYPER,
     attr_groups,
@@ -249,8 +249,10 @@ class MainBlock:
     cases), on the device: `features` (global ids, long and int32
     `feat_id`), `groups`, the per-feature slot lists `feat_off`,
     `slot_case`, `slot_val` (`batching.feature_slots`, as RelBlock builds
-    its entry lists), `slot_feat` (each slot's feature within the block,
-    for `slot_update`) and `pieces` (their cut for `slot_stats`)."""
+    its entry lists), `pieces` (their cut for `slot_stats`) and the
+    update's own list of the slots in case order, `upd_case`, `upd_val`
+    and `upd_feat` (each slot's feature within the block), for
+    `slot_update`."""
 
     def __init__(self, block, groups, device):
         def t(x, dtype=None):
@@ -264,8 +266,9 @@ class MainBlock:
         self.feat_off = t(off)
         self.slot_case = t(sc)
         self.slot_val = t(sv)
-        self.slot_feat = t(np.repeat(np.arange(self.F, dtype=np.int32), np.diff(off)))
         self.pieces = Pieces(off, device)
+        self.upd_case, self.upd_val, self.upd_feat = (t(a) for a in case_order(
+            sc, sv, np.repeat(np.arange(self.F, dtype=np.int32), np.diff(off))))
 
 
 def main_blocks(train, attr_group_np, n_main: int):
@@ -323,8 +326,9 @@ def learn_relational_vector(learner, train, test):
     nc_train, nc_test = train.num_rows, test.num_rows
     classify = learner.task == TASK_CLASSIFICATION
 
-    attr_group_np, attr_group, num_attr_per_group = attr_groups(learner.attr_group_np, n, dev)
-    G = num_attr_per_group.shape[0]
+    attr_group_np, group_sums = attr_groups(learner.attr_group_np, n, dev)
+    attr_group = group_sums.ids
+    G = group_sums.num_groups
     lays = [RelLayout(jt, je, attr_group_np, n)
             for jt, je in zip(train.relations, test.relations)]
     rels = [DevRel(lay, dev) for lay in lays]
@@ -408,7 +412,7 @@ def learn_relational_vector(learner, train, test):
         GG = slot_stats(A, P, blk.feat_off, blk.slot_case, blk.slot_val, blk.feat_id,
                         use_linear=use_linear, GG=GG_buf, pieces=blk.pieces)
         theta_new, rj = draw(GG, theta_old, blk.groups, alpha, hyper)
-        slot_update(A, blk.slot_case, blk.slot_val, blk.slot_feat,
+        slot_update(A, blk.upd_case, blk.upd_val, blk.upd_feat,
                     update_table(theta_old, theta_new))
         P[blk.features] = theta_new
         return rj.sum()
@@ -450,7 +454,7 @@ def learn_relational_vector(learner, train, test):
                 if incr_test:
                     tail[:, 0] += w0_new - w0
             w0 = w0_new
-        hyper, r = draw_sweep_hyperpriors(learner, P, attr_group, num_attr_per_group, st)
+        hyper, r = draw_sweep_hyperpriors(learner, P, group_sums, st)
         rej = rej + r
         for blk in mains:
             rej = rej + sweep_main(blk, alpha, hyper)

@@ -111,7 +111,8 @@ def learn_relational(lrn, train, test):
     classify = lrn.task == TASK_CLASSIFICATION
     nc_train, nc_test = train.num_rows, test.num_rows
 
-    attr_group_np, attr_group, num_attr_per_group = attr_groups(lrn.attr_group_np, n, dev)
+    attr_group_np, group_sums = attr_groups(lrn.attr_group_np, n, dev)
+    attr_group = group_sums.ids
     lays = [RelLayout(jt, je, attr_group_np, n, by_shape=False)
             for jt, je in zip(train.relations, test.relations)]
     rels = [ExactRel(lay, dev) for lay in lays]
@@ -129,7 +130,7 @@ def learn_relational(lrn, train, test):
     nec = lrn.num_eval_cases if lrn.num_eval_cases is not None else nc_test
     eval_mask = (torch.arange(nc_test, device=dev) < nec).to(f32)
 
-    P, st = initial_state(lrn, lrn.init_params, n, k, num_attr_per_group.shape[0], nc_test)
+    P, st = initial_state(lrn, lrn.init_params, n, k, group_sums.num_groups, nc_test)
     rows_tr, rows_te = main_rows(train, P, dev), main_rows(test, P, dev)
     A = torch.empty(nc_train, k + 1, dtype=f32, device=dev)
     EQ = draw_caches(nc_train, dev)
@@ -168,7 +169,7 @@ def learn_relational(lrn, train, test):
             rej = rej + r
             e += w0_new - w0
             w0 = w0_new
-        hyper, r = draw_sweep_hyperpriors(lrn, P, attr_group, num_attr_per_group, st)
+        hyper, r = draw_sweep_hyperpriors(lrn, P, group_sums, st)
         rej = rej + r
         w_mu, w_lambda, v_mu, v_lambda = hyper
         if use_linear:

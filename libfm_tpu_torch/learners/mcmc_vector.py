@@ -27,9 +27,9 @@ block the CUDA kernels
   dense_update (case-major in-place update of A, over every feature) or,
                for a block whose entries cover fewer than num_rows // 4
                cases and for every block with dense_update=False,
-  slot_update  (the same update over the block's slots: the JAX engine's
-               slot scatter); with the test tail, dense_update also on
-               the tail's rows,
+  slot_update  (the same update over the block's slots, in case order:
+               the JAX engine's slot scatter); with the test tail,
+               dense_update also on the tail's rows,
 then the unobserved-feature draws, the test prediction (fm_refresh, test
 mode; with the tail, its pred column) and, every `refresh_every`
 iterations, the train refresh (fm_refresh, train mode; for
@@ -68,7 +68,7 @@ from libfm_tpu_torch.data.batching import (
 )
 from libfm_tpu_torch.data.relation import expand_join, expansion_cost
 from libfm_tpu_torch.data.vector_layout import single_segment_widths
-from libfm_tpu_torch.kernels.case_stats import case_stats, moment_width
+from libfm_tpu_torch.kernels.case_stats import CaseStatsPlan, case_stats, moment_width
 from libfm_tpu_torch.kernels.dense_update import dense_update, update_table
 from libfm_tpu_torch.kernels.dual_draw import DualPlan, dual_draw
 from libfm_tpu_torch.kernels.fm_refresh import fm_refresh
@@ -76,7 +76,7 @@ from libfm_tpu_torch.kernels.pieces import Pieces
 from libfm_tpu_torch.kernels.probit_latent import probit_latent
 from libfm_tpu_torch.kernels.schur_draw import schur_draw
 from libfm_tpu_torch.kernels.slot_stats import gg_width, slot_stats
-from libfm_tpu_torch.kernels.slot_update import slot_update
+from libfm_tpu_torch.kernels.slot_update import case_order, slot_update
 from libfm_tpu_torch.learners.mcmc import (
     HYPER,
     MCMCLearner,
@@ -149,16 +149,18 @@ class DevBlock:
     `dual_plan`, their CTAs) for `dual_draw`. `scatter_update` says which
     update the block takes, as the JAX engine decides (`dense_coverage`,
     and always with dense_update off): with it, `upd_case`, `upd_val` and
-    `upd_feat` are one slot list over all F features (dense, then dual;
-    `upd_feat` the slot's place in that order) for `slot_update`, and
+    `upd_feat` are one slot list over all F features in case order
+    (`case_order`; `upd_feat` the slot's feature's place in the block's
+    order: dense, then dual) for `slot_update`, and
     `up_col`/`up_val` are None; without it, `up_col` and `up_val` are the
     per-case (feature, value) arrays `dense_update` reads, over every
     feature (val None: one-hot). `case_major` (with `case_major_stats`)
     takes the gate of the JAX engine on the dense count; `pieces` is the
-    dense lists' cut for the statistics kernels (kernels/pieces.py),
-    whichever of the two runs. `host_features` are the global ids in the
-    block's order; `te_col`/`te_val` the incremental test tail's per-case
-    arrays (`tail_columns`), set by the learner."""
+    dense lists' cut for `slot_stats` (kernels/pieces.py) and `case_plan`
+    (where `case_major`) `case_stats`' launch plan. `host_features` are
+    the global ids in the block's order; `te_col`/`te_val` the
+    incremental test tail's per-case arrays (`tail_columns`), set by the
+    learner."""
 
     def __init__(self, block, groups, num_rows: int, device, k: int,
                  case_major_stats: bool, dual_draws: bool = False, widths=(32, 256),
@@ -191,13 +193,10 @@ class DevBlock:
         self.upd_case = self.upd_val = self.upd_feat = None
         if self.scatter_update:
             counts = np.concatenate([np.diff(off_d), np.diff(off_u)])
-            self.upd_feat = torch.as_tensor(np.repeat(np.arange(F, dtype=np.int32), counts),
-                                            device=device)
-            if self.Fu:
-                self.upd_case = torch.as_tensor(np.concatenate([sc_d, sc_u]), device=device)
-                self.upd_val = torch.as_tensor(np.concatenate([sv_d, sv_u]), device=device)
-            else:
-                self.upd_case, self.upd_val = self.slot_case, self.slot_val
+            self.upd_case, self.upd_val, self.upd_feat = (
+                torch.as_tensor(a, device=device) for a in case_order(
+                    np.concatenate([sc_d, sc_u]), np.concatenate([sv_d, sv_u]),
+                    np.repeat(np.arange(F, dtype=np.int32), counts)))
         else:
             col, val = case_columns(block, num_rows)
             rank = np.empty(F + 1, dtype=np.int32)  # block position -> place in `order`
@@ -208,6 +207,7 @@ class DevBlock:
         self.case_major = (case_major_stats and not self.scatter_update
                            and case_major_gate(self.Fd, k, self.onehot, num_entries, num_rows))
         self.pieces = Pieces(off_d, device)
+        self.case_plan = CaseStatsPlan(off_d, k, device) if self.case_major else None
         self.te_col = self.te_val = None
 
 
@@ -341,8 +341,9 @@ class MCMCVectorLearner(MCMCLearner):
         use_linear, use_bias = cfg.use_linear, cfg.use_bias
 
         # ---- host layouts -> device
-        attr_group_np, attr_group, num_attr_per_group = attr_groups(self.attr_group_np, n, dev)
-        G = num_attr_per_group.shape[0]
+        attr_group_np, group_sums = attr_groups(self.attr_group_np, n, dev)
+        attr_group = group_sums.ids
+        G = group_sums.num_groups
         nc_train, nc_test = train.num_rows, test.num_rows
         blocks = []
         observed = np.zeros(n, dtype=bool)
@@ -424,7 +425,8 @@ class MCMCVectorLearner(MCMCLearner):
                 if blk.case_major:
                     GG = case_stats(A, P, blk.feat_off, blk.slot_case, blk.slot_val,
                                     blk.feat_id, onehot=blk.onehot,
-                                    use_linear=use_linear, GG=GG_buf, pieces=blk.pieces)
+                                    use_linear=use_linear, GG=GG_buf,
+                                    pieces=blk.case_plan)
                 else:
                     GG = slot_stats(A, P, blk.feat_off, blk.slot_case, blk.slot_val,
                                     blk.feat_id, use_linear=use_linear, GG=GG_buf,
@@ -473,7 +475,7 @@ class MCMCVectorLearner(MCMCLearner):
                     # the tail holds pred, which moves with w0 too
                     A_te[:, 0] += w0_new - w0
                 w0 = w0_new
-            hyper, r = draw_sweep_hyperpriors(self, P, attr_group, num_attr_per_group, st)
+            hyper, r = draw_sweep_hyperpriors(self, P, group_sums, st)
             rej += r
             for blk in blocks:
                 rej += sweep_block(blk, alpha, *hyper)

@@ -113,11 +113,14 @@ def test_case_stats_padding_slots_add_nothing():
     assert not G_c[1].any()  # a feature with no slot
 
 
-@pytest.mark.parametrize("k,onehot,items", [(5, True, 14), (8, False, 20), (16, True, 49),
-                                            (16, False, 54), (64, True, 577),
-                                            (128, False, 2210)])
+@pytest.mark.parametrize("k,onehot,items", [(5, True, 6), (8, False, 6), (16, True, 15),
+                                            (16, False, 15), (64, True, 153),
+                                            (128, False, 561)])
 def test_scratch_floats_counts_the_kernel_items(k, onehot, items):
-    assert cs.scratch_floats(k, onehot) == 4 * items
+    """A piece's scratch row: a 4 x 4 sum an item, one-hot or valued alike;
+    the CTA's shared memory within the H100's 227 KB either way."""
+    assert cs.num_items(k) == items and cs.scratch_floats(k) == 16 * items
+    assert cs.smem_bytes(k, onehot) <= 232_448
 
 
 def test_pieces_cut_long_lists():

@@ -34,7 +34,12 @@ table, regression and probit, on the card against the CPU with exact
 launches. The exact engines' coord_draw and rel_coord_draw under launch
 plans that put a block's features in each class (a warp, a CTA, pieces
 with a second launch), in each mode; rel_cache's narrow form over two
-columns (rel_cache_cols), strided and contiguous.
+columns (rel_cache_cols), strided and contiguous. case_stats under its
+launch plan at every k in 1-128 (a feature of several pieces, one of a
+CTA, many of one slot), one-hot and valued; slot_update on a block's
+slots in case order, the same bits as in feature order. Two MCMC runs at
+one seed end in the same bits, on the flat vector engine (regression and
+probit), the exact engine and the BS vector engine.
 Tolerances as in chip_smoke.py: fp32 sums taken in another order.
 """
 
@@ -1054,23 +1059,22 @@ def _close(a, b):
     return ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
 
 
-# every compiled form: (KP, items a thread, groups) = (8,1,8) at k=5,
-# (16,1,8) at 12, (16,1,4) at 16, (32,1,2) at 20, (64,2,1) at 48,
-# (64,3,1) at 64, (128,5,1) at 90, (128,9,1) at 128 (one-hot and valued
-# differ in the item count, not the form, but for k=12 valued: (16,1,4))
+# every compiled form (the padded width KP 4-128: a warp a team to 32, a
+# CTA above) at k = 5, 12, 16, 20, 48, 64, 90 and 128
 @pytest.mark.parametrize("k", [5, 12, 16, 20, 48, 64, 90, 128])
 @pytest.mark.parametrize("onehot", [True, False])
 @pytest.mark.parametrize("use_linear", [True, False])
 def test_case_stats_kernel_matches_plain(cuda, k, onehot, use_linear):
-    """Lists longer than a piece (3 and 7 pieces of PIECE_LEN slots), a
-    feature with none, a fifth of the slots padding; two launches give
-    the same bits (the pieces of a feature add in piece order)."""
+    """Lists longer than a piece (2 and 3 pieces of the plan's piece_len
+    slots, one just past the short length), a feature with none, a fifth
+    of the slots padding; two launches give the same bits (the pieces of a
+    feature add in piece order) and leave the ticket zero."""
     from libfm_tpu_torch.kernels import case_stats as cs
-    from libfm_tpu_torch.kernels.pieces import Pieces
 
     rng = np.random.default_rng(900 + k + 2 * onehot + use_linear)
-    nc, n = 20000, 300
-    counts = np.array([0, 1, 31, 33, 2 * cs.PIECE_LEN + 5, 97, 7 * cs.PIECE_LEN, 3])
+    nc, n = 24000, 300
+    piece = cs.PIECE_SLOTS[k <= 32]
+    counts = np.array([0, 1, 31, 33, 2 * piece + 5, 97, 3 * piece, 3, cs.SHORT_LEN + 1])
     # a block: no case in two lists, each list in case order
     off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
     sc = rng.permutation(nc)[:off[-1]].astype(np.int32)
@@ -1086,17 +1090,17 @@ def test_case_stats_kernel_matches_plain(cuda, k, onehot, use_linear):
         rng.normal(0, 0.3, (n, k + 1)).astype(np.float32),
         off, sc, sv, fid,
     )
-    pieces = Pieces(off, cuda)
+    plan = cs.CaseStatsPlan(off, k, cuda)
     before = kernels.launch_counts()["case_stats"]
     kw = dict(onehot=onehot, use_linear=use_linear)
-    G_k = cs.case_stats(A, P, off, sc, sv, fid, pieces=pieces, **kw)
-    G_k2 = cs.case_stats(A, P, off, sc, sv, fid, pieces=pieces, **kw)
+    G_k = cs.case_stats(A, P, off, sc, sv, fid, pieces=plan, **kw)
+    G_k2 = cs.case_stats(A, P, off, sc, sv, fid, pieces=plan, **kw)
     G_p = cs.case_stats_plain(A, P, off, sc, sv, fid, **kw)
     G_s = ss.slot_stats_plain(A, P, off, sc, sv, fid, use_linear=use_linear)
     ref, scale = cs.case_stats_reference(A, P, off, sc, sv, fid, **kw)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["case_stats"] == before + 2
-    assert torch.equal(G_k, G_k2) and (pieces.ticket == 0).all()
+    assert torch.equal(G_k, G_k2) and (plan.ticket == 0).all()
     assert (G_k[0] == 0).all()
     assert ss.gg_rel_err(G_k, G_p, k) < 1e-4
     assert ss.gg_rel_err(G_k, G_s, k) < 1e-4
@@ -2203,3 +2207,126 @@ def test_exact_bs_als_on_cuda_follows_the_cpu_trajectory(cuda, task):
     for hc, hg in zip(hist["cpu"], hist["cuda"]):
         for key in ("test_this", "test_this_m2", "train"):
             assert abs(hc[key] - hg[key]) < 1e-4
+
+
+@pytest.mark.parametrize("k", range(1, 129))
+@pytest.mark.parametrize("onehot", [True, False])
+def test_case_stats_kernel_at_every_k(cuda, k, onehot):
+    """case_stats under its launch plan at every k: a feature of several
+    pieces, one of a CTA (just past the short length), 150 features of one
+    slot, short ones and one with none; against the plain version and
+    float64 over each entry's sum of magnitudes; two launches the same
+    bits."""
+    from libfm_tpu_torch.kernels import case_stats as cs
+
+    rng = np.random.default_rng(k + 1000 * onehot)
+    nc, n = 16000, 400
+    piece = cs.PIECE_SLOTS[k <= 32]
+    short = cs.SHORT_LEN if k <= 32 else piece
+    counts = rng.permutation(np.concatenate([[2 * piece + 9, short + 3, 0],
+                                             np.ones(150, np.int64),
+                                             rng.integers(2, 40, 60)]))
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    sc = rng.permutation(nc)[:off[-1]].astype(np.int32)
+    for a, b in zip(off[:-1], off[1:]):
+        sc[a:b].sort()
+    sv = (np.ones(len(sc)) if onehot else rng.normal(1.0, 0.5, len(sc))).astype(np.float32)
+    fid = rng.choice(n, len(counts), replace=False).astype(np.int32)
+    A, P, off, sc, sv, fid = _to(
+        cuda, rng.normal(0, 1, (nc, k + 1)).astype(np.float32),
+        rng.normal(0, 0.3, (n, k + 1)).astype(np.float32), off, sc, sv, fid)
+    plan = cs.CaseStatsPlan(off, k, cuda)
+    kw = dict(onehot=onehot)
+    G_k = cs.case_stats(A, P, off, sc, sv, fid, pieces=plan, **kw)
+    G_k2 = cs.case_stats(A, P, off, sc, sv, fid, pieces=plan, **kw)
+    G_p = cs.case_stats_plain(A, P, off, sc, sv, fid, **kw)
+    ref, scale = cs.case_stats_reference(A, P, off, sc, sv, fid, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(G_k, G_k2) and (plan.ticket == 0).all()
+    assert ss.gg_rel_err(G_k, G_p, k) < 1e-4
+    assert cs.err_over_magnitudes(G_k, ref, scale) < CASE_STATS_TOL
+
+
+@pytest.mark.parametrize("k", SU_KS)
+@pytest.mark.parametrize("onehot", [True, False])
+@pytest.mark.parametrize("coverage", [0.05, 1.0])
+def test_slot_update_kernel_in_case_order(cuda, k, onehot, coverage):
+    """slot_update on a block's slots in case order (`case_order`, as the
+    learners hand them over), a twentieth and all of the cases covered:
+    against its plain version and dense_update, and the same bits as on
+    the per-feature lists (each row's arithmetic does not depend on the
+    order)."""
+    rng = np.random.default_rng(700 + k + int(coverage * 10) + 2 * onehot)
+    nc, F = 20_001, 300  # A's end off a 16-byte boundary for most k
+    case = rng.choice(nc, int(coverage * nc), replace=False).astype(np.int32)
+    feat = np.sort(rng.integers(0, F, case.size)).astype(np.int32)
+    val = (np.ones(case.size) if onehot else rng.normal(1, 0.5, case.size)).astype(np.float32)
+    col = np.full(nc, F, np.int32)
+    col[case] = feat
+    x = np.zeros(nc, np.float32)
+    x[case] = val
+    oc, ov, of = su.case_order(case, val, feat)
+    assert (np.diff(oc) > 0).all()
+    A, ct, vt, ft, oct_, ovt, oft, colt, xt = _to(
+        cuda, rng.normal(0, 1, (nc, k + 1)).astype(np.float32), case, val, feat, oc, ov, of,
+        col, x)
+    th_old = torch.as_tensor(rng.normal(0, 0.3, (F, k + 1)), dtype=torch.float32, device=cuda)
+    tab = du.update_table(th_old, th_old + 0.1 * torch.randn_like(th_old))
+    A_k = su.slot_update(A.clone(), oct_, ovt, oft, tab)
+    A_f = su.slot_update(A.clone(), ct, vt, ft, tab)
+    A_p = su.slot_update_plain(A.clone(), oct_, ovt, oft, tab)
+    A_d = du.dense_update(A.clone(), colt, None if onehot else xt, tab)
+    torch.cuda.synchronize()
+    assert torch.equal(A_k, A_f)
+    assert _col_rel_err(A_k, A_p) < 1e-5
+    assert _col_rel_err(A_k, A_d) < 1e-5
+    outside = colt == F
+    assert torch.equal(A_k[outside], A[outside])
+
+
+#: the final state two MCMC runs at one seed share, bit for bit
+REPRO_KEYS = ("w0", "alpha", "w_mu", "w_lambda", "v_mu", "v_lambda", "w", "V", "pred_sum_all")
+
+
+@pytest.mark.parametrize("engine", ["vector", "vector probit", "exact", "bs vector"])
+def test_mcmc_runs_at_one_seed_end_in_the_same_bits(cuda, engine):
+    """Two MCMC runs at one seed, 4 iterations each, end in the same bits:
+    P = [w | V], w0, alpha, the hyperpriors and the test prediction sum.
+    Every sum of the chain is taken in a fixed order (the hyperprior
+    draws' group sums through ops.segment.GroupSums, not index_add_'s
+    float atomics)."""
+    from libfm_tpu_torch.data.dataset import Dataset
+    from libfm_tpu_torch.learners.mcmc import MCMCLearner
+    from libfm_tpu_torch.learners.mcmc_vector import MCMCVectorLearner
+
+    if engine == "bs vector":
+        rng = np.random.default_rng(4)
+        nf, nc = 150, 4000
+        join = _relation(rng, 64, 6, nf, nc + 800)
+        y = rng.normal(0, 1, nc + 800).astype(np.float32)
+
+        def ds(sl):
+            d = Dataset(np.zeros(len(y[sl]) + 1, np.int64), np.empty(0, np.int32),
+                        np.empty(0, np.float32), y[sl], 0)
+            d.relations = [join.permuted(np.arange(nc + 800)[sl])]
+            return d
+
+        train, test = ds(slice(0, nc)), ds(slice(nc, None))
+        cls, cfg, kw = MCMCVectorLearner, FMConfig(num_features=nf, num_factors=8), {}
+    else:
+        train, test, groups = ctr_like(6, 300, 30000, seed=3)
+        cls = MCMCLearner if engine == "exact" else MCMCVectorLearner
+        cfg = FMConfig(num_features=train.num_features, num_factors=8 if engine == "exact"
+                       else 16)
+        kw = dict(attr_group=groups, task=TASK_CLASSIFICATION if "probit" in engine else 0)
+    states = []
+    for _ in range(2):
+        lr = cls(cfg, num_iter=4, seed=7, verbose=False, device="cuda", **kw)
+        if engine == "bs vector":
+            lr.expand_max_ratio = 0.0
+        lr.learn(train, test)
+        if engine == "bs vector":
+            assert lr.relational_mode == "bs_vector"
+        states.append(lr._final_state)
+    a, b = states
+    assert [key for key in REPRO_KEYS if not torch.equal(a[key], b[key])] == []

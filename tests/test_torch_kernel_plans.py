@@ -1,4 +1,4 @@
-"""The host-side launch plans of two CUDA kernels, as pure functions on
+"""The host-side launch plans of the CUDA kernels, as pure functions on
 the CPU (the kernels themselves run on the card: tests/test_torch_cuda.py).
 
 - rel_stats (kernels/rel_sweep.py): the entries a CTA stages at once, by
@@ -15,15 +15,31 @@ the CPU (the kernels themselves run on the card: tests/test_torch_cuda.py).
   planned for, the lane groups of a warp add into distinct banks;
   `groups_in_one_tile` is the widest one-tile form (one group more takes
   tiles), and G (1+k) far above the first kernel's 7,168 plans a launch.
+- case_stats (kernels/case_stats.py `CaseStatsPlan`): the runs its teams
+  sum cover every slot of every feature once (short features a team
+  each, up to 256 / team to a CTA; long ones in pieces, a CTA each, its
+  teams on consecutive parts), at config #4's Zipf shape and at features
+  of 0 and 1 slots, for every k in 1-128; the CTA's shared memory one-hot
+  and valued within 227 KB.
+- slot_update's case-ordered list (`case_order`, and the lists the flat
+  engine's scatter blocks and the BS engine's main blocks build with it):
+  the same (case, value, feature) triples as the per-feature lists, the
+  cases strictly ascending.
 """
 
 import itertools
 
+import numpy as np
 import pytest
 
+from libfm_tpu_torch.data.batching import FeatureBlock, feature_slots
+from libfm_tpu_torch.kernels import case_stats as cs
 from libfm_tpu_torch.kernels import rel_sweep as rs
 from libfm_tpu_torch.kernels import sgda_lambda as sl
 from libfm_tpu_torch.kernels.rel_cache import cache_width
+from libfm_tpu_torch.kernels.slot_update import case_order
+from libfm_tpu_torch.learners.mcmc_rel_vector import MainBlock
+from libfm_tpu_torch.learners.mcmc_vector import DevBlock
 
 SMEM_CTA = 232_448  # a CTA's shared memory on the H100, static and dynamic
 SMS = 132  # an H100 SXM's SMs
@@ -148,3 +164,107 @@ def test_groups_in_one_tile_is_the_widest_one_tile_form(k):
     assert wider.tiles == 2 and wider.ctas_per_sm == 1
     if k == 128:  # the first kernel took 55 groups at k = 128
         assert G >= 55
+
+
+# ---------------------------------------------------------------- case_stats
+
+def _zipf_counts(rng, slots, features, power=1.2):
+    """A CTR field's slot counts: `slots` cases over `features` values by
+    Zipf ranks (ctr_like's form), most of them in the head."""
+    ranks = (rng.zipf(power, slots) - 1) % features
+    return np.bincount(ranks, minlength=features)
+
+
+def _check_case_plan(counts, k):
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    plan = cs.CaseStatsPlan(off, k, "cpu")
+    cta = plan.cta.numpy()
+    assert plan.count == len(cta) and plan.team == (32 if k <= 32 else 256)
+    # short CTAs: up to `teams` features each, the longest first
+    short = [(-1 - a, n) for a, n, _, _ in cta if a < 0]
+    assert all(1 <= n <= plan.teams for _, n in short)
+    longs = cta[cta[:, 0] >= 0]
+    assert (longs[:, 0] == cta[:len(longs), 0]).all()  # long pieces first
+    per_long = np.bincount(longs[:, 0], minlength=len(counts))
+    assert (np.diff(longs[:, 3]) <= 0).all()  # features of many pieces first
+    for f in np.flatnonzero(per_long):
+        mine = longs[longs[:, 0] == f]
+        assert counts[f] > plan.short_len
+        assert sorted(mine[:, 1].tolist()) == list(range(per_long[f]))
+        assert (mine[:, 3] == per_long[f]).all()
+        assert per_long[f] == -(-counts[f] // plan.piece_len)
+    # scratch rows: a feature of several pieces takes one a piece, disjoint
+    bases = {int(f): int(b) for f, _, b, n in longs if n > 1}
+    spans = sorted((b, b + per_long[f]) for f, b in bases.items())
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert plan.rows == sum(per_long[f] for f in bases) and (not spans
+                                                              or spans[-1][1] <= plan.rows)
+    # every slot once
+    runs = plan.team_runs(off)
+    cover = np.zeros(off[-1], dtype=np.int64)
+    for f, lo, hi in runs:
+        assert off[f] <= lo <= hi <= off[f + 1]
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    seen = np.bincount(runs[:, 0], minlength=len(counts))
+    assert (seen > 0).all()  # every feature, a GG row even with no slot
+    shorts = plan.short.numpy()[:sum(n for _, n in short)]
+    assert sorted(shorts.tolist() + np.flatnonzero(per_long).tolist()) == list(
+        range(len(counts)))
+    assert (np.diff(counts[shorts]) <= 0).all()
+    for onehot in (True, False):
+        assert cs.smem_bytes(k, onehot) <= SMEM_CTA
+    return plan
+
+
+def test_case_stats_plan_at_config4s_zipf_shape():
+    """A block of config #4: 1.8M cases over 5,000 features, k = 16; the
+    head feature in pieces of 4,096 slots, the Zipf tail in short CTAs of
+    8 warps."""
+    counts = _zipf_counts(np.random.default_rng(1), 1_800_000, 5000)
+    plan = _check_case_plan(counts, 16)
+    assert counts.max() > 300_000 and plan.teams == 8 and plan.piece_len == 4096
+    cta = plan.cta.numpy()
+    assert (cta[:, 0] >= 0).sum() >= counts.max() // 4096
+
+
+@pytest.mark.parametrize("k", range(1, 129))
+def test_case_stats_plan_every_k(k):
+    """Features of 0 and 1 slots, short ones, one just past the short
+    length, a few pieces long and one of exactly two pieces, a Zipf tail."""
+    rng = np.random.default_rng(k)
+    short_len = cs.SHORT_LEN if k <= 32 else cs.PIECE_SLOTS[False]
+    piece = cs.PIECE_SLOTS[k <= 32]
+    counts = np.concatenate([[0, 1, 0, 1, short_len, short_len + 1, 2 * piece,
+                              3 * piece + 7], _zipf_counts(rng, 20_000, 300),
+                             rng.integers(0, 3, 40)])
+    _check_case_plan(rng.permutation(counts), k)
+
+
+# ---------------------------------------------------------------- slot_update
+
+def _block(rng, nc, F, coverage):
+    cases = rng.choice(nc, int(coverage * nc), replace=False).astype(np.int32)
+    feat = rng.integers(0, F, cases.size).astype(np.int32)
+    vals = rng.normal(1.0, 0.5, cases.size).astype(np.float32)
+    return FeatureBlock(np.arange(F, dtype=np.int32) * 3, cases, vals, feat)
+
+
+@pytest.mark.parametrize("coverage", [0.05, 1.0])
+def test_case_order_holds_the_same_slots(coverage):
+    rng = np.random.default_rng(int(coverage * 100))
+    blk = _block(rng, 5000, 120, coverage)
+    off, sc, sv = feature_slots(blk)
+    sf = np.repeat(np.arange(len(off) - 1, dtype=np.int32), np.diff(off))
+    want = sorted(zip(sc.tolist(), sv.tolist(), sf.tolist()))
+    c, v, f = case_order(sc, sv, sf)
+    assert c.dtype == np.int32 and v.dtype == np.float32 and f.dtype == np.int32
+    flat = DevBlock(blk, np.zeros(len(off) - 1, np.int32), 5000, "cpu", 4, False,
+                    dense_update=False)
+    main = MainBlock(blk, np.zeros(len(off) - 1, np.int32), "cpu")
+    assert flat.scatter_update
+    for c, v, f in ((c, v, f), (flat.upd_case, flat.upd_val, flat.upd_feat),
+                    (main.upd_case, main.upd_val, main.upd_feat)):
+        c, v, f = (np.asarray(a) for a in (c, v, f))
+        assert (np.diff(c) > 0).all()
+        assert list(zip(c.tolist(), v.tolist(), f.tolist())) == want
