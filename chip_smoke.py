@@ -67,7 +67,10 @@ What it does, in order (any failed phase exits non-zero):
      update rows, the table, the cache rows, the regularizers, and each
      batch's in-kernel w0 bitwise against `w0_update` on its sum) and
      free-running to the epoch's end; each kernel also timed alone over an
-     epoch's launches;
+     epoch's launches; sgda_step on the first batch twice from the same
+     state (the rows, cache rows, sum and w0 the same bits; the rows' and
+     cache rows' digest printed, so that a run of this script in an
+     earlier commit's tree shows whether they keep its bits);
    - config #4 (bench.py:236-277: MCMC probit classification, k=16, on
      #4b's data with its 13 field groups): case_stats on the 13 blocks
      under their launch plans (one iteration's launches, a second one the
@@ -95,8 +98,9 @@ What it does, in order (any failed phase exits non-zero):
      test cases joined to 4,000 block rows of 16 gaussian entries over
      20,000 features, k=32, rebuilt with numpy from default_rng(7); its
      block count and shapes, observed and unobserved features and route
-     printed): rel_scores, rel_refresh (train and tail modes) and
-     rel_cache from a seeded P; one sweep of the 23 blocks to make SD
+     printed): rel_scores, rel_refresh (train and tail modes; a second
+     train-mode launch the same bits, the digests of A and the tail
+     printed) and rel_cache from a seeded P; one sweep of the 23 blocks to make SD
      non-zero, then a second holding each block's rel_stats (to float64,
      over each entry's sum of magnitudes, as rel_cache), each draw from
      its GG (schur_draw) against the float64 draw from the float64 GG, in
@@ -117,7 +121,9 @@ What it does, in order (any failed phase exits non-zero):
      mode; rel_refresh_probit, sampling on given uniforms and as
      expectations (Q, the predictions and the latents as config #4's
      probit check holds them, the correct count equal to the plain
-     version's); on both main blocks (K12's main half) slot_stats (GG
+     version's; in each mode a second launch the same bits, and the
+     digests of A, the latents and the test predictions printed); on both
+     main blocks (K12's main half) slot_stats (GG
      within 1e-4 per part), schur_draw (1e-3) and slot_update (1e-5).
    - the exact engines (K11): coord_draw, w and v (factor k/2), on config
      #3's two blocks and on config #4's block with the longest feature
@@ -219,6 +225,7 @@ checkout's root.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -434,6 +441,35 @@ def fill_launches(table, counts):
         by_path = {p: c[row["name"]] for p, c in counts.items() if c[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+
+
+def bits(*tensors) -> str:
+    """A digest of the tensors' bytes (16 hex digits): two runs, or two
+    commits run on the same inputs, print the same digest exactly when
+    their outputs are the same bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def note_bits(label, rec, *tensors):
+    """Print and keep the tensors' digest under `label`."""
+    digest = bits(*tensors)
+    print(f"{label}: digest {digest}")
+    rec.setdefault("digests", {})[label] = digest
+
+
+def repeat_check(label, first, again, rec):
+    """Fail unless two launches on the same inputs gave the same bits;
+    print and keep the outputs' digest (what an A/B against an earlier
+    commit compares)."""
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    digest = bits(*first)
+    print(f"{label}: two launches the same bits: {same}; digest {digest}")
+    rec.setdefault("digests", {})[label] = digest
+    if not same:
+        fail(f"{label}: a second launch on the same inputs gave other bits")
 
 
 def col_rel_err(a, b):
@@ -1565,6 +1601,13 @@ def bs_kernel_checks(args, rec, dev, bs):
     rr.rel_refresh_plain(SC, maps_te, w0, tail_p)
     err = max(col_rel_err(A, A_p).item(), col_rel_err(tail, tail_p).item(),
               abs(m_k.item() - m_p.item()) / m_p.item())
+    A_2 = torch.empty_like(A)
+    m_2 = rr.rel_refresh(SC, maps_tr, w0, A_2, y, **kw)
+    torch.cuda.synchronize()
+    repeat_check("rel_refresh A, bench_bs train mode", (A,), (A_2,), rec)
+    repeat_check("rel_refresh summed error, bench_bs train mode", (m_k,), (m_2,), rec)
+    note_bits("rel_refresh tail, bench_bs tail mode", rec, tail)
+    del A_2
     entry("rel_refresh", "libfm_tpu/learners/mcmc_rel_vector.py:777", err, 1e-5,
           cuda_ms(lambda: rr.rel_refresh(SC, maps_tr, w0, A, y, **kw), args.reps),
           cuda_ms(lambda: rr.rel_refresh_plain(SC, maps_tr, w0, A_p, y, **kw), args.reps),
@@ -1819,6 +1862,14 @@ def bs_ctx_kernel_checks(args, rec, dev, ctx):
     err_A = max(col_rel_err(A, A_p).item(),
                 ((pt_k - pt_p).abs().max() / pt_p.abs().max()).item())
     err_sum = abs(m_k.item() - m_p.item()) / m_p.item()
+    A_2 = torch.empty_like(A)
+    m_2 = rr.rel_refresh(SC, maps_tr, w0, A_2, y, **main_tr, **kw)
+    torch.cuda.synchronize()
+    repeat_check("rel_refresh A, bench_bs_ctx train mode (main rows)", (A,), (A_2,), rec)
+    repeat_check("rel_refresh summed error, bench_bs_ctx train mode (main rows)", (m_k,),
+                 (m_2,), rec)
+    note_bits("rel_refresh pred, bench_bs_ctx test mode", rec, pt_k)
+    del A_2
     row = kernel_row(
         "rel_refresh", "libfm_tpu/learners/mcmc_rel_vector.py:777", err_A, BS_CTX_A_TOL,
         cuda_ms(lambda: rr.rel_refresh(SC, maps_tr, w0, A, y, **main_tr, **kw), args.reps),
@@ -1853,7 +1904,14 @@ def bs_ctx_kernel_checks(args, rec, dev, ctx):
         pk = dict(probit=mode, U=u, **main_tr)
         c_k = rr.rel_refresh(SC, maps_tr, w0, A_k, y_c, latent=lat_k, **pk)
         c_p = rr.rel_refresh_plain(SC, maps_tr, w0, A_p, y_c, latent=lat_p, **pk)
+        A_2, lat_2 = torch.empty_like(A_k), torch.empty_like(lat_k)
+        c_2 = rr.rel_refresh(SC, maps_tr, w0, A_2, y_c, latent=lat_2, **pk)
         torch.cuda.synchronize()
+        repeat_check(f"rel_refresh_probit A and latents, bench_bs_c ({mode})", (A_k, lat_k),
+                     (A_2, lat_2), rec)
+        repeat_check(f"rel_refresh_probit correct count, bench_bs_c ({mode})", (c_k,), (c_2,),
+                     rec)
+        del A_2, lat_2
         # the kernel's predictions, as e + latent (to an ulp); a draw more
         # than LATENT_CHECKED from its mean turns that ulp into more than 1e-5
         pred_k = A_k[:, 0] + lat_k
@@ -2479,6 +2537,23 @@ def sgda_kernel_checks(args, rec, dev, runs):
             fail(f"SGDA {label}: sgda_step's w0 differs from w0_update on its sum in "
                  f"{w0_bits.count(False)} of {len(w0_bits)} batches")
         lock_regs = (rw.clone(), rv.clone())
+
+        # the first batch twice from the same state: the same bits (rows,
+        # cache rows, sum, w0); the digest of the rows and cache rows is
+        # what an earlier commit's kernel is held to
+        ids, vals, y, m, order, gc_row, _, nr, _ = batches[0]
+        runs_1 = []
+        for _ in range(2):
+            Gc_r, w0_r = Gc0.clone(), w00.clone()
+            u_r, r_r = sa.sgda_step(P0, ids, vals, y, m, w0_r, Gc_r, gc_row, attr, rw0, rv0,
+                                    mode=mode, order=order, **lims)
+            runs_1.append((u_r[:nr].clone(), Gc_r, r_r.clone(), w0_r))
+        torch.cuda.synchronize()
+        repeat_check(f"sgda_step rows and cache rows, {label}, batch 0", runs_1[0][:2],
+                     runs_1[1][:2], rec)
+        repeat_check(f"sgda_step sum and w0, {label}, batch 0", runs_1[0][2:], runs_1[1][2:],
+                     rec)
+        del runs_1
 
         # free-running from the same state: the learner's epoch (kernels)
         # and the plain versions' epoch

@@ -220,31 +220,49 @@ inline cudaError_t launch_pdl(void (*kernel)(Params...), unsigned grid, unsigned
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// The grid of `kKernel` (`threads` a CTA, no dynamic shared memory) for
-// `wanted` CTAs, capped at one wave: the CTAs resident on the current
-// device at once. A grid whose CTAs wait on one another (table_scatter's
-// look-back) needs the cap, or a waiting CTA could hold the SM that the
-// CTA it waits for needs. The occupancy is asked once a device.
+// The grid of `kKernel` (`threads` a CTA, `smem` bytes of dynamic shared
+// memory) for `wanted` CTAs, capped at one wave: the CTAs resident on the
+// current device at once. A grid whose CTAs wait on one another
+// (table_scatter's look-back) needs the cap, or a waiting CTA could hold
+// the SM that the CTA it waits for needs; a persistent grid takes one
+// wave. Above the default 48 KB the kernel is first allowed `smem` bytes.
+// The occupancy is asked once for each (device, threads, smem) of the last
+// kKeep seen.
 template <auto kKernel>
-inline cudaError_t one_wave_grid(int threads, long long wanted, unsigned* grid) {
-  constexpr int kDevices = 64;
-  static int sms[kDevices], resident[kDevices];
+inline cudaError_t one_wave_grid(int threads, int smem, long long wanted, unsigned* grid) {
+  struct Seen {
+    int dev, threads, smem, sms, resident;
+  };
+  constexpr int kKeep = 16, kDevices = 64;
+  static Seen seen[kKeep];
+  static int allowed[kDevices], next;
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
+  int i = 0;
+  while (i < kKeep && !(seen[i].resident > 0 && seen[i].dev == dev &&
+                        seen[i].threads == threads && seen[i].smem == smem))
+    ++i;
+  if (i == kKeep) {
+    if (smem > 48 * 1024 && smem > allowed[dev]) {
+      if ((err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      smem)) != cudaSuccess)
+        return err;
+      allowed[dev] = smem;
+    }
     int n = 0, occ = 0;
     if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) !=
         cudaSuccess)
       return err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kKernel, threads, 0)) !=
-        cudaSuccess)
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kKernel, threads,
+                                                             (size_t)smem)) != cudaSuccess)
       return err;
-    sms[dev] = n;
-    resident[dev] = occ > 0 ? occ : 1;
+    i = next;
+    next = (next + 1) % kKeep;
+    seen[i] = {dev, threads, smem, n, occ > 0 ? occ : 1};
   }
-  const long long wave = (long long)sms[dev] * resident[dev];
+  const long long wave = (long long)seen[i].sms * seen[i].resident;
   *grid = (unsigned)(wanted < 1 ? 1 : wanted < wave ? wanted : wave);
   return cudaSuccess;
 }

@@ -29,14 +29,33 @@
 // bench_bs's 1M train cases, k = 32: ~140 MB, 0.042 ms at 3.35 TB/s (with
 // bench_bs_ctx's two main entries ~156 MB, 0.047 ms). rel_scores is
 // latency-bound and small (64,000 entries, once a refresh).
-// Design: one warp a block row (rel_scores) or a case (rel_refresh), lanes
-// over the factors (up to 4 a lane, k <= 128), the row reads and writes
-// coalesced across the warp; a main entry's id and value are one
-// broadcast load. rel_scores walks its row's entries in order, as the JAX
-// engine's segment sums do. rel_refresh runs a grid of at most `npart`
-// CTAs whose warps stride over the cases; lane 0 of each warp sums its
-// cases' errors (or correct counts) in order, the CTA its warps in order:
-// no atomics, the same bits on every run for a given npart.
+// Design. rel_scores: one warp a block row, lanes over the factors (up to
+// 4 a lane, k <= 128), walking its row's entries in order, as the JAX
+// engine's segment sums do. rel_refresh: a warp takes a tile of 32
+// consecutive cases at a time, a persistent grid of one wave of CTAs
+// striding over the tiles. Its lanes stage the tile's maps (R), main ids
+// and values (L each, the tile's span of them), y and U by coalesced
+// cp.async into one of two stages, so the next tile's indices land while
+// this one is summed. The warp then takes CB cases at once (4), lanes
+// over the factors (factor f on lane f mod 32), and walks their items
+// (main entries, then relations) in steps, the next step's P or SC rows
+// of CB cases (the next batch's first item after a batch's last) loaded
+// while this step's are added: 2 CB rows in flight, in registers (at
+// k <= 32 held to 80 a thread, three CTAs an SM). The indices come from
+// the stage as broadcast shared loads. Each case's sums run in one order
+// (main entries, relations in order, fmaf over a lane's factors, the
+// warp's butterfly sum) whatever the tiling, so A, pred and latent are
+// the same bits at any grid. The scalar tail runs one case
+// a lane: the case's pred is kept on its lane, and all 32 lanes compute
+// A[c, 0], the clipped error or the probit latent and correct count at
+// once. The tile's A rows [32 x (k+1)] are built in shared memory (kept at
+// A's offset within 16 bytes) and written out as one contiguous span in
+// 16-byte stores; the ragged last tile is masked. Each lane sums its
+// cases' errors (or correct counts) over its tiles in order, the warp by
+// its butterfly, the CTA its warps in order: no atomics, the same bits on
+// every run. The host's plan (kernels/rel_refresh.py `refresh_plan`) sizes
+// a CTA's warps by shared memory (a tile 16.5 KB a warp at k = 128, 4.2 KB
+// at k = 32, beside the stages).
 
 #include "common.cuh"
 
@@ -48,6 +67,27 @@ using libfm::warp_sum;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * kWarp;
 constexpr int kLaneFactors = kMaxK / kWarp;  // 4
+constexpr int kTile = 32;                     // cases a warp's tile
+constexpr int kMaxWarps = 8;                  // rel_refresh's warps a CTA at most
+constexpr int kStageL = 16;                   // main entries a case the stage holds at most
+constexpr int kSmemDynamic = 232448 - 1024;   // a CTA's dynamic shared memory at most
+
+// Floats of one stage: maps [R][32], ids and values [32 L] each (staged
+// main entries only), y [32], U [32].
+__host__ __device__ inline int stage_floats(int R, int L, bool staged) {
+  return libfm::round4(kTile * (R + 2 + (staged ? 2 * L : 0)));
+}
+
+// Floats of the A tile [32 (k+1)], 4 more for A's offset within 16 bytes.
+__host__ __device__ inline int tile_floats(int k, bool has_A) {
+  return has_A ? kTile * (k + 1) + 4 : 0;
+}
+
+// Bytes of dynamic shared memory a warp of rel_refresh takes: two stages
+// and, with A, the tile.
+__host__ __device__ inline int warp_bytes(int k, int R, int L, bool has_A) {
+  return 4 * (2 * stage_floats(R, L, L > 0 && L <= kStageL) + tile_floats(k, has_A));
+}
 
 __global__ void __launch_bounds__(kThreads)
     rel_scores_kernel(const float* __restrict__ P, const long long* __restrict__ indptr,
@@ -89,7 +129,73 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The rows of item j of CB cases from case cb of the tile on: main entry
+// j (j < L; its row of P, a = w, b = x) or relation j - L (its row of SC,
+// a = sqB, b = linB); each lane its factors lane + 32 i.
+template <int NPL, int CB>
+__device__ __forceinline__ void load_item(int j, int cb, const float* st, int o_ids,
+                                          int o_vals, bool staged, const int* ids,
+                                          const float* vals, const float* P,
+                                          const float* SC, long long c0, long long nc, int L,
+                                          int k, int lane, float (&v)[CB][NPL],
+                                          float (&a)[CB], float (&b)[CB]) {
+  if (j < L) {
+#pragma unroll
+    for (int u = 0; u < CB; ++u) {
+      int id;
+      float x;
+      if (staged) {
+        id = __float_as_int(st[o_ids + (cb + u) * L + j]);
+        x = st[o_vals + (cb + u) * L + j];
+      } else {
+        const long long c = c0 + cb + u;
+        const bool in = c < nc;
+        id = in ? ids[c * L + j] : 0;
+        x = in ? vals[c * L + j] : 0.0f;
+      }
+      const float* p = P + (long long)id * (k + 1);
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const int f = lane + kWarp * i;
+        v[u][i] = f < k ? p[1 + f] : 0.0f;
+      }
+      a[u] = p[0];
+      b[u] = x;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < CB; ++u) {
+      const float* s = SC + (long long)__float_as_int(st[(j - L) * kTile + cb + u]) * (k + 2);
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const int f = lane + kWarp * i;
+        v[u][i] = f < k ? s[f] : 0.0f;
+      }
+      a[u] = s[k];
+      b[u] = s[k + 1];
+    }
+  }
+}
+
+// n floats from shared memory at src to global memory at dst, which lie
+// at the same offset within 16 bytes: 16-byte stores, 4-byte ones at
+// either end. Every lane of the warp calls it.
+__device__ __forceinline__ void warp_store_span(float* dst, const float* src, int n,
+                                                int lane) {
+  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+  const int head = min((4 - mis) & 3, n);
+  const int nbody = (n - head) >> 2;
+  const int tail = head + 4 * nbody;
+  if (lane < head) dst[lane] = src[lane];
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  const float4* s4 = reinterpret_cast<const float4*>(src + head);
+  for (int c = lane; c < nbody; c += kWarp) d4[c] = s4[c];
+  if (lane < n - tail) dst[tail + lane] = src[tail + lane];
+}
+
+// At k <= 32 registers are held to three CTAs an SM (80 a thread).
+template <int NPL, int CB>
+__global__ void __launch_bounds__(kMaxWarps * kWarp, NPL == 1 ? 3 : 1)
     rel_refresh_kernel(const float* __restrict__ SC, const int* __restrict__ maps,
                        const float* __restrict__ w0p, const float* __restrict__ y,
                        float* __restrict__ A, float* __restrict__ pred_out,
@@ -98,88 +204,219 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ U, float* __restrict__ latent,
                        long long nc, int R, int L, int k, int use_linear, int use_bias,
                        float min_t, float max_t, int npart, int probit) {
-  __shared__ float warp_err[kWarps];
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float warp_err[kMaxWarps];
   const int lane = threadIdx.x & (kWarp - 1);
   const int wid = threadIdx.x / kWarp;
-  const long long nwarps = (long long)gridDim.x * kWarps;
-  const int d = k + 1, w = k + 2;
+  const int nw = blockDim.x / kWarp;
+  const int d = k + 1;
+  const bool staged = L > 0 && L <= kStageL;
+  const int SF = stage_floats(R, L, staged);
+  float* const base = smem + (long long)wid * (2 * SF + tile_floats(k, A != nullptr));
+  // the A tile at A's offset within 16 bytes (A + c0 d lies there too)
+  float* const tile = base + 2 * SF + (int)((reinterpret_cast<uintptr_t>(A) >> 2) & 3);
+  // a stage: maps [R][32], ids [32 L], values [32 L], y [32], U [32]
+  const int o_ids = kTile * R;
+  const int o_vals = o_ids + (staged ? kTile * L : 0);
+  const int o_y = o_vals + (staged ? kTile * L : 0);
+  const int o_u = o_y + kTile;
+  const long long ntiles = (nc + kTile - 1) / kTile;
+  const long long stride = (long long)gridDim.x * nw;
   const float w0 = use_bias ? *w0p : 0.0f;
-  float err = 0.0f;
-  for (long long c = (long long)blockIdx.x * kWarps + wid; c < nc; c += nwarps) {
-    float q[kLaneFactors] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float sq = 0.0f, lin = 0.0f;
-    // the case's main entries first (padding: value 0), then its joined
-    // block rows' scores, relation by relation
-    float s2 = 0.0f;
-    for (int l = 0; l < L; ++l) {
-      const float x = vals[c * L + l];
-      const float* p = P + (long long)ids[c * L + l] * d;
-#pragma unroll
-      for (int i = 0; i < kLaneFactors; ++i) {
-        const int f = lane + kWarp * i;
-        if (f < k) {
-          const float vx = __fmul_rn(p[1 + f], x);
-          q[i] += vx;
-          s2 = fmaf(vx, vx, s2);
+
+  // tile t's indices into a stage (past the last tile an empty group);
+  // the ragged tile's missing cases land as zeros
+  auto fetch = [&](float* st, long long t) {
+    if (t < ntiles) {
+      const long long c0 = t * kTile;
+      const int nv = (int)min((long long)kTile, nc - c0);
+      const bool ok = lane < nv;
+      const long long c = c0 + (ok ? lane : 0);
+      for (int r = 0; r < R; ++r)
+        libfm::cp_async4(st + r * kTile + lane,
+                         reinterpret_cast<const float*>(maps + r * nc + c), ok ? 4 : 0);
+      if (staged) {
+        const long long e0 = c0 * L;
+        const int ne = nv * L;
+        for (int j = lane; j < kTile * L; j += kWarp) {
+          const bool in = j < ne;
+          const long long e = in ? e0 + j : 0;
+          libfm::cp_async4(st + o_ids + j, reinterpret_cast<const float*>(ids + e),
+                           in ? 4 : 0);
+          libfm::cp_async4(st + o_vals + j, vals + e, in ? 4 : 0);
         }
       }
-      if (use_linear) lin += __fmul_rn(p[0], x);
+      if (y != nullptr) libfm::cp_async4(st + o_y + lane, y + c, ok ? 4 : 0);
+      if (U != nullptr) libfm::cp_async4(st + o_u + lane, U + c, ok ? 4 : 0);
     }
-    if (L > 0) sq = warp_sum(s2);
-    for (int r = 0; r < R; ++r) {
-      const float* s = SC + (long long)maps[(long long)r * nc + c] * w;
+    libfm::cp_async_commit();
+  };
+
+  float err = 0.0f;
+  long long t = (long long)blockIdx.x * nw + wid;
+  fetch(base, t);
+  fetch(base + SF, t + stride);
+  int s = 0;
+  for (; t < ntiles; t += stride, s ^= 1) {
+    libfm::cp_async_wait<1>();  // this tile's stage has landed
+    __syncwarp();
+    float* const st = base + s * SF;
+    const long long c0 = t * kTile;
+    const int nv = (int)min((long long)kTile, nc - c0);
+    const int items = L + R;
+    const int nsteps = (kTile / CB) * items;
+    float mine = 0.0f;  // the prediction of case c0 + lane
+    // step (cb, j): item j of the CB cases from cb on; the next step's
+    // rows are loaded while this step's are added, across the batches
+    float q[CB][NPL], s2[CB], sq[CB], lin[CB];
 #pragma unroll
-      for (int i = 0; i < kLaneFactors; ++i) {
-        const int f = lane + kWarp * i;
-        if (f < k) q[i] += s[f];
+    for (int u = 0; u < CB; ++u) {
+      s2[u] = sq[u] = lin[u] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) q[u][i] = 0.0f;
+    }
+    // this step's rows (cv, ca, cx) and the next one's (nvv, na, nx)
+    float cv[CB][NPL], ca[CB], cx[CB], nvv[CB][NPL], na[CB], nx[CB];
+    load_item<NPL, CB>(0, 0, st, o_ids, o_vals, staged, ids, vals, P, SC, c0, nc, L, k, lane,
+                       cv, ca, cx);
+    int j = 0, cb = 0;
+#pragma unroll 1
+    for (int step = 0; step < nsteps; ++step) {
+      const int jn = j + 1 == items ? 0 : j + 1;
+      const int cbn = j + 1 == items ? cb + CB : cb;
+      if (step + 1 < nsteps)
+        load_item<NPL, CB>(jn, cbn, st, o_ids, o_vals, staged, ids, vals, P, SC, c0, nc, L,
+                           k, lane, nvv, na, nx);
+      if (j < L) {  // a main entry: x V and its square, x w
+#pragma unroll
+        for (int u = 0; u < CB; ++u) {
+          const float x = cx[u];
+#pragma unroll
+          for (int i = 0; i < NPL; ++i) {
+            const int f = lane + kWarp * i;
+            if (f < k) {
+              const float vx = __fmul_rn(cv[u][i], x);
+              q[u][i] += vx;
+              s2[u] = fmaf(vx, vx, s2[u]);
+            }
+          }
+          if (use_linear) lin[u] += __fmul_rn(ca[u], x);
+        }
+      } else {  // a joined row's scores, the main entries' squares summed first
+        if (j == L && L > 0) {
+#pragma unroll
+          for (int u = 0; u < CB; ++u) sq[u] = warp_sum(s2[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < CB; ++u) {
+#pragma unroll
+          for (int i = 0; i < NPL; ++i) {
+            const int f = lane + kWarp * i;
+            if (f < k) q[u][i] += cv[u][i];
+          }
+          sq[u] += ca[u];
+          lin[u] += cx[u];
+        }
       }
-      sq += s[k];
-      lin += s[k + 1];
-    }
-    float qq = 0.0f;
+      if (j + 1 == items) {  // the batch's cases are summed: their predictions
 #pragma unroll
-    for (int i = 0; i < kLaneFactors; ++i) qq = fmaf(q[i], q[i], qq);
-    qq = warp_sum(qq);
-    float pred = __fmul_rn(0.5f, __fsub_rn(qq, sq));
-    if (use_linear) pred = __fadd_rn(pred, lin);
-    if (use_bias) pred = __fadd_rn(pred, w0);
+        for (int u = 0; u < CB; ++u) {
+          float qq = 0.0f;
+#pragma unroll
+          for (int i = 0; i < NPL; ++i) qq = fmaf(q[u][i], q[u][i], qq);
+          qq = warp_sum(qq);
+          float pred = __fmul_rn(0.5f, __fsub_rn(qq, sq[u]));
+          if (use_linear) pred = __fadd_rn(pred, lin[u]);
+          if (use_bias) pred = __fadd_rn(pred, w0);
+          if (lane == cb + u) mine = pred;
+          if (A != nullptr) {
+#pragma unroll
+            for (int i = 0; i < NPL; ++i) {
+              const int f = lane + kWarp * i;
+              if (f < k) tile[(cb + u) * d + 1 + f] = q[u][i];
+            }
+          }
+          s2[u] = sq[u] = lin[u] = 0.0f;
+#pragma unroll
+          for (int i = 0; i < NPL; ++i) q[u][i] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < CB; ++u) {
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) cv[u][i] = nvv[u][i];
+        ca[u] = na[u];
+        cx[u] = nx[u];
+      }
+      j = jn;
+      cb = cbn;
+    }
+
+    // the scalar tail, one case a lane
+    const bool ok = lane < nv;
+    const long long c = c0 + lane;
     if (A == nullptr) {  // test mode
-      if (lane == 0) pred_out[c] = pred;
-      continue;  // warp-uniform: the warp's lanes share c
-    }
-    float* a = A + c * d;
-#pragma unroll
-    for (int i = 0; i < kLaneFactors; ++i) {
-      const int f = lane + kWarp * i;
-      if (f < k) a[1 + f] = q[i];
-    }
-    if (lane == 0) {
-      if (y == nullptr) {  // tail mode
-        a[0] = pred;
-      } else if (probit) {
-        const float yc = y[c];
-        const float lat = libfm::probit_latent(pred, yc, probit == 1 ? U[c] : 0.0f,
-                                               probit == 1);
-        a[0] = __fsub_rn(pred, lat);
-        latent[c] = lat;
-        err += libfm::probit_correct(pred, yc);
-      } else {
-        const float yc = y[c];
-        a[0] = __fsub_rn(pred, yc);
-        const float ec = __fsub_rn(fminf(fmaxf(pred, min_t), max_t), yc);
-        err = fmaf(ec, ec, err);
+      if (ok) pred_out[c] = mine;
+    } else {
+      float a0 = mine;  // tail mode: [pred | Q]
+      if (y != nullptr) {
+        const float yc = st[o_y + lane];
+        if (probit) {
+          const float lat =
+              libfm::probit_latent(mine, yc, probit == 1 ? st[o_u + lane] : 0.0f, probit == 1);
+          a0 = __fsub_rn(mine, lat);
+          if (ok) {
+            latent[c] = lat;
+            err += libfm::probit_correct(mine, yc);
+          }
+        } else {
+          a0 = __fsub_rn(mine, yc);
+          const float ec = __fsub_rn(fminf(fmaxf(mine, min_t), max_t), yc);
+          if (ok) err = fmaf(ec, ec, err);
+        }
       }
+      tile[lane * d] = a0;
+    }
+    __syncwarp();  // the stage is read and the tile whole
+    fetch(st, t + 2 * stride);
+    if (A != nullptr) {
+      warp_store_span(A + c0 * d, tile, nv * d, lane);
+      __syncwarp();  // the tile is read before the next one is built
     }
   }
+  libfm::cp_async_wait<0>();  // the fetches past the last tile
   if (part == nullptr) return;
+  err = warp_sum(err);
   if (lane == 0) warp_err[wid] = err;
   __syncthreads();
   if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int i = 0; i < kWarps; ++i) s += warp_err[i];
-    part[blockIdx.x] = s;
+    float total = 0.0f;
+    for (int i = 0; i < nw; ++i) total += warp_err[i];
+    part[blockIdx.x] = total;
     for (int i = gridDim.x + blockIdx.x; i < npart; i += gridDim.x) part[i] = 0.0f;
   }
+}
+
+template <int NPL, int CB>
+int launch_refresh(const float* SC, const int* maps, const float* w0p, const float* y,
+                   float* A, float* pred_out, float* part, const float* P, const int* ids,
+                   const float* vals, const float* U, float* latent, long long nc, int R,
+                   int L, int k, int use_linear, int use_bias, float min_t, float max_t,
+                   int npart, int probit, int warps, cudaStream_t stream) {
+  constexpr auto kernel = rel_refresh_kernel<NPL, CB>;
+  const long long smem = (long long)warps * warp_bytes(k, R, L, A != nullptr);
+  if (smem > kSmemDynamic) return (int)cudaErrorInvalidValue;
+  const long long ntiles = (nc + kTile - 1) / kTile;
+  unsigned grid;
+  const cudaError_t err = libfm::one_wave_grid<kernel>(
+      warps * kWarp, (int)smem, (ntiles + warps - 1) / warps, &grid);
+  if (err != cudaSuccess) return (int)err;
+  if (part != nullptr && grid > (unsigned)npart) grid = npart;
+  kernel<<<grid, warps * kWarp, (size_t)smem, stream>>>(SC, maps, w0p, y, A, pred_out, part,
+                                                        P, ids, vals, U, latent, nc, R, L, k,
+                                                        use_linear, use_bias, min_t, max_t,
+                                                        npart, probit);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -197,6 +434,12 @@ extern "C" int rel_scores_launch(const float* P, const long long* indptr, const 
   return (int)cudaGetLastError();
 }
 
+// A warp's bytes of dynamic shared memory, for kernels/rel_refresh.py's
+// `warp_bytes` to be held to.
+extern "C" int rel_refresh_warp_bytes(int k, int R, int L, int has_A) {
+  return warp_bytes(k, R, L, has_A != 0);
+}
+
 // SC [rows, k+2] (the relations' score tables stacked), maps int32 [R, nc]
 // (rows of SC), w0p the device scalar w0. Main rows (L > 0): ids int32 and
 // vals [nc, L] (padding: value 0) into P [n, k+1]. Train mode: A [nc, k+1],
@@ -204,26 +447,28 @@ extern "C" int rel_scores_launch(const float* P, const long long* indptr, const 
 // grid with 0). probit (train mode only): 0 regression, 1 latents drawn
 // from U [nc], 2 latents as expectations; latent [nc] required. Tail mode:
 // A given, y == part == NULL. Test mode: A == NULL, pred_out [nc] given.
+// warps: a CTA's warps (1-8, kernels/rel_refresh.py `refresh_plan`); its
+// shared memory must fit a CTA.
 extern "C" int rel_refresh_launch(const float* SC, const int* maps, const float* w0p,
                                   const float* y, float* A, float* pred_out, float* part,
                                   const float* P, const int* ids, const float* vals,
                                   const float* U, float* latent, long long nc, int R, int L,
                                   int k, int use_linear, int use_bias, float min_t,
-                                  float max_t, int npart, int probit,
+                                  float max_t, int npart, int probit, int warps,
                                   cudaStream_t stream) {
   const bool train = y != nullptr;
-  if (k < 1 || k > kMaxK || R < 1 || L < 0 || nc < 1 ||
+  if (k < 1 || k > kMaxK || R < 1 || L < 0 || nc < 1 || warps < 1 || warps > kMaxWarps ||
       train != (part != nullptr) || (train && (A == nullptr || npart < 1)) ||
       (A == nullptr && (pred_out == nullptr || train)) ||
       (L > 0 && (P == nullptr || ids == nullptr || vals == nullptr)) || probit < 0 ||
       probit > 2 || (probit && (!train || latent == nullptr || (probit == 1 && U == nullptr))))
     return (int)cudaErrorInvalidValue;
-  const long long ctas = (nc + kWarps - 1) / kWarps;
-  const int cap = train ? npart : 65536;
-  const unsigned grid = (unsigned)(ctas < cap ? ctas : cap);
-  rel_refresh_kernel<<<grid, kThreads, 0, stream>>>(SC, maps, w0p, y, A, pred_out, part, P,
-                                                    ids, vals, U, latent, nc, R, L, k,
-                                                    use_linear, use_bias, min_t, max_t,
-                                                    npart, probit);
-  return (int)cudaGetLastError();
+#define REL_REFRESH_LAUNCH(NPL, CB)                                                        \
+  launch_refresh<NPL, CB>(SC, maps, w0p, y, A, pred_out, part, P, ids, vals, U, latent, nc, \
+                          R, L, k, use_linear, use_bias, min_t, max_t, npart, probit,      \
+                          warps, stream)
+  if (k <= 32) return REL_REFRESH_LAUNCH(1, 4);
+  if (k <= 64) return REL_REFRESH_LAUNCH(2, 4);
+  return REL_REFRESH_LAUNCH(4, 4);
+#undef REL_REFRESH_LAUNCH
 }

@@ -378,7 +378,7 @@ int launch(const float* P, const int* ids, const float* vals, const float* y,
   constexpr int T = Shape<G, NPL, LR, R>::kTileRows;
   unsigned grid;
   const cudaError_t err =
-      libfm::one_wave_grid<kernel>(kThreads, ((long long)B + T - 1) / T, &grid);
+      libfm::one_wave_grid<kernel>(kThreads, 0, ((long long)B + T - 1) / T, &grid);
   if (err != cudaSuccess) return (int)err;
   if (grid > (unsigned)kMaxParts) grid = kMaxParts;
   int* ticket = reinterpret_cast<int*>(scratch + 2 * kMaxParts);

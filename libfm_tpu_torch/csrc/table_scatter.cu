@@ -331,7 +331,7 @@ int launch(long long nwin, float* T, const int* sids, const int* perm, const flo
            int* flags, float* pieces, int gen, long long E, int W, cudaStream_t stream) {
   unsigned grid;
   const cudaError_t err =
-      libfm::one_wave_grid<kKernel>(kThreads, (nwin + kWarps - 1) / kWarps, &grid);
+      libfm::one_wave_grid<kKernel>(kThreads, 0, (nwin + kWarps - 1) / kWarps, &grid);
   if (err != cudaSuccess) return (int)err;
   return (int)libfm::launch_pdl(kKernel, grid, kThreads, stream, T, sids, perm, upd,
                                  flags, pieces, gen, E, W);

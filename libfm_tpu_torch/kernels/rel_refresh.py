@@ -10,6 +10,10 @@ its main-table entries' terms and its joined block rows' scores.
 A score table SC [nb+1, k+2] holds per block row b of a relation
 [qB (k) | sqB | linB]: qB = sum x V[col], sqB = sum x^2 |V[col]|^2,
 linB = sum x w[col] over b's design entries; row nb (the sentinel) is 0.
+
+rel_refresh's kernel takes the cases in tiles of TILE a warp, a CTA's
+warps sized by shared memory (`refresh_plan`): each warp's two stages of
+the tile's indices and, with A, the tile's rows of A.
 """
 
 from __future__ import annotations
@@ -29,13 +33,42 @@ SCORES = Kernel(
 _REFRESH_ARGS = ([ctypes.c_void_p] * 12
                  + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                    ctypes.c_int, ctypes.c_int])
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int])
 REFRESH = Kernel("rel_refresh", "rel_refresh_launch", _REFRESH_ARGS)
 #: the same entry point in its probit train mode, counted apart
 PROBIT_REFRESH = Kernel("rel_refresh_probit", "rel_refresh_launch", _REFRESH_ARGS)
 #: length of the train mode's per-CTA error partials (the kernel's grid is
 #: at most this; it writes 0 past its grid, so the sum is over a fixed length)
 _PARTS = 4096
+TILE = 32  # cases a warp takes at once (csrc: kTile)
+MAX_WARPS = 8  # a CTA's warps at most (csrc: kMaxWarps)
+STAGE_L = 16  # main entries a case the stages hold at most (csrc: kStageL)
+#: a CTA's dynamic shared memory at most (csrc: kSmemDynamic), below the
+#: H100's 227 KB a CTA by a margin for the static part
+SMEM_DYNAMIC = 232_448 - 1_024
+
+
+def warp_bytes(k: int, R: int, L: int, has_A: bool) -> int:
+    """A rel_refresh warp's dynamic shared memory (csrc:
+    `rel_refresh_warp_bytes`): two stages of a tile's maps [R][TILE], main
+    ids and values [TILE L] each (up to STAGE_L entries; longer rows are
+    read from global memory), y and U, each a whole number of 16-byte
+    pieces; with A, the tile's rows [TILE (k+1)] and 4 floats for A's
+    offset within 16 bytes."""
+    staged = 0 < L <= STAGE_L
+    stage = -(-TILE * (R + 2 + (2 * L if staged else 0)) // 4) * 4
+    tile = TILE * (k + 1) + 4 if has_A else 0
+    return 4 * (2 * stage + tile)
+
+
+def refresh_plan(k: int, R: int, L: int, has_A: bool) -> int:
+    """A rel_refresh CTA's warps at k factors, R relations, L main entries
+    a case: as many, up to MAX_WARPS, as SMEM_DYNAMIC holds."""
+    warps = min(MAX_WARPS, SMEM_DYNAMIC // warp_bytes(k, R, L, has_A))
+    if warps < 1:
+        raise ValueError(f"rel_refresh: a warp's stages for R={R} relations do not fit "
+                         f"a CTA's shared memory")
+    return warps
 
 
 def rel_scores_plain(P, indptr, cols, vals, *, use_linear=True):
@@ -177,5 +210,5 @@ def rel_refresh(SC, maps, w0, A=None, y=None, *, P=None, ids=None, vals=None,
         ptr(SC), ptr(maps), ptr(w0), ptr(y), ptr(A), ptr(pred), ptr(part), ptr(P),
         ptr(ids), ptr(vals), ptr(U), ptr(latent), nc, R, L, k, int(use_linear),
         int(use_bias), float(min_target), float(max_target), _PARTS,
-        PROBIT_MODES.get(probit, 0))
+        PROBIT_MODES.get(probit, 0), refresh_plan(k, R, L, A is not None))
     return pred if A is None else None if y is None else part.sum()

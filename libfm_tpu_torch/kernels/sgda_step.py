@@ -5,7 +5,8 @@ source: csrc/sgda_step.cu.
 Replaces K13's `theta_step` (libfm_tpu/learners/sgda.py:70-107). The
 update rows it returns are added by `table_scatter` in the presorted
 order; the cache rows, the batch sum and the w0 update are folded into
-the same launch. The per-group regularizers are read on the device.
+the same launch. The per-group regularizers are read on the device:
+`regs_shared` says whether a CTA copies them into shared memory.
 """
 
 from __future__ import annotations
@@ -19,11 +20,21 @@ from libfm_tpu_torch.tasks import TASK_REGRESSION
 
 KERNEL = Kernel(
     "sgda_step", "sgda_step_launch",
-    [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3,
+    [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3,
 )
 MODES = {"pair": 0, "onehot": 1, "general": 2}
 _MAX_PARTS = 4096  # CTA partials the scratch holds (csrc: kMaxParts)
 SCRATCH_FLOATS = _MAX_PARTS + 4  # csrc: sgda_step_scratch_floats()
+#: the regularizers' copy in a CTA's shared memory: G (1+k) floats at most
+#: (csrc: kRegFloats, `sgda_step_reg_floats()`)
+REG_FLOATS = 4096
+
+
+def regs_shared(G: int, k: int) -> bool:
+    """Whether each CTA of a theta step copies the regularizers reg_w [G]
+    and reg_v [G, k] into shared memory: where their G (1+k) floats fit
+    REG_FLOATS. Else the kernel reads them from global memory."""
+    return G * (k + 1) <= REG_FLOATS
 
 
 def sgda_step_scratch(device) -> torch.Tensor:
@@ -187,7 +198,7 @@ def sgda_step(P, ids, vals, y, row_mask, w0, Gc, gc_row, attr_group, reg_w, reg_
     KERNEL.launch(
         ptr(P), ptr(ids), ptr(vals), ptr(y), ptr(row_mask), ptr(order), ptr(gc_row),
         ptr(attr_group), ptr(reg_w), ptr(reg_v), ptr(w0), ptr(upd), ptr(Gc), ptr(scratch),
-        ptr(red), B, L, d, n, MODES[mode], int(task), int(use_linear), int(use_bias),
-        float(lr), float(min_target), float(max_target),
+        ptr(red), B, L, d, n, G, int(regs_shared(G, d - 1)), MODES[mode], int(task),
+        int(use_linear), int(use_bias), float(lr), float(min_target), float(max_target),
     )
     return upd, red

@@ -29,7 +29,10 @@ incremental test tail's view of A; ALS with dense_update=False and with
 the test tail on the card against the CPU, with exact launches.
 rel_refresh with main rows beside two relations (k 8-128, L 1 and 3, rows
 with no main entry, train, tail and test modes) and its
-probit mode (sampling and expectations), and the BS ALS with a main
+probit mode (sampling and expectations); rel_refresh's tiles at 1, 31,
+33 and 2^20 + 5 cases, L 0-13, one and two relations, in every mode, A
+off 16 bytes; sgda_step under each form of its plan (rows gathered
+again, regularizers in shared or global memory); and the BS ALS with a main
 table, regression and probit, on the card against the CPU with exact
 launches. The exact engines' coord_draw and rel_coord_draw under launch
 plans that put a block's features in each class (a warp, a CTA, pieces
@@ -42,6 +45,8 @@ one seed end in the same bits, on the flat vector engine (regression and
 probit), the exact engine and the BS vector engine.
 Tolerances as in chip_smoke.py: fp32 sums taken in another order.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -1427,6 +1432,45 @@ def test_sgda_kernels_on_a_batch_of_one_id(cuda, k, mode, L):
     assert (regs[0][1] - regs[1][1]).abs().max().item() <= 1e-4 * step
 
 
+@pytest.mark.parametrize("k", [1, 8, 16, 17, 64, 128])
+@pytest.mark.parametrize("mode,L", [("pair", 2), ("onehot", 13), ("general", 20),
+                                    ("onehot", 40)])
+@pytest.mark.parametrize("G", [3, 2500])
+@pytest.mark.parametrize("task", [0, 1])
+def test_sgda_step_kernel_under_its_plan(cuda, k, mode, L, G, task):
+    """sgda_step under each of its forms: 1,001 rows (no whole number of
+    a CTA's rows), rows of up to the kept entries (16, 8 above k = 32) and
+    longer ones (20 and 40 entries, and 13 above k = 32) gathered again,
+    the regularizers in shared memory (3 groups) and read from global
+    memory (2,500 groups, above REG_FLOATS at every k): the rows, the sum
+    and the cache rows against the plain version, w0 bitwise against
+    `w0_update` on the sum, and a second launch the same bits."""
+    from libfm_tpu_torch.kernels import sgda_step as sa
+
+    rng = np.random.default_rng(1700 + k + L + G + task)
+    B = 1001
+    s = _sgda_inputs(cuda, rng, k, G, mode, L, task, B=B)
+    assert sa.regs_shared(G, k) == (G == 3)
+    kw = dict(mode=mode, task=task, lr=0.05, min_target=1.0, max_target=5.0)
+    args = (s["ids"], s["vals"], s["y"], s["mask"])
+    rest = (s["gc_row"], s["groups"], s["reg_w"], s["reg_v"])
+    Gc_k, Gc_2, Gc_p = s["Gc"].clone(), s["Gc"].clone(), s["Gc"].clone()
+    w0_k, w0_2, w0_p = s["w0"].clone(), s["w0"].clone(), s["w0"].clone()
+    u_k, r_k = sa.sgda_step(s["P"], *args, w0_k, Gc_k, *rest, order=s["order"], **kw)
+    u_2, r_2 = sa.sgda_step(s["P"], *args, w0_2, Gc_2, *rest, order=s["order"], **kw)
+    u_p, r_p = sa.sgda_step_plain(s["P"], *args, w0_p, Gc_p, *rest, order=s["order"], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(u_k, u_2) and torch.equal(Gc_k, Gc_2)
+    assert torch.equal(r_k, r_2) and torch.equal(w0_k, w0_2)
+    m, n = s["n_real"], s["P"].shape[0]
+    assert _col_rel_err(u_k[:m], u_p[:m]) < 1e-4
+    assert (u_k[m:] == 0).all()
+    assert abs(r_k[0].item() - r_p[0].item()) <= 1e-4 * max(1.0, r_p[0].abs().item())
+    assert torch.equal(w0_k, sa.w0_update(s["w0"], 0.05, r_k[0]))
+    assert _col_rel_err(Gc_k[:n], Gc_p[:n]) < 1e-4
+    assert torch.equal(Gc_k[n], s["Gc"][n])
+
+
 @pytest.mark.parametrize("which", ["ml", "ctr", "wide"])
 def test_sgda_on_cuda_follows_the_cpu_trajectory(cuda, which):
     """SGDALearner on the card (kernels) against the CPU (plain versions)
@@ -1663,6 +1707,149 @@ def test_rel_refresh_probit_kernel_matches_plain(cuda, k, mode):
     assert ((l_k >= 0) == (y >= 0)).all()
     assert c_k.item() == c_p.item()
     torch.cuda.synchronize()
+
+
+def _refresh_inputs(cuda, rng, nc, k, L, R, n_main=40, rows=50):
+    """rel_refresh's inputs: R relations of `rows` score rows each (and a
+    sentinel), stacked in SC with random scores, maps [R, nc] into each
+    relation's rows; with L > 0 main rows of 0 to L valued entries
+    (padding: id 0, value 0) into P [n_main, k+1]; y, targets of +-1 and
+    uniforms. Made on the host from `rng`."""
+    SC = torch.as_tensor(rng.normal(0, 0.3, (R * (rows + 1), k + 2)), dtype=torch.float32,
+                         device=cuda)
+    maps = np.stack([rng.integers(r * (rows + 1), r * (rows + 1) + rows + 1, nc)
+                     for r in range(R)]).astype(np.int32)
+    main = {}
+    if L:
+        lens = rng.integers(0, L + 1, nc)
+        keep = np.arange(L)[None, :] < lens[:, None]
+        ids = np.where(keep, rng.integers(0, n_main, (nc, L)), 0).astype(np.int32)
+        vals = np.where(keep, rng.normal(1.0, 0.5, (nc, L)), 0.0).astype(np.float32)
+        P = torch.as_tensor(rng.normal(0, 0.3, (n_main, k + 1)), dtype=torch.float32,
+                            device=cuda)
+        main = dict(P=P, ids=torch.as_tensor(ids, device=cuda),
+                    vals=torch.as_tensor(vals, device=cuda))
+    y = torch.as_tensor(rng.normal(0, 1, nc), dtype=torch.float32, device=cuda)
+    y_c = torch.as_tensor(np.where(rng.random(nc) < 0.5, 1.0, -1.0), dtype=torch.float32,
+                          device=cuda)
+    U = torch.as_tensor(rng.random(nc), dtype=torch.float32, device=cuda)
+    return SC, torch.as_tensor(maps, device=cuda), torch.tensor(0.3, device=cuda), main, y, \
+        y_c, U
+
+
+def test_kernel_plans_hold_the_sources_sizes(cuda):
+    """The host's plans against the sizes the kernels' sources export:
+    sgda_step's regularizer budget and scratch, and rel_refresh's shared
+    memory a warp for every k in 1-128 and several row shapes."""
+    from libfm_tpu_torch.kernels import library
+    from libfm_tpu_torch.kernels import rel_refresh as rr
+    from libfm_tpu_torch.kernels import sgda_step as sa
+
+    lib = library()
+    assert lib.sgda_step_reg_floats() == sa.REG_FLOATS
+    assert lib.sgda_step_scratch_floats() == sa.SCRATCH_FLOATS
+    for k, R, L, has_A in itertools.product(range(1, 129), [1, 2, 3],
+                                            [0, 1, 2, 13, 16, 17, 100], [0, 1]):
+        assert lib.rel_refresh_warp_bytes(k, R, L, has_A) == rr.warp_bytes(k, R, L, has_A)
+
+
+def _pred_rounding(SC, maps, w0, k, main):
+    """Per case, a bound (float64) on how far two float32 evaluations of
+    its prediction may lie apart: twice gamma eps times the sum of the
+    absolute values of the terms it adds, 1/2 (|Q|^2 + sq) + |lin| + |w0|,
+    each of Q, sq and lin over the absolute values of the mapped score
+    rows and main entries, with gamma = 2 (L + R + k) + 8 roundings."""
+    R, L = maps.shape[0], (main["ids"].shape[1] if main else 0)
+    rows = SC.double()[maps.long()].abs()  # [R, nc, k+2]
+    q, sq, lin = rows[..., :k].sum(0), rows[..., k].sum(0), rows[..., k + 1].sum(0)
+    if main:
+        xP = main["P"].double()[main["ids"].long()].abs()  # [nc, L, k+1]
+        xP *= main["vals"].double().abs()[..., None]
+        q = q + xP[..., 1:].sum(1)
+        sq = sq + (xP[..., 1:] ** 2).sum((1, 2))
+        lin = lin + xP[..., 0].sum(1)
+    mag = 0.5 * ((q ** 2).sum(1) + sq) + lin + abs(w0.item())
+    return 2 * (2 * (L + R + k) + 8) * 2.0 ** -24 * mag
+
+
+@pytest.mark.parametrize("nc,k", [(1, 5), (31, 32), (32, 8), (33, 100), (33, 5),
+                                  (100_000, 64), (2**20 + 5, 32)])
+@pytest.mark.parametrize("L", [0, 1, 2, 13, 20])
+@pytest.mark.parametrize("R", [1, 2])
+def test_rel_refresh_kernel_tiles_every_mode(cuda, nc, k, L, R):
+    """rel_refresh's tiles of 32 cases (one ragged tile, one whole tile,
+    a tile and one case, 100,000 and 2^20 + 5 cases over a persistent
+    grid) with 0-13 main entries staged and 20 read from global memory,
+    and 1-2 relations, in every mode against the plain version: train (A
+    per column within 1e-4; the summed error against the float64 sum over
+    the plain version's predictions, within the root sum of squares of
+    what each case's prediction may round (`_pred_rounding`) and 1e-6
+    relative for the float32 sum;
+    A also as a view off 16 bytes), tail, test (the tail's predictions,
+    bit for bit), probit sampling and expectations (Q and the predictions within
+    1e-4, the latents as test_rel_refresh_probit_kernel_matches_plain
+    holds them, the correct count equal); two launches the same bits in
+    each train mode."""
+    from libfm_tpu_torch.kernels import rel_refresh as rr
+    from libfm_tpu_torch.ops.samplers import probit_latent
+
+    rng = np.random.default_rng(nc % 1000 + 10 * k + 100 * L + R)
+    SC, maps, w0, main, y, y_c, U = _refresh_inputs(cuda, rng, nc, k, L, R)
+    kw = dict(min_target=-1.5, max_target=1.5, **main)
+    d = k + 1
+    A_k, A_2, A_p = (torch.empty(nc, d, device=cuda) for _ in range(3))
+    big = torch.empty(nc + 1, d, device=cuda)
+    A_off = big[1:]  # (k+1) floats past a 16-byte boundary
+    m_k = rr.rel_refresh(SC, maps, w0, A_k, y, **kw)
+    m_2 = rr.rel_refresh(SC, maps, w0, A_2, y, **kw)
+    m_o = rr.rel_refresh(SC, maps, w0, A_off, y, **kw)
+    rr.rel_refresh_plain(SC, maps, w0, A_p, y, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(A_k, A_2) and torch.equal(m_k, m_2)
+    assert torch.equal(A_off, A_k) and torch.equal(m_o, m_k)
+    assert _col_rel_err(A_k, A_p) < 1e-4
+    # the summed error against the plain version's in float64: a case's
+    # clipped error may move by D, what two evaluations of its prediction
+    # may differ by, and by the rounding of A[c, 0] = pred - y, so its
+    # square by (2 |e| + D) D; the cases' roundings, of either sign, add
+    # as a root sum of squares; 1e-6 relative for the float32 sum
+    y64 = y.double()
+    pred_p = A_p[:, 0].double() + y64
+    e_p = pred_p.clamp(-1.5, 1.5) - y64
+    D = _pred_rounding(SC, maps, w0, k, main) + 2.0 ** -24 * (pred_p.abs() + y64.abs())
+    m_ref = (e_p ** 2).sum().item()
+    tol = ((2 * e_p.abs() + D) * D).square().sum().sqrt().item() + 1e-6 * m_ref
+    assert abs(m_k.item() - m_ref) <= tol
+    T_k, T_p = (torch.empty(nc, d, device=cuda) for _ in range(2))
+    rr.rel_refresh(SC, maps, w0, T_k, **main)
+    rr.rel_refresh_plain(SC, maps, w0, T_p, **main)
+    p_k = rr.rel_refresh(SC, maps, w0, **main)
+    torch.cuda.synchronize()
+    assert _col_rel_err(T_k, T_p) < 1e-4
+    assert torch.equal(p_k, T_k[:, 0]) and torch.equal(T_k[:, 1:], A_k[:, 1:])
+    for mode, u in (("sample", U), ("mean", None)):
+        got = []
+        for _ in range(2):
+            A_c, l_c = torch.empty(nc, d, device=cuda), torch.empty(nc, device=cuda)
+            c_c = rr.rel_refresh(SC, maps, w0, A_c, y_c, probit=mode, U=u, latent=l_c,
+                                 **main)
+            got.append((A_c, l_c, c_c))
+        A_q, l_p = torch.empty(nc, d, device=cuda), torch.empty(nc, device=cuda)
+        c_p = rr.rel_refresh_plain(SC, maps, w0, A_q, y_c, probit=mode, U=u, latent=l_p,
+                                   **main)
+        torch.cuda.synchronize()
+        (A_c, l_c, c_c), (A_c2, l_c2, c_c2) = got
+        assert torch.equal(A_c, A_c2) and torch.equal(l_c, l_c2) and torch.equal(c_c, c_c2)
+        assert torch.equal(A_c[:, 1:], A_k[:, 1:])
+        assert (A_c[:, 1:] - A_q[:, 1:]).abs().max().item() < 1e-4
+        pred = A_c[:, 0] + l_c
+        assert (pred - (A_q[:, 0] + l_p)).abs().max().item() < 1e-4
+        ref = probit_latent(pred, y_c, u)
+        near = (ref - pred).abs() <= 2.5 if u is not None else torch.ones_like(y_c, dtype=bool)
+        if near.any():
+            assert ((l_c - ref).abs() / ref.abs().clamp_min(1.0))[near].max().item() < 1e-5
+        assert ((l_c >= 0) == (y_c >= 0)).all()
+        assert c_c.item() == c_p.item()
 
 
 @pytest.mark.parametrize("k", REL_KS)

@@ -25,6 +25,13 @@ the CPU (the kernels themselves run on the card: tests/test_torch_cuda.py).
   engine's scatter blocks and the BS engine's main blocks build with it):
   the same (case, value, feature) triples as the per-feature lists, the
   cases strictly ascending.
+- sgda_step (kernels/sgda_step.py `regs_shared`): the regularizers in
+  shared memory exactly where G (1+k) fits REG_FLOATS (configs #1's and
+  #4b's shapes; 500 groups at k = 16 and 64 at k = 128 above it).
+- rel_refresh (kernels/rel_refresh.py `refresh_plan`, `warp_bytes`): a
+  CTA's shared memory within 227 KB for every k in 1-128, with as many
+  warps as it holds, up to 8. (The kernel's own shared memory is held to
+  `warp_bytes` on the card, tests/test_torch_cuda.py.)
 """
 
 import itertools
@@ -34,14 +41,17 @@ import pytest
 
 from libfm_tpu_torch.data.batching import FeatureBlock, feature_slots
 from libfm_tpu_torch.kernels import case_stats as cs
+from libfm_tpu_torch.kernels import rel_refresh as rr
 from libfm_tpu_torch.kernels import rel_sweep as rs
 from libfm_tpu_torch.kernels import sgda_lambda as sl
+from libfm_tpu_torch.kernels import sgda_step as sa
 from libfm_tpu_torch.kernels.rel_cache import cache_width
 from libfm_tpu_torch.kernels.slot_update import case_order
 from libfm_tpu_torch.learners.mcmc_rel_vector import MainBlock
 from libfm_tpu_torch.learners.mcmc_vector import DevBlock
 
 SMEM_CTA = 232_448  # a CTA's shared memory on the H100, static and dynamic
+SMEM_STATIC = 49_152  # a CTA's static shared memory at most
 SMS = 132  # an H100 SXM's SMs
 
 
@@ -268,3 +278,54 @@ def test_case_order_holds_the_same_slots(coverage):
         c, v, f = (np.asarray(a) for a in (c, v, f))
         assert (np.diff(c) > 0).all()
         assert list(zip(c.tolist(), v.tolist(), f.tolist())) == want
+
+
+# ---------------------------------------------------------------- sgda_step
+
+@pytest.mark.parametrize("name", sorted(SGDA_SHAPES))
+def test_sgda_step_regularizers_at_the_paths_shapes(name):
+    """The regularizers in shared memory at configs #1 and #4b (18 and 221
+    floats), at one row and 31; read from global memory above the budget:
+    500 groups at k = 16 (8,500 floats) and 64 at k = 128 (8,256). Their
+    shared copy fits a CTA's static shared memory beside the rest."""
+    B, k, G = SGDA_SHAPES[name]
+    shared = sa.regs_shared(G, k)
+    assert shared == (name not in ("k=16, 500 groups", "k=128, 64 groups"))
+    assert shared == (G * (k + 1) <= sa.REG_FLOATS)
+    assert 4 * sa.REG_FLOATS <= SMEM_STATIC // 2
+
+
+def test_sgda_step_regularizers_over_widths_and_groups():
+    """Every k in 1-128: shared up to the most groups whose G (1+k) floats
+    fit REG_FLOATS, global from one group more."""
+    for k in range(1, 129):
+        most = sa.REG_FLOATS // (k + 1)
+        assert sa.regs_shared(1, k) and sa.regs_shared(most, k)
+        assert not sa.regs_shared(most + 1, k) and not sa.regs_shared(5000, k)
+
+
+# ---------------------------------------------------------------- rel_refresh
+
+@pytest.mark.parametrize("k", range(1, 129))
+def test_rel_refresh_plan_shared_memory_every_k(k):
+    """A CTA's stages and tiles within 227 KB (its dynamic part within
+    SMEM_DYNAMIC, the static part of 8 floats beside it), as many warps
+    as fit up to MAX_WARPS, each warp's region a whole number of 16-byte
+    pieces; main rows staged up to STAGE_L entries; the tile 32 (k+1)
+    floats and 4 for A's offset."""
+    for R, L, has_A in itertools.product([1, 2, 3], [0, 1, 2, 13, 16, 17, 100],
+                                         [True, False]):
+        warps, per = rr.refresh_plan(k, R, L, has_A), rr.warp_bytes(k, R, L, has_A)
+        staged = 0 < L <= rr.STAGE_L
+        assert per % 16 == 0
+        tile = per - rr.warp_bytes(k, R, L, False)
+        assert tile == (4 * (rr.TILE * (k + 1) + 4) if has_A else 0)
+        assert per - tile >= 8 * rr.TILE * (R + 2 + (2 * L if staged else 0))
+        assert 1 <= warps <= rr.MAX_WARPS
+        assert warps * per <= rr.SMEM_DYNAMIC and warps * per + 4 * rr.MAX_WARPS <= SMEM_CTA
+        assert warps == rr.MAX_WARPS or (warps + 1) * per > rr.SMEM_DYNAMIC
+    if k == 32:  # bench_bs_ctx's train refresh: 8 warps, 4.2 KB of tile a warp
+        assert rr.refresh_plan(32, 1, 2, True) == 8
+        assert 8 * rr.warp_bytes(32, 1, 2, True) == 48_256
+    if k == 128:  # 16.5 KB of tile a warp
+        assert rr.warp_bytes(128, 1, 2, True) - rr.warp_bytes(128, 1, 2, False) == 16_528
