@@ -100,15 +100,20 @@ What it does, in order (any failed phase exits non-zero):
      block count and shapes, observed and unobserved features and route
      printed): rel_scores, rel_refresh (train and tail modes; a second
      train-mode launch the same bits, the digests of A and the tail
-     printed) and rel_cache from a seeded P; one sweep of the 23 blocks to make SD
+     printed) and rel_cache from a seeded P (a second launch the same
+     bits, C's digest printed); one sweep of the 23 blocks to make SD
      non-zero, then a second holding each block's rel_stats (to float64,
      over each entry's sum of magnitudes, as rel_cache), each draw from
-     its GG (schur_draw) against the float64 draw from the float64 GG, in
-     posterior standard deviations (their root mean square over the
-     features within 1.5 times the float32 plain version's, which sums
-     in a fixed order, and here, at a fixed state, their largest too), and
-     each rel_update; rel_resync in write mode (train rows) and read-only
-     (the test tail).
+     its GG (schur_draw's relational form) against the float64 draw from
+     the float64 GG, in posterior standard deviations (their root mean
+     square over the features within 1.5 times the float32 plain
+     version's, which sums in a fixed order, and here, at a fixed state,
+     their largest too), the same bits as schur_draw's on the same inputs
+     (the distance from schur_draw_plain's printed), and the form's SD
+     (K10's update) against rel_update_plain (SD's and theta's digests
+     printed); the update's cost as the 23 launches' time less
+     the same launches as plain schur_draw; rel_resync in write mode
+     (train rows) and read-only (the test tail).
      The yardstick of rel_cache is one torch.bmm of the pre-gathered rows
      [1 | e | Q]. The draw check runs again, with both gates, at the
      state mcmc_bs ends in (phase 4), the same on every run.
@@ -398,6 +403,9 @@ EXPECTED.update(quality_3=EXPECTED["mcmc"], quality_4=EXPECTED["mcmc_4"],
 #: beside this run's
 CASE_STATS_FIRST_MS = 3.229
 SLOT_UPDATE_FIRST_MS = {"config #3": 5.776, "bench_bs_ctx": 0.4640}
+#: ... and at bench_bs rel_cache's and the standalone rel_update's (one
+#: iteration's 23 launches), which schur_draw's relational form replaced
+REL_CACHE_FIRST_MS, REL_UPDATE_FIRST_MS = 0.2533, 0.0680
 
 
 def fail(msg: str) -> None:
@@ -1344,7 +1352,8 @@ def bs_want(iters, nblk, deferred, refresh_every=8, main=0, classify=False):
     """The launches of a BS engine run (one relation, nblk blocks): at the
     set-up and at each refresh rel_scores once and rel_refresh twice (train
     and tail), on the deferred path rel_cache too; every iteration
-    rel_stats, schur_draw and rel_update once a block, and rel_resync once
+    rel_stats and schur_draw's relational form (counted as schur_draw and
+    as rel_update, K10's update that it does) once a block, and rel_resync once
     (deferred: the read-only test prediction) or twice with rel_cache once
     (resync path). With a main table of `main` blocks (no tail, no deferred
     path): every iteration also slot_stats, schur_draw and slot_update once
@@ -1395,24 +1404,30 @@ def bs_sweeps(rel, lay, C, P, alpha, lam_row, mu_row, g, bound):
     makes SD non-zero, the second is held to the plain versions. Each
     block's rel_stats against the float64 plain version over each entry's
     sum of magnitudes (the float32 plain version's error measured beside
-    it); every draw from the kernel's GG (schur_draw) and from the float32
-    plain GG (schur_draw_plain) against the float64 draw from the float64
-    GG on the same noise, in posterior standard deviations (the median,
-    99th percentile, largest and root mean square over the features); each
-    rel_update against its plain version. `lam_row` and `mu_row` [k+1]
-    give every feature's prior. Returns (SD, the checked sweep's (block,
-    theta_old, theta_new), its errors)."""
+    it); every draw from the kernel's GG (schur_draw's relational form)
+    and from the float32 plain GG (schur_draw_plain) against the float64
+    draw from the float64 GG on the same noise, in posterior standard
+    deviations (the median, 99th percentile, largest and root mean square
+    over the features); the form's draws the same bits as schur_draw's on
+    the same inputs and against schur_draw_plain's on the same GG, and its
+    SD against rel_update_plain on its draws. `lam_row` and `mu_row` [k+1] give
+    every feature's prior. Returns (SD, the checked sweep's (block,
+    theta_old, theta_new, GG, lam, mu, z), its errors)."""
     import numpy as np
 
     from libfm_tpu_torch.kernels import rel_sweep as rs
     from libfm_tpu_torch.kernels import schur_draw as sd
     from libfm_tpu_torch.kernels.case_stats import err_over_magnitudes
 
+    def dist(x, y):
+        return ((x.double() - y.double()).abs().max()
+                / y.double().abs().max().clamp_min(1.0)).item()
+
     d = P.shape[1]
     SD = torch.zeros(lay.nb + 1, d, device=P.device)
     sweep_in = []
     for checked in (False, True):
-        stat_err = upd_err = plain_err = 0.0
+        stat_err = upd_err = plain_err = draw_err = plain_draw_err = 0.0
         emax = rej = 0
         dist_k, dist_p = [], []
         for hb, blk in zip(lay.blocks, rel.blocks):
@@ -1422,19 +1437,27 @@ def bs_sweeps(rel, lay, C, P, alpha, lam_row, mu_row, g, bound):
             lam = lam_row.expand(blk.F, d).contiguous()
             mu = mu_row.expand(blk.F, d).contiguous()
             z = torch.randn(blk.F, d, generator=g, device=P.device)
-            th_k, r_k = sd.schur_draw(G_k, th_old, lam, mu, z, alpha, do_sample=True,
-                                      bound=bound)
-            if checked:
+            if checked:  # from SD before the block's update
                 ref, scale = rs.rel_stats_reference(*b_args)
                 stat_err = max(stat_err, err_over_magnitudes(G_k, ref, scale))
                 G_p = rs.rel_stats_plain(*b_args)
                 plain_err = max(plain_err, err_over_magnitudes(G_p, ref, scale))
                 emax = max(emax, int(np.diff(hb.feat_off).max()))
+                SD_before = SD.clone()
+            th_k, r_k = sd.schur_draw_rel(G_k, th_old, lam, mu, z, alpha, SD, blk.feat_off,
+                                          blk.entry_b, blk.entry_x, do_sample=True,
+                                          bound=bound)
+            if checked:
+                th_f, r_f = sd.schur_draw(G_k, th_old, lam, mu, z, alpha, do_sample=True,
+                                          bound=bound)
+                if not (torch.equal(th_k, th_f) and torch.equal(r_k, r_f)):
+                    fail("bench_bs: schur_draw's relational form drew other bits than "
+                         "schur_draw on the same inputs")
                 th_p, r_p = sd.schur_draw_plain(G_p, th_old, lam, mu, z, alpha,
                                                 do_sample=True, bound=bound)
+                f64 = dict(do_sample=True, bound=bound)
                 th_64, _ = sd.schur_draw_plain(ref, th_old.double(), lam.double(),
-                                               mu.double(), z.double(), alpha.double(),
-                                               do_sample=True, bound=bound)
+                                               mu.double(), z.double(), alpha.double(), **f64)
                 a = float(alpha)
                 dist_k.append(posterior_sd_units(th_k - th_64, ref, lam, a))
                 dist_p.append(posterior_sd_units(th_p - th_64, ref, lam, a))
@@ -1442,14 +1465,18 @@ def bs_sweeps(rel, lay, C, P, alpha, lam_row, mu_row, g, bound):
                     fail("bench_bs: schur_draw's reject flags on rel_stats' GG differ "
                          "from the plain version's")
                 rej += int(r_k.sum().item())
-                del ref, scale, th_64
-                SD_p = SD.clone()
-                rs.rel_update_plain(SD_p, blk.entry_b, blk.entry_x, blk.entry_f, th_old,
-                                    th_k)
-                sweep_in.append((blk, th_old, th_k))
-            rs.rel_update(SD, blk.entry_b, blk.entry_x, blk.entry_f, th_old, th_k)
-            if checked:
-                upd_err = max(upd_err, col_rel_err(SD, SD_p).item())
+                # on the kernel's GG: schur_draw_plain in float32 and float64
+                th_pk, _ = sd.schur_draw_plain(G_k, th_old, lam, mu, z, alpha, **f64)
+                th_pk64, _ = sd.schur_draw_plain(G_k.double(), th_old.double(), lam.double(),
+                                                 mu.double(), z.double(), alpha.double(), **f64)
+                draw_err = max(draw_err, dist(th_k, th_pk))
+                plain_draw_err = max(plain_draw_err, dist(th_pk, th_pk64))
+                del ref, scale, th_64, th_pk, th_pk64, th_f
+                rs.rel_update_plain(SD_before, blk.entry_b, blk.entry_x,
+                                    torch.as_tensor(hb.entry_f, device=P.device), th_old, th_k)
+                upd_err = max(upd_err, col_rel_err(SD, SD_before).item())
+                sweep_in.append((blk, th_old, th_k, G_k, lam, mu, z))
+                del SD_before
             P[blk.features] = th_k
     torch.cuda.synchronize()
     k = d - 1
@@ -1457,7 +1484,8 @@ def bs_sweeps(rel, lay, C, P, alpha, lam_row, mu_row, g, bound):
     q = torch.tensor([0.5, 0.99], dtype=torch.float64, device=P.device)
     return SD, sweep_in, dict(
         stat_err=stat_err, stat_tol=2 * (emax + k + 8) * U32, stats_plain_f32_err=plain_err,
-        upd_err=upd_err, rejected=rej, features=dist_k.numel(),
+        upd_err=upd_err, draw_err=draw_err, plain_draw_err=plain_draw_err, rejected=rej,
+        features=dist_k.numel(),
         **{f"{key}_{stat}": v for key, x in (("kernel", dist_k), ("plain", dist_p))
            for stat, v in zip(("median", "p99", "max", "rms"),
                               [*torch.quantile(x, q).tolist(), x.max().item(),
@@ -1469,7 +1497,10 @@ def check_bs_draws(res, state):
     standard deviations, no further from the float64 draws than 1.5 times
     the float32 plain version's own, by their root mean square over the
     features and by the largest distance, with none rejected, and
-    rel_stats and rel_update hold. Returns the numbers for the record."""
+    rel_stats, the draws against schur_draw_plain and K10's update of SD
+    hold: the draws within max(1e-3, 3 x schur_draw_plain's own distance
+    from its float64 draws) of schur_draw_plain's on the same GG, as in
+    the card test. Returns the numbers for the record."""
     # the draws amplify GG's float32 rounding: its reconstruction cancels
     # (Qq = M2 - v S3 - S3 v + m4 v v), so the float32 plain version's own
     # draws lie up to tenths of a posterior standard deviation from the
@@ -1483,6 +1514,7 @@ def check_bs_draws(res, state):
     # there as at the check state
     draw_tol = 1.5 * res["plain_rms"]
     max_tol = 1.5 * res["plain_max"]
+    draw_err_tol = max(1e-3, 3 * res["plain_draw_err"])
     print(f"bench_bs draws at {state}: distances in posterior sd from the float64 draws "
           f"over {res['features']} features, schur_draw on rel_stats' GG rms "
           f"{res['kernel_rms']:.4g} (tol {draw_tol:.4g}: 1.5 x the float32 plain version's "
@@ -1491,7 +1523,12 @@ def check_bs_draws(res, state):
           f"{res['plain_median']:.4g} / {res['plain_p99']:.4g} / {res['plain_max']:.4g}); "
           f"{res['rejected']} rejected; rel_stats {res['stat_err']:.3g} and its float32 plain "
           f"version {res['stats_plain_f32_err']:.3g} of the sums of magnitudes from float64 "
-          f"(tol {res['stat_tol']:.3g}); rel_update {res['upd_err']:.3g} (tol 1e-5)")
+          f"(tol {res['stat_tol']:.3g}); schur_draw's relational form: its draws the same "
+          f"bits as schur_draw's, {res['draw_err']:.3g} from schur_draw_plain's on the same "
+          f"GG (the largest difference over max(1, the largest magnitude); tol "
+          f"{draw_err_tol:.3g}: max(1e-3, 3 x schur_draw_plain's {res['plain_draw_err']:.3g} "
+          f"from its own float64 draws)), its SD (K10's update) {res['upd_err']:.3g} from "
+          f"rel_update_plain's (tol 1e-5)")
     if not res["kernel_rms"] <= draw_tol or res["rejected"]:
         fail(f"bench_bs at {state}: draws from rel_stats' GG lie {res['kernel_rms']} posterior "
              f"sd (rms) from float64 (> {draw_tol}) or were rejected ({res['rejected']})")
@@ -1500,10 +1537,14 @@ def check_bs_draws(res, state):
     if not res["kernel_max"] <= max_tol:
         fail(f"bench_bs at {state}: a draw from rel_stats' GG lies {res['kernel_max']} "
              f"posterior sd from float64 (> {max_tol})")
+    if not res["draw_err"] <= draw_err_tol:
+        fail(f"bench_bs at {state}: schur_draw's relational form lies {res['draw_err']} from "
+             f"schur_draw_plain on the same GG (> {draw_err_tol})")
     if not res["stat_err"] <= res["stat_tol"] or not res["upd_err"] <= 1e-5:
         fail(f"bench_bs at {state}: rel_stats ({res['stat_err']} > {res['stat_tol']}) or "
-             f"rel_update ({res['upd_err']} > 1e-5) disagrees")
-    return dict(res, state=state, draw_tol=draw_tol, max_tol=max_tol)
+             f"K10's update of SD ({res['upd_err']} > 1e-5) disagrees")
+    return dict(res, state=state, draw_tol=draw_tol, max_tol=max_tol,
+                draw_err_tol=draw_err_tol)
 
 
 def bs_chain_check(rec, dev, bs, learner):
@@ -1545,7 +1586,9 @@ def bs_kernel_checks(args, rec, dev, bs):
     modes) from a seeded P; rel_cache from the A that refresh writes, held
     to the float64 plain version entry by entry over the entry's sum of
     magnitudes; two sweeps of the 23 blocks (`bs_sweeps`: rel_stats,
-    every draw from its GG and rel_update held in the second);
+    every draw from its GG and K10's update of SD, by schur_draw's
+    relational form, held in the second; the form timed with and without
+    the update);
     rel_resync in write mode on the train rows and read-only on the test
     tail."""
     import numpy as np
@@ -1624,6 +1667,10 @@ def bs_kernel_checks(args, rec, dev, bs):
 
     # ---- rel_cache, from the refreshed A
     C = rc.rel_cache(A, rel.case_off, rel.case_ids)
+    C_2 = rc.rel_cache(A, rel.case_off, rel.case_ids)
+    torch.cuda.synchronize()
+    repeat_check("rel_cache C, bench_bs", (C,), (C_2,), rec)
+    del C_2
     ref, scale = rc.rel_cache_reference(A, rel.case_off, rel.case_ids)
     counts = np.diff(lay.case_off)
     lmax = int(counts.max())
@@ -1651,6 +1698,8 @@ def bs_kernel_checks(args, rec, dev, bs):
                                "the gather not timed")
     out[-1]["tolerance_note"] = ("2 (most cases on a row + 2) float32 roundings of each "
                                  "entry's sum of magnitudes: a sequential sum's bound")
+    print(f"rel_cache at bench_bs: ms={out[-1]['ms']:.4f}; the first version took "
+          f"{REL_CACHE_FIRST_MS} ms (PERF.md, on an H100 80GB HBM3 at 700 W)")
 
     # ---- one sweep to make SD non-zero, then a checked one
     alpha = torch.tensor(2.0, device=dev)
@@ -1660,6 +1709,8 @@ def bs_kernel_checks(args, rec, dev, bs):
     stat_err, upd_err, stat_tol = res["stat_err"], res["upd_err"], res["stat_tol"]
     rec["bs_sweep"] = check_bs_draws(res, "the check state (P = 0.1 randn, alpha 2, "
                                      "lambda 5)")
+    note_bits("bench_bs sweeps: SD", rec, SD)
+    note_bits("bench_bs sweeps: theta", rec, P)
     # the deferred path's closed-form sums (plain torch, float64: K10's
     # `_deferred_sums`), timed at this SD; bound: C, SD and wnum read once
     from libfm_tpu_torch.learners.mcmc_rel_vector import deferred_sums
@@ -1691,21 +1742,49 @@ def bs_kernel_checks(args, rec, dev, bs):
     out[-1]["tolerance_note"] = ("2 (most entries of a feature + k + 8) float32 roundings "
                                  "of each entry's sum of magnitudes")
 
-    SD_t = SD.clone()
+    # ---- K10's update, inside schur_draw's relational form: the checked
+    # sweep's 23 launches timed with the update (on a copy of SD) and as
+    # plain schur_draw launches; the update's cost is their difference
+    from libfm_tpu_torch.kernels import schur_draw as sd
 
-    def run_upd(fn):
+    SD_t = SD.clone()
+    entry_f = {id(blk): torch.as_tensor(hb.entry_f, device=dev)
+               for hb, blk in zip(lay.blocks, rel.blocks)}
+
+    def run_sweep(update):
         def go():
-            for blk, th_old, th_new in sweep_in:
-                fn(SD_t, blk.entry_b, blk.entry_x, blk.entry_f, th_old, th_new)
+            for blk, th_old, _, G, lam, mu, z in sweep_in:
+                if update:
+                    sd.schur_draw_rel(G, th_old, lam, mu, z, alpha, SD_t, blk.feat_off,
+                                      blk.entry_b, blk.entry_x, do_sample=True, bound=bound)
+                else:
+                    sd.schur_draw(G, th_old, lam, mu, z, alpha, do_sample=True, bound=bound)
         return go
 
+    def run_upd_plain():
+        for blk, th_old, th_new, *_ in sweep_in:
+            rs.rel_update_plain(SD_t, blk.entry_b, blk.entry_x, entry_f[id(blk)], th_old,
+                                th_new)
+
+    draw_ms = cuda_ms(run_sweep(False), args.reps)
+    fused_ms = cuda_ms(run_sweep(True), args.reps)
+    draw_ms_2 = cuda_ms(run_sweep(False), args.reps)
+    # bound: the update's own work inside the draw (old and new theta are
+    # in registers there): each entry's b and x read, its SD row read and
+    # written, and each block's feat_off
     entry("rel_update", "libfm_tpu/learners/mcmc_rel_vector.py:1284", upd_err, 1e-5,
-          cuda_ms(run_upd(rs.rel_update), args.reps),
-          cuda_ms(run_upd(rs.rel_update_plain), args.reps),
-          nbytes=E * (12 + 2 * d * 4) + F * 2 * d * 4, flops=E * (6 * k + 4), lib_ms=None,
-          source="rel_sweep.cu",
-          timed=f"one iteration's launches: one per block ({len(rel.blocks)})")
+          fused_ms - (draw_ms + draw_ms_2) / 2, cuda_ms(run_upd_plain, args.reps),
+          nbytes=E * (8 + 2 * d * 4) + (F + len(rel.blocks)) * 8, flops=E * (6 * k + 4),
+          lib_ms=None,
+          source="schur_draw.cu",
+          timed=f"one iteration's launches of schur_draw's relational form, one per block "
+          f"({len(rel.blocks)}), less the same launches as plain schur_draw")
+    out[-1].update(fused_ms=fused_ms, draw_ms=[draw_ms, draw_ms_2])
     out[-1]["library_note"] = "none: no one call forms and adds the rows' shifts"
+    print(f"schur_draw's relational form at bench_bs ({len(rel.blocks)} launches): "
+          f"{fused_ms:.4f} ms with K10's update, {draw_ms:.4f} / {draw_ms_2:.4f} as plain "
+          f"schur_draw (before / after); the standalone rel_update took "
+          f"{REL_UPDATE_FIRST_MS} ms (PERF.md, on an H100 80GB HBM3 at 700 W)")
     del SD_t
 
     # ---- rel_resync: write mode on the train rows, read-only on the tail
@@ -2864,7 +2943,8 @@ def profile_summary(prof, out_dir, rec, name, batches=None):
     """From a torch.profiler run of learner `name`: per iteration or
     epoch (the learners' "iteration N" / "epoch N" ranges) the wall time,
     the device-busy time (union of the device activities inside the
-    range) and the device time by name; for the first one also its
+    range), the kernel launches the host made in it (its cudaLaunchKernel
+    calls) and the device time by name; for the first one also its
     longest host events. For an SGD or SGDA run (`batches` a epoch) also
     the device activities an epoch, the batch loop's kernels a batch, and
     the torch ops an epoch with those run at least once a batch. Writes
@@ -2895,8 +2975,11 @@ def profile_summary(prof, out_dir, rec, name, batches=None):
                 busy += t - max(s, cur)
                 cur = t
         wall = (hi - lo) / 1e3
+        launches = sum(1 for e in evs if e.device_type == DeviceType.CPU
+                       and e.name.startswith("cudaLaunchKernel")
+                       and lo <= e.time_range.start and e.time_range.end <= hi)
         row = dict(name=ev.name, wall_ms=wall, device_busy_ms=busy / 1e3,
-                   idle_share=1.0 - busy / 1e3 / wall,
+                   idle_share=1.0 - busy / 1e3 / wall, launches=launches,
                    device_ms_by_name=dict(sorted(by_name.items(),
                                                  key=lambda kv: -kv[1])[:10]))
         if batches:
@@ -2917,7 +3000,8 @@ def profile_summary(prof, out_dir, rec, name, batches=None):
                   f"{len(inside) - loop} other device activities; torch ops {ops}")
         rows.append(row)
         print(f"profile {name} {ev.name}: wall {wall:.3f} ms, device busy "
-              f"{row['device_busy_ms']:.3f} ms, idle share {row['idle_share']:.4f}")
+              f"{row['device_busy_ms']:.3f} ms, idle share {row['idle_share']:.4f}, "
+              f"{launches} kernel launches")
         for nm, ms in list(row["device_ms_by_name"].items())[:8]:
             print(f"    {ms:9.3f} ms  {nm}")
     if iters:

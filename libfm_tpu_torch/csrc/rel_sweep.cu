@@ -1,10 +1,12 @@
-// rel_stats, rel_update and rel_resync: the relational (BS) engine's sweep
-// over one relation (K10).
+// rel_stats and rel_resync: the relational (BS) engine's sweep over one
+// relation (K10).
 //
 // Replace, in libfm_tpu/learners/mcmc_rel_vector.py `sweep_relation`, the
 // per-block `block_step`: its `corrected` caches, `mom_chunk` moments and
-// the reconstruction of GG (rel_stats) and its `upd_chunk` (rel_update); and
-// `resync_chunk`, `resync_te` and the deferred `_te_chunk` (rel_resync).
+// the reconstruction of GG (rel_stats); and `resync_chunk`, `resync_te`
+// and the deferred `_te_chunk` (rel_resync). Its `upd_chunk`, the draw's
+// shift into SD, runs inside schur_draw's relational form
+// (schur_draw.cu).
 //
 // rel_stats, per feature j of one conflict-free block, over its entries
 // (b, x): the caches of row b corrected by SD[b] = [s | dQB] from the frozen
@@ -18,18 +20,13 @@
 // aa | ae] with Qq = M2 - v S3^T - S3 v^T + m4 v v^T, qa = S2 - m3 v,
 // qe = SQe - m2e v, aa = m2, ae = mxe (qa, aa, ae 0 without the linear
 // term), v the feature's pre-draw factors. The moments never leave the CTA.
-// rel_update, per entry (b, x) of feature f: with (dw, dv) = theta_new[f] -
-// theta_old[f], s_b += x (dw + dv . (dQB_b - x v_old)), dQB_b += x dv; a
-// conflict-free block's entries hold distinct rows, so this is a plain
-// read-modify-write.
 // rel_resync, per case c of row m = map[c]: e += s_m + dQB_m . Q (the Q
 // before the update), Q += dQB_m; or (read-only) return e + s_m + dQB_m . Q.
 //
 // Bounds on the H100. rel_stats: bytes, writing GG (T + 2k + 2 floats a
 // feature: 45 MB an iteration at bench_bs's 19,147 features, k = 32) and
 // reading each entry's cache row (2.4 KB, L2-resident: C is 9.5 MB);
-// ~0.014 ms an iteration at 3.35 TB/s. rel_update: bytes, an SD row read
-// and written and a theta row pair read an entry. rel_resync: bytes, the
+// ~0.014 ms an iteration at 3.35 TB/s. rel_resync: bytes, the
 // map and A's row read (and written back) a case, and the SD rows (L2).
 // Design. rel_stats (redesigned for the H100): one CTA a feature (128
 // threads up to k = 32, eight CTAs an SM, so that bench_bs's blocks of
@@ -51,9 +48,8 @@
 // operations in the same order: the same bits). The reconstruction reads
 // S3, m4, m2e, m3 and v from shared memory and writes the GG row. No
 // atomics, the same bits every run; a long feature is one CTA's loop over
-// its batches, with no CTA waiting on another. rel_update and rel_resync:
-// one warp an entry / a case, lanes over the factors, the dot product by
-// warp shuffles.
+// its batches, with no CTA waiting on another. rel_resync: one warp a
+// case, lanes over the factors, the dot product by warp shuffles.
 
 #include "common.cuh"
 
@@ -262,40 +258,6 @@ __global__ void __launch_bounds__(stats_threads(KP), stats_min_ctas(KP))
 }
 
 __global__ void __launch_bounds__(kThreads)
-    rel_update_kernel(float* __restrict__ SD, const int* __restrict__ entry_b,
-                      const float* __restrict__ entry_x, const int* __restrict__ entry_f,
-                      const float* __restrict__ theta_old, const float* __restrict__ theta_new,
-                      int E, int k) {
-  const int e = (int)((blockIdx.x * (long long)kThreads + threadIdx.x) / kWarp);
-  const int lane = threadIdx.x & (kWarp - 1);
-  if (e >= E) return;
-  const int d = k + 1;
-  const float x = entry_x[e];
-  const float* to = theta_old + (long long)entry_f[e] * d;
-  const float* tn = theta_new + (long long)entry_f[e] * d;
-  float* sd = SD + (long long)entry_b[e] * d;
-  float dv[kLaneFactors];
-  float p = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kLaneFactors; ++i) {
-    const int f = lane + kWarp * i;
-    dv[i] = 0.0f;
-    if (f < k) {
-      dv[i] = __fsub_rn(tn[1 + f], to[1 + f]);
-      p = fmaf(dv[i], __fsub_rn(sd[1 + f], __fmul_rn(x, to[1 + f])), p);
-    }
-  }
-  p = warp_sum(p);  // every lane has read its dQB entries
-  const float ds = __fmul_rn(x, __fadd_rn(__fsub_rn(tn[0], to[0]), p));
-#pragma unroll
-  for (int i = 0; i < kLaneFactors; ++i) {
-    const int f = lane + kWarp * i;
-    if (f < k) sd[1 + f] = __fadd_rn(sd[1 + f], __fmul_rn(x, dv[i]));
-  }
-  if (lane == 0) sd[0] = __fadd_rn(sd[0], ds);
-}
-
-__global__ void __launch_bounds__(kThreads)
     rel_resync_kernel(const float* __restrict__ SD, const int* __restrict__ row_map,
                       float* __restrict__ A, float* __restrict__ out, long long nc, int k) {
   const long long c = (blockIdx.x * (long long)kThreads + threadIdx.x) / kWarp;
@@ -373,19 +335,6 @@ extern "C" int rel_stats_launch(const float* C, const float* SD, const float* wn
     default: REL_STATS_LAUNCH(128); break;
   }
 #undef REL_STATS_LAUNCH
-  return (int)cudaGetLastError();
-}
-
-// SD [nb+1, k+1] updated in place; entry_b / entry_x / entry_f [E] (entry_f
-// block-local rows of theta_old / theta_new [F, k+1]).
-extern "C" int rel_update_launch(float* SD, const int* entry_b, const float* entry_x,
-                                 const int* entry_f, const float* theta_old,
-                                 const float* theta_new, int E, int k, cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || E < 0) return (int)cudaErrorInvalidValue;
-  if (E == 0) return (int)cudaSuccess;
-  const unsigned grid = (unsigned)(((long long)E + kWarps - 1) / kWarps);
-  rel_update_kernel<<<grid, kThreads, 0, stream>>>(SD, entry_b, entry_x, entry_f, theta_old,
-                                                   theta_new, E, k);
   return (int)cudaGetLastError();
 }
 

@@ -49,6 +49,26 @@
 //   at k=64, so odd rows start 8 B off; 4-byte pieces at the ends). The
 //   packed triangle is read in row order, coalesced, and S is formed from
 //   it in shared memory.
+//
+// The relational form (kUpd; schur_draw_rel_launch) also does K10's
+// `upd_chunk` (libfm_tpu/learners/mcmc_rel_vector.py:1284-1309), which the
+// BS engine ran as a launch of its own after each block's draw: for each
+// entry (b, x) of feature f, feat_off[f] .. feat_off[f+1] of the block's
+// entry_b / entry_x, with (dw, dv) = theta_new[f] - theta_old[f] and
+// v_old = theta_old[f, 1:], s_b += x (dw + dv . (dQB_b - x v_old)) and
+// dQB_b += x dv in SD [nb+1, k+1] = [s | dQB]. The warp that drew f holds
+// its old theta and the one it writes (a rejected draw's dv is 0) on the
+// lanes that own the factors (lane + 32q), and a conflict-free block's
+// entries hold distinct block rows, so no other warp touches f's SD rows.
+// The same operations as the standalone kernel, in the same order
+// (__fsub_rn, fmaf over q, warp_sum's butterfly, then __fmul_rn(x,
+// __fadd_rn(dw, p))): SD keeps its bits. Its loads are issued early and
+// land while the systems are solved: f's entry range while the system
+// before it is solved, its first entries_ahead() entries when its staging
+// area is ready, their SD rows before its Cholesky. The standalone kernel
+// took 0.0680 ms an iteration at bench_bs (23 launches; bound 0.0068:
+// H100 80GB HBM3, 700 W, chip_smoke.py --bench-bs), a launch each of
+// ~1 MB behind two dependent round trips.
 
 #include <math.h>
 
@@ -79,6 +99,12 @@ __host__ __device__ __forceinline__ int stage_floats(int k) {
 template <int KP>
 __host__ __device__ constexpr int work_floats() {
   return ((KP * (KP + 1) / 2 + 3) & ~3) + 3 * KP;
+}
+
+// Entries of a feature whose SD rows the relational form loads ahead.
+template <int KP>
+__host__ __device__ constexpr int entries_ahead() {
+  return KP >= 128 ? 4 : 8;
 }
 
 template <int KP>
@@ -128,14 +154,23 @@ __device__ __forceinline__ Staged stage_system(float* stage, int f, const float*
   return s;
 }
 
-template <int KP, int kWarps>
+// The relational form's block: SD updated in place, the entry lists.
+struct RelUpdate {
+  float* SD;
+  const long long* feat_off;
+  const int* entry_b;
+  const float* entry_x;
+};
+
+template <int KP, int kWarps, bool kUpd>
 __global__ void __launch_bounds__(kWarps* kWarp)
     schur_draw_kernel(const float* __restrict__ GG, const float* __restrict__ theta,
                       const float* __restrict__ lam, const float* __restrict__ mu,
                       const float* __restrict__ z, const float* __restrict__ alphap,
                       float* __restrict__ theta_out, int* __restrict__ rej,
-                      int num_feats, int k, int do_sample, float bound) {
+                      int num_feats, int k, int do_sample, float bound, RelUpdate upd) {
   constexpr int R = (KP + kWarp - 1) / kWarp;  // rows a lane owns: lane + 32q
+  constexpr int kAhead = entries_ahead<KP>();
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int d = k + 1, T = k * (k + 1) / 2;
@@ -151,8 +186,42 @@ __global__ void __launch_bounds__(kWarps* kWarp)
 
   int f = blockIdx.x * kWarps + warp;
   Staged cur{};
-  if (f < num_feats) cur = stage_system(stage, f, GG, theta, lam, mu, z, k, sample, lane);
+  long long e_lo = 0, e_hi = 0;  // kUpd: f's entries
+  if (f < num_feats) {
+    cur = stage_system(stage, f, GG, theta, lam, mu, z, k, sample, lane);
+    if constexpr (kUpd) {
+      e_lo = upd.feat_off[f];
+      e_hi = upd.feat_off[f + 1];
+    }
+  }
   for (; f < num_feats; f += stride) {
+    long long next_lo = 0, next_hi = 0;
+    // kUpd: a batch of up to kAhead of f's entries (b, x) and their SD rows
+    // (s, and dQB on the lanes of its factors); lane m loads entry m first
+    int eb = 0, bm[kAhead];
+    float ex = 0.0f, xm[kAhead], sdq[kAhead][R], sd0[kAhead];
+    const int ne = (int)(e_hi - e_lo);
+    auto load_rows = [&](int n) {
+#pragma unroll
+      for (int m = 0; m < kAhead; ++m) {
+        if (m >= n) break;
+        bm[m] = __shfl_sync(kFullMask, eb, m);
+        xm[m] = __shfl_sync(kFullMask, ex, m);
+        const float* row = upd.SD + (long long)bm[m] * d;
+        sd0[m] = row[0];
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          const int i = lane + kWarp * q;
+          sdq[m][q] = i < k ? row[1 + i] : 0.0f;
+        }
+      }
+    };
+    if constexpr (kUpd) {
+      if (lane < min(ne, kAhead)) {
+        eb = upd.entry_b[e_lo + lane];
+        ex = upd.entry_x[e_lo + lane];
+      }
+    }
     libfm::cp_async_wait<0>();
     __syncwarp();
 
@@ -208,10 +277,39 @@ __global__ void __launch_bounds__(kWarps* kWarp)
       if (i < k) {
         const int ci = libfm::tri_index(i, i, k) - i;  // Qq[i][j] = g[ci + j], j >= i
         int cj = 0;                                    // Qq[j][i] = g[cj + i], j <= i
+        if constexpr (KP >= 128) {
+          // eight partial sums (j mod 8), added pairwise: one chain of
+          // more than 64 terms put most of the draws' float32 error into
+          // bv (their distance from float64 2.7 times schur_draw_plain's
+          // on the card at k = 128); eight chains bring it below the plain
+          // version's, at the same time. KP <= 64 keep one chain and
+          // their bits
+          float part[8] = {};
+          const int k8 = k & ~7;
+          for (int j0 = 0; j0 < k8; j0 += 8) {
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+              const int j = j0 + u;
+              part[u] += cur.g[j <= i ? cj + i : ci + j] * thvS[j];
+              cj += k - j - 1;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 7; ++u) {
+            const int j = k8 + u;
+            if (j < k) {
+              part[u] += cur.g[j <= i ? cj + i : ci + j] * thvS[j];
+              cj += k - j - 1;
+            }
+          }
+          acc = ((part[0] + part[1]) + (part[2] + part[3])) +
+                ((part[4] + part[5]) + (part[6] + part[7]));
+        } else {
 #pragma unroll 4
-        for (int j = 0; j < k; ++j) {
-          acc += cur.g[j <= i ? cj + i : ci + j] * thvS[j];
-          cj += k - j - 1;
+          for (int j = 0; j < k; ++j) {
+            acc += cur.g[j <= i ? cj + i : ci + j] * thvS[j];
+            cj += k - j - 1;
+          }
         }
       }
       r[q] = alpha * (qa[q] * th0 + acc) - alpha * qe[q] + lm[q];
@@ -219,8 +317,15 @@ __global__ void __launch_bounds__(kWarps* kWarp)
     __syncwarp();
 
     // ---- 3. the next system's inputs come in while this one is solved
-    if (f + stride < num_feats)
+    if (f + stride < num_feats) {
       cur = stage_system(stage, f + stride, GG, theta, lam, mu, z, k, sample, lane);
+      if constexpr (kUpd) {
+        next_lo = upd.feat_off[f + stride];
+        next_hi = upd.feat_off[f + stride + 1];
+      }
+    }
+    // kUpd: the SD rows of f's first entries come in while it is solved
+    if constexpr (kUpd) load_rows(min(ne, kAhead));
 
     // ---- 4. Cholesky S = L L^T by panels of kPanel columns
     for (int j0 = 0; j0 < KP; j0 += kPanel) {
@@ -392,17 +497,67 @@ __global__ void __launch_bounds__(kWarps* kWarp)
       const int i = lane + kWarp * q;
       if (i < k) out[1 + i] = bad ? thv[q] : r[q];
     }
+
+    // ---- 8. kUpd: the draw's shift into the SD rows of f's entries
+    if constexpr (kUpd) {
+      const float dw = __fsub_rn(bad ? th0 : x0, th0);
+      float dv[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) dv[q] = __fsub_rn(bad ? thv[q] : r[q], thv[q]);
+      // the loaded batch's n entries: each shift's dot product over the
+      // factors, the n butterflies interleaved, then the rows written
+      auto shift_rows = [&](int n) {
+        float p[kAhead];
+#pragma unroll
+        for (int m = 0; m < kAhead; ++m) {
+          p[m] = 0.0f;
+          if (m >= n) continue;
+#pragma unroll
+          for (int q = 0; q < R; ++q)
+            if (lane + kWarp * q < k)
+              p[m] = fmaf(dv[q], __fsub_rn(sdq[m][q], __fmul_rn(xm[m], thv[q])), p[m]);
+        }
+#pragma unroll
+        for (int o = kWarp / 2; o > 0; o >>= 1)  // warp_sum's order
+#pragma unroll
+          for (int m = 0; m < kAhead; ++m) p[m] += __shfl_xor_sync(kFullMask, p[m], o);
+#pragma unroll
+        for (int m = 0; m < kAhead; ++m) {
+          if (m >= n) break;
+          float* row = upd.SD + (long long)bm[m] * d;
+#pragma unroll
+          for (int q = 0; q < R; ++q) {
+            const int i = lane + kWarp * q;
+            if (i < k) row[1 + i] = __fadd_rn(sdq[m][q], __fmul_rn(xm[m], dv[q]));
+          }
+          if (lane == 0) row[0] = __fadd_rn(sd0[m], __fmul_rn(xm[m], __fadd_rn(dw, p[m])));
+        }
+      };
+      shift_rows(min(ne, kAhead));
+      // a feature of more entries: the rest, kAhead at a time
+      for (long long e0 = e_lo + kAhead; e0 < e_hi; e0 += kAhead) {
+        const int n = (int)min((long long)kAhead, e_hi - e0);
+        if (lane < n) {
+          eb = upd.entry_b[e0 + lane];
+          ex = upd.entry_x[e0 + lane];
+        }
+        load_rows(n);
+        shift_rows(n);
+      }
+      e_lo = next_lo;
+      e_hi = next_hi;
+    }
   }
 }
 
-template <int KP>
+template <int KP, bool kUpd>
 int launch(const float* GG, const float* theta, const float* lam, const float* mu,
            const float* z, const float* alphap, float* theta_out, int* rej, int num_feats,
-           int k, int do_sample, float bound, cudaStream_t stream) {
+           int k, int do_sample, float bound, RelUpdate upd, cudaStream_t stream) {
   constexpr int kWarps = warps_per_cta<KP>();
   constexpr int kThreads = kWarps * kWarp;
   const size_t smem = sizeof(float) * kWarps * (size_t)(stage_floats(k) + work_floats<KP>());
-  auto kern = schur_draw_kernel<KP, kWarps>;
+  auto kern = schur_draw_kernel<KP, kWarps, kUpd>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -416,8 +571,30 @@ int launch(const float* GG, const float* theta, const float* lam, const float* m
   const int need = (num_feats + kWarps - 1) / kWarps;
   const int grid = need < sms * per_sm ? need : sms * per_sm;
   kern<<<grid, kThreads, smem, stream>>>(GG, theta, lam, mu, z, alphap, theta_out, rej,
-                                         num_feats, k, do_sample, bound);
+                                         num_feats, k, do_sample, bound, upd);
   return (int)cudaGetLastError();
+}
+
+template <bool kUpd>
+int launch_kp(const float* GG, const float* theta, const float* lam, const float* mu,
+              const float* z, const float* alphap, float* theta_out, int* rej, int num_feats,
+              int k, int kp, int do_sample, float bound, RelUpdate upd, cudaStream_t stream) {
+  if (!libfm::valid_padded_width(kp, k)) return (int)cudaErrorInvalidValue;
+  if (num_feats == 0) return (int)cudaSuccess;
+  switch (kp) {
+    case 16:
+      return launch<16, kUpd>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
+                              do_sample, bound, upd, stream);
+    case 32:
+      return launch<32, kUpd>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
+                              do_sample, bound, upd, stream);
+    case 64:
+      return launch<64, kUpd>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
+                              do_sample, bound, upd, stream);
+    default:
+      return launch<128, kUpd>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
+                               do_sample, bound, upd, stream);
+  }
 }
 
 }  // namespace
@@ -430,20 +607,21 @@ extern "C" int schur_draw_launch(const float* GG, const float* theta, const floa
                                  const float* mu, const float* z, const float* alphap,
                                  float* theta_out, int* rej, int num_feats, int k, int kp,
                                  int do_sample, float bound, cudaStream_t stream) {
-  if (!libfm::valid_padded_width(kp, k)) return (int)cudaErrorInvalidValue;
-  if (num_feats == 0) return (int)cudaSuccess;
-  switch (kp) {
-    case 16:
-      return launch<16>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
-                        do_sample, bound, stream);
-    case 32:
-      return launch<32>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
-                        do_sample, bound, stream);
-    case 64:
-      return launch<64>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
-                        do_sample, bound, stream);
-    default:
-      return launch<128>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
-                         do_sample, bound, stream);
-  }
+  return launch_kp<false>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k, kp,
+                          do_sample, bound, RelUpdate{}, stream);
+}
+
+// The relational form: schur_draw_launch, then each feature's shift into
+// SD [nb+1, k+1] (in place) over its entries feat_off int64 [num_feats+1]
+// of entry_b int32 (block rows of SD, distinct within the block) and
+// entry_x.
+extern "C" int schur_draw_rel_launch(const float* GG, const float* theta, const float* lam,
+                                     const float* mu, const float* z, const float* alphap,
+                                     float* theta_out, int* rej, float* SD,
+                                     const long long* feat_off, const int* entry_b,
+                                     const float* entry_x, int num_feats, int k, int kp,
+                                     int do_sample, float bound, cudaStream_t stream) {
+  if (!SD || !feat_off) return (int)cudaErrorInvalidValue;
+  return launch_kp<true>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k, kp,
+                         do_sample, bound, RelUpdate{SD, feat_off, entry_b, entry_x}, stream);
 }

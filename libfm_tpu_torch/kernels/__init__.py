@@ -125,15 +125,18 @@ class Kernel:
     """One CUDA kernel's C entry point and its launch counter. A second
     entry point of the same kernel (another form of it) passes
     `count_as`, the Kernel whose counter its launches add to; it is not
-    registered apart."""
+    registered apart. A form that also does another kernel's work passes
+    `also_counts`, the Kernels whose counters each launch adds one to
+    besides its own."""
 
-    def __init__(self, name: str, symbol: str, argtypes: list, count_as=None):
+    def __init__(self, name: str, symbol: str, argtypes: list, count_as=None,
+                 also_counts=()):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
-        self._counter = count_as or self
+        self._counters = (count_as or self, *also_counts)
         if count_as is None:
             REGISTRY[name] = self
 
@@ -151,7 +154,8 @@ class Kernel:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: cudaError {err}"
             )
-        self._counter.launches += 1
+        for counter in self._counters:
+            counter.launches += 1
 
 
 def reset_launch_counts() -> None:

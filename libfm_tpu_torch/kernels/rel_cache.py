@@ -15,7 +15,11 @@ with the sentinel row nb = 0. JAX's slab layout of the same sums (a
 layout for the TPU's gather cost) is not carried over: the sums are the
 same, in another f32 order.
 
-At k <= 2 (the exact BS engine's k = 1: its per-row sums of e and q',
+From k = 3 each CTA sums several block rows, each thread a 4 x 4 tile
+of a row's Gram of u = [1 | e | Q] in registers, the rows' cases staged
+by cp.async in a two-stage ring; every sum adds one product a case in
+case order, so C is the same bits on every run. At k <= 2 (the exact BS
+engine's k = 1: its per-row sums of e and q',
 libfm_tpu/learners/mcmc_relational.py:540-547) a narrow form of the
 kernel runs, one warp a block row; `rel_cache_cols` gives it e and q' as
 two columns at any stride, so nothing is copied first.

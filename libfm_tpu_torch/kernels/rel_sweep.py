@@ -1,10 +1,12 @@
-"""rel_stats, rel_update and rel_resync: the relational (BS) engine's
-sweep over one relation (K10). CUDA source: csrc/rel_sweep.cu.
+"""rel_stats and rel_resync: the relational (BS) engine's sweep over one
+relation (K10). CUDA source: csrc/rel_sweep.cu.
 
 Replace, in libfm_tpu/learners/mcmc_rel_vector.py `sweep_relation`, the
 per-block `block_step` (its `corrected` caches, `mom_chunk` moments and
-the reconstruction of GG; its `upd_chunk`), and `resync_chunk`,
-`resync_te` and the deferred path's `_te_chunk`.
+the reconstruction of GG), and `resync_chunk`, `resync_te` and the
+deferred path's `_te_chunk`. Its `upd_chunk`, the draw's shift into SD
+(`rel_update_plain` here), runs inside `schur_draw`'s relational form
+(kernels/schur_draw.py `schur_draw_rel`).
 
 During a sweep the per-case state moves only through per-block-row
 quantities SD [nb+1, k+1] = [s | dQB]: case c joined to row b has
@@ -39,10 +41,6 @@ from libfm_tpu_torch.ops.segment import sorted_index_add_
 STATS = Kernel(
     "rel_stats", "rel_stats_launch",
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5,
-)
-UPDATE = Kernel(
-    "rel_update", "rel_update_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2,
 )
 RESYNC = Kernel(
     "rel_resync", "rel_resync_launch",
@@ -179,7 +177,13 @@ def rel_stats(C, SD, wnum, feat_off, entry_b, entry_x, feat_id, P, *,
 
 
 def rel_update_plain(SD, entry_b, entry_x, entry_f, theta_old, theta_new):
-    """The plain PyTorch version; same contract as `rel_update`."""
+    """Add one block's draw to SD [nb+1, k+1] = [s | dQB], in place: for
+    each entry (b, x) of feature f (block-local, entry_f int32), with
+    (dw, dv) = theta_new[f] - theta_old[f] and v_old = theta_old[f, 1:],
+    s_b += x (dw + dv . (dQB_b - x v_old)) and dQB_b += x dv (dQB_b as it
+    was before this block). A conflict-free block's entries hold distinct
+    block rows. Returns SD. The plain version of the update that
+    `schur_draw_rel` runs after each draw."""
     eb = entry_b.long()
     ef = entry_f.long()
     x = entry_x
@@ -188,29 +192,6 @@ def rel_update_plain(SD, entry_b, entry_x, entry_f, theta_old, theta_new):
     vo = theta_old[ef, 1:]
     ds = x * (de[:, 0] + (de[:, 1:] * (dq - x[:, None] * vo)).sum(-1))
     SD.index_add_(0, eb, torch.cat([ds[:, None], x[:, None] * de[:, 1:]], dim=1))
-    return SD
-
-
-def rel_update(SD, entry_b, entry_x, entry_f, theta_old, theta_new):
-    """Add one block's draw to SD [nb+1, k+1] = [s | dQB], in place: for
-    each entry (b, x) of feature f (block-local, entry_f int32),
-    with (dw, dv) = theta_new[f] - theta_old[f] and v_old = theta_old[f, 1:],
-    s_b += x (dw + dv . (dQB_b - x v_old)) and dQB_b += x dv (dQB_b as it
-    was before this block). A conflict-free block's entries hold distinct
-    block rows. Returns SD."""
-    if not on_cuda(SD, entry_b, entry_x, entry_f, theta_old, theta_new):
-        return rel_update_plain(SD, entry_b, entry_x, entry_f, theta_old, theta_new)
-    E = entry_b.shape[0]
-    F, d = theta_old.shape
-    check(SD, "SD", torch.float32, (SD.shape[0], d))
-    check(entry_b, "entry_b", torch.int32)
-    check(entry_x, "entry_x", torch.float32, (E,))
-    check(entry_f, "entry_f", torch.int32, (E,))
-    check(theta_old, "theta_old", torch.float32)
-    check(theta_new, "theta_new", torch.float32, (F, d))
-    if E:
-        UPDATE.launch(ptr(SD), ptr(entry_b), ptr(entry_x), ptr(entry_f), ptr(theta_old),
-                      ptr(theta_new), E, d - 1)
     return SD
 
 

@@ -4,6 +4,12 @@ csrc/schur_draw.cu.
 
 Replaces the JAX engine's `draw_chunk` (libfm_tpu/learners/mcmc_vector.py)
 with the lane Cholesky and solves (libfm_tpu/ops/lane_chol.py) it calls.
+
+Its relational form, `schur_draw_rel`, also adds each draw's shift to the
+relational (BS) engine's per-block-row state SD: K10's `upd_chunk`
+(libfm_tpu/learners/mcmc_rel_vector.py), whose contract
+`rel_sweep.rel_update_plain` keeps, done by the warp that drew the
+feature.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import numpy as np
 import torch
 
 from libfm_tpu_torch.kernels import Kernel, check, on_cuda, padded_width, ptr
+from libfm_tpu_torch.kernels.rel_sweep import rel_update_plain
 from libfm_tpu_torch.kernels.slot_stats import gg_width
 from libfm_tpu_torch.ops.lane_chol import (
     cholesky_lanes,
@@ -25,6 +32,13 @@ KERNEL = Kernel(
     "schur_draw", "schur_draw_launch",
     [ctypes.c_void_p] * 8
     + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float],
+)
+#: the relational form: K10's update (rel_update) folded into the draw,
+#: registered under K10's name and counted as a schur_draw launch too
+REL = Kernel(
+    "rel_update", "schur_draw_rel_launch",
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float],
+    also_counts=(KERNEL,),
 )
 # features per step of the plain version (bounds its [C, k, k] temps)
 _PLAIN_CHUNK = 8192
@@ -121,5 +135,64 @@ def schur_draw(GG, theta, lam, mu, z, alpha, *, do_sample, bound):
         ptr(GG), ptr(theta), ptr(lam), ptr(mu), ptr(z) if do_sample else None,
         ptr(alpha), ptr(out), ptr(rej), Fd, k, padded_width(k), int(bool(do_sample)),
         float(bound),
+    )
+    return out, rej
+
+
+def schur_draw_rel_plain(GG, theta, lam, mu, z, alpha, SD, feat_off, entry_b, entry_x, *,
+                         do_sample, bound):
+    """The plain PyTorch version; same contract as `schur_draw_rel`:
+    `schur_draw_plain`, then `rel_update_plain` with the theta it
+    returns."""
+    out, rej = schur_draw_plain(GG, theta, lam, mu, z, alpha, do_sample=do_sample,
+                                bound=bound)
+    entry_f = torch.repeat_interleave(
+        torch.arange(theta.shape[0], dtype=torch.int32, device=feat_off.device),
+        feat_off[1:] - feat_off[:-1], output_size=entry_b.shape[0])
+    rel_update_plain(SD, entry_b, entry_x, entry_f, theta, out)
+    return out, rej
+
+
+def schur_draw_rel(GG, theta, lam, mu, z, alpha, SD, feat_off, entry_b, entry_x, *,
+                   do_sample, bound):
+    """`schur_draw` for one conflict-free block of a relation, which also
+    adds each draw to SD [nb+1, k+1] = [s | dQB] in place (K10's update,
+    `rel_sweep.rel_update_plain`'s contract): for each entry (b, x) of
+    feature f, feat_off int64 [Fd+1] over entry_b int32 (block rows, all
+    distinct) / entry_x float32 [E], with (dw, dv) = theta_new[f] -
+    theta[f], s_b += x (dw + dv . (dQB_b - x v_old)) and dQB_b += x dv.
+    A rejected draw keeps its theta, and so moves nothing. Returns
+    (theta_new, rej) as `schur_draw`."""
+    Fd, d = theta.shape
+    if tuple(feat_off.shape) != (Fd + 1,):
+        raise ValueError(f"feat_off: shape {tuple(feat_off.shape)}, expected {(Fd + 1,)}")
+    if entry_b.dim() != 1 or entry_x.shape != entry_b.shape:
+        raise ValueError(f"entry_b {tuple(entry_b.shape)} and entry_x "
+                         f"{tuple(entry_x.shape)}: one 1-D list of entries")
+    tensors = [GG, theta, lam, mu, alpha, SD, feat_off, entry_b, entry_x]
+    if not on_cuda(*tensors + ([z] if do_sample else [])):
+        if int(feat_off[0]) != 0 or int(feat_off[-1]) != entry_b.shape[0]:
+            raise ValueError(f"feat_off runs from {int(feat_off[0])} to "
+                             f"{int(feat_off[-1])}, not over the {entry_b.shape[0]} entries")
+        return schur_draw_rel_plain(GG, theta, lam, mu, z, alpha, SD, feat_off, entry_b,
+                                    entry_x, do_sample=do_sample, bound=bound)
+    k = d - 1
+    check(GG, "GG", torch.float32, (Fd, gg_width(k)))
+    check(theta, "theta", torch.float32)
+    check(lam, "lam", torch.float32, (Fd, d))
+    check(mu, "mu", torch.float32, (Fd, d))
+    check(alpha, "alpha", torch.float32, ())
+    if do_sample:
+        check(z, "z", torch.float32, (Fd, d))
+    check(SD, "SD", torch.float32, (SD.shape[0], d))
+    check(feat_off, "feat_off", torch.int64)
+    check(entry_b, "entry_b", torch.int32)
+    check(entry_x, "entry_x", torch.float32)
+    out = torch.empty_like(theta)
+    rej = torch.empty(Fd, dtype=torch.int32, device=theta.device)
+    REL.launch(
+        ptr(GG), ptr(theta), ptr(lam), ptr(mu), ptr(z) if do_sample else None, ptr(alpha),
+        ptr(out), ptr(rej), ptr(SD), ptr(feat_off), ptr(entry_b), ptr(entry_x), Fd, k,
+        padded_width(k), int(bool(do_sample)), float(bound),
     )
     return out, rej

@@ -30,8 +30,8 @@ then per relation:
   rel_cache   (C from A: the resync path only, every iteration),
   per conflict-free block (over block rows, in the JAX engine's order):
     rel_stats   (each feature's GG from C and SD),
-    schur_draw,
-    rel_update  (the draw's shift into SD),
+    schur_draw  (its relational form: each draw's shift into SD too,
+                 K10's update),
   rel_resync  (SD into A and the test tail: the resync path only),
 then the unobserved features, the test prediction (from the tail, or
 rel_scores + rel_refresh's test mode over the test cases' main entries
@@ -66,8 +66,8 @@ from libfm_tpu_torch.kernels.pieces import Pieces
 from libfm_tpu_torch.kernels.probit_latent import probit_latent
 from libfm_tpu_torch.kernels.rel_cache import case_lists, rel_cache
 from libfm_tpu_torch.kernels.rel_refresh import rel_refresh, rel_scores
-from libfm_tpu_torch.kernels.rel_sweep import rel_resync, rel_stats, rel_update
-from libfm_tpu_torch.kernels.schur_draw import schur_draw
+from libfm_tpu_torch.kernels.rel_sweep import rel_resync, rel_stats
+from libfm_tpu_torch.kernels.schur_draw import schur_draw, schur_draw_rel
 from libfm_tpu_torch.kernels.slot_stats import gg_width, slot_stats
 from libfm_tpu_torch.kernels.slot_update import case_order, slot_update
 from libfm_tpu_torch.learners.mcmc import (
@@ -189,7 +189,6 @@ class DevRelBlock:
         self.feat_off = t(blk.feat_off)
         self.entry_b = t(blk.entry_b)
         self.entry_x = t(blk.entry_x)
-        self.entry_f = t(blk.entry_f)
 
 
 class DevRel:
@@ -398,11 +397,18 @@ def learn_relational_vector(learner, train, test):
             mu_pr[:, 0] = 0.0
         return lam, mu_pr
 
-    def draw(GG, theta_old, groups, alpha, hyper):
+    def draw(GG, theta_old, groups, alpha, hyper, rel_block=None, SD=None):
+        """The block's joint draws; with `rel_block` (a relation's block)
+        each draw's shift is added to SD too (schur_draw's relational
+        form)."""
         lam, mu_pr = prior_rows(groups, hyper)
         z = torch.randn(theta_old.shape[0], d, generator=gen, device=dev) if do_sample else None
-        return schur_draw(GG, theta_old, lam, mu_pr, z, alpha, do_sample=do_sample,
-                          bound=draw_bound)
+        if rel_block is None:
+            return schur_draw(GG, theta_old, lam, mu_pr, z, alpha, do_sample=do_sample,
+                              bound=draw_bound)
+        return schur_draw_rel(GG, theta_old, lam, mu_pr, z, alpha, SD, rel_block.feat_off,
+                              rel_block.entry_b, rel_block.entry_x, do_sample=do_sample,
+                              bound=draw_bound)
 
     def sweep_main(blk, alpha, hyper):
         """Joint draws for one main-table block (the JAX engine's
@@ -425,8 +431,7 @@ def learn_relational_vector(learner, train, test):
             theta_old = P[blk.features]
             GG = rel_stats(C, SD, r.wnum, blk.feat_off, blk.entry_b, blk.entry_x,
                            blk.feat_id, P, use_linear=use_linear, GG=GG_buf)
-            theta_new, rj = draw(GG, theta_old, blk.groups, alpha, hyper)
-            rel_update(SD, blk.entry_b, blk.entry_x, blk.entry_f, theta_old, theta_new)
+            theta_new, rj = draw(GG, theta_old, blk.groups, alpha, hyper, blk, SD)
             P[blk.features] = theta_new
             rej += rj.sum()
         return rej

@@ -27,6 +27,10 @@ one-hot and valued, a twentieth and all of the cases covered, against its
 plain version and dense_update on the same block; dense_update on the
 incremental test tail's view of A; ALS with dense_update=False and with
 the test tail on the card against the CPU, with exact launches.
+rel_cache's wide form at k 3-128 over rows of 0, 1 and several hundred
+cases; schur_draw's relational form (K10's update folded in) at k 1-128,
+with and without the linear term, every draw rejected or none, and with
+a feature on every block row.
 rel_refresh with main rows beside two relations (k 8-128, L 1 and 3, rows
 with no main entry, train, tail and test modes) and its
 probit mode (sampling and expectations); rel_refresh's tiles at 1, 31,
@@ -1523,7 +1527,8 @@ def test_sgda_on_cuda_follows_the_cpu_trajectory(cuda, which):
 
 
 # ---- the relational (BS) engine's kernels: rel_scores, rel_refresh,
-# rel_cache, rel_stats, rel_update, rel_resync
+# rel_cache, rel_stats, schur_draw's relational form (K10's update),
+# rel_resync
 
 REL_KS = [1, 8, 32, 64, 128]
 U32 = 2.0 ** -24  # float32's unit roundoff
@@ -1852,22 +1857,30 @@ def test_rel_refresh_kernel_tiles_every_mode(cuda, nc, k, L, R):
         assert c_c.item() == c_p.item()
 
 
-@pytest.mark.parametrize("k", REL_KS)
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 32, 40, 64, 128])
 def test_rel_cache_kernel_matches_float64(cuda, k):
     """Every cache entry within (the row's cases + 2) roundings of its sum
-    of magnitudes; the unjoined row and the sentinel are 0; a second
-    launch gives the same bits."""
+    of magnitudes, over rows of 0, 1, a few and several hundred cases (a
+    CTA's rows of unequal lengths, more rows than one CTA sums); the
+    unjoined rows and the sentinel are 0; a second launch gives the same
+    bits."""
     from libfm_tpu_torch.kernels import rel_cache as rc
-
-    P, A, lay, rel, C, SD = _rel_state(cuda, k)
-    C_k = rc.rel_cache(A, rel.case_off, rel.case_ids)
-    ref, scale = rc.rel_cache_reference(A, rel.case_off, rel.case_ids)
     from libfm_tpu_torch.kernels.case_stats import err_over_magnitudes
 
-    lmax = int(np.diff(lay.case_off).max())
-    assert err_over_magnitudes(C_k, ref, scale) <= 2 * (lmax + 2) * U32
-    assert (C_k[1] == 0).all() and (C_k[lay.nb] == 0).all()
-    assert torch.equal(C_k, rc.rel_cache(A, rel.case_off, rel.case_ids))
+    rng = np.random.default_rng(7 + k)
+    counts = rng.integers(0, 40, 97)
+    counts[:6] = [0, 1, 700, 0, 1, 333]
+    nb, nc = len(counts), 6000
+    case_off = np.zeros(nb + 1, np.int64)
+    np.cumsum(counts, out=case_off[1:])
+    case_ids = rng.integers(0, nc, case_off[-1]).astype(np.int32)
+    A = torch.as_tensor(rng.normal(0, 1, (nc, k + 1)), dtype=torch.float32, device=cuda)
+    case_off, case_ids = _to(cuda, case_off, case_ids)
+    C_k = rc.rel_cache(A, case_off, case_ids)
+    ref, scale = rc.rel_cache_reference(A, case_off, case_ids)
+    assert err_over_magnitudes(C_k, ref, scale) <= 2 * (int(counts.max()) + 2) * U32
+    assert (C_k[0] == 0).all() and (C_k[3] == 0).all() and (C_k[nb] == 0).all()
+    assert torch.equal(C_k, rc.rel_cache(A, case_off, case_ids))
     torch.cuda.synchronize()
 
 
@@ -1921,27 +1934,73 @@ def test_rel_stats_kernel_on_a_feature_of_every_row(cuda, k):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("k", REL_KS)
-def test_rel_update_and_resync_kernels_match_plain(cuda, k):
+@pytest.mark.parametrize("k", sorted(REL_KS + [3, 40]))
+@pytest.mark.parametrize("use_linear", [True, False])
+@pytest.mark.parametrize("rejected", [False, True])
+@pytest.mark.parametrize("every_row", [False, True])
+def test_rel_update_and_resync_kernels_match_plain(cuda, k, use_linear, rejected, every_row):
+    """schur_draw's relational form (K10's update folded into the draw),
+    block after block from rel_stats' GG: theta and the reject flags the
+    same bits as schur_draw's on the same inputs; theta within 1e-3 of
+    schur_draw_plain's (or 3 times the float32 plain draw's own distance
+    from float64, where larger: these systems are less well conditioned
+    than schur_draw's own test's), the flags equal; SD within 1e-5 of
+    rel_update_plain on the kernel's theta; with a tiny bound every draw
+    is rejected and SD keeps its bits. With `every_row` feature 0 lies on
+    all 64 block rows, so its entries run past the ones loaded ahead and
+    are taken in batches. Then rel_resync, both modes."""
     from libfm_tpu_torch.kernels import rel_sweep as rs
 
-    P, A, lay, rel, C, SD = _rel_state(cuda, k, seed=2)
+    P, A, lay, rel, C, SD = _rel_state(cuda, k, seed=2, every_row=every_row)
+    if every_row:
+        assert max(int(np.diff(hb.feat_off).max()) for hb in lay.blocks) == lay.nb
     rng = np.random.default_rng(3)
-    SD_k, SD_p = SD.clone(), SD.clone()
-    for blk in rel.blocks:
+    d = k + 1
+    lam_row = torch.full((d,), 4.0, device=cuda)
+    mu_row = torch.zeros(d, device=cuda)
+    if not use_linear:  # w frozen, as the BS engine holds it
+        lam_row[0] = 1e30
+    alpha = torch.tensor(1.5, device=cuda)
+    bound = 1e-6 if rejected else 1e6
+    SD_k = SD.clone()
+    for hb, blk in zip(lay.blocks, rel.blocks):
+        GG = rs.rel_stats_plain(C, SD_k, rel.wnum, blk.feat_off, blk.entry_b, blk.entry_x,
+                                blk.feat_id, P, use_linear=use_linear)
         th_old = P[blk.features]
-        th_new = th_old + torch.as_tensor(rng.normal(0, 0.2, tuple(th_old.shape)),
-                                          dtype=torch.float32, device=cuda)
-        rs.rel_update(SD_k, blk.entry_b, blk.entry_x, blk.entry_f, th_old, th_new)
-        rs.rel_update_plain(SD_p, blk.entry_b, blk.entry_x, blk.entry_f, th_old, th_new)
+        lam, mu = lam_row.expand(blk.F, d).contiguous(), mu_row.expand(blk.F, d).contiguous()
+        z = torch.as_tensor(rng.normal(size=(blk.F, d)), dtype=torch.float32, device=cuda)
+        SD_before = SD_k.clone()
+        t_k, r_k = sd.schur_draw_rel(GG, th_old, lam, mu, z, alpha, SD_k, blk.feat_off,
+                                     blk.entry_b, blk.entry_x, do_sample=True, bound=bound)
+        t_f, r_f = sd.schur_draw(GG, th_old, lam, mu, z, alpha, do_sample=True, bound=bound)
+        t_p, r_p = sd.schur_draw_plain(GG, th_old, lam, mu, z, alpha, do_sample=True,
+                                       bound=bound)
+        t_64, _ = sd.schur_draw_plain(GG.double(), th_old.double(), lam.double(), mu.double(),
+                                      z.double(), alpha.double(), do_sample=True, bound=bound)
+        SD_p = rs.rel_update_plain(SD_before.clone(), blk.entry_b, blk.entry_x,
+                                   torch.as_tensor(hb.entry_f, device=cuda), th_old, t_k)
+        torch.cuda.synchronize()
+        assert torch.equal(t_k, t_f) and torch.equal(r_k, r_f)
+        assert torch.equal(r_k, r_p)
+
+        def dist(x, y):
+            return ((x.double() - y.double()).abs().max()
+                    / y.double().abs().max().clamp_min(1.0)).item()
+
+        assert dist(t_k, t_p) <= max(1e-3, 3 * dist(t_p, t_64))
         assert _col_rel_err(SD_k, SD_p) < 1e-5
-        SD_k.copy_(SD_p)
+        if rejected:
+            assert bool(r_k.all()) and torch.equal(t_k, th_old)
+            assert torch.equal(SD_k, SD_before)
+        else:
+            assert not bool(r_k.any())
+        P[blk.features] = t_k
     A_k, A_p = A.clone(), A.clone()
-    rs.rel_resync(SD_p, rel.map_tr, A_k)
-    rs.rel_resync_plain(SD_p, rel.map_tr, A_p)
+    rs.rel_resync(SD_k, rel.map_tr, A_k)
+    rs.rel_resync_plain(SD_k, rel.map_tr, A_p)
     assert _col_rel_err(A_k, A_p) < 1e-5
-    e_k = rs.rel_resync(SD_p, rel.map_tr, A, read_only=True)
-    e_p = rs.rel_resync_plain(SD_p, rel.map_tr, A, read_only=True)
+    e_k = rs.rel_resync(SD_k, rel.map_tr, A, read_only=True)
+    e_p = rs.rel_resync_plain(SD_k, rel.map_tr, A, read_only=True)
     assert (e_k - e_p).abs().max() <= 1e-5 * e_p.abs().max()
     torch.cuda.synchronize()
 

@@ -195,7 +195,6 @@ def _cpu_calls():
     C = rc.rel_cache(A[:5], case_off, case_ids)
     SD = torch.full((5, k + 1), 0.1)
     eb = torch.tensor([0, 2], dtype=torch.int32)
-    ef = torch.tensor([0, 1], dtype=torch.int32)
     cfeat = torch.tensor([1, 4], dtype=torch.int32)
     cgrp = torch.zeros(2, dtype=torch.int32)
     draw = (off, sc, sv, cfeat, cgrp, torch.ones(1), torch.zeros(1), torch.tensor(1.0),
@@ -226,7 +225,10 @@ def _cpu_calls():
         "rel_cache": lambda: rc.rel_cache(A[:5], case_off, case_ids),
         "rel_stats": lambda: rs.rel_stats(C, SD, torch.ones(5), torch.tensor([0, 2]), eb,
                                           torch.ones(2), fid[:1], P),
-        "rel_update": lambda: rs.rel_update(SD.clone(), eb, torch.ones(2), ef, th, th + 0.1),
+        # K10's update, registered as rel_update: schur_draw's relational form
+        "rel_update": lambda: sd.schur_draw_rel(GG, th, lam, th, None, torch.tensor(1.0),
+                                                SD.clone(), torch.tensor([0, 1, 2]), eb,
+                                                torch.ones(2), do_sample=False, bound=1e6),
         "rel_resync": lambda: rs.rel_resync(SD, rmap, torch.ones(5, k + 1), read_only=True),
         "fm_refresh": lambda: fr.fm_refresh(P, ids, vals, w0, torch.ones(nc), A),
         "fm_refresh_probit": lambda: fr.fm_refresh(
