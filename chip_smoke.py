@@ -13,6 +13,8 @@
                                               # paths only
     python3 chip_smoke.py --sgda              # SGDA's kernel checks and its two paths
                                               # only
+    python3 chip_smoke.py --probes            # the probe-shape kernel checks and the
+                                              # probe path only
     python3 chip_smoke.py --quality           # MCMC 24 iterations at #3, #4, #5 against
                                               # bench.py's quality targets, and at
                                               # bench_bs_ctx and bench_bs_c
@@ -56,7 +58,11 @@ What it does, in order (any failed phase exits non-zero):
      against index_add_ of the same rows); at #1 and #4b one batch whose
      ids are all equal through table_scatter;
    - table_scatter at probe P4's shape (against index_add_) and
-     table_read at probes P1 (scale 8) and P3 (scale 1);
+     table_read at probes P1 (scale 8) and P3 (scale 1) on the shared form
+     of its plan, and at P3's ids on a table of 65,536 rows on its l2
+     form, two calls the same bits; the plan goes in the row, and the
+     first version's time and the lookups' shared-memory floor are
+     printed beside it;
    - SGDA (K13): one whole epoch with lambda steps (sgda_step with the w0
      update + table_scatter + sgda_lambda on validation batch i % NV) from
      the same table, caches and regularizers, kernels against plain
@@ -230,6 +236,7 @@ checkout's root.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import math
@@ -406,6 +413,12 @@ SLOT_UPDATE_FIRST_MS = {"config #3": 5.776, "bench_bs_ctx": 0.4640}
 #: ... and at bench_bs rel_cache's and the standalone rel_update's (one
 #: iteration's 23 launches), which schur_draw's relational form replaced
 REL_CACHE_FIRST_MS, REL_UPDATE_FIRST_MS = 0.2533, 0.0680
+#: ... and table_read's at probes P1 and P3 (the one-launch L2 form's
+#: predecessor: partials, then a combine launch)
+TABLE_READ_FIRST_MS = {"P1": 0.0797, "P3": 0.0793}
+#: rows of the table past a one-column slice, which table_read reads on
+#: its l2 form (128 columns: 32 MB, within the 50 MB L2)
+TALL_NSUB = 65_536
 
 
 def fail(msg: str) -> None:
@@ -2806,7 +2819,10 @@ def run_sgda(name, runs, args, rec):
 def table_checks(args, rec, dev, scatter_row):
     """Phase 3, the probes' shapes: table_scatter at P4's (against
     index_add_, added to the table_scatter row under "p4"), table_read at
-    P1's (scale 8) and P3's (scale 1). Returns the table_read row."""
+    P1's (scale 8) and P3's (scale 1) on the shared form of its plan
+    ("p3" in the row), and at P3's ids on a table past a one-column
+    slice, on the l2 form ("tall"): each within 1e-5 of the plain version
+    and the same bits on a second call. Returns the table_read row."""
     from libfm_tpu_torch.kernels import table_read as tr
     from libfm_tpu_torch.kernels import table_scatter as ts
     from libfm_tpu_torch.studies import pallas_gather as pg
@@ -2837,28 +2853,51 @@ def table_checks(args, rec, dev, scatter_row):
     T = torch.randn(pg.NSUB, 128, generator=g, device=dev)
     ids = torch.randint(0, pg.NSUB, (pg.NIDS,), generator=g, device=dev,
                         dtype=torch.int32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    for probe, scale, n_used, site in (
+    for probe, scale, n_used, site, nsub in (
         ("P1", float(pg.UNROLL), pg.NIDS // pg.UNROLL * pg.UNROLL,
-         "studies/pallas_gather.py:79"),
-        ("P3", 1.0, pg.NIDS // pg.CHUNK * pg.CHUNK, "studies/pallas_gather.py:147"),
+         "studies/pallas_gather.py:79", pg.NSUB),
+        ("P3", 1.0, pg.NIDS // pg.CHUNK * pg.CHUNK, "studies/pallas_gather.py:147", pg.NSUB),
+        ("P3's ids, a table of 65,536 rows", 1.0, pg.NIDS // pg.CHUNK * pg.CHUNK,
+         "studies/pallas_gather.py:147", TALL_NSUB),
     ):
+        if nsub == TALL_NSUB:
+            T = torch.randn(nsub, 128, generator=g, device=dev)
+        plan = tr.read_plan(nsub, 128, n_used, pg.REPS, sms)
+        if (plan.form == "l2") != (nsub == TALL_NSUB):
+            fail(f"table_read at {probe}: plan {plan}")
         o_k = tr.table_read(T, ids, pg.REPS, scale, n_used)
         o_p = tr.table_read_plain(T, ids, pg.REPS, scale, n_used)
+        again = tr.table_read(T, ids, pg.REPS, scale, n_used)
+        if not torch.equal(o_k, again):
+            fail(f"table_read at {probe}: two calls differ")
         err = ((o_k - o_p).abs().max() / o_p.abs().max()).item()
-        rows.append(kernel_row(
+        row = kernel_row(
             "table_read", site, err, 1e-5,
             cuda_ms(lambda: tr.table_read(T, ids, pg.REPS, scale, n_used), args.reps),
             cuda_ms(lambda: tr.table_read_plain(T, ids, pg.REPS, scale, n_used),
                     args.reps),
-            nbytes=pg.NSUB * 128 * 4 + n_used * 4 + 128 * 4,
+            nbytes=nsub * 128 * 4 + n_used * 4 + 128 * 4,
             flops=pg.REPS * n_used * 128, lib_ms=None,
             timed=f"one call at {probe}'s shape ({pg.REPS} reps of {n_used} ids, "
-                  f"scale {scale:g}); error relative to the largest lane",
-            label=f" ({probe})"))
+                  f"{nsub} rows, scale {scale:g}); error relative to the largest lane",
+            label=f" ({probe})")
+        row["plan"] = dataclasses.asdict(plan)
+        first_ms = TABLE_READ_FIRST_MS.get(probe)
+        first = (f"first version {first_ms} ms, PERF.md, on an H100 80GB HBM3 at 700 W"
+                 if first_ms else "no first version at this shape")
+        print(f"table_read ({probe}): plan {pg.plan_text(row['plan'])}; {row['ms']:.4f} ms"
+              f" ({first}), bound {row['bound_ms']:.4f} ms (HBM bytes), shared-memory floor "
+              f"{pg.smem_floor_ms(pg.REPS, n_used, 128, dev.index or 0)} ms (the lookups' "
+              f"bytes at {pg.SMEM_BYTES_PER_CLOCK} B a clock an SM at the card's clock; not "
+              f"a bound of the row, not measured); two calls the same bits")
+        rows.append(row)
+    keys = ("replaces", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "timed",
+            "plan")
     read_row = dict(rows[0])
-    read_row["p3"] = {key: rows[1][key] for key in (
-        "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "timed")}
+    read_row["p3"] = {key: rows[1][key] for key in keys}
+    read_row["tall"] = {key: rows[2][key] for key in keys}
     return read_row
 
 
@@ -3884,6 +3923,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and run SGDA's kernel checks (configs #1 "
                     "and #4b) and its two paths; print the rows and launches as one JSON "
                     "line")
+    ap.add_argument("--probes", action="store_true",
+                    help="only build the kernels and run the probe-shape kernel checks "
+                    "(table_scatter at P4, table_read at P1, P3 and a table past its "
+                    "shared form) and the probe path; print the rows as one JSON line")
     ap.add_argument("--quality", action="store_true",
                     help="only build the kernels and run MCMC to bench.py's 24 "
                     "iterations at configs #3, #4 and #5; print each test_all beside "
@@ -3974,6 +4017,12 @@ def main(argv=None) -> int:
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(dict(rec, kernels=table, phase_seconds=phase), f, indent=1)
+        print(json.dumps({"card": smi, "kernels": table}))
+        return 0
+    if args.probes:
+        table = [table_checks(args, rec, dev, {})]
+        counts = {"probes": run_probes(rec)}
+        fill_launches(table, counts)
         print(json.dumps({"card": smi, "kernels": table}))
         return 0
     if args.config5_kernels:

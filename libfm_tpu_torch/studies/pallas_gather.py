@@ -14,21 +14,28 @@ row indices through three access patterns. Here each returns a
   vec_take  (P3) acc += sum of the rows of each 256-id chunk; only the
             first nids // 256 * 256 ids are read (table_read, scale 1).
 
-On the H100 the counterpart of VMEM is the 50 MB L2: the table is read
-from global memory and stays in L2.
+On the H100 no SM's 227 KB of shared memory holds the 5.25 MB table, but
+32 SMs each hold every row of a 4-column slice of it: table_read's
+shared form (kernels/table_read.py `read_plan`), whose lookups read
+shared memory. Each read record carries its plan and the shared-memory
+floor of its lookups beside the HBM bound. `--forms` times P1 and P3
+under each form of the plan (slices of 4, 2 and 1 columns, and the l2
+form, which reads the rows from global memory through L2).
 
-    python -m libfm_tpu_torch.studies.pallas_gather   # on a CUDA card
+    python -m libfm_tpu_torch.studies.pallas_gather [--forms]  # on a CUDA card
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 
 import numpy as np
 import torch
 
-from libfm_tpu_torch.kernels.table_read import table_read, table_read_plain
+from libfm_tpu_torch.kernels import table_read as tr
+from libfm_tpu_torch.kernels.table_read import read_plan, table_read, table_read_plain
 from libfm_tpu_torch.kernels.table_scatter import table_scatter, table_scatter_plain
 from libfm_tpu_torch.utils.timers import device_ms
 
@@ -37,6 +44,23 @@ CHUNK = 256
 # the studies' shape: 82K rows / 8 per sublane row -> 5.25 MB
 NSUB, NIDS, REPS = 10_256, 16_384, 20
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+SMEM_BYTES_PER_CLOCK = 128  # an SM's shared memory, without bank conflicts
+#: the read probes' forms that `--forms` times: slices of 4, 2 and 1
+#: columns, and the l2 form
+FORMS = ("shared 4", "shared 2", "shared 1", "l2")
+
+
+def smem_floor_ms(reps, n_used, W, device=0):
+    """The least time the lookups of a read probe take from shared memory:
+    reps x n_used rows of W floats at SMEM_BYTES_PER_CLOCK a clock on
+    every SM at the card's clock (its `clock_rate`); None where torch
+    does not give the clock."""
+    props = torch.cuda.get_device_properties(device)
+    khz = getattr(props, "clock_rate", 0)
+    if not khz:
+        return None
+    per_s = props.multi_processor_count * SMEM_BYTES_PER_CLOCK * khz * 1e3
+    return reps * n_used * W * 4 / per_s * 1e3
 
 
 def make_read_kernel(nsub, nids, reps):
@@ -131,6 +155,10 @@ def main(nsub=NSUB, nids=NIDS, reps=REPS, rtol=1e-5):
         tol = 0.0 if name == "rmw" else rtol
         rec = dict(strategy=name, value=got, plain_value=want, rel_err=err, tol=tol)
         rec["bound_ms"] = nbytes[name] / PEAK_BYTES_PER_S * 1e3
+        if name != "rmw":
+            n_used = n_read if name == "read" else n_take
+            rec["plan"] = dataclasses.asdict(read_plan(nsub, W, n_used, reps, _sms()))
+            rec["smem_floor_ms"] = smem_floor_ms(reps, n_used, W)
         if name == "rmw":
             rec["ms"] = device_ms(lambda: rmw_scatters(T, orders))
             rec["with_sorts_ms"] = device_ms(lambda: run(ids, T))
@@ -141,6 +169,9 @@ def main(nsub=NSUB, nids=NIDS, reps=REPS, rtol=1e-5):
         rec["ns_per_row"] = rec["ms"] * 1e6 / (reps * nids)
         rec["plain_ns_per_row"] = rec["plain_ms"] * 1e6 / (reps * nids)
         lib = f"; index_add_ {rec['library_ms']:.4f} ms" if "library_ms" in rec else ""
+        if "plan" in rec:
+            lib += (f"; shared-memory floor {rec['smem_floor_ms']} ms; plan "
+                    f"{plan_text(rec['plan'])}")
         print(f"  {name:10s} {rec['ms']:9.4f} ms  {rec['ns_per_row']:7.3f} ns/row"
               f"  (plain {rec['plain_ns_per_row']:.3f} ns/row; bound "
               f"{rec['bound_ms']:.4f} ms{lib})  rel_err {err:.2e}", flush=True)
@@ -150,5 +181,55 @@ def main(nsub=NSUB, nids=NIDS, reps=REPS, rtol=1e-5):
     return results
 
 
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def plan_text(plan):
+    """One line of a read plan (as `dataclasses.asdict` gives it)."""
+    return (f"{plan['form']}, {plan['cols']} columns x {plan['slices']} slices, "
+            f"{plan['groups']} id groups of {plan['per_group']}"
+            f"{', reps over ' + str(plan['rep_split']) if plan['rep_split'] > 1 else ''}, "
+            f"{plan['smem_bytes']} shared bytes")
+
+
+def forms(nsub=NSUB, nids=NIDS, reps=REPS, rtol=1e-5):
+    """P1 and P3 at the studies' shape under each form of FORMS, in turns
+    (each form twice, the second pass in reverse order), each checked
+    against the plain version and the same bits on a second launch, and
+    timed as one launch of table_read on that plan (no `.sum()`); one
+    record per probe and form."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the table probes measure a CUDA card; none is available")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    T = torch.as_tensor(rng.standard_normal((nsub, 128)), dtype=torch.float32, device=dev)
+    ids = torch.as_tensor(rng.integers(0, nsub, nids).astype(np.int32), device=dev)
+    W, out = T.shape[1], []
+    for probe, scale, n_used in (("P1", float(UNROLL), nids // UNROLL * UNROLL),
+                                 ("P3", 1.0, nids // CHUNK * CHUNK)):
+        want = table_read_plain(T, ids, reps, scale, n_used)
+        recs = {}
+        for form in FORMS + FORMS[::-1]:
+            plan = (tr.l2_plan(nsub, W, n_used, reps, _sms()) if form == "l2" else
+                    tr.shared_plan(nsub, W, n_used, reps, int(form.split()[1]), _sms()))
+            args, got, _scratch = tr.launch_args(T, ids, reps, scale, plan)
+            tr.KERNEL.launch(*args)
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            first = got.clone()
+            tr.KERNEL.launch(*args)
+            if err > rtol or not torch.equal(got, first):
+                raise AssertionError(f"{probe} under {form}: error {err} > {rtol}, or two "
+                                     f"calls differ")
+            rec = recs.setdefault(form, dict(probe=probe, form=form, ms=[], rel_err=err,
+                                             plan=dataclasses.asdict(plan)))
+            rec["ms"].append(device_ms(lambda: tr.KERNEL.launch(*args)))
+        for rec in recs.values():
+            print(f"  {probe} {rec['form']:8s} ms {rec['ms']}  ({plan_text(rec['plan'])})",
+                  flush=True)
+            out.append(rec)
+    return out
+
+
 if __name__ == "__main__":
-    json.dump(main(), sys.stdout, indent=1)
+    json.dump(forms() if "--forms" in sys.argv[1:] else main(), sys.stdout, indent=1)

@@ -846,18 +846,56 @@ def test_table_scatter_kernel_matches_np_add_at(cuda, W, heavy):
     assert _col_rel_err(T, T_p) < 1e-5
 
 
-@pytest.mark.parametrize("W", [16, 128, 200])
-@pytest.mark.parametrize("scale,reps", [(1.0, 1), (1.0, 5), (8.0, 5)])
-def test_table_read_kernel_matches_plain(cuda, W, scale, reps):
-    rng = np.random.default_rng(600 + W + reps)
-    nsub, nids = 1000, 5000
+@pytest.mark.parametrize("W", [7, 16, 128, 130, 200])
+@pytest.mark.parametrize("nsub,n_used,scale,reps", [
+    (1000, 4992, 1.0, 1), (1000, 4992, 1.0, 5), (1000, 4992, 8.0, 5),  # shared form
+    (1000, 0, 1.0, 3),  # no ids
+    (37, 4992, 1.0, 50),  # more reps than rows
+    (60_000, 4992, 1.0, 5),  # past a one-column slice: the l2 form
+])
+def test_table_read_kernel_matches_plain(cuda, W, nsub, n_used, scale, reps):
+    """Both forms of read_plan against the plain version (relative to the
+    largest lane, as chip_smoke.py holds P1 and P3), ids up to 3 nsub
+    (reduced mod nsub when staged), and the same bits on a second call."""
+    rng = np.random.default_rng(600 + W + reps + nsub)
     T, ids = _to(cuda, rng.standard_normal((nsub, W)).astype(np.float32),
-                 rng.integers(0, nsub, nids).astype(np.int32))
-    out_k = tr.table_read(T, ids, reps, scale, n_used=nids - 8)
-    out_p = tr.table_read_plain(T, ids, reps, scale, n_used=nids - 8)
-    again = tr.table_read(T, ids, reps, scale, n_used=nids - 8)
+                 rng.integers(0, 3 * nsub, n_used + 8).astype(np.int32))
+    plan = tr.read_plan(nsub, W, n_used, reps, torch.cuda.get_device_properties(cuda)
+                        .multi_processor_count)
+    assert plan.form == ("l2" if nsub == 60_000 else "shared")
+    out_k = tr.table_read(T, ids, reps, scale, n_used=n_used)
+    out_p = tr.table_read_plain(T, ids, reps, scale, n_used=n_used)
+    again = tr.table_read(T, ids, reps, scale, n_used=n_used)
     torch.cuda.synchronize()
     assert torch.equal(out_k, again)  # deterministic
+    if n_used == 0:
+        assert torch.equal(out_k, torch.zeros_like(out_k))
+    else:
+        assert ((out_k - out_p).abs().max() / out_p.abs().max()).item() < 1e-5
+
+
+@pytest.mark.parametrize("W", [7, 128, 130, 528, 600])
+def test_table_read_wide_tables_match_plain(cuda, W):
+    """The shared form up to as many slices as SMs (W = 528: 132 slices
+    of 4 columns, one CTA each, a cooperative launch), the l2 form past
+    them (W = 600: 150 slices), each against the plain version and the
+    same bits on a second call."""
+    rng = np.random.default_rng(700 + W)
+    nsub, n_used, reps, scale = 1000, 4992, 5, 8.0
+    T, ids = _to(cuda, rng.standard_normal((nsub, W)).astype(np.float32),
+                 rng.integers(0, nsub, n_used).astype(np.int32))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = tr.read_plan(nsub, W, n_used, reps, sms)
+    if -(-W // 4) <= sms:
+        assert (plan.form, plan.cols) == ("shared", 4) and plan.slices * plan.groups <= sms
+    else:
+        assert plan.form == "l2"
+    assert (plan.form == "l2") == (W == 600)  # on a card of 132 SMs
+    out_k = tr.table_read(T, ids, reps, scale, n_used)
+    out_p = tr.table_read_plain(T, ids, reps, scale, n_used)
+    again = tr.table_read(T, ids, reps, scale, n_used)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, again)
     assert ((out_k - out_p).abs().max() / out_p.abs().max()).item() < 1e-5
 
 
@@ -1744,8 +1782,11 @@ def _refresh_inputs(cuda, rng, nc, k, L, R, n_main=40, rows=50):
 
 def test_kernel_plans_hold_the_sources_sizes(cuda):
     """The host's plans against the sizes the kernels' sources export:
-    sgda_step's regularizer budget and scratch, and rel_refresh's shared
-    memory a warp for every k in 1-128 and several row shapes."""
+    sgda_step's regularizer budget and scratch, rel_refresh's shared
+    memory a warp for every k in 1-128 and several row shapes, and
+    table_read's shared memory a CTA in both forms."""
+    import ctypes
+
     from libfm_tpu_torch.kernels import library
     from libfm_tpu_torch.kernels import rel_refresh as rr
     from libfm_tpu_torch.kernels import sgda_step as sa
@@ -1756,6 +1797,12 @@ def test_kernel_plans_hold_the_sources_sizes(cuda):
     for k, R, L, has_A in itertools.product(range(1, 129), [1, 2, 3],
                                             [0, 1, 2, 13, 16, 17, 100], [0, 1]):
         assert lib.rel_refresh_warp_bytes(k, R, L, has_A) == rr.warp_bytes(k, R, L, has_A)
+    smem = lib.table_read_smem_bytes
+    smem.restype = ctypes.c_longlong
+    smem.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    for (form, code), nsub, cols, per in itertools.product(
+            tr.FORMS.items(), [1, 37, 10_256, 60_000], tr.SLICE_WIDTHS, [0, 256, 4096]):
+        assert smem(code, nsub, cols, per) == tr.smem_bytes(form, nsub, cols, per)
 
 
 def _pred_rounding(SC, maps, w0, k, main):

@@ -32,6 +32,14 @@ the CPU (the kernels themselves run on the card: tests/test_torch_cuda.py).
   CTA's shared memory within 227 KB for every k in 1-128, with as many
   warps as it holds, up to 8. (The kernel's own shared memory is held to
   `warp_bytes` on the card, tests/test_torch_cuda.py.)
+- table_read (kernels/table_read.py `read_plan`): a CTA's slice plus its
+  group's ids within 227 KB; the slices cover every column once and the
+  id groups split [0, n_used) with none empty and no overlap; the widest
+  slice that fits is taken, at each width's edge in nsub, and the l2
+  form past the last or where the slices outnumber the SMs; W = 7, 128 and 130, no ids and more reps than
+  rows. A float64 emulation of the kernel's sums under the plan (each
+  group's ids mod nsub, one conditional subtraction a lookup, the carry)
+  against the plain version.
 """
 
 import itertools
@@ -45,6 +53,7 @@ from libfm_tpu_torch.kernels import rel_refresh as rr
 from libfm_tpu_torch.kernels import rel_sweep as rs
 from libfm_tpu_torch.kernels import sgda_lambda as sl
 from libfm_tpu_torch.kernels import sgda_step as sa
+from libfm_tpu_torch.kernels import table_read as tr
 from libfm_tpu_torch.kernels.rel_cache import cache_width
 from libfm_tpu_torch.kernels.slot_update import case_order
 from libfm_tpu_torch.learners.mcmc_rel_vector import MainBlock
@@ -329,3 +338,150 @@ def test_rel_refresh_plan_shared_memory_every_k(k):
         assert 8 * rr.warp_bytes(32, 1, 2, True) == 48_256
     if k == 128:  # 16.5 KB of tile a warp
         assert rr.warp_bytes(128, 1, 2, True) - rr.warp_bytes(128, 1, 2, False) == 16_528
+
+
+# ---------------------------------------------------------------- table_read
+
+READ_WIDTHS = [7, 128, 130]
+
+
+def _read_plan_holds(plan, nsub, W, n_used):
+    """What every plan must hold: its shared memory, the columns and the
+    ids each covered once."""
+    assert plan.smem_bytes == tr.smem_bytes(plan.form, nsub, plan.cols, plan.per_group)
+    assert plan.smem_bytes <= SMEM_CTA
+    cols = [c for s in range(plan.slices) for c in range(s * plan.cols, (s + 1) * plan.cols)
+            if c < W]
+    assert cols == list(range(W)) and (plan.slices - 1) * plan.cols < W
+    assert plan.per_group % 4 == 0 and 1 <= plan.groups <= 65535
+    spans = [(g * plan.per_group, min((g + 1) * plan.per_group, n_used))
+             for g in range(plan.groups)]
+    if n_used == 0:
+        assert (plan.groups, plan.per_group) == (1, 0)
+    else:
+        assert spans[0][0] == 0 and spans[-1][1] == n_used
+        assert all(lo < hi for lo, hi in spans)  # none empty
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))  # no gap, no overlap
+    assert 1 <= plan.rep_split <= min(plan.shape[3], 65_535)
+    if plan.form == "l2":
+        assert plan.cols == tr.L2_COLS and plan.per_group <= tr.L2_IDS
+    else:
+        assert plan.rep_split == 1
+        assert plan.cols in tr.SLICE_WIDTHS and (plan.cols <= W or plan.cols == 1)
+        assert plan.slices * plan.groups <= SMS  # one wave, one CTA an SM
+
+
+def _edge(cols, per):
+    """The most rows a `cols`-column slice holds beside `per` ids."""
+    nsub = 1
+    while tr.smem_bytes("shared", 2 * nsub, cols, per) <= SMEM_CTA:
+        nsub *= 2
+    lo, hi = nsub, 2 * nsub  # fits at lo, not at hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if tr.smem_bytes("shared", mid, cols, per) <= SMEM_CTA else (lo, mid)
+    return lo
+
+
+def test_read_plan_at_the_probes_shape():
+    """P1 / P3: 4-column slices, 32 slices x 4 groups of 4,096 ids."""
+    plan = tr.read_plan(10_256, 128, 16_384, 20)
+    assert (plan.form, plan.cols, plan.slices, plan.groups, plan.per_group) == (
+        "shared", 4, 32, 4, 4096)
+    assert plan.smem_bytes == 16 + 8192 + 10_256 * 16 + 2 * 4096 * 4
+    _read_plan_holds(plan, 10_256, 128, 16_384)
+
+
+@pytest.mark.parametrize("W", READ_WIDTHS)
+@pytest.mark.parametrize("n_used", [0, 1, 4992, 16_384, 1_000_003])
+@pytest.mark.parametrize("nsub", [1, 37, 1000, 10_256, 40_000, 60_000, 200_000])
+def test_read_plan_covers_and_fits(W, n_used, nsub):
+    plan = tr.read_plan(nsub, W, n_used, 20)
+    _read_plan_holds(plan, nsub, W, n_used)
+    if plan.form == "shared":  # no wider slice fits
+        assert plan == tr.shared_plan(nsub, W, n_used, 20, plan.cols)
+        wider = [c for c in tr.SLICE_WIDTHS if c > plan.cols and c <= W]
+        for c in wider:
+            assert tr.shared_plan(nsub, W, n_used, 20, c) is None
+    if nsub > _edge(1, 0):  # past any one-column slice: the l2 form
+        assert plan.form == "l2"
+        assert all(tr.shared_plan(nsub, W, n_used, 20, c) is None for c in tr.SLICE_WIDTHS)
+
+
+@pytest.mark.parametrize("W", READ_WIDTHS)
+@pytest.mark.parametrize("n_used", [0, 16_384])
+def test_read_plan_at_each_widths_edge(W, n_used):
+    """At the most rows a width's slice holds beside its group's ids the
+    plan takes that width; one row more, a narrower one, and past the
+    one-column edge the l2 form."""
+    for cols in tr.SLICE_WIDTHS:
+        per = tr.shared_plan(1, W, n_used, 3, cols).per_group
+        edge = _edge(cols, per)
+        at, past = tr.read_plan(edge, W, n_used, 3), tr.read_plan(edge + 1, W, n_used, 3)
+        _read_plan_holds(at, edge, W, n_used)
+        _read_plan_holds(past, edge + 1, W, n_used)
+        assert (at.form, at.cols) == ("shared", cols)
+        assert past.form == "l2" if cols == 1 else past.cols < cols
+
+
+def test_read_plan_l2_form_on_request_and_narrow_tables():
+    """`l2_plan` gives the l2 form at any shape; a table of 1 or 3 columns
+    takes no slice wider than itself."""
+    plan = tr.l2_plan(10_256, 128, 16_384, 20)
+    assert (plan.form, plan.slices, plan.groups, plan.per_group, plan.rep_split) == (
+        "l2", 1, 16, 1024, 20)
+    _read_plan_holds(plan, 10_256, 128, 16_384)
+    assert tr.read_plan(5, 1, 100, 3).cols == 1 and tr.read_plan(5, 3, 100, 3).cols == 2
+
+
+@pytest.mark.parametrize("nsub,W,form,cols", [
+    (1000, 528, "shared", 4), (1000, 529, "l2", 128), (1000, 600, "l2", 128),
+    (20_000, 264, "shared", 2), (20_000, 265, "l2", 128),
+    (40_000, 132, "shared", 1), (40_000, 133, "l2", 128)])
+def test_read_plan_keeps_the_shared_grid_in_one_wave(nsub, W, form, cols):
+    """The shared form's grid is one cooperative wave of one CTA an SM: a
+    table with more slices than SMs at every width that fits takes the
+    l2 form."""
+    plan = tr.read_plan(nsub, W, 4992, 5)
+    _read_plan_holds(plan, nsub, W, 4992)
+    assert (plan.form, plan.cols) == (form, cols)
+    if form == "shared":
+        assert plan.slices == SMS and plan.groups == 1
+
+
+def _emulate(plan, T, ids, reps, scale):
+    """The kernel's sums under `plan`, in float64: each CTA's slice and
+    id group, a lookup's row id mod nsub + r mod nsub less nsub once."""
+    nsub, W = T.shape
+    n_used = plan.shape[2]
+    acc = np.zeros(W)
+    for r in range(reps):
+        S = np.zeros(W)
+        for g in range(plan.groups):
+            sids = ids[g * plan.per_group:min((g + 1) * plan.per_group, n_used)] % nsub
+            rows = sids + r % nsub
+            rows = np.where(rows >= nsub, rows - nsub, rows)
+            assert (rows >= 0).all() and (rows < nsub).all()
+            for s in range(plan.slices):
+                cols = slice(s * plan.cols, min((s + 1) * plan.cols, W))
+                S[cols] += T[rows, cols].sum(axis=0)
+        acc = scale * acc + S
+    return acc
+
+
+@pytest.mark.parametrize("W", READ_WIDTHS)
+@pytest.mark.parametrize("nsub,n_used,reps,scale", [
+    (1000, 4992, 5, 8.0), (37, 1000, 100, 1.0), (1000, 0, 3, 1.0), (60_000, 5000, 2, 1.0)])
+def test_read_plan_emulated_against_plain(W, nsub, n_used, reps, scale):
+    """More reps than rows (37 rows, 100 reps), no ids, the l2 form
+    (60,000 rows), ids at and above nsub (reduced once, when staged)."""
+    import torch
+
+    rng = np.random.default_rng(W + nsub + reps)
+    T = rng.standard_normal((nsub, W))
+    ids = rng.integers(0, 3 * nsub, n_used + 7).astype(np.int32)
+    plan = tr.read_plan(nsub, W, n_used, reps)
+    assert plan.form == ("l2" if nsub == 60_000 else "shared")
+    want = tr.table_read_plain(torch.as_tensor(T), torch.as_tensor(ids), reps, scale, n_used)
+    np.testing.assert_allclose(_emulate(plan, T, ids, reps, scale), want.numpy(), rtol=1e-12,
+                               atol=1e-9)
