@@ -118,8 +118,11 @@ What it does, in order (any failed phase exits non-zero):
      (the distance from schur_draw_plain's printed), and the form's SD
      (K10's update) against rel_update_plain (SD's and theta's digests
      printed); the update's cost as the 23 launches' time less
-     the same launches as plain schur_draw; rel_resync in write mode
-     (train rows) and read-only (the test tail).
+     the same launches as plain schur_draw; rel_deferred (K10's
+     closed-form sums, float64) at the checked sweep's SD against its
+     plain version (within a float32 ulp; a second call the same bits);
+     rel_resync in write mode (train rows) and read-only (the test tail),
+     both timed, beside the first version's times.
      The yardstick of rel_cache is one torch.bmm of the pre-gathered rows
      [1 | e | Q]. The draw check runs again, with both gates, at the
      state mcmc_bs ends in (phase 4), the same on every run.
@@ -254,6 +257,7 @@ import torch  # noqa: E402
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_FP64_FLOPS = 34e12  # H100 SXM fp64 outside the tensor cores (NVIDIA's data sheet)
 # config #3 (BASELINE.json): MCMC FM, k=64, ML-10M-shaped one-hot data
 USERS, ITEMS, RATINGS, FACTORS, SEED = 71567, 10681, 10_000_000, 64, 1
 ALS_ITERS, MCMC_ITERS = 3, 4  # refresh_every=8: both include a non-refresh step
@@ -389,8 +393,10 @@ EXPECTED = {
     **{name: {"rel_scores", "rel_refresh", "rel_cache", "rel_stats", "schur_draw",
               "rel_update", "rel_resync"} for name in ("als_bs", "mcmc_bs", "mcmc_bs_resync")},
 }
-EXPECTED.update({name: EXPECTED["mcmc_bs"] | {"slot_stats", "slot_update"}
+EXPECTED.update({name: EXPECTED["mcmc_bs_resync"] | {"slot_stats", "slot_update"}
                  for name in ("als_bs_ctx", "mcmc_bs_ctx")})
+# the deferred path's closed-form sums (K10's `_deferred_sums`)
+EXPECTED.update({name: EXPECTED[name] | {"rel_deferred"} for name in ("als_bs", "mcmc_bs")})
 EXPECTED.update({name: EXPECTED["mcmc_bs_ctx"] | {"rel_refresh_probit", "probit_latent"}
                  for name in ("als_bs_c", "mcmc_bs_c")})
 EXPECTED.update({name: {"coord_draw", "fm_refresh"} for name in ("als_exact_3", "exact_3")})
@@ -413,6 +419,9 @@ SLOT_UPDATE_FIRST_MS = {"config #3": 5.776, "bench_bs_ctx": 0.4640}
 #: ... and at bench_bs rel_cache's and the standalone rel_update's (one
 #: iteration's 23 launches), which schur_draw's relational form replaced
 REL_CACHE_FIRST_MS, REL_UPDATE_FIRST_MS = 0.2533, 0.0680
+#: ... and rel_resync's (one warp a case): read-only on the 100K test tail,
+#: write mode on the 1M train rows
+REL_RESYNC_FIRST_MS = {"read-only": 0.0157, "write": 0.1777}
 #: ... and table_read's at probes P1 and P3 (the one-launch L2 form's
 #: predecessor: partials, then a combine launch)
 TABLE_READ_FIRST_MS = {"P1": 0.0797, "P3": 0.0793}
@@ -432,16 +441,16 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return device_ms(fn, reps, warmup)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / PEAK_FP32_FLOPS * 1e3
+    tf = flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def kernel_row(name, replaces, err, tol, ms, plain_ms, nbytes, flops, lib_ms,
-               timed, label="", source=None):
+               timed, label="", source=None, peak_flops=PEAK_FP32_FLOPS):
     """One row of the kernels line: fails when `err` exceeds `tol`."""
-    bms, by = bound_ms(nbytes, flops)
+    bms, by = bound_ms(nbytes, flops, peak_flops)
     print(f"{name}{label}: err={err:.3g} (tol {tol:g}) ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
           f"library_ms={lib_ms}")
@@ -1368,7 +1377,9 @@ def bs_want(iters, nblk, deferred, refresh_every=8, main=0, classify=False):
     rel_stats and schur_draw's relational form (counted as schur_draw and
     as rel_update, K10's update that it does) once a block, and rel_resync once
     (deferred: the read-only test prediction) or twice with rel_cache once
-    (resync path). With a main table of `main` blocks (no tail, no deferred
+    (resync path); on the deferred path rel_deferred once an iteration
+    (alpha's and w0's sums) and again at each iteration without a refresh
+    (the train metric). With a main table of `main` blocks (no tail, no deferred
     path): every iteration also slot_stats, schur_draw and slot_update once
     a main block, rel_scores and rel_refresh (test mode) once, rel_resync
     once; at the set-up and at each refresh rel_refresh once (train). With
@@ -1381,7 +1392,8 @@ def bs_want(iters, nblk, deferred, refresh_every=8, main=0, classify=False):
     want = dict(rel_scores=1 + refresh, rel_refresh=2 * (1 + refresh),
                 rel_stats=iters * nblk, schur_draw=iters * (nblk + main),
                 rel_update=iters * nblk)
-    want.update(dict(rel_cache=1 + refresh, rel_resync=iters) if deferred
+    want.update(dict(rel_cache=1 + refresh, rel_resync=iters,
+                     rel_deferred=iters + (iters - refresh)) if deferred
                 else dict(rel_cache=iters, rel_resync=(1 if main else 2) * iters))
     if main:
         want.update(rel_scores=1 + iters, rel_refresh=1 + iters + refresh,
@@ -1724,15 +1736,30 @@ def bs_kernel_checks(args, rec, dev, bs):
                                      "lambda 5)")
     note_bits("bench_bs sweeps: SD", rec, SD)
     note_bits("bench_bs sweeps: theta", rec, P)
-    # the deferred path's closed-form sums (plain torch, float64: K10's
-    # `_deferred_sums`), timed at this SD; bound: C, SD and wnum read once
-    from libfm_tpu_torch.learners.mcmc_rel_vector import deferred_sums
-
-    rec["deferred_sums"] = dict(
-        ms=cuda_ms(lambda: deferred_sums(C, SD, rel.wnum), args.reps),
-        bound_ms=bound_ms((nb + 1) * (CW + d + 1) * 4, 0)[0])
-    print(f"deferred_sums (plain torch, float64): ms={rec['deferred_sums']['ms']:.4f} "
-          f"bound_ms={rec['deferred_sums']['bound_ms']:.4f} (bytes)")
+    # ---- rel_deferred: the deferred path's closed-form sums (float64) at
+    # this SD, within a float32 ulp of the plain version's; two calls the
+    # same bits. Bound: C, SD and wnum read once, the two sums written;
+    # the float64 operations (each triangle entry's 4, each factor's 6)
+    # at the card's fp64 rate
+    def_k = torch.stack(rs.rel_deferred(C, SD, rel.wnum))
+    def_2 = torch.stack(rs.rel_deferred(C, SD, rel.wnum))
+    def_p = torch.stack(rs.rel_deferred_plain(C, SD, rel.wnum))
+    torch.cuda.synchronize()
+    repeat_check("rel_deferred (sum e, sum e^2), bench_bs", (def_k,), (def_2,), rec)
+    ulp = torch.nextafter(def_p.abs(), torch.full_like(def_p, math.inf)) - def_p.abs()
+    print(f"rel_deferred: kernel {def_k.tolist()}, plain {def_p.tolist()}")
+    entry("rel_deferred", "libfm_tpu/learners/mcmc_rel_vector.py:1053",
+          ((def_k - def_p).abs() / ulp).max().item(), 1.0,
+          cuda_ms(lambda: rs.rel_deferred(C, SD, rel.wnum), args.reps),
+          cuda_ms(lambda: rs.rel_deferred_plain(C, SD, rel.wnum), args.reps),
+          nbytes=(nb + 1) * (CW + d + 1) * 4 + 8, flops=(nb + 1) * (4 * T + 6 * k + 12),
+          lib_ms=None, source="rel_sweep.cu", peak_flops=PEAK_FP64_FLOPS,
+          timed="one launch (deferred path: each iteration, again at each one without a "
+          "refresh)")
+    out[-1]["library_note"] = "none: no one call forms the rows' closed-form sums"
+    out[-1]["tolerance_note"] = ("float32 ulps of the plain version's sums (both float64, "
+                                 "summed in another order)")
+    del def_k, def_2, def_p
 
     def run_stats(fn):
         def go():
@@ -1808,6 +1835,17 @@ def bs_kernel_checks(args, rec, dev, bs):
     e_p = rs.rel_resync_plain(SD, rel.map_te, tail, read_only=True)
     err = max(col_rel_err(A_k, A_p).item(),
               ((e_k - e_p).abs().max() / e_p.abs().max()).item())
+    # both modes' outputs the same bits on a second launch; their digests
+    # (A after write mode, the read-only predictions) are what an A/B
+    # against an earlier commit compares
+    A_2 = A.clone()
+    rs.rel_resync(SD, rel.map_tr, A_2)
+    e_2 = rs.rel_resync(SD, rel.map_te, tail, read_only=True)
+    torch.cuda.synchronize()
+    repeat_check("rel_resync A, bench_bs write mode", (A_k,), (A_2,), rec)
+    repeat_check("rel_resync predictions, bench_bs read-only mode", (e_k,), (e_2,), rec)
+    del A_2, e_2
+    plan = rs.resync_plan(k)
     entry("rel_resync", "libfm_tpu/learners/mcmc_rel_vector.py:1548", err, 1e-5,
           cuda_ms(lambda: rs.rel_resync(SD, rel.map_te, tail, read_only=True), args.reps),
           cuda_ms(lambda: rs.rel_resync_plain(SD, rel.map_te, tail, read_only=True),
@@ -1816,11 +1854,16 @@ def bs_kernel_checks(args, rec, dev, bs):
           source="rel_sweep.cu",
           timed="one read-only launch on the test tail (the deferred path's prediction)")
     out[-1]["library_note"] = "none: no one call gathers, dots and shifts the rows"
+    out[-1]["plan"] = plan._asdict()
     out[-1]["write_mode_ms"] = cuda_ms(lambda: rs.rel_resync(SD, rel.map_tr, A_k),
                                        args.reps)
     out[-1]["write_mode_bound_ms"] = bound_ms(nc * (d * 8 + 4) + (nb + 1) * d * 4, 0)[0]
     print(f"rel_resync write mode, the train rows: ms={out[-1]['write_mode_ms']:.4f} "
-          f"bound_ms={out[-1]['write_mode_bound_ms']:.4f} (bytes)")
+          f"bound_ms={out[-1]['write_mode_bound_ms']:.4f} (bytes); run {plan.run} cases, "
+          f"{plan.smem_bytes} bytes of shared memory; the first version took "
+          f"{REL_RESYNC_FIRST_MS['read-only']} ms read-only, "
+          f"{REL_RESYNC_FIRST_MS['write']} ms in write mode (PERF.md, on an H100 80GB HBM3 "
+          f"at 700 W)")
     del A, A_k, A_p, tail, C, SD, SC, sweep_in
     torch.cuda.empty_cache()
     return out

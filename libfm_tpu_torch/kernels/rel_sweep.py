@@ -1,12 +1,13 @@
-"""rel_stats and rel_resync: the relational (BS) engine's sweep over one
-relation (K10). CUDA source: csrc/rel_sweep.cu.
+"""rel_stats, rel_resync and rel_deferred: the relational (BS) engine's
+sweep over one relation (K10). CUDA source: csrc/rel_sweep.cu.
 
 Replace, in libfm_tpu/learners/mcmc_rel_vector.py `sweep_relation`, the
 per-block `block_step` (its `corrected` caches, `mom_chunk` moments and
-the reconstruction of GG), and `resync_chunk`, `resync_te` and the
-deferred path's `_te_chunk`. Its `upd_chunk`, the draw's shift into SD
-(`rel_update_plain` here), runs inside `schur_draw`'s relational form
-(kernels/schur_draw.py `schur_draw_rel`).
+the reconstruction of GG), `resync_chunk`, `resync_te` and the deferred
+path's `_te_chunk`, and the deferred path's `_deferred_sums`. Its
+`upd_chunk`, the draw's shift into SD (`rel_update_plain` here), runs
+inside `schur_draw`'s relational form (kernels/schur_draw.py
+`schur_draw_rel`).
 
 During a sweep the per-case state moves only through per-block-row
 quantities SD [nb+1, k+1] = [s | dQB]: case c joined to row b has
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,7 +46,11 @@ STATS = Kernel(
 )
 RESYNC = Kernel(
     "rel_resync", "rel_resync_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int],
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3,
+)
+DEFERRED = Kernel(
+    "rel_deferred", "rel_deferred_launch",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3,
 )
 
 
@@ -69,6 +75,41 @@ def stats_batch(k: int) -> int:
 
 def _round4(n: int) -> int:
     return (n + 3) & ~3
+
+
+#: the bytes of A's rows one run of rel_resync stages, two runs in flight
+#: (8.5 KB: 64 cases at k = 32, which beat runs of 32, 48, 96 and 124 in
+#: write mode at bench_bs's shapes, studies/rel_resync_ab.py)
+RUN_BYTES = 8704
+#: the most cases of a run (csrc: kMaxRun, one map entry a thread)
+MAX_RUN = 256
+
+
+class ResyncPlan(NamedTuple):
+    """rel_resync's launch at k factors: `run` consecutive cases a CTA
+    stages at once (a multiple of 4, so that a run's span of A keeps A's
+    offset within 16 bytes), and the dynamic shared memory of two
+    buffers, each the run's rows (with room for that offset), its map
+    entries and its e."""
+
+    run: int
+    smem_bytes: int
+
+
+def resync_smem(run: int, k: int) -> int:
+    """Bytes of rel_resync's two buffers at `run` cases a run (csrc:
+    resync_buffer): each the run's rows with 3 floats of room, its map
+    entries and its e."""
+    return 2 * 4 * (_round4(run * (k + 1) + 3) + 2 * run)
+
+
+def resync_plan(k: int) -> ResyncPlan:
+    """The run is as many cases as RUN_BYTES of rows hold, in fours, 4 to
+    MAX_RUN: 64 at bench_bs's k = 32."""
+    if not 1 <= k <= 128:
+        raise ValueError(f"k={k}: rel_resync takes 1 <= k <= 128")
+    run = max(4, min(MAX_RUN, RUN_BYTES // (4 * (k + 1)) // 4 * 4))
+    return ResyncPlan(run, resync_smem(run, k))
 
 
 @lru_cache(maxsize=None)
@@ -195,6 +236,67 @@ def rel_update_plain(SD, entry_b, entry_x, entry_f, theta_old, theta_new):
     return SD
 
 
+@lru_cache(maxsize=None)
+def _tri_pairs(k: int, device) -> tuple:
+    """(iu0, iu1, twice) of the packed upper triangle on `device`, made
+    once: twice is 1.0 on the diagonal, 2.0 off it (float64)."""
+    iu0, iu1 = triu(k, device)
+    return iu0, iu1, torch.where(iu0 == iu1, 1.0, 2.0).to(torch.float64)
+
+
+def rel_deferred_plain(C, SD, wnum):
+    """The plain PyTorch version (float64 per block row, then the rows'
+    sums); same contract as `rel_deferred`."""
+    C, SD, wnum = C.double(), SD.double(), wnum.double()
+    k = SD.shape[1] - 1
+    iu0, iu1, twice = _tri_pairs(k, C.device)
+    we0, we2_0 = C[:, 0], C[:, 1]
+    SQ0, SQe0, SQQ0 = C[:, 2:2 + k], C[:, 2 + k:2 + 2 * k], C[:, 2 + 2 * k:]
+    s, dq = SD[:, 0], SD[:, 1:]
+    dqSQ = (dq * SQ0).sum(-1)
+    sum_e = we0 + wnum * s + dqSQ
+    dqSQQdq = (SQQ0 * twice * dq[:, iu0] * dq[:, iu1]).sum(-1)
+    sum_e2 = (we2_0 + 2.0 * s * we0 + 2.0 * (dq * SQe0).sum(-1)
+              + wnum * s * s + 2.0 * s * dqSQ + dqSQQdq)
+    return sum_e.sum().float(), sum_e2.sum().float()
+
+
+#: rel_deferred's scratch a device: (float64 partials, the ticket)
+_deferred_scratch: dict = {}
+
+
+def rel_deferred(C, SD, wnum):
+    """Closed-form (sum e, sum e^2) over the train cases from one
+    relation's frozen caches C [nb+1, cache_width(k)] and its accumulated
+    SD [nb+1, k+1] = [s | dQB], wnum float32 [nb+1]: per block row b every
+    case has e = e0 + s_b + dQB_b . Q0, so
+      sum_b e   = we0 + wnum s + dQB . SQ0,
+      sum_b e^2 = we2_0 + 2 s we0 + 2 dQB . SQe0 + wnum s^2
+                  + 2 s (dQB . SQ0) + dQB^T SQQ0 dQB
+    over every row, the pad row too (the JAX engine's `_deferred_sums`;
+    exact for one relation). The terms cancel (the sum of e^2 is ~1e-3 of
+    its terms' magnitude on small problems), so they are summed in
+    float64; returns float32 0-dim tensors. On the card one launch, no
+    host copy, the same bits every call."""
+    if not on_cuda(C, SD, wnum):
+        return rel_deferred_plain(C, SD, wnum)
+    nb1, d = SD.shape
+    k = d - 1
+    check(C, "C", torch.float32, (nb1, cache_width(k)))
+    check(SD, "SD", torch.float32, (nb1, d))
+    check(wnum, "wnum", torch.float32, (nb1,))
+    most = max(1, -(-nb1 // 8))  # csrc: a warp a row, 8 a CTA
+    partial, ticket = _deferred_scratch.get(C.device, (None, None))
+    if partial is None or partial.numel() < 2 * most:
+        partial = torch.empty(2 * most, dtype=torch.float64, device=C.device)
+        ticket = torch.zeros(1, dtype=torch.int32, device=C.device)
+        _deferred_scratch[C.device] = partial, ticket
+    out = torch.empty(2, dtype=torch.float32, device=C.device)
+    DEFERRED.launch(ptr(C), ptr(SD), ptr(wnum), ptr(partial), ptr(ticket), ptr(out), nb1, k,
+                    partial.numel() // 2)
+    return out[0], out[1]
+
+
 def rel_resync_plain(SD, row_map, A, read_only=False):
     """The plain PyTorch version; same contract as `rel_resync`."""
     sd = SD[row_map.long()]
@@ -211,7 +313,8 @@ def rel_resync(SD, row_map, A, read_only=False):
     [e | Q] through their block rows row_map int32 [nc]: e += s + dQB . Q
     (with the Q before the update), then Q += dQB, in place. With
     `read_only`, A is left as it is and e + s + dQB . Q [nc] is
-    returned (the deferred path's test prediction from the frozen tail)."""
+    returned (the deferred path's test prediction from the frozen tail).
+    On the card under `resync_plan(k)`."""
     if not on_cuda(SD, row_map, A):
         return rel_resync_plain(SD, row_map, A, read_only)
     nc, d = A.shape
@@ -220,5 +323,13 @@ def rel_resync(SD, row_map, A, read_only=False):
     check(A, "A", torch.float32)
     out = torch.empty(nc, dtype=torch.float32, device=A.device) if read_only else None
     if nc:
-        RESYNC.launch(ptr(SD), ptr(row_map), ptr(A), ptr(out), nc, d - 1)
+        launch_resync(SD, row_map, A, out, resync_plan(d - 1))
     return out
+
+
+def launch_resync(SD, row_map, A, out, plan: ResyncPlan) -> None:
+    """One rel_resync launch under `plan` (out None: write mode), on
+    tensors `rel_resync` has checked; studies and tests time and hold
+    other runs through it."""
+    RESYNC.launch(ptr(SD), ptr(row_map), ptr(A), ptr(out), A.shape[0], A.shape[1] - 1,
+                  plan.run, plan.smem_bytes)

@@ -44,7 +44,7 @@ refreshes too, from pred = e + latent (probit_latent).
 The deferred path (one relation, regression, no main table, the JAX
 engine's gate) keeps C and SD across iterations: alpha, w0 and the train
 metric between refreshes come from closed-form block-row sums
-(`deferred_sums`), and the test prediction is the frozen tail plus SD
+(`rel_deferred`), and the test prediction is the frozen tail plus SD
 (`rel_resync`'s read-only mode). On CPU tensors each kernel wrapper runs
 its plain PyTorch version.
 
@@ -60,13 +60,12 @@ import torch
 
 from libfm_tpu_torch.data.batching import conflict_free_blocks, feature_slots
 from libfm_tpu_torch.data.dataset import Dataset
-from libfm_tpu_torch.kernels.case_stats import triu
 from libfm_tpu_torch.kernels.dense_update import update_table
 from libfm_tpu_torch.kernels.pieces import Pieces
 from libfm_tpu_torch.kernels.probit_latent import probit_latent
 from libfm_tpu_torch.kernels.rel_cache import case_lists, rel_cache
 from libfm_tpu_torch.kernels.rel_refresh import rel_refresh, rel_scores
-from libfm_tpu_torch.kernels.rel_sweep import rel_resync, rel_stats
+from libfm_tpu_torch.kernels.rel_sweep import rel_deferred, rel_resync, rel_stats
 from libfm_tpu_torch.kernels.schur_draw import schur_draw, schur_draw_rel
 from libfm_tpu_torch.kernels.slot_stats import gg_width, slot_stats
 from libfm_tpu_torch.kernels.slot_update import case_order, slot_update
@@ -208,32 +207,6 @@ class DevRel:
         self.map_te = t(lay.row_map_test)
         self.case_off = t(lay.case_off)
         self.case_ids = t(lay.case_ids)
-
-
-def deferred_sums(C, SD, wnum):
-    """Closed-form (sum e, sum e^2) over the train cases from one
-    relation's frozen caches C and its accumulated SD: per block row b
-    every case has e = e0 + s_b + dQB_b . Q0, so
-      sum_b e   = we0 + wnum s + dQB . SQ0,
-      sum_b e^2 = we2_0 + 2 s we0 + 2 dQB . SQe0 + wnum s^2
-                  + 2 s (dQB . SQ0) + dQB^T SQQ0 dQB
-    (the JAX engine's `_deferred_sums`; exact for one relation). The terms
-    cancel (the sum of e^2 is ~1e-3 of its terms' magnitude on small
-    problems), so they are summed in float64; returns float32 0-dim
-    tensors."""
-    C, SD, wnum = C.double(), SD.double(), wnum.double()
-    k = SD.shape[1] - 1
-    iu0, iu1 = triu(k, C.device)
-    we0, we2_0 = C[:, 0], C[:, 1]
-    SQ0, SQe0, SQQ0 = C[:, 2:2 + k], C[:, 2 + k:2 + 2 * k], C[:, 2 + 2 * k:]
-    s, dq = SD[:, 0], SD[:, 1:]
-    dqSQ = (dq * SQ0).sum(-1)
-    sum_e = we0 + wnum * s + dqSQ
-    twice = torch.where(iu0 == iu1, 1.0, 2.0).to(C.dtype)
-    dqSQQdq = (SQQ0 * twice * dq[:, iu0] * dq[:, iu1]).sum(-1)
-    sum_e2 = (we2_0 + 2.0 * s * we0 + 2.0 * (dq * SQe0).sum(-1)
-              + wnum * s * s + 2.0 * s * dqSQ + dqSQQdq)
-    return sum_e.sum().float(), sum_e2.sum().float()
 
 
 def check_relational(learner, train, test) -> None:
@@ -438,7 +411,7 @@ def learn_relational_vector(learner, train, test):
 
     def draw_all():
         if deferred:
-            sum_e, sum_e2 = deferred_sums(relc, SD_def, rels[0].wnum)
+            sum_e, sum_e2 = rel_deferred(relc, SD_def, rels[0].wnum)
             alpha, rej = draw_alpha_from_sum(gen, sum_e2, nc_train, st["alpha"],
                                              learner.alpha_0, learner.gamma_0,
                                              do_multilevel, do_sample)
@@ -507,7 +480,7 @@ def learn_relational_vector(learner, train, test):
             # the closed-form e^2 sum, without the target clamp (the
             # refresh iterations report the clamped metric), as the JAX
             # engine reports it
-            _, sum_e2 = deferred_sums(relc, SD_def, rels[0].wnum)
+            _, sum_e2 = rel_deferred(relc, SD_def, rels[0].wnum)
             train_metric = torch.sqrt(sum_e2.clamp_min(0.0) / max(nc_train, 1))
         else:
             err = (A[:, 0] + y_train).clamp(min_t, max_t) - y_train

@@ -30,7 +30,11 @@ the test tail on the card against the CPU, with exact launches.
 rel_cache's wide form at k 3-128 over rows of 0, 1 and several hundred
 cases; schur_draw's relational form (K10's update folded in) at k 1-128,
 with and without the linear term, every draw rejected or none, and with
-a feature on every block row.
+a feature on every block row. rel_deferred (K10's closed-form sums) at
+k 1, 32 and 128 over 0 to 4,000 block rows, within one float32 ulp of
+its plain version, one launch a call, the same bits twice; rel_resync
+in both modes at k 1-128 on a case count off its run and on A at each
+offset within 16 bytes, and the same bits under runs of 4 to 256 cases.
 rel_refresh with main rows beside two relations (k 8-128, L 1 and 3, rows
 with no main entry, train, tail and test modes) and its
 probit mode (sampling and expectations); rel_refresh's tiles at 1, 31,
@@ -2052,6 +2056,109 @@ def test_rel_update_and_resync_kernels_match_plain(cuda, k, use_linear, rejected
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("k", [1, 32, 128])
+@pytest.mark.parametrize("nb", [0, 64, 4000])
+def test_rel_deferred_kernel_matches_plain(cuda, k, nb):
+    """rel_deferred's two float32 sums within one ulp of the plain
+    version's (float64 sums in another order) over nb block rows and the
+    pad row, from one CTA to a grid of many (4,000 rows: ~500 CTAs and
+    the last one's sum of their partials); one launch a call; a second
+    call the same bits."""
+    from libfm_tpu_torch.kernels import rel_sweep as rs
+    from libfm_tpu_torch.kernels.rel_cache import cache_width
+
+    rng = np.random.default_rng(k + nb)
+    C = torch.as_tensor(rng.normal(0, 1, (nb + 1, cache_width(k))), dtype=torch.float32,
+                        device=cuda)
+    SD = torch.as_tensor(rng.normal(0, 0.3, (nb + 1, k + 1)), dtype=torch.float32,
+                         device=cuda)
+    SD[nb] = 0.0
+    wnum = torch.as_tensor(rng.integers(0, 500, nb + 1), dtype=torch.float32, device=cuda)
+    kernels.reset_launch_counts()
+    got = torch.stack(rs.rel_deferred(C, SD, wnum))
+    assert kernels.launch_counts()["rel_deferred"] == 1
+    again = torch.stack(rs.rel_deferred(C, SD, wnum))
+    want = torch.stack(rs.rel_deferred_plain(C, SD, wnum))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ulp = (torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs())
+    assert ((got - want).abs() <= ulp).all(), (got, want)
+
+
+@pytest.mark.parametrize("k", [1, 16, 32, 128])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_rel_resync_kernel_both_modes_match_plain(cuda, k, offset):
+    """rel_resync on nc cases not a multiple of the plan's run, on A's rows
+    from row `offset` of a larger tensor (A 4 (k+1) offset bytes past a
+    16-byte boundary): write mode's Q + dQB equal to torch's float32 add
+    bit for bit, its e within 1e-5 of the plain version's (another order
+    of the dot product) and within 2e-6 of float64; read-only mode returns
+    write mode's e bit for bit and leaves A as it was; a second launch
+    gives the same bits."""
+    from libfm_tpu_torch.kernels import rel_sweep as rs
+
+    _, A_all, lay, rel, _, SD = _rel_state(cuda, k, seed=5, nc=3000 + 4)
+    run = rs.resync_plan(k).run
+    nc = 3000 - 3
+    assert nc % run
+    A_all_before = A_all.clone()
+    A = A_all[offset:offset + nc]
+    rmap = rel.map_tr[:nc].contiguous()
+    A_before = A.clone()
+    e = rs.rel_resync(SD, rmap, A, read_only=True)
+    e_2 = rs.rel_resync(SD, rmap, A, read_only=True)
+    torch.cuda.synchronize()
+    assert torch.equal(A, A_before) and torch.equal(e, e_2)
+    e_p = rs.rel_resync_plain(SD, rmap, A_before, read_only=True)
+    sd = SD[rmap.long()]
+    e_64 = (A_before[:, 0].double() + sd[:, 0].double()
+            + (sd[:, 1:].double() * A_before[:, 1:].double()).sum(-1))
+    mag = (A_before[:, 0].abs().double() + sd[:, 0].abs().double()
+           + (sd[:, 1:].abs().double() * A_before[:, 1:].abs().double()).sum(-1))
+    assert (e - e_p).abs().max() <= 1e-5 * e_p.abs().max()
+    assert ((e.double() - e_64).abs() <= 2e-6 * mag).all()
+    A_p = A_before.clone()
+    rs.rel_resync_plain(SD, rmap, A_p)
+    rs.rel_resync(SD, rmap, A)
+    A_2 = A_before.clone()
+    rs.rel_resync(SD, rmap, A_2)
+    torch.cuda.synchronize()
+    assert torch.equal(A, A_2)
+    assert torch.equal(A[:, 0], e)
+    assert torch.equal(A[:, 1:], A_before[:, 1:] + sd[:, 1:])
+    assert _col_rel_err(A, A_p) < 1e-5
+    # the rows around A's are untouched
+    assert torch.equal(A_all[:offset], A_all_before[:offset])
+    assert torch.equal(A_all[offset + nc:], A_all_before[offset + nc:])
+
+
+@pytest.mark.parametrize("k", [1, 32, 128])
+def test_rel_resync_kernel_bits_do_not_depend_on_the_run(cuda, k):
+    """Both modes under runs of 4, 12, 60 and 256 cases (one run and many
+    a CTA) give the default plan's bits; a run whose two buffers the
+    card's shared memory cannot hold (256 cases at k = 128: 268,320
+    bytes) is refused at launch."""
+    from libfm_tpu_torch.kernels import rel_sweep as rs
+
+    _, A, _, rel, _, SD = _rel_state(cuda, k, seed=6)
+    want_A = A.clone()
+    rs.rel_resync(SD, rel.map_tr, want_A)
+    want_e = rs.rel_resync(SD, rel.map_tr, A, read_only=True)
+    most = 232_448  # the shared memory a CTA of an H100 can take
+    for run in (4, 12, 60, 256):
+        plan = rs.ResyncPlan(run, rs.resync_smem(run, k))
+        got_A, got_e = A.clone(), torch.empty_like(want_e)
+        if plan.smem_bytes > most:
+            with pytest.raises(RuntimeError, match="failed to launch"):
+                rs.launch_resync(SD, rel.map_tr, got_A, None, plan)
+            assert k == 128 and run == 256
+            continue
+        rs.launch_resync(SD, rel.map_tr, got_A, None, plan)
+        rs.launch_resync(SD, rel.map_tr, A, got_e, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got_A, want_A) and torch.equal(got_e, want_e), run
+
+
 @pytest.mark.parametrize("deferred", [True, False])
 def test_bs_als_on_cuda_follows_the_cpu_trajectory(cuda, deferred):
     """The BS vector engine's ALS on the card against the CPU (plain
@@ -2089,8 +2196,8 @@ def test_bs_als_on_cuda_follows_the_cpu_trajectory(cuda, deferred):
     refresh = len(dispatch_chunks(0, 5, lr.refresh_every))
     want = dict(rel_scores=1 + refresh, rel_refresh=2 + 2 * refresh, rel_stats=5 * nblk,
                 schur_draw=5 * nblk, rel_update=5 * nblk)
-    want.update(dict(rel_cache=1 + refresh, rel_resync=5) if deferred
-                else dict(rel_cache=5, rel_resync=10))
+    want.update(dict(rel_cache=1 + refresh, rel_resync=5, rel_deferred=5 + 5 - refresh)
+                if deferred else dict(rel_cache=5, rel_resync=10))
     assert counts == want
     for hc, hg in zip(hist["cpu"], hist["cuda"]):
         assert abs(hc["test_this"] - hg["test_this"]) < 1e-4

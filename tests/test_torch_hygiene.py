@@ -119,8 +119,8 @@ def test_importing_kernels_builds_nothing():
                         "schur_draw", "dual_draw", "dense_update", "probit_latent",
                         "sgd_step", "table_scatter", "table_read", "sgda_step",
                         "sgda_lambda", "rel_scores", "rel_refresh", "rel_refresh_probit",
-                        "rel_cache", "rel_stats", "rel_update", "rel_resync", "slot_update",
-                        "coord_draw", "rel_coord_draw"}
+                        "rel_cache", "rel_stats", "rel_update", "rel_resync", "rel_deferred",
+                        "slot_update", "coord_draw", "rel_coord_draw"}
     assert kernels._lib is None
     assert sorted(p.name for p in kernels.CSRC_DIR.glob("*.cu")) == [
         "case_stats.cu", "coord_draw.cu", "dense_update.cu", "dual_draw.cu", "fm_refresh.cu",
@@ -230,6 +230,7 @@ def _cpu_calls():
                                                 SD.clone(), torch.tensor([0, 1, 2]), eb,
                                                 torch.ones(2), do_sample=False, bound=1e6),
         "rel_resync": lambda: rs.rel_resync(SD, rmap, torch.ones(5, k + 1), read_only=True),
+        "rel_deferred": lambda: torch.stack(rs.rel_deferred(C, SD, torch.ones(5))),
         "fm_refresh": lambda: fr.fm_refresh(P, ids, vals, w0, torch.ones(nc), A),
         "fm_refresh_probit": lambda: fr.fm_refresh(
             P, ids, vals, w0, torch.ones(nc), A, probit="sample",
@@ -269,8 +270,8 @@ def _cpu_calls():
                                   "table_read", "sgda_step", "sgda_lambda", "rel_scores",
                                   "rel_refresh", "rel_refresh_main", "rel_refresh_test",
                                   "rel_refresh_probit", "rel_cache", "rel_stats",
-                                  "rel_update", "rel_resync", "slot_update", "coord_draw",
-                                  "rel_coord_draw"])
+                                  "rel_update", "rel_resync", "rel_deferred", "slot_update",
+                                  "coord_draw", "rel_coord_draw"])
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(name):
     kernels.import_all()
     before = kernels.launch_counts()

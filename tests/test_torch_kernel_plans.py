@@ -40,6 +40,12 @@ the CPU (the kernels themselves run on the card: tests/test_torch_cuda.py).
   rows. A float64 emulation of the kernel's sums under the plan (each
   group's ids mod nsub, one conditional subtraction a lookup, the carry)
   against the plain version.
+- rel_resync (kernels/rel_sweep.py `resync_plan`): a run a multiple of 4
+  cases, 4 to MAX_RUN, as many as RUN_BYTES of rows hold, for every k in
+  1-128 (k = 0 and 129 refused); two buffers within 227 KB; the runs of
+  a one-wave grid cover the cases once; a run's copy (4-byte pieces at
+  its ends, 16-byte ones between, aligned in A and in shared memory)
+  covers its span once at each offset of A within 16 bytes.
 """
 
 import itertools
@@ -485,3 +491,77 @@ def test_read_plan_emulated_against_plain(W, nsub, n_used, reps, scale):
     want = tr.table_read_plain(torch.as_tensor(T), torch.as_tensor(ids), reps, scale, n_used)
     np.testing.assert_allclose(_emulate(plan, T, ids, reps, scale), want.numpy(), rtol=1e-12,
                                atol=1e-9)
+
+
+# ---------------------------------------------------------------- rel_resync
+
+
+@pytest.mark.parametrize("k", range(1, 129))
+def test_resync_plan_every_k(k):
+    """A run of 4n cases, 4 to MAX_RUN, the most RUN_BYTES of rows hold;
+    each buffer holds the span at any offset of A within 16 bytes, the
+    map entries and e; two within a CTA's shared memory (and within the
+    48 KB a launch takes without asking)."""
+    plan, d = rs.resync_plan(k), k + 1
+    run = plan.run
+    assert run % 4 == 0 and 4 <= run <= rs.MAX_RUN and run * d * 4 % 16 == 0
+    assert run * d * 4 <= rs.RUN_BYTES
+    assert run == rs.MAX_RUN or (run + 4) * d * 4 > rs.RUN_BYTES
+    span = _round4(run * d + 3)
+    assert all(mis + run * d <= span for mis in range(4))
+    assert plan.smem_bytes == rs.resync_smem(run, k) == 2 * 4 * (span + 2 * run)
+    assert plan.smem_bytes <= min(SMEM_CTA, SMEM_STATIC)
+    if k == 32:  # bench_bs: 64 cases, 8,448 bytes of rows a run
+        assert run == 64 and plan.smem_bytes == 2 * 4 * (2116 + 128)
+
+
+@pytest.mark.parametrize("k", [0, 129])
+def test_resync_plan_refuses_k_outside_1_to_128(k):
+    with pytest.raises(ValueError, match="1 <= k <= 128"):
+        rs.resync_plan(k)
+
+
+@pytest.mark.parametrize("nc", [1, 3, 123, 124, 125, 100_000, 1_000_000])
+@pytest.mark.parametrize("grid", [1, 7, 792])
+def test_resync_runs_cover_the_cases_once(nc, grid):
+    """The kernel's loop (CTA b takes runs b, b + grid, ...; a run the
+    cases [r run, min((r + 1) run, nc))): every case once, every run
+    non-empty and starting on a multiple of 4 cases."""
+    run = rs.resync_plan(32).run
+    nruns = -(-nc // run)
+    seen = np.zeros(nc, np.int64)
+    for b in range(min(grid, nruns)):
+        for r in range(b, nruns, grid):
+            c0, c1 = r * run, min((r + 1) * run, nc)
+            assert c0 < c1 and c0 % 4 == 0
+            seen[c0:c1] += 1
+    assert (seen == 1).all()
+
+
+def _copy_pieces(mis, nf):
+    """The pieces a run's copy moves (csrc: rel_resync_kernel's `issue`
+    and its store), as (first float, floats): A's span starts `mis`
+    floats past a 16-byte boundary, and so does its copy."""
+    head = min((4 - mis) & 3, nf)
+    nbody = (nf - head) >> 2
+    tail = head + 4 * nbody
+    return ([(j, 1) for j in range(head)] + [(head + 4 * c, 4) for c in range(nbody)]
+            + [(tail + j, 1) for j in range(nf - tail)])
+
+
+@pytest.mark.parametrize("k", [1, 16, 32, 33, 128])
+def test_resync_copy_covers_each_span_once(k):
+    """At each offset of A within 16 bytes and for every run length up to
+    the plan's: the pieces cover the span once, each 16-byte piece aligned
+    in A and in shared memory, all within the buffer's span area."""
+    plan, d = rs.resync_plan(k), k + 1
+    span = _round4(plan.run * d + 3)
+    for mis in range(4):
+        for n in range(1, plan.run + 1):
+            covered = np.zeros(n * d, np.int64)
+            for at, size in _copy_pieces(mis, n * d):
+                covered[at:at + size] += 1
+                if size == 4:
+                    assert (mis + at) % 4 == 0
+                assert mis + at + size <= span
+            assert (covered == 1).all()

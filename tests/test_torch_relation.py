@@ -12,8 +12,10 @@ and plain kernel versions, against the JAX package, on the CPU.
   `rel_cache_plain` then `rel_stats_plain` at a non-zero SD equals
   `slot_stats_plain` over the expanded cases (float64, 1e-9 of each
   part's largest value), also for a feature on every block row; `rel_update_plain` then `rel_resync_plain`
-  equals `dense_update_plain` on the expanded cases; `deferred_sums`
-  equals the sums over the resynced residuals;
+  equals `dense_update_plain` on the expanded cases; `rel_deferred_plain`
+  equals the sums over the resynced residuals, and a per-row float64
+  numpy loop of its formulas at k = 1, 3, 32 and 128 (the pad row
+  summed too);
 - BS classification and main-table features beside relations run on the
   BS engine (tests/test_torch_bs_main.py and
   tests/test_torch_bs_classification.py hold them to JAX), bs_vector off
@@ -39,6 +41,7 @@ from libfm_tpu_torch.kernels.fm_refresh import fm_refresh_plain
 from libfm_tpu_torch.kernels.rel_cache import case_lists, rel_cache_plain
 from libfm_tpu_torch.kernels.rel_refresh import rel_refresh_plain, rel_scores_plain
 from libfm_tpu_torch.kernels.rel_sweep import (
+    rel_deferred_plain,
     rel_resync_plain,
     rel_stats_plain,
     rel_update_plain,
@@ -319,9 +322,48 @@ def test_rel_update_and_resync_plain_equal_dense_update_on_expansion(name, k):
 
 def test_deferred_sums_equal_the_resynced_sums():
     _, _, _, lay, C, SD, _, A = _sweep_state("single", 3, seed=6)
-    s, s2 = trel.deferred_sums(C, SD, torch.as_tensor(lay.wnum))
+    s, s2 = rel_deferred_plain(C, SD, torch.as_tensor(lay.wnum))
     np.testing.assert_allclose(float(s), float(A[:, 0].sum()), rtol=1e-6)
     np.testing.assert_allclose(float(s2), float((A[:, 0] ** 2).sum()), rtol=1e-6)
+
+
+def _deferred_loop(C, SD, wnum, k):
+    """(sum e, sum e^2) by a loop over the rows of C (the pad row too),
+    each row's terms in float64 from its caches, SQQ0 unpacked into the
+    full symmetric matrix."""
+    iu0, iu1 = np.triu_indices(k)
+    se = se2 = 0.0
+    for c, sd, wn in zip(C.astype(np.float64), SD.astype(np.float64),
+                         wnum.astype(np.float64)):
+        we0, we2_0 = c[0], c[1]
+        SQ0, SQe0 = c[2:2 + k], c[2 + k:2 + 2 * k]
+        M = np.zeros((k, k))
+        M[iu0, iu1] = c[2 + 2 * k:]
+        M[iu1, iu0] = c[2 + 2 * k:]
+        s, dq = sd[0], sd[1:]
+        se += we0 + wn * s + dq @ SQ0
+        se2 += (we2_0 + 2 * s * we0 + 2 * dq @ SQe0 + wn * s * s + 2 * s * (dq @ SQ0)
+                + dq @ M @ dq)
+    return se, se2
+
+
+@pytest.mark.parametrize("k", [1, 3, 32, 128])
+@pytest.mark.parametrize("nb", [1, 6])
+def test_rel_deferred_plain_equals_a_row_loop(k, nb):
+    """rel_deferred_plain against the formulas row by row in float64, on
+    float32 caches of nb block rows plus the pad row (its SD zero, its
+    caches not): within 1e-6 of the sums' magnitudes, float32 results."""
+    rng = np.random.default_rng(k + nb)
+    C = rng.normal(0, 1, (nb + 1, 2 + 2 * k + k * (k + 1) // 2)).astype(np.float32)
+    SD = rng.normal(0, 0.3, (nb + 1, k + 1)).astype(np.float32)
+    SD[nb] = 0.0
+    wnum = rng.integers(0, 40, nb + 1).astype(np.float32)
+    s, s2 = rel_deferred_plain(*(torch.as_tensor(a) for a in (C, SD, wnum)))
+    assert s.dtype == s2.dtype == torch.float32 and s.dim() == s2.dim() == 0
+    want, want2 = _deferred_loop(C, SD, wnum, k)
+    mag, mag2 = _deferred_loop(np.abs(C), np.abs(SD), wnum, k)
+    assert abs(float(s) - want) <= 1e-6 * mag
+    assert abs(float(s2) - want2) <= 1e-6 * mag2
 
 
 # ---- what the slice does not take
