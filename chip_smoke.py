@@ -86,7 +86,10 @@ What it does, in order (any failed phase exits non-zero):
      in float64 entry by entry over the entry's sum of magnitudes),
      fm_refresh's probit train mode (latents drawn from
      given uniforms, and as expectations) and probit_latent, each against
-     its plain version on the same uniforms;
+     its plain version on the same uniforms (probit_latent's correct count
+     and its two residual sums, which the next alpha and w0 draws take, a
+     second launch the same bits, the digest printed; its bound also at
+     A's sectors);
    - config #5 (bench.py:337-389, bench_largevocab: MCMC probit
      classification, k=128, ctr_like(26, 40000, 3M, seed=1), the 26
      fields as groups): dual_draw on the dual features of the 26 blocks
@@ -104,7 +107,10 @@ What it does, in order (any failed phase exits non-zero):
      test cases joined to 4,000 block rows of 16 gaussian entries over
      20,000 features, k=32, rebuilt with numpy from default_rng(7); its
      block count and shapes, observed and unobserved features and route
-     printed): rel_scores, rel_refresh (train and tail modes; a second
+     printed): rel_scores (a second launch the same bits, SC's digest
+     printed; and over two relations stacked in one launch, bench_bs's and
+     its first half of block rows, every row the one-relation call's bits
+     and the sentinels 0), rel_refresh (train and tail modes; a second
      train-mode launch the same bits, the digests of A and the tail
      printed) and rel_cache from a seeded P (a second launch the same
      bits, C's digest printed); one sweep of the 23 blocks to make SD
@@ -211,7 +217,8 @@ What it does, in order (any failed phase exits non-zero):
 `--sgda` runs only SGDA's kernel checks (phase 3's SGDA part) and its two
 paths (phase 4's sgda_1 and sgda_4b, traced under `--profile`).
 `--config4` runs only config #4's kernel checks and its MCMC path twice
-at one seed (the same bits).
+at one seed (the same bits); with `--profile`, its traced probit runs
+print their kernel launches at each iteration without a refresh.
 
 `--quality` runs none of that but MCMCVectorLearner to bench.py's 24
 iterations (`_cycle_iters` with refresh_every 8) at configs #3, #4 and #5
@@ -247,6 +254,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 T_START = time.perf_counter()
 # one card, set before CUDA starts: torch.cuda.device_count() is then 1
@@ -1139,27 +1147,35 @@ def ctr_kernel_checks(args, rec, dev, ctr):
     row["library_ms_none_because"] = "no one PyTorch call computes the gathered FM forward"
     out.append(row)
 
-    # ---- probit_latent on the refreshed A: sampling and expectation
+    # ---- probit_latent on the refreshed A: sampling and expectation; its
+    # correct count and residual sums (the next alpha and w0 draws' inputs)
+    # against the plain version's, the sums over the sum of magnitudes
     lat0 = lat_k
     cases = {}
     for mode, u in (("sample", U), ("mean", None)):
-        A_k, A_p = A.clone(), A.clone()
-        l_k, l_p = lat0.clone(), lat0.clone()
-        c_k = pl.probit_latent(A_k, l_k, y, u)
-        c_p = pl.probit_latent_plain(A_p, l_p, y, u)
+        A_k, A_p, A_2 = A.clone(), A.clone(), A.clone()
+        l_k, l_p, l_2 = lat0.clone(), lat0.clone(), lat0.clone()
+        out_k = pl.probit_latent(A_k, l_k, y, u)
+        c_p, se_p, se2_p = pl.probit_latent_plain(A_p, l_p, y, u)
+        out_2 = pl.probit_latent(A_2, l_2, y, u)
         torch.cuda.synchronize()
+        repeat_check(f"probit_latent count and sums, config #4 ({mode})", out_k, out_2, rec)
+        c_k, se_k, se2_k = out_k
+        sums_err = max(abs(se_k.item() - se_p.item()) / A_p[:, 0].abs().sum().item(),
+                       abs(se2_k.item() - se2_p.item()) / se2_p.item())
         err = max(((l_k - l_p).abs() / l_p.abs().clamp_min(1.0)).max().item(),
                   ((A_k[:, 0] - A_p[:, 0]).abs() / A_p[:, 0].abs().clamp_min(1.0))
                   .max().item(),
-                  abs(c_k.item() - c_p.item()),
+                  abs(c_k.item() - c_p.item()), sums_err,
                   float(not torch.equal(A_k[:, 1:], A[:, 1:])))
         cases[mode] = dict(
-            max_abs_err=err,
+            max_abs_err=err, sums_err=sums_err,
             ms=cuda_ms(lambda: pl.probit_latent(A_k, l_k, y, u), args.reps),
             plain_ms=cuda_ms(lambda: pl.probit_latent_plain(A_p, l_p, y, u), args.reps))
-        print(f"probit_latent ({mode}): err {err:.3g} (tol 1e-5, relative above 1), "
-              f"ms {cases[mode]['ms']:.4f} plain {cases[mode]['plain_ms']:.4f}")
-        del A_k, A_p
+        print(f"probit_latent ({mode}): err {err:.3g} (tol 1e-5, relative above 1; the "
+              f"sums {sums_err:.3g} of their magnitudes), ms {cases[mode]['ms']:.4f} plain "
+              f"{cases[mode]['plain_ms']:.4f}")
+        del A_k, A_p, A_2
     row = kernel_row(
         "probit_latent", "libfm_tpu/learners/mcmc_vector.py:2033",
         max(c["max_abs_err"] for c in cases.values()), 1e-5,
@@ -1168,6 +1184,11 @@ def ctr_kernel_checks(args, rec, dev, ctr):
         timed="one launch at config #4 (sampling)")
     row["cases"] = cases
     row["library_ms_none_because"] = "no one PyTorch call draws the truncated normals"
+    # the bound at A's sectors: a 4-byte piece of each (k+1)-float row touches
+    # every 32-byte sector of A, read and written, beside latent (read and
+    # written), y and U (studies/probit_latent_floor.py measures that traffic)
+    row["sector_bound_ms"] = bound_ms(nc * d * 4 * 2 + nc * 4 * 4, 0)[0]
+    print(f"probit_latent: bound at A's sectors {row['sector_bound_ms']:.4f} ms")
     out.append(row)
     del A, blocks, ids, vals
     torch.cuda.empty_cache()
@@ -1623,7 +1644,7 @@ def bs_kernel_checks(args, rec, dev, bs):
     from libfm_tpu_torch.kernels import rel_sweep as rs
     from libfm_tpu_torch.kernels.case_stats import err_over_magnitudes
     from libfm_tpu_torch.kernels.slot_stats import gg_width
-    from libfm_tpu_torch.learners.mcmc_rel_vector import DevRel
+    from libfm_tpu_torch.learners.mcmc_rel_vector import DevRel, stacked_design
 
     train, test, lay = bs["train"], bs["test"], bs["layout"]
     k, d, n = BS_FACTORS, BS_FACTORS + 1, BS_NF
@@ -1643,20 +1664,43 @@ def bs_kernel_checks(args, rec, dev, bs):
         out.append(kernel_row(*a, timed=timed, source=f"libfm_tpu_torch/csrc/{source}",
                               **kw))
 
-    # ---- rel_scores
+    # ---- rel_scores: bench_bs's relation, then two relations stacked in one
+    # launch (bench_bs's and its first half of block rows as a second)
     sc_args = (P, rel.indptr, rel.cols, rel.vals)
     SC = rr.rel_scores(*sc_args)
     SC_p = rr.rel_scores_plain(*sc_args)
+    SC_2 = rr.rel_scores(*sc_args)
+    torch.cuda.synchronize()
+    repeat_check("rel_scores SC, bench_bs", (SC,), (SC_2,), rec)
+    half = nb // 2
+    cut = int(rel.indptr[half])
+    rel2 = types.SimpleNamespace(indptr=rel.indptr[:half + 1], cols=rel.cols[:cut],
+                                 vals=rel.vals[:cut])
+    SC2_k = rr.rel_scores(P, *stacked_design([rel, rel2]))
+    SC2_p = rr.rel_scores_plain(P, *stacked_design([rel, rel2]))
+    torch.cuda.synchronize()
+    # each row is its relation's own: the same bits as the one-relation call's
+    stacked_same = (torch.equal(SC2_k[:nb + 1], SC)
+                    and torch.equal(SC2_k[nb + 1:nb + 1 + half], SC[:half])
+                    and not SC2_k[nb + 1 + half].any())
+    err2 = col_rel_err(SC2_k, SC2_p).item()
+    print(f"rel_scores, two relations in one launch ({nb + 1} + {half + 1} rows): err "
+          f"{err2:.3g} (tol 1e-5); rows the one-relation call's bits and sentinels 0: "
+          f"{stacked_same}")
+    if not stacked_same:
+        fail("rel_scores over two stacked relations: a row differs from its relation's own")
     entry("rel_scores", "libfm_tpu/learners/mcmc_rel_vector.py:761",
-          col_rel_err(SC, SC_p).item(), 1e-5,
+          max(col_rel_err(SC, SC_p).item(), err2), 1e-5,
           cuda_ms(lambda: rr.rel_scores(*sc_args), args.reps),
           cuda_ms(lambda: rr.rel_scores_plain(*sc_args), args.reps),
           nbytes=(nb + 1) * 8 + nnz * 8 + len(np.unique(lay.cols)) * d * 4
           + (nb + 1) * (k + 2) * 4,
-          flops=nnz * (4 * k + 2), lib_ms=None, source="rel_refresh.cu")
+          flops=nnz * (4 * k + 2), lib_ms=None, source="rel_refresh.cu",
+          timed="one launch at bench_bs (at the set-up and each refresh)")
     out[-1]["library_note"] = ("none: one sparse product gives qB and linB, not sqB "
                                "(a sum of squares over the entries)")
-    del SC_p
+    out[-1]["two_relations"] = dict(max_abs_err=err2, rows_equal_one_relation=stacked_same)
+    del SC_p, SC_2, SC2_k, SC2_p
 
     # ---- rel_refresh, train mode (the refresh) and tail mode
     maps_tr, maps_te = rel.map_tr[None].contiguous(), rel.map_te[None].contiguous()
@@ -3099,6 +3143,22 @@ def profile_summary(prof, out_dir, rec, name, batches=None):
     prof.export_chrome_trace(f"{out_dir}/trace_{name}.json")
 
 
+def fast_launches(rec, name, iters, refresh_every):
+    """Print a traced probit run's kernel launches at each iteration
+    without a refresh, and which of its iterations follow a fast step
+    (probit_latent) and so take its residual sums for alpha and w0."""
+    from libfm_tpu_torch.learners.mcmc import dispatch_chunks
+
+    refreshes = {i0 + L - 1 for i0, L in dispatch_chunks(0, iters, refresh_every)}
+    by_it = {int(r["name"].split()[1]): r["launches"] for r in rec["profile"][name]}
+    fast = {it: n for it, n in by_it.items() if it not in refreshes}
+    carried = [it for it in by_it if it > 0 and it - 1 not in refreshes]
+    rec["profile"][name + "_fast"] = dict(launches_by_non_refresh_iteration=fast,
+                                          iterations_with_carried_sums=carried)
+    print(f"profile {name}: kernel launches by non-refresh iteration {fast}; iterations "
+          f"that take probit_latent's sums (after a fast step) {carried}")
+
+
 def run_learner(cls, name, data, args, rec, factors=FACTORS, iters=None, groups=None,
                 task=0, per_iter=None, want=None, num_features=None, flags=None,
                 learner_kw=None, extra_want=None, exact=True, **cfg_kw):
@@ -3115,6 +3175,7 @@ def run_learner(cls, name, data, args, rec, factors=FACTORS, iters=None, groups=
     set."""
     from libfm_tpu_torch import kernels
     from libfm_tpu_torch.learners.mcmc import dispatch_chunks
+    from libfm_tpu_torch.learners.mcmc_vector import MCMCVectorLearner
     from libfm_tpu_torch.models.fm import FMConfig
 
     train, test = data[:2]
@@ -3141,6 +3202,8 @@ def run_learner(cls, name, data, args, rec, factors=FACTORS, iters=None, groups=
     if prof is not None:
         prof.stop()
         profile_summary(prof, args.profile, rec, name)
+        if task and isinstance(learner, MCMCVectorLearner):  # the probit fast path's engines
+            fast_launches(rec, name, iters, learner.refresh_every)
     counts = kernels.launch_counts()
     rec[name] = dict(
         history=hist, launches=counts, learn_seconds=wall,

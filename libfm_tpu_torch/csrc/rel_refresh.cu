@@ -8,7 +8,9 @@
 // its joined rows' scores:
 //   rel_scores: per block row b, SC[b] = [qB | sqB | linB] with
 //     qB = sum x V[col], sqB = sum x^2 |V[col]|^2, linB = sum x w[col]
-//     over b's design entries; the sentinel row nb is 0.
+//     over b's design entries; the sentinel row nb is 0. The relations'
+//     designs stack in one CSR (each relation's sentinel an empty row),
+//     so one launch writes every relation's table at once.
 //   rel_refresh: per case c, over its main entries (ids, vals) [L] first
 //     and then its rows maps[r, c] of SC (the relations' tables stacked in
 //     one), Q = sum_l x_l V[id_l] + sum_r qB_r,
@@ -28,16 +30,31 @@
 // floats, 0.5 MB) and the main features' rows of P stay in L2. At
 // bench_bs's 1M train cases, k = 32: ~140 MB, 0.042 ms at 3.35 TB/s (with
 // bench_bs_ctx's two main entries ~156 MB, 0.047 ms). rel_scores is
-// latency-bound and small (64,000 entries, once a refresh).
-// Design. rel_scores: one warp a block row, lanes over the factors (up to
-// 4 a lane, k <= 128), walking its row's entries in order, as the JAX
-// engine's segment sums do. rel_refresh: a warp takes a tile of 32
-// consecutive cases at a time, a persistent grid of one wave of CTAs
-// striding over the tiles. Its lanes stage the tile's maps (R), main ids
-// and values (L each, the tile's span of them), y and U by coalesced
-// cp.async into one of two stages, so the next tile's indices land while
-// this one is summed. The warp then takes CB cases at once (4), lanes
-// over the factors (factor f on lane f mod 32), and walks their items
+// latency-bound and small (64,000 entries, once a refresh; bound 0.0011
+// ms): each entry's P row waits for its column, which waits for the row's
+// range.
+// Design. rel_scores: one warp a block row. Its lanes load the row's
+// (col, val) pairs in one coalesced load, lanes over the entries (up to
+// 32 at a time), and the linear term's w[col] x on the entry's own lane,
+// and stage them in shared memory. Then, 8 entries at a time, every
+// entry's column reaches every lane as a broadcast read (four a read) and
+// every entry's P row is loaded (lanes over the factors, NPL a lane,
+// k <= 128) before any is added: a few dependent round trips a row, not
+// two an entry; the 8 entries' s are summed by one butterfly (`warp_sums`,
+// 9 shuffles where 8 warp_sums take 40). The adds keep the first
+// version's order (q per factor in entry order; each entry's s through
+// warp_sum's pairs, added to sq in entry order; lin in entry order), so
+// SC is the same bits as the one-entry-at-a-time walk's. What is left is
+// mostly the launch: a launch on no entries takes more than half of the
+// time at bench_bs (PERF.md, studies/scores_latent_ab.py, whose variant
+// sweep chose 8 entries in flight and 4 CTAs of 8 warps an SM).
+// rel_refresh: a warp takes a tile of 32 consecutive cases at a time, a
+// persistent grid of one wave of CTAs striding over the tiles. Its lanes
+// stage the tile's maps (R), main ids and values (L each, the tile's span
+// of them), y and U by coalesced cp.async into one of two stages, so the
+// next tile's indices land while this one is summed. The warp then takes
+// CB cases at once (4), lanes over the factors (factor f on lane f mod
+// 32), and walks their items
 // (main entries, then relations) in steps, the next step's P or SC rows
 // of CB cases (the next batch's first item after a batch's last) loaded
 // while this step's are added: 2 CB rows in flight, in registers (at
@@ -64,9 +81,6 @@ namespace {
 using libfm::kMaxK;
 using libfm::kWarp;
 using libfm::warp_sum;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * kWarp;
-constexpr int kLaneFactors = kMaxK / kWarp;  // 4
 constexpr int kTile = 32;                     // cases a warp's tile
 constexpr int kMaxWarps = 8;                  // rel_refresh's warps a CTA at most
 constexpr int kStageL = 16;                   // main entries a case the stage holds at most
@@ -89,37 +103,136 @@ __host__ __device__ inline int warp_bytes(int k, int R, int L, bool has_A) {
   return 4 * (2 * stage_floats(R, L, L > 0 && L <= kStageL) + tile_floats(k, has_A));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The butterfly sums of N values s[0..N-1] over the warp (N a power of 2,
+// at most 32), each the same bits as warp_sum(s[j]): at each xor step a
+// lane keeps half of its values and trades the other half with its
+// partner, so the pairs added are warp_sum's, in N - 1 + 5 - log2(N)
+// shuffles (16 at N = 16) instead of 5N. Returns on each lane the total of
+// value lane / (32 / N).
+template <int N>
+__device__ __forceinline__ float warp_sums(float (&s)[N], int lane) {
+#pragma unroll
+  for (int level = 0; level < 5; ++level) {
+    const int o = 16 >> level;
+    const int m = N >> (level + 1);  // values a lane keeps after this step
+    if (m >= 1) {
+      const bool hi = lane & o;
+#pragma unroll
+      for (int i = 0; i < m; ++i) {
+        const float send = hi ? s[i] : s[i + m];
+        const float keep = hi ? s[i + m] : s[i];
+        s[i] = keep + __shfl_xor_sync(libfm::kFullMask, send, o);
+      }
+    } else {
+      s[0] += __shfl_xor_sync(libfm::kFullMask, s[0], o);
+    }
+  }
+  return s[0];
+}
+
+// rel_scores' entries whose P rows a warp loads at once, its CTAs an SM at
+// least at k <= 32 (NPL = 1; 2 above) and a CTA's warps: a one-wave grid
+// at bench_bs's 4,001 rows wants 31 warps an SM, so 4 CTAs of 8 warps, 64
+// registers a thread.
+constexpr int kScoresInFlight = 8;
+constexpr int kScoresMinCtas = 4;
+constexpr int kScoresWarps = 8;
+constexpr int kScoresThreads = kScoresWarps * kWarp;
+static_assert(kScoresInFlight >= 4 && kScoresInFlight <= kWarp &&
+                  (kScoresInFlight & (kScoresInFlight - 1)) == 0,
+              "entries in flight: a power of 2 from 4 to 32");
+
+template <int NPL>
+__global__ void __launch_bounds__(kScoresThreads, NPL == 1 ? kScoresMinCtas : 2)
     rel_scores_kernel(const float* __restrict__ P, const long long* __restrict__ indptr,
                       const int* __restrict__ cols, const float* __restrict__ vals,
                       float* __restrict__ SC, int nb, int k, int use_linear) {
-  const int row = (int)((blockIdx.x * (long long)kThreads + threadIdx.x) / kWarp);
+  constexpr int kLanesPerSum = kWarp / kScoresInFlight;  // lanes that end with one entry's s
+  // a warp's staged batch: columns, values, w[col] x and the entries' s
+  // totals, read back as broadcasts four at a time
+  __shared__ __align__(16) int st_col[kScoresWarps][kWarp];
+  __shared__ __align__(16) float st_x[kScoresWarps][kWarp];
+  __shared__ __align__(16) float st_wx[kScoresWarps][kWarp];
+  __shared__ __align__(16) float st_s[kScoresWarps][kScoresInFlight];
+  const int wid = threadIdx.x / kWarp;
+  const int row = (int)((blockIdx.x * (long long)kScoresThreads + threadIdx.x) / kWarp);
   const int lane = threadIdx.x & (kWarp - 1);
-  if (row > nb) return;
+  if (row > nb) return;  // whole warps: a warp's lanes share its row
   const int d = k + 1;
-  float q[kLaneFactors] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float sq = 0.0f, lin = 0.0f;
-  if (row < nb) {
-    for (long long e = indptr[row]; e < indptr[row + 1]; ++e) {
-      const float x = vals[e];
-      const float* p = P + (long long)cols[e] * d;
-      float s = 0.0f;
+  float q[NPL];
 #pragma unroll
-      for (int i = 0; i < kLaneFactors; ++i) {
-        const int f = lane + kWarp * i;
-        if (f < k) {
-          const float vx = __fmul_rn(p[1 + f], x);
-          q[i] += vx;
-          s = fmaf(vx, vx, s);
+  for (int i = 0; i < NPL; ++i) q[i] = 0.0f;
+  float sq = 0.0f, lin = 0.0f;
+  const long long e1 = row < nb ? indptr[row + 1] : 0;
+  for (long long e0 = row < nb ? indptr[row] : 0; e0 < e1; e0 += kWarp) {
+    const int n = (int)(e1 - e0 < kWarp ? e1 - e0 : kWarp);
+    int col = 0;
+    float x = 0.0f, wx = 0.0f;
+    if (lane < n) {
+      col = cols[e0 + lane];
+      x = vals[e0 + lane];
+      if (use_linear) wx = __fmul_rn(P[(long long)col * d], x);
+    }
+    st_col[wid][lane] = col;
+    st_x[wid][lane] = x;
+    st_wx[wid][lane] = wx;
+    __syncwarp();
+    for (int j0 = 0; j0 < n; j0 += kScoresInFlight) {
+      float v[kScoresInFlight][NPL], xs[kScoresInFlight], s[kScoresInFlight];
+#pragma unroll
+      for (int j = 0; j < kScoresInFlight; j += 4) {
+        const int4 c4 = *reinterpret_cast<const int4*>(&st_col[wid][j0 + j]);
+        const int cj[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float* p = P + (long long)cj[u] * d + 1;
+#pragma unroll
+          for (int i = 0; i < NPL; ++i) {
+            const int f = lane + kWarp * i;
+            v[j + u][i] = j0 + j + u < n && f < k ? p[f] : 0.0f;
+          }
+        }
+        const float4 x4 = *reinterpret_cast<const float4*>(&st_x[wid][j0 + j]);
+        xs[j] = x4.x;
+        xs[j + 1] = x4.y;
+        xs[j + 2] = x4.z;
+        xs[j + 3] = x4.w;
+      }
+      // each entry's q and s in entry order, a lane's factors in order
+#pragma unroll
+      for (int j = 0; j < kScoresInFlight; ++j) {
+        s[j] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) {
+          if (lane + kWarp * i < k && j0 + j < n) {
+            const float vx = __fmul_rn(v[j][i], xs[j]);
+            q[i] += vx;
+            s[j] = fmaf(vx, vx, s[j]);
+          }
         }
       }
-      sq += warp_sum(s);
-      if (use_linear) lin += __fmul_rn(p[0], x);
+      const float total = warp_sums<kScoresInFlight>(s, lane);
+      if (lane % kLanesPerSum == 0) st_s[wid][lane / kLanesPerSum] = total;
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < kScoresInFlight; j += 4) {  // sq and lin in entry order
+        const float4 t4 = *reinterpret_cast<const float4*>(&st_s[wid][j]);
+        const float4 w4 = *reinterpret_cast<const float4*>(&st_wx[wid][j0 + j]);
+        const float t[4] = {t4.x, t4.y, t4.z, t4.w}, w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (j0 + j + u < n) {
+            sq += t[u];
+            lin += w[u];
+          }
+        }
+      }
+      __syncwarp();  // the stage is read before the next group or batch lands
     }
   }
   float* out = SC + (long long)row * (k + 2);
 #pragma unroll
-  for (int i = 0; i < kLaneFactors; ++i) {
+  for (int i = 0; i < NPL; ++i) {
     const int f = lane + kWarp * i;
     if (f < k) out[f] = q[i];
   }
@@ -422,15 +535,19 @@ int launch_refresh(const float* SC, const int* maps, const float* w0p, const flo
 }  // namespace
 
 // SC [nb+1, k+2] out; indptr int64 [nb+1], cols int32 (global feature ids
-// into P [n, k+1]), vals.
+// into P [n, k+1]), vals. Rows with an empty range (the stacked
+// relations' sentinels) and row nb are 0.
 extern "C" int rel_scores_launch(const float* P, const long long* indptr, const int* cols,
                                  const float* vals, float* SC, int nb, int k,
                                  int use_linear, cudaStream_t stream) {
   if (k < 1 || k > kMaxK || nb < 0) return (int)cudaErrorInvalidValue;
   const long long warps = (long long)nb + 1;
-  const unsigned grid = (unsigned)((warps + kWarps - 1) / kWarps);
-  rel_scores_kernel<<<grid, kThreads, 0, stream>>>(P, indptr, cols, vals, SC, nb, k,
-                                                   use_linear);
+  const unsigned grid = (unsigned)((warps + kScoresWarps - 1) / kScoresWarps);
+  auto kernel = k <= 32   ? &rel_scores_kernel<1>
+                : k <= 64 ? &rel_scores_kernel<2>
+                : k <= 96 ? &rel_scores_kernel<3>
+                          : &rel_scores_kernel<4>;
+  kernel<<<grid, kScoresThreads, 0, stream>>>(P, indptr, cols, vals, SC, nb, k, use_linear);
   return (int)cudaGetLastError();
 }
 

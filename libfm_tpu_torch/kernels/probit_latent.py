@@ -3,7 +3,9 @@ place on A's residual column. CUDA source: csrc/probit_latent.cu.
 
 Replaces the JAX engine's classification fast path in one_step
 (libfm_tpu/learners/mcmc_vector.py): with the sweeps keeping
-e = pred - latent current, pred = e + latent needs no pass over P.
+e = pred - latent current, pred = e + latent needs no pass over P. The
+same pass sums the new e and its capped squares, which the learners' next
+alpha and w0 draws take in place of another pass over A's column.
 """
 
 from __future__ import annotations
@@ -21,8 +23,15 @@ KERNEL = Kernel(
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
 )
-#: length of the per-CTA partial counts (the kernel's grid is at most this)
+#: length of each row of the per-CTA partials (the kernel's grid is at most this)
 _PARTS = 1024
+
+
+def capped_squares(e):
+    """e * e with draw_alpha's rule (learners/mcmc.py): each square capped
+    at 1e30, a non-finite one counted as 1e30."""
+    e2 = e * e
+    return torch.where(torch.isfinite(e2), e2.clamp_max(1e30), torch.full_like(e2, 1e30))
 
 
 def probit_latent_plain(A, latent, y, U=None):
@@ -30,9 +39,10 @@ def probit_latent_plain(A, latent, y, U=None):
     pred = A[:, 0] + latent
     correct = probit_correct(pred, y).sum()
     lat = draw_latent(pred, y, U)
-    A[:, 0] = pred - lat
+    e = pred - lat
+    A[:, 0] = e
     latent.copy_(lat)
-    return correct
+    return correct, e.sum(), capped_squares(e).sum()
 
 
 def probit_latent(A, latent, y, U=None):
@@ -40,9 +50,13 @@ def probit_latent(A, latent, y, U=None):
     latent[r] becomes a draw of N(pred, 1) truncated to [0, inf) where
     y[r] >= 0 and to (-inf, 0] where y[r] < 0, from the uniform U[r] in
     [0, 1) (U None: that truncated normal's expectation, ALS), and
-    A[r, 0] = pred - latent[r]. Returns the number of cases with
-    Phi(pred) >= 0.5 and y > 0 or Phi(pred) < 0.5 and y < 0, before the
-    resample (0-dim tensor).
+    A[r, 0] = pred - latent[r]. Returns (correct, sum_e, sum_e2), 0-dim
+    tensors: the number of cases with Phi(pred) >= 0.5 and y > 0 or
+    Phi(pred) < 0.5 and y < 0, before the resample; the sum of the new
+    A[:, 0]; and the sum of its squares under draw_alpha's rule
+    (`capped_squares`), so that draw_alpha_from_sum on it gives
+    draw_alpha's gamma_n. The kernel sums in a fixed order: the same bits
+    on every run.
 
     A [nc, k+1] float32, contiguous; latent, y, U float32 [nc]."""
     tensors = [A, latent, y] + ([U] if U is not None else [])
@@ -54,7 +68,8 @@ def probit_latent(A, latent, y, U=None):
     check(y, "y", torch.float32, (nc,))
     if U is not None:
         check(U, "U", torch.float32, (nc,))
-    part = torch.empty(_PARTS, dtype=torch.float32, device=A.device)
+    part = torch.empty(3, _PARTS, dtype=torch.float32, device=A.device)
     KERNEL.launch(ptr(A), d, ptr(latent), ptr(y), ptr(U), nc, int(U is not None),
                   ptr(part), _PARTS)
-    return part.sum()
+    correct, sum_e, sum_e2 = part.sum(dim=1)
+    return correct, sum_e, sum_e2

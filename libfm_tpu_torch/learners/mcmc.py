@@ -32,6 +32,7 @@ from libfm_tpu_torch.data.vector_layout import padded_rows_layout
 from libfm_tpu_torch.device import resolve_device
 from libfm_tpu_torch.kernels.coord_draw import DrawPlan, coord_draw
 from libfm_tpu_torch.kernels.fm_refresh import fm_refresh
+from libfm_tpu_torch.kernels.probit_latent import capped_squares
 from libfm_tpu_torch.learners import base as _base
 from libfm_tpu_torch.learners.base import rmse_mae
 from libfm_tpu_torch.models.fm import FMConfig, FMParams, init_fm
@@ -64,9 +65,7 @@ def draw_alpha(generator, e, num_cases, alpha, alpha_0, gamma_0,
             torch.zeros((), dtype=torch.int64, device=e.device),
         )
     alpha_n = alpha_0 + num_cases
-    e2 = e * e
-    e2 = torch.where(torch.isfinite(e2), e2.clamp_max(1e30), torch.full_like(e2, 1e30))
-    gamma_n = (gamma_0 + e2.sum()).clamp_max(1e37)
+    gamma_n = (gamma_0 + capped_squares(e).sum()).clamp_max(1e37)
     proposal = samplers.gamma(generator, alpha_n / 2.0, gamma_n / 2.0)
     ok = torch.isfinite(proposal) & (proposal > 0.0)
     return torch.where(ok, proposal, alpha), (~ok).sum()
@@ -75,16 +74,18 @@ def draw_alpha(generator, e, num_cases, alpha, alpha_0, gamma_0,
 def draw_alpha_from_sum(generator, sum_e2, num_cases, alpha, alpha_0, gamma_0,
                         do_multilevel, do_sample):
     """draw_alpha when only sum(e^2) is at hand (the BS engine's deferred
-    path sums it in closed form from block-row caches): the same formula,
-    with the runaway clamp on the sum instead of each element."""
+    path sums it in closed form from block-row caches; probit_latent hands
+    the probit fast path's next draw the sum of capped squares): the same
+    formula, with the runaway clamp on the sum. On draw_alpha's per-element
+    capped sum (each term <= 1e30, the sum finite) it gives draw_alpha's
+    gamma_n exactly: both cap gamma_0 + sum at 1e37."""
     if not do_multilevel:
         return (
             torch.tensor(alpha_0, dtype=sum_e2.dtype, device=sum_e2.device),
             torch.zeros((), dtype=torch.int64, device=sum_e2.device),
         )
     alpha_n = alpha_0 + num_cases
-    s = torch.where(torch.isfinite(sum_e2), sum_e2.clamp_max(1e37),
-                    torch.full_like(sum_e2, 1e37))
+    s = torch.nan_to_num(sum_e2, nan=1e37, posinf=1e37, neginf=1e37).clamp_max(1e37)
     gamma_n = (gamma_0 + s).clamp_max(1e37)
     proposal = samplers.gamma(generator, alpha_n / 2.0, gamma_n / 2.0)
     ok = torch.isfinite(proposal) & (proposal > 0.0)

@@ -39,7 +39,10 @@ and joined rows) and, every `refresh_every` iterations, rel_scores +
 rel_refresh (A and the tail rebuilt from P; for classification its
 probit mode, which resamples the latents) and, on the deferred path, a
 fresh C and a zero SD. Classification resamples the latents between
-refreshes too, from pred = e + latent (probit_latent).
+refreshes too, from pred = e + latent (probit_latent), which also sums
+the new e and its squares for the next iteration's alpha and w0 draws.
+rel_scores writes every relation's score table in one launch, from the
+relations' designs stacked in one CSR (`stacked_design`).
 
 The deferred path (one relation, regression, no main table, the JAX
 engine's gate) keeps C and SD across iterations: alpha, w0 and the train
@@ -280,6 +283,22 @@ def stacked_maps(lays, which: str, nc: int, device):
                            device=device)
 
 
+def stacked_design(rels):
+    """rel_scores' design (indptr, cols, vals) over every relation of
+    `rels` (DevRel or ExactRel) at once: relation r's block rows from row
+    first[r] = sum of the earlier relations' nb + 1 on (`stacked_maps`'
+    offsets), each relation's sentinel row an empty range, so one launch
+    writes the stacked score table that rel_refresh reads."""
+    ptrs, nnz = [], 0
+    for r in rels:
+        # nb + 1 row starts: the last is the sentinel's, which ends where
+        # the next relation's first row starts
+        ptrs.append(r.indptr + nnz)
+        nnz += int(r.cols.shape[0])
+    return (torch.cat(ptrs), torch.cat([r.cols for r in rels]),
+            torch.cat([r.vals for r in rels]))
+
+
 def learn_relational_vector(learner, train, test):
     """Run the BS vector MCMC/ALS loop for `learner` (MCMCVectorLearner)
     on block-structure data, regression or probit classification, with
@@ -333,9 +352,10 @@ def learn_relational_vector(learner, train, test):
     fwd = dict(use_linear=use_linear, use_bias=use_bias)
     probit = None if not classify else "sample" if do_sample else "mean"
 
+    design = stacked_design(rels)
+
     def scores():
-        return torch.cat([rel_scores(P, r.indptr, r.cols, r.vals, use_linear=use_linear)
-                          for r in rels])
+        return rel_scores(P, *design, use_linear=use_linear)
 
     def refresh(SC, U=None, latent=None):
         """A and the test tail from P (rel_refresh); returns the clipped
@@ -409,9 +429,14 @@ def learn_relational_vector(learner, train, test):
             rej += rj.sum()
         return rej
 
+    # probit_latent's sums of A[:, 0] as it left it, for the next draw_all
+    # only (a refresh rewrites A; the w0 shift moves it)
+    carried = {}
+
     def draw_all():
-        if deferred:
-            sum_e, sum_e2 = rel_deferred(relc, SD_def, rels[0].wnum)
+        sums = carried.pop("sums", None)
+        if deferred or sums is not None:
+            sum_e, sum_e2 = rel_deferred(relc, SD_def, rels[0].wnum) if deferred else sums
             alpha, rej = draw_alpha_from_sum(gen, sum_e2, nc_train, st["alpha"],
                                              learner.alpha_0, learner.gamma_0,
                                              do_multilevel, do_sample)
@@ -475,7 +500,8 @@ def learn_relational_vector(learner, train, test):
         elif classify:
             # the sweeps keep e = pred - latent current: resample the
             # latents from pred = e + latent (the JAX engine's fast path)
-            train_metric = probit_latent(A, latent, y_train, U) / max(nc_train, 1)
+            correct, *carried["sums"] = probit_latent(A, latent, y_train, U)
+            train_metric = correct / max(nc_train, 1)
         elif deferred:
             # the closed-form e^2 sum, without the target clamp (the
             # refresh iterations report the clamped metric), as the JAX

@@ -68,6 +68,7 @@ from libfm_tpu_torch.learners.mcmc_rel_vector import (
     check_relational,
     main_blocks,
     main_rows,
+    stacked_design,
     stacked_maps,
 )
 from libfm_tpu_torch.ops import samplers
@@ -138,12 +139,13 @@ def learn_relational(lrn, train, test):
     clip = dict(min_target=min_t, max_target=max_t)
     probit = None if not classify else "sample" if lrn.do_sample else "mean"
 
+    design = stacked_design(rels)
+
     def scores():
-        """The relations' score tables stacked (rel_refresh's SC), each
-        relation's part of it (views) and its y_b (the JAX engine's
-        `rel_predict`)."""
-        SC = torch.cat([rel_scores(P, r.indptr, r.cols, r.vals, use_linear=use_linear)
-                        for r in rels])
+        """The relations' score tables stacked (rel_refresh's SC, one
+        rel_scores launch), each relation's part of it (views) and its y_b
+        (the JAX engine's `rel_predict`)."""
+        SC = rel_scores(P, *design, use_linear=use_linear)
         parts = [SC[a:b] for a, b in zip(first[:-1], first[1:])]
         y_bs = []
         for S in parts:

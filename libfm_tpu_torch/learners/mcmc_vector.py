@@ -36,8 +36,9 @@ iterations, the train refresh (fm_refresh, train mode; for
 classification its probit mode, which resamples the latents; with the
 tail, train mode with y = 0 on the tail's rows as well). Classification
 resamples the latents between refreshes too, from pred = e + latent
-(probit_latent). On CPU tensors each kernel wrapper runs its plain
-PyTorch version.
+(probit_latent), which also sums the new e and its squares for the next
+iteration's alpha and w0 draws. On CPU tensors each kernel wrapper runs
+its plain PyTorch version.
 
 This slice runs regression and probit classification on one device,
 with case-major statistics, dual draws and the dense update on by
@@ -83,6 +84,7 @@ from libfm_tpu_torch.learners.mcmc import (
     attr_groups,
     dispatch_chunks,
     draw_alpha,
+    draw_alpha_from_sum,
     draw_sweep_hyperpriors,
     draw_unobserved,
     draw_w0,
@@ -460,15 +462,25 @@ class MCMCVectorLearner(MCMCLearner):
             P[blk.features] = theta_new
             return sum(rej)
 
+        # probit_latent's sums of A[:, 0] as it left it, for the next
+        # draw_all only (a refresh rewrites A; the w0 shift moves it)
+        carried = {}
+
         def draw_all():
             rej = torch.zeros((), dtype=torch.int64, device=dev)
             e = A[:, 0]
-            alpha, r = draw_alpha(gen, e, nc_train, st["alpha"], alpha_0, gamma_0,
-                                  do_multilevel, do_sample)
+            sums = carried.pop("sums", None)
+            if sums is None:
+                alpha, r = draw_alpha(gen, e, nc_train, st["alpha"], alpha_0, gamma_0,
+                                      do_multilevel, do_sample)
+            else:
+                alpha, r = draw_alpha_from_sum(gen, sums[1], nc_train, st["alpha"], alpha_0,
+                                               gamma_0, do_multilevel, do_sample)
             rej += r
             w0 = st["w0"]
             if use_bias:
-                w0_new, r = draw_w0(self, e.sum(), nc_train, w0, alpha, draw_bound)
+                w0_new, r = draw_w0(self, e.sum() if sums is None else sums[0], nc_train,
+                                    w0, alpha, draw_bound)
                 rej += r
                 A[:, 0] += w0_new - w0
                 if incr_te:
@@ -506,7 +518,8 @@ class MCMCVectorLearner(MCMCLearner):
             elif classify:
                 # the sweeps keep e = pred - latent current: resample the
                 # latents from pred = e + latent, no pass over P
-                train_metric = probit_latent(A, latent, y_train, U) / max(nc_train, 1)
+                correct, *carried["sums"] = probit_latent(A, latent, y_train, U)
+                train_metric = correct / max(nc_train, 1)
             else:
                 # the sweeps keep A = [e | Q] current (up to f32 drift,
                 # cleared by the periodic refresh): pred = e + y

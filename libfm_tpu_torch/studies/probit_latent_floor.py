@@ -87,7 +87,7 @@ def main(nc=NC, d=D, reps=20):
         return call
 
     full_grid = -(-nc // 256)
-    part = torch.empty(GRID, device=dev)
+    part = torch.empty(3, GRID, device=dev)  # the count's and the two sums' partials
     times = {
         "column": device_ms(floor(A, d, GRID), reps),
         "column_full_grid": device_ms(floor(A, d, full_grid), reps),

@@ -250,7 +250,7 @@ def test_fast_path_latents_equal_the_refresh(ctr):
         A_f = A.clone()
         A_f[:, 0] = pred
         lat_f = torch.zeros(nc)
-        correct_f = pl.probit_latent(A_f, lat_f, y, U)
+        correct_f, _, _ = pl.probit_latent(A_f, lat_f, y, U)
         assert float(correct_f) == float(correct_r)
         np.testing.assert_allclose(lat_f.numpy(), lat_r.numpy(), rtol=0, atol=1e-6)
         np.testing.assert_allclose(A_f.numpy(), A.numpy(), rtol=0, atol=1e-6)

@@ -35,7 +35,11 @@ k 1, 32 and 128 over 0 to 4,000 block rows, within one float32 ulp of
 its plain version, one launch a call, the same bits twice; rel_resync
 in both modes at k 1-128 on a case count off its run and on A at each
 offset within 16 bytes, and the same bits under runs of 4 to 256 cases.
-rel_refresh with main rows beside two relations (k 8-128, L 1 and 3, rows
+rel_scores over one and two relations' stacked designs in one launch (k
+1, 3, 32 and 128; rows of 40 entries), and the BS ALS over two relations
+with one rel_scores launch a call; probit_latent's residual sums, with a
+NaN and an overflowing residual. rel_refresh with main rows beside two
+relations (k 8-128, L 1 and 3, rows
 with no main entry, train, tail and test modes) and its
 probit mode (sampling and expectations); rel_refresh's tiles at 1, 31,
 33 and 2^20 + 5 cases, L 0-13, one and two relations, in every mode, A
@@ -1221,9 +1225,10 @@ def test_probit_latent_kernel_matches_plain(cuda, k, mode):
     )
     U = U if mode == "sample" else None
     A_k, A_p, lat_k, lat_p = A.clone(), A.clone(), lat.clone(), lat.clone()
+    A_2, lat_2 = A.clone(), lat.clone()
     before = kernels.launch_counts()["probit_latent"]
-    c_k = pl.probit_latent(A_k, lat_k, y, U)
-    c_p = pl.probit_latent_plain(A_p, lat_p, y, U)
+    c_k, se_k, se2_k = pl.probit_latent(A_k, lat_k, y, U)
+    c_p, se_p, se2_p = pl.probit_latent_plain(A_p, lat_p, y, U)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["probit_latent"] == before + 1
     assert float(c_k) == float(c_p)
@@ -1231,6 +1236,35 @@ def test_probit_latent_kernel_matches_plain(cuda, k, mode):
     assert _close(A_k[:, 0], A_p[:, 0]) < 1e-5
     assert torch.equal(A_k[:, 1:], A[:, 1:])
     assert ((lat_k >= 0) == (y >= 0)).all()
+    # the residual sums (fp32 in another order: within 1e-5 of the sum of
+    # magnitudes), and the same bits from a second launch
+    assert abs(se_k.item() - se_p.item()) <= 1e-5 * A_p[:, 0].abs().sum().item()
+    assert abs(se2_k.item() - se2_p.item()) <= 1e-5 * se2_p.item()
+    again = pl.probit_latent(A_2, lat_2, y, U)
+    assert all(torch.equal(a, b) for a, b in zip((c_k, se_k, se2_k), again))
+    assert torch.equal(A_2, A_k) and torch.equal(lat_2, lat_k)
+
+
+@pytest.mark.parametrize("mode", ["sample", "mean"])
+def test_probit_latent_sums_count_non_finite_squares(cuda, mode):
+    """A NaN residual and one whose square overflows each count 1e30 in
+    sum_e2, as draw_alpha counts them; sum_e is NaN, as torch's sum."""
+    from libfm_tpu_torch.kernels import probit_latent as pl
+
+    nc = 70_000
+    rng = np.random.default_rng(3)
+    A, lat, y, U = _to(cuda, rng.normal(0, 2, (nc, 5)).astype(np.float32),
+                       np.zeros(nc, np.float32), np.ones(nc, np.float32),
+                       rng.random(nc).astype(np.float32))
+    A[3, 0], A[60_001, 0] = float("nan"), -1e20
+    U = U if mode == "sample" else None
+    A_p, lat_p = A.clone(), lat.clone()
+    _, se_k, se2_k = pl.probit_latent(A, lat, y, U)
+    _, se_p, se2_p = pl.probit_latent_plain(A_p, lat_p, y, U)
+    torch.cuda.synchronize()
+    assert torch.isnan(se_k) and torch.isnan(se_p)
+    assert 2e30 <= se2_k.item() < 3e30
+    assert abs(se2_k.item() - se2_p.item()) <= 1e-5 * se2_p.item()
 
 
 @pytest.mark.parametrize("mode", ["sample", "mean"])
@@ -1653,6 +1687,79 @@ def test_rel_scores_and_refresh_kernels_match_plain(cuda, k, use_linear):
     rr.rel_refresh_plain(SC_p, maps, w0, T_p, use_linear=use_linear)
     assert _col_rel_err(T_k, T_p) < 1e-5
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", [1, 3, 32, 128])
+@pytest.mark.parametrize("nrel", [1, 2])
+def test_rel_scores_kernel_on_stacked_relations(cuda, k, nrel):
+    """One launch over one or two relations' stacked designs (rows of 6
+    and of 40 entries: a second batch of 32 and groups of 16 in flight),
+    against the plain version within 1e-5 a column, every sentinel row 0,
+    and the same bits from a second launch."""
+    from libfm_tpu_torch.kernels import rel_refresh as rr
+    from libfm_tpu_torch.learners.mcmc_rel_vector import (
+        DevRel,
+        RelLayout,
+        stacked_design,
+    )
+
+    rng = np.random.default_rng(40 + k)
+    nf = 150
+    joins = [_relation(rng, 64, 6, nf, 2000), _relation(rng, 30, 40, nf, 2000, offset=nf)]
+    n = 2 * nf
+    rels = [DevRel(RelLayout(j, j, np.zeros(n, np.int32), n), cuda) for j in joins[:nrel]]
+    P = torch.as_tensor(rng.normal(0, 0.5, (n, k + 1)), dtype=torch.float32, device=cuda)
+    design = stacked_design(rels)
+    before = kernels.launch_counts()["rel_scores"]
+    SC_k = rr.rel_scores(P, *design)
+    SC_2 = rr.rel_scores(P, *design)
+    SC_p = rr.rel_scores_plain(P, *design)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rel_scores"] == before + 2
+    assert SC_k.shape == (sum(r.nb + 1 for r in rels), k + 2)
+    assert _col_rel_err(SC_k, SC_p) < 1e-5
+    assert torch.equal(SC_k, SC_2)
+    first = np.cumsum([r.nb + 1 for r in rels]) - 1
+    assert not SC_k[torch.as_tensor(first, device=cuda)].any()
+
+
+def test_bs_two_relations_one_scores_launch_a_call(cuda):
+    """The BS vector engine's ALS over two relations on the card: one
+    rel_scores launch at the set-up and at each refresh, whatever the
+    number of relations, and the CPU's trajectory within 1e-4."""
+    from libfm_tpu_torch.data.dataset import Dataset
+    from libfm_tpu_torch.learners.mcmc import dispatch_chunks
+
+    rng = np.random.default_rng(8)
+    nf, nc, nte = 150, 3000, 600
+    joins = [_relation(rng, 64, 6, nf, nc + nte), _relation(rng, 40, 4, 90, nc + nte,
+                                                               offset=nf)]
+    y = rng.normal(0, 1, nc + nte).astype(np.float32)
+
+    def ds(sl):
+        d = Dataset(np.zeros(len(y[sl]) + 1, np.int64), np.empty(0, np.int32),
+                    np.empty(0, np.float32), y[sl], 0)
+        d.relations = [j.permuted(np.arange(nc + nte)[sl]) for j in joins]
+        return d
+
+    train, test = ds(slice(0, nc)), ds(slice(nc, None))
+    n = nf + 90
+    init = (np.float32(0.0), rng.normal(0, 0.1, n).astype(np.float32),
+            rng.normal(0, 0.1, (n, 8)).astype(np.float32))
+    hist = {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        lr = ALSVectorLearner(FMConfig(num_features=n, num_factors=8, regw=1.0, regv=1.0),
+                              num_iter=5, seed=1, verbose=False, device=dev,
+                              init_params=[torch.as_tensor(x) for x in init])
+        lr.expand_max_ratio = 0.0
+        hist[dev] = lr.learn(train, test)
+        assert lr.relational_mode == "bs_vector"
+    refresh = len(dispatch_chunks(0, 5, lr.refresh_every))
+    assert kernels.launch_counts()["rel_scores"] == 1 + refresh
+    for hc, hg in zip(hist["cpu"], hist["cuda"]):
+        assert abs(hc["test_this"] - hg["test_this"]) < 1e-4
+        assert abs(hc["train"] - hg["train"]) < 1e-4
 
 
 def _main_forward(cuda, rng, k, L, nc=2500, n_main=40):
