@@ -15,6 +15,7 @@
                                               # only
     python3 chip_smoke.py --probes            # the probe-shape kernel checks and the
                                               # probe path only
+    python3 chip_smoke.py --cli               # the CLI phase only
     python3 chip_smoke.py --quality           # MCMC 24 iterations at #3, #4, #5 against
                                               # bench.py's quality targets, and at
                                               # bench_bs_ctx and bench_bs_c
@@ -207,6 +208,18 @@ What it does, in order (any failed phase exits non-zero):
    every metric is finite, that no draw was rejected, that the ALS train
    RMSE falls and that every learned regularizer is finite and >= 0;
    prints accuracy, log10-loss and AUC at each config #4 and #5 iteration.
+4b. CLI phase. `python -m libfm_tpu_torch.cli` as a user runs it, through
+   cli.main on the card: #3's 10M rows written to binary .x/.y and read
+   back (seconds printed), MCMC 4 iterations at #3 with -out, -rlog and
+   -verbosity 1 (path cli_3), ALS 2 with -save_model and again with
+   -load_model (cli_als_3; the model file holds 82,248 rows of 64
+   values), ALS 3 at bench_bs through -relation on a binary block and
+   binary join maps (cli_bs) and SGD 2 epochs at #1's settings with -rlog
+   (cli_sgd_1). Each run other than ALS's two is held against its learner
+   run in process with the arguments the CLI derives: the same readings
+   at every iteration, the same final bits and the same launches (so an
+   rlog adds none); -out against predict() and the rlog's columns
+   checked. Prints the phase's seconds.
 5. Probe phase. The ported table probes (libfm_tpu_torch.studies
    pallas_gather.main and pallas_scatter.main) at the studies' shapes,
    each against its plain version; prints ns/row.
@@ -214,6 +227,8 @@ What it does, in order (any failed phase exits non-zero):
    every path that runs each kernel), the per-iteration and per-epoch
    seconds, and as the last line {"ok": true, "device": {...}}.
 
+`--cli` builds the kernels, #3's and bench_bs's data and runs the CLI
+phase alone; it prints the CLI paths' launches as one JSON line.
 `--sgda` runs only SGDA's kernel checks (phase 3's SGDA part) and its two
 paths (phase 4's sgda_1 and sgda_4b, traced under `--profile`).
 `--config4` runs only config #4's kernel checks and its MCMC path twice
@@ -377,6 +392,11 @@ K4B_SCATTER_TOL, K4B_TAIL_TOL = 2e-3, 1e-4
 # quality targets (BENCH_r05.json): test RMSE at #3, accuracy at #4 and #5
 QUALITY_ITERS = 24
 QUALITY_TARGETS = {"quality_3": 0.3541, "quality_4": 0.7294, "quality_5": 0.5169}
+# the CLI phase (libfm_tpu_torch/cli.py, `python -m libfm_tpu_torch.cli`):
+# MCMC 4 iterations at #3 with -out and -rlog, ALS 2 iterations there with
+# -save_model and again with -load_model (regw = regv = 5, as the ALS
+# paths above), ALS 3 at bench_bs through -relation, SGD 2 epochs at #1
+CLI_MCMC_ITERS, CLI_ALS_ITERS, CLI_BS_ITERS, CLI_SGD_EPOCHS = 4, 2, 3, 2
 U32 = 2.0 ** -24  # float32's unit roundoff
 HOT_ROWS = 1024  # the gather-against-streaming line's small table
 FEW_ROWS = 4  # a field of few values (the skewed line)
@@ -414,6 +434,8 @@ EXPECTED.update({name: EXPECTED["bs_fallback"] | {"coord_draw"}
                  for name in ("als_exact_bs_ctx", "exact_bs_ctx")})
 EXPECTED["exact_bs_c"] = EXPECTED["exact_bs_ctx"] | {"rel_refresh_probit"}
 EXPECTED["mcmc_4_again"] = EXPECTED["mcmc_4"]
+EXPECTED.update(cli_3=EXPECTED["mcmc"], cli_als_3=EXPECTED["als"], cli_bs=EXPECTED["als_bs"],
+                cli_sgd_1=EXPECTED["sgd_1"])
 EXPECTED.update(quality_3=EXPECTED["mcmc"], quality_4=EXPECTED["mcmc_4"],
                 quality_5=EXPECTED["mcmc_5"], quality_bs_ctx=EXPECTED["mcmc_bs_ctx"],
                 quality_bs_c=EXPECTED["mcmc_bs_c"])
@@ -3997,6 +4019,269 @@ def run_exact(args, rec, dev, counts, done, data=None, ctr=None, bs=None, ctx=No
     return table
 
 
+# ---- the CLI phase: libfm_tpu_torch/cli.py on the card
+
+
+def cli_run(name, argv, counts):
+    """One command line through libfm_tpu_torch.cli.main (the entry point
+    of `python -m libfm_tpu_torch.cli`) on the card, its launches added to
+    counts[name]. Fails unless it exits 0. Returns (its learner, its
+    launches, its seconds)."""
+    from libfm_tpu_torch import cli, kernels
+
+    runs = []
+    print(f"{name}: python -m libfm_tpu_torch.cli {' '.join(argv)}")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv, runs=runs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = kernels.launch_counts()
+    if rc != 0:
+        fail(f"{name}: the CLI exited {rc}")
+    prev = counts.get(name)
+    counts[name] = got if prev is None else {key: prev[key] + v for key, v in got.items()}
+    print(f"{name}: exit 0 in {secs:.2f} s (loading included); launches "
+          f"{ {key: v for key, v in got.items() if v} }")
+    check_launches(name, got)
+    return runs[0], got, secs
+
+
+def cli_twin(learner, data):
+    """Run `learner` (built with the arguments the CLI derives) in process
+    on `data`; returns its launches."""
+    from libfm_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    learner.learn(*data)
+    torch.cuda.synchronize()
+    return kernels.launch_counts()
+
+
+def cli_seconds(learner):
+    """A learner's seconds an iteration (MCMC, ALS) or epoch (SGD)."""
+    return [round(h["time"] if isinstance(h, dict) else h[-1], 6) for h in learner.history]
+
+
+def cli_same(name, got, want, got_counts, want_counts, rec):
+    """Fail unless the CLI's run and the in-process one read the same at
+    every iteration (every metric but the seconds), end in the same bits
+    and made the same launches."""
+    def readings(hist):
+        if hist and isinstance(hist[0], dict):
+            return [{key: v for key, v in h.items() if key != "time"} for h in hist]
+        return [h[:-1] for h in hist]  # SGD: (train, test, seconds)
+
+    same_readings = readings(got.history) == readings(want.history)
+    if hasattr(want, "_final_state"):
+        a, b = got._final_state, want._final_state
+        differ = [key for key in REPRO_KEYS if key in b and not torch.equal(a[key], b[key])]
+    else:
+        differ = [key for key in ("w0", "w", "v")
+                  if not torch.equal(getattr(got.params, key), getattr(want.params, key))]
+    same_launches = got_counts == want_counts
+    rec[name] = dict(history=got.history, same_readings=same_readings,
+                     same_bits=not differ, same_launches=same_launches,
+                     seconds=cli_seconds(got), in_process_seconds=cli_seconds(want))
+    print(f"{name}: readings equal to the in-process run's at every iteration: "
+          f"{same_readings}; final state the same bits: {not differ}; launches equal: "
+          f"{same_launches}; seconds an iteration or epoch {rec[name]['seconds']} "
+          f"(in process {rec[name]['in_process_seconds']})")
+    if not same_readings:
+        fail(f"{name}: readings {readings(got.history)} against the in-process "
+             f"{readings(want.history)}")
+    if differ:
+        fail(f"{name}: the final state differs from the in-process run's: {differ}")
+    if not same_launches:
+        fail(f"{name}: launches {got_counts} against the in-process {want_counts}")
+
+
+def cli_rlog(name, path, rows, must):
+    """The rlog's header and rows: fails unless it has `rows` rows and the
+    columns `must`, each finite on every row. Returns the rows as dicts."""
+    import numpy as np
+
+    lines = open(path).read().splitlines()
+    header = lines[0].split("\t")
+    table = [dict(zip(header, (float(x) for x in line.split("\t")))) for line in lines[1:]]
+    missing = [c for c in must if c not in header]
+    if len(table) != rows or missing:
+        fail(f"{name}: rlog has {len(table)} rows (want {rows}), missing columns {missing}")
+    bad = [c for c in must for r in table if not np.isfinite(r[c])]
+    if bad:
+        fail(f"{name}: rlog columns not finite: {sorted(set(bad))}")
+    print(f"{name}: rlog {len(header)} columns, {rows} rows; first row "
+          f"{ {c: table[0][c] for c in must[:6]} }")
+    return table
+
+
+def run_cli(args, rec, dev, counts, done, data, bs):
+    """The CLI phase: `python -m libfm_tpu_torch.cli` as a user runs it,
+    through cli.main on the card, on binary files written here (#3's data
+    and bench_bs's relation), each run's launches into `counts` (paths
+    cli_3, cli_als_3, cli_bs, cli_sgd_1) and held against the same learner
+    run in process with the arguments the CLI derives."""
+    import tempfile
+
+    import numpy as np
+
+    from libfm_tpu_torch.data import binary as binio
+    from libfm_tpu_torch.data.dataset import Dataset
+    from libfm_tpu_torch.data.relation import RelationData, RelationJoin
+    from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner, MCMCVectorLearner
+    from libfm_tpu_torch.learners.sgd import SGDLearner
+    from libfm_tpu_torch.models.fm import FMConfig
+
+    t_phase = t0 = time.perf_counter()
+    out = rec["cli_phase"] = {}
+    train, test = data[:2]
+    n = max(train.num_features, test.num_features, 1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        # ---- 1. #3's data to binary and back
+        ml = os.path.join(tmp, "ml")
+        t = time.perf_counter()
+        train.to_binary(ml + ".train", with_transpose=False)
+        test.to_binary(ml + ".test", with_transpose=False)
+        out["binary_write_seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        back = Dataset.load(ml + ".train"), Dataset.load(ml + ".test")
+        out["binary_load_seconds"] = time.perf_counter() - t
+        same = all(np.array_equal(getattr(a, f), getattr(b, f)) and
+                   getattr(a, f).dtype == getattr(b, f).dtype
+                   for a, b in zip((train, test), back)
+                   for f in ("indptr", "cols", "vals", "target"))
+        same = same and all(a.num_features == b.num_features
+                            for a, b in zip((train, test), back))
+        rows = train.num_rows + test.num_rows
+        print(f"cli: #3's {rows} rows ({train.nnz + test.nnz} entries) written to binary "
+              f".x/.y in {out['binary_write_seconds']:.3f} s, loaded in "
+              f"{out['binary_load_seconds']:.3f} s; the same arrays: {same}")
+        if not same:
+            fail("cli: #3's data read back from binary differs")
+        del back
+        t0 = done("CLI: #3's data to binary and back", t0)
+
+        # ---- 2. MCMC at #3: -out, -rlog, -verbosity
+        pred, rlog = os.path.join(tmp, "pred.txt"), os.path.join(tmp, "mcmc.tsv")
+        files = ["-train", ml + ".train", "-test", ml + ".test", "-seed", str(SEED)]
+        got, got_counts, secs = cli_run("cli_3", [
+            "-task", "r", *files, "-method", "mcmc", "-dim", f"1,1,{FACTORS}",
+            "-iter", str(CLI_MCMC_ITERS), "-out", pred, "-rlog", rlog, "-verbosity", "1",
+        ], counts)
+        twin = MCMCVectorLearner(FMConfig(num_features=n, num_factors=FACTORS), task=0,
+                                 num_iter=CLI_MCMC_ITERS, num_eval_cases=None, seed=SEED,
+                                 attr_group=np.zeros(n, np.int32), refresh_every=None,
+                                 verbose=False, device=dev)
+        twin.set_regularization([], 1)
+        cli_same("cli_3", got, twin, got_counts, cli_twin(twin, (train, test)), rec)
+        out["cli_3_seconds"] = secs
+        p = np.loadtxt(pred, dtype=np.float64)
+        want_p = twin.predict(test)
+        lo, hi = train.min_target, train.max_target
+        ok = (p.shape == (test.num_rows,) and np.isfinite(p).all() and p.min() >= lo
+              and p.max() <= hi and np.allclose(p, want_p, rtol=1e-5, atol=0))
+        print(f"cli_3: -out {p.shape[0]} lines, in [{p.min():.6g}, {p.max():.6g}] "
+              f"(targets {lo:g}-{hi:g}), the in-process predict() to 6 digits: {ok}")
+        if not ok:
+            fail("cli_3: -out is not the learner's predictions")
+        must = ["time_learn", "time_learn2", "time_learn4", "rmse", "alpha", "wmu[0]",
+                *(f"{c}[0,{f}]" for c in ("vmu", "vlambda") for f in range(FACTORS))]
+        table = cli_rlog("cli_3", rlog, CLI_MCMC_ITERS, must)
+        if [f"{r['rmse']:.6g}" for r in table] != [f"{h['test_all']:.6g}"
+                                                   for h in got.history]:
+            fail("cli_3: the rlog's rmse is not the run's test_all")
+        del got, twin
+        torch.cuda.empty_cache()
+        t0 = done("CLI: MCMC at #3 and its in-process twin", t0)
+
+        # ---- 3. ALS at #3 with -save_model, then with -load_model
+        model = os.path.join(tmp, "als3.model")
+        als = ["-task", "r", *files, "-method", "als", "-dim", f"1,1,{FACTORS}",
+               "-iter", str(CLI_ALS_ITERS), "-regular", "0,5,5"]
+        for flag in ("-save_model", "-load_model"):
+            got, got_counts, secs = cli_run("cli_als_3", als + [flag, model], counts)
+            out[f"cli_als_3{flag}_seconds"] = secs
+            bad = [h["iter"] for h in got.history
+                   if not all(np.isfinite(h[key]) for key in ("train", "test_all"))]
+            want_k = 2 * CLI_ALS_ITERS
+            rec[f"cli_als_3{flag}"] = dict(history=got.history, seconds=cli_seconds(got))
+            print(f"cli_als_3 {flag}: test_all {[h['test_all'] for h in got.history]}; "
+                  f"seconds an iteration {cli_seconds(got)}")
+            if bad or got_counts["slot_stats"] != want_k or got_counts["schur_draw"] != want_k:
+                fail(f"cli_als_3 {flag}: non-finite at {bad} or launches {got_counts}")
+            if flag == "-save_model":
+                lines = open(model).read().split("\n")
+                vrows = lines[lines.index("#pairwise interactions Vj,f") + 1:][:n]
+                ok = len(vrows) == n and all(len(r.split(" ")) == FACTORS for r in vrows)
+                print(f"cli_als_3: model file {os.path.getsize(model)} B, {len(vrows)} V "
+                      f"rows of {FACTORS} values: {ok}")
+                if not ok:
+                    fail("cli_als_3: the saved model does not hold n rows of k values")
+            del got
+        t0 = done("CLI: ALS at #3, -save_model then -load_model", t0)
+
+        # ---- 4. bench_bs through -relation: binary block, binary join maps
+        bsp = os.path.join(tmp, "bs")
+        join_tr, join_te = bs["train"].relations[0], bs["test"].relations[0]
+        rd = join_tr.data
+        RelationData(rd.indptr, rd.cols, rd.vals, rd.num_features).save(bsp + ".rel")
+        binio.write_dvector_binary(bsp + ".rel.train", join_tr.row_map.astype(np.uint32))
+        binio.write_dvector_binary(bsp + ".rel.test", join_te.row_map.astype(np.uint32))
+        bs["train"].to_binary(bsp + ".train", with_transpose=False)
+        bs["test"].to_binary(bsp + ".test", with_transpose=False)
+        got, got_counts, secs = cli_run("cli_bs", [
+            "-task", "r", "-train", bsp + ".train", "-test", bsp + ".test",
+            "-relation", bsp + ".rel", "-method", "als", "-dim", f"1,1,{BS_FACTORS}",
+            "-iter", str(CLI_BS_ITERS), "-regular", "0,5,5", "-seed", str(SEED),
+        ], counts)
+        out["cli_bs_seconds"] = secs
+        # what the CLI derives: the main table has no feature, so one
+        # attribute (group 0), and the relation's features from 1 on (group 1)
+        rd1 = RelationData(rd.indptr, rd.cols, rd.vals, rd.num_features)
+        rd1.attr_offset = 1
+        twin_data = []
+        for ds, join in ((bs["train"], join_tr), (bs["test"], join_te)):
+            d1 = Dataset(ds.indptr, ds.cols, ds.vals, ds.target, ds.num_features)
+            d1.relations = [RelationJoin(rd1, join.row_map)]
+            twin_data.append(d1)
+        nb = 1 + rd.num_features
+        groups = np.ones(nb, np.int32)
+        groups[0] = 0
+        twin = ALSVectorLearner(
+            FMConfig(num_features=nb, num_factors=BS_FACTORS, regw=5.0, regv=5.0),
+            task=0, num_iter=CLI_BS_ITERS, num_eval_cases=None, seed=SEED,
+            attr_group=groups, refresh_every=None, verbose=False, device=dev)
+        twin.set_regularization([0.0, 5.0, 5.0], 2)
+        cli_same("cli_bs", got, twin, got_counts, cli_twin(twin, twin_data), rec)
+        print(f"cli_bs: relational_mode {got.relational_mode} (in process "
+              f"{twin.relational_mode}); test_all {[h['test_all'] for h in got.history]}")
+        if got.relational_mode != "bs_vector":
+            fail(f"cli_bs: routed to {got.relational_mode}")
+        del got, twin, twin_data
+        t0 = done("CLI: ALS at bench_bs through -relation and its twin", t0)
+
+        # ---- 5. SGD at #1's settings with -rlog
+        c = SGD_CONFIGS["sgd_1"]
+        rlog = os.path.join(tmp, "sgd.tsv")
+        got, got_counts, secs = cli_run("cli_sgd_1", [
+            "-task", "r", *files, "-method", "sgd", "-dim", f"1,1,{c['k']}",
+            "-learn_rate", str(c["lr"]), "-regular", f"0,{c['regw']},{c['regv']}",
+            "-batch_size", str(c["batch"]), "-iter", str(CLI_SGD_EPOCHS), "-rlog", rlog,
+        ], counts)
+        out["cli_sgd_1_seconds"] = secs
+        twin = SGDLearner(FMConfig(num_features=n, num_factors=c["k"], regw=c["regw"],
+                                   regv=c["regv"]),
+                          task=0, num_iter=CLI_SGD_EPOCHS, learn_rates=(c["lr"],) * 3,
+                          batch_size=c["batch"], seed=SEED, verbose=False, device=dev)
+        cli_same("cli_sgd_1", got, twin, got_counts, cli_twin(twin, (train, test)), rec)
+        cli_rlog("cli_sgd_1", rlog, CLI_SGD_EPOCHS,
+                 ["rmse", "mae", "time_pred", "time_learn", "time_learn4", "rmse_train"])
+        del got, twin
+        done("CLI: SGD at #1 and its twin", t0)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"cli: the CLI phase took {out['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=10,
@@ -4033,6 +4318,11 @@ def main(argv=None) -> int:
                     help="only build the kernels and run the probe-shape kernel checks "
                     "(table_scatter at P4, table_read at P1, P3 and a table past its "
                     "shared form) and the probe path; print the rows as one JSON line")
+    ap.add_argument("--cli", action="store_true",
+                    help="only build the kernels and run the CLI phase (python -m "
+                    "libfm_tpu_torch.cli at configs #3 and #1 and at bench_bs, each "
+                    "against the learner run in process); print the launches as one "
+                    "JSON line")
     ap.add_argument("--quality", action="store_true",
                     help="only build the kernels and run MCMC to bench.py's 24 "
                     "iterations at configs #3, #4 and #5; print each test_all beside "
@@ -4083,6 +4373,24 @@ def main(argv=None) -> int:
         quality = run_quality(args, rec, dev, {}, done)
         print(f"phase seconds: { {key: round(v, 2) for key, v in phase.items()} }")
         print(json.dumps({"card": smi, "numpy": np.__version__, "quality": quality}))
+        return 0
+    if args.cli:
+        from libfm_tpu_torch.data.synth import movielens_like
+
+        data = movielens_like(USERS, ITEMS, RATINGS, seed=SEED)
+        t0 = done("config #3 data", t0)
+        bs = bs_data(dev)
+        t0 = done("bench_bs data", t0)
+        counts = {}
+        run_cli(args, rec, dev, counts, done, data, bs)
+        phase["total, from the script's start"] = time.perf_counter() - T_START
+        print(f"phase seconds on {smi}: "
+              f"{ {key: round(v, 2) for key, v in phase.items()} }")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(rec, cli_launches=counts, phase_seconds=phase), f, indent=1)
+        print(json.dumps({"card": smi, "cli_launches": {
+            p: {key: v for key, v in c.items() if v} for p, c in counts.items()}}))
         return 0
     if args.bench_bs:
         counts = {}
@@ -4215,7 +4523,7 @@ def main(argv=None) -> int:
     bs_table, bs, ctx = run_bench_bs(args, rec, dev, counts, done)
     table += bs_table
     table += run_exact(args, rec, dev, counts, done, data=data, ctr=ctr, bs=bs, ctx=ctx)
-    del bs, ctx
+    del ctx
     t0 = time.perf_counter()
     counts["sgd_1"] = run_sgd("sgd_1", data, args, rec)
     t0 = done("SGD #1 path", t0)
@@ -4225,6 +4533,9 @@ def main(argv=None) -> int:
         counts[name] = run_sgda(name, sgda_runs, args, rec)
         t0 = done(f"SGDA {name} path", t0)
     del sgda_runs
+    run_cli(args, rec, dev, counts, done, data, bs)
+    del bs
+    t0 = time.perf_counter()
     counts["probes"] = run_probes(rec)
     done("probe path", t0)
     phase["total, from the script's start"] = time.perf_counter() - T_START

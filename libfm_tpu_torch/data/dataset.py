@@ -2,18 +2,53 @@
 
 The port's copy of `libfm_tpu.data.dataset.Dataset`: contiguous CSR
 arrays (indptr/cols/vals) plus targets, and the CSC (transpose) view the
-block partition uses. libFM's counterpart is class Data
-(src/libfm/src/Data.h:49-73). Binary IO and the native fast paths are
-not ported yet (ROADMAP M2b).
+block partition uses, and `DataMetaInfo`, the features' groups. libFM's
+counterparts are classes Data and DataMetaInfo (src/libfm/src/Data.h:
+33-96). `Dataset.load` reads libFM's binary formats (`data/binary.py`)
+and its text format; the native fast paths are not ported (ROADMAP M2b).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from libfm_tpu_torch.data import binary as binio
 from libfm_tpu_torch.data import text as textio
+
+
+class DataMetaInfo:
+    """attribute -> group mapping (libFM Data.h:33-96). Every attribute is
+    in group 0 until `load_groups` reads a `-meta` file: one group id per
+    attribute, whitespace-separated."""
+
+    def __init__(self, num_attributes: int):
+        self.attr_group = np.zeros(num_attributes, dtype=np.int32)
+        self.num_attr_groups = 1
+        self._recount()
+
+    def _recount(self):
+        self.num_attr_per_group = np.bincount(
+            self.attr_group, minlength=self.num_attr_groups
+        ).astype(np.int32)
+
+    def load_groups(self, path: str) -> None:
+        vals = np.loadtxt(path, dtype=np.int64).reshape(-1)
+        if len(vals) != len(self.attr_group):
+            raise ValueError(
+                f"groups file {path} has {len(vals)} entries, expected "
+                f"{len(self.attr_group)}"
+            )
+        self.attr_group = vals.astype(np.int32)
+        self.num_attr_groups = int(vals.max()) + 1 if len(vals) else 1
+        self._recount()
+
+    def set_groups(self, attr_group) -> None:
+        self.attr_group = np.asarray(attr_group, dtype=np.int32)
+        self.num_attr_groups = int(self.attr_group.max()) + 1 if len(self.attr_group) else 1
+        self._recount()
 
 
 @dataclass
@@ -74,32 +109,66 @@ class Dataset:
 
     @classmethod
     def load(cls, path: str) -> "Dataset":
-        """Load a libFM text file. (The JAX package's auto-detection of
-        the binary formats waits for ROADMAP M2b.)"""
+        """Load with libFM's detection order (Data.h:113-127): binary
+        `<p>.data` + `<p>.target`, then `<p>.x` + `<p>.y`, then a
+        transpose-only `<p>.xt` beside `.y` or `.target` where `<p>` itself
+        does not exist, then the text file `<p>`."""
+        if os.path.exists(path + ".data") and os.path.exists(path + ".target"):
+            return cls.from_binary(path, x_suffix=".data", y_suffix=".target")
+        if os.path.exists(path + ".x") and os.path.exists(path + ".y"):
+            return cls.from_binary(path, x_suffix=".x", y_suffix=".y")
+        if (not os.path.exists(path)) and os.path.exists(path + ".xt") and (
+            os.path.exists(path + ".y") or os.path.exists(path + ".target")
+        ):
+            ysuf = ".y" if os.path.exists(path + ".y") else ".target"
+            return cls.from_binary_transpose(path + ".xt", path + ysuf)
         return cls.from_libfm_text(path)
+
+    @classmethod
+    def from_binary(cls, prefix: str, x_suffix=".x", y_suffix=".y") -> "Dataset":
+        indptr, cols, vals, num_rows, num_cols = binio.read_sparse_binary(
+            prefix + x_suffix
+        )
+        target = binio.read_dvector_binary(prefix + y_suffix, dtype=np.float32)
+        if len(target) != num_rows:
+            raise ValueError(
+                f"{prefix}: target rows {len(target)} != matrix rows {num_rows}"
+            )
+        return cls(indptr, cols, vals, target, num_cols)
+
+    @classmethod
+    def from_binary_transpose(cls, xt_path: str, y_path: str) -> "Dataset":
+        """A dataset from its transpose alone (`.xt`: one row a feature)."""
+        tindptr, tcols, tvals, t_rows, t_cols = binio.read_sparse_binary(xt_path)
+        indptr, cols, vals = _csr_transpose(tindptr, tcols, tvals, t_rows, t_cols)
+        target = binio.read_dvector_binary(y_path, dtype=np.float32)
+        if len(target) != t_cols:
+            raise ValueError(
+                f"{y_path}: target rows {len(target)} != matrix rows "
+                f"{t_cols} (transposed {xt_path} has {t_cols} columns)"
+            )
+        return cls(indptr, cols, vals, target, t_rows)
 
     def to_libfm_text(self, path: str) -> None:
         textio.write_libfm_text(path, self.indptr, self.cols, self.vals, self.target)
+
+    def to_binary(self, prefix: str, with_transpose: bool = True) -> None:
+        """Write `<prefix>.x` and `<prefix>.y`, and with `with_transpose`
+        the transpose `<prefix>.xt`, in libFM's binary formats."""
+        binio.write_sparse_binary(
+            prefix + ".x", self.indptr, self.cols, self.vals, self.num_features
+        )
+        binio.write_dvector_binary(prefix + ".y", self.target.astype(np.float32))
+        if with_transpose:
+            ti, tc, tv = self.transpose()
+            binio.write_sparse_binary(prefix + ".xt", ti, tc, tv, self.num_rows)
 
     # ------------------------------------------------------------ transforms
     def transpose(self):
         """CSC view: (indptr[num_features+1], rows[nnz], vals[nnz]) by a
         stable counting sort, like libFM's create_data_t (Data.h:292-341)."""
-        nnz = self.nnz
-        rows = self.row_of_entry
-        order = stable_argsort(self.cols)
-        counts = (
-            np.bincount(self.cols, minlength=self.num_features)
-            if nnz
-            else np.zeros(self.num_features, np.int64)
-        )
-        t_indptr = np.zeros(self.num_features + 1, dtype=np.int64)
-        np.cumsum(counts, out=t_indptr[1:])
-        return (
-            t_indptr,
-            rows[order].astype(np.int32),
-            np.asarray(self.vals)[order].astype(np.float32),
-        )
+        return _csr_transpose(self.indptr, self.cols, self.vals, self.num_rows,
+                              self.num_features)
 
     def shuffled(self, seed: int = 0) -> "Dataset":
         """The rows in a random order drawn from `seed` (libFM's SGD
@@ -155,6 +224,21 @@ class Dataset:
         self.target = np.where(self.target > 0.0, 1.0, -1.0).astype(np.float32)
         self.min_target = float(self.target.min()) if len(self.target) else 0.0
         self.max_target = float(self.target.max()) if len(self.target) else 0.0
+
+
+def _csr_transpose(indptr, cols, vals, num_rows, num_cols):
+    """(indptr [num_cols + 1], rows [nnz], vals [nnz]) of the CSR matrix's
+    transpose, each column's entries in row order."""
+    nnz = int(indptr[-1])
+    rows = np.repeat(np.arange(num_rows, dtype=np.int32),
+                     np.diff(indptr).astype(np.int64))
+    order = stable_argsort(cols)
+    counts = (np.bincount(cols, minlength=num_cols) if nnz
+              else np.zeros(num_cols, np.int64))
+    t_indptr = np.zeros(num_cols + 1, dtype=np.int64)
+    np.cumsum(counts, out=t_indptr[1:])
+    return (t_indptr, rows[order].astype(np.int32),
+            np.asarray(vals)[order].astype(np.float32))
 
 
 def stable_argsort(keys: np.ndarray) -> np.ndarray:

@@ -7,21 +7,21 @@ matrix; each dataset holds, per relation, a join map from its rows to the
 block's rows. The joined attribute space offsets each relation's
 features by `attr_offset` (libFM libfm.cpp:213-216).
 
-Binary IO is not ported yet (ROADMAP M2b): `RelationData.load` (a binary
-`.x`) and the binary branch of `RelationJoin.load` raise.
+A block loads from its binary `<prefix>.x` (and `<prefix>.groups`), a join
+map from a binary DVector of uint32 or a text file of one row id a line.
+The bounded reader of `-cache_size` (`entry_budget`) waits for ROADMAP §1
+item 4.
 """
 
 from __future__ import annotations
 
-import struct
+import os
 from dataclasses import dataclass
 
 import numpy as np
 
-from libfm_tpu_torch.data.dataset import Dataset
-
-#: libFM's binary DVector file id (the JAX package's data/binary.py)
-_DVECTOR_FILE_ID = 1
+from libfm_tpu_torch.data import binary as binio
+from libfm_tpu_torch.data.dataset import DataMetaInfo, Dataset
 
 
 class RelationData:
@@ -33,6 +33,7 @@ class RelationData:
         self.vals = np.asarray(vals, dtype=np.float32)
         self.num_features = int(num_features)
         self.attr_offset = 0
+        self.meta = DataMetaInfo(self.num_features)
 
     @property
     def num_cases(self) -> int:
@@ -51,28 +52,29 @@ class RelationData:
 
     @classmethod
     def load(cls, prefix: str, entry_budget: int | None = None) -> "RelationData":
-        raise NotImplementedError(
-            f"{prefix}.x: relation blocks are binary files; binary IO waits "
-            "for ROADMAP M2b"
-        )
+        """The block of `<prefix>.x`, resident, with the groups of
+        `<prefix>.groups` where that file exists (libFM
+        relation.h:71-113)."""
+        if entry_budget:
+            raise NotImplementedError(
+                f"{prefix}.x: the bounded reader of -cache_size (entry_budget) "
+                "waits for ROADMAP §1 item 4"
+            )
+        indptr, cols, vals, _, num_cols = binio.read_sparse_binary(prefix + ".x")
+        rd = cls(indptr, cols, vals, num_cols)
+        if os.path.exists(prefix + ".groups"):
+            rd.meta.load_groups(prefix + ".groups")
+        return rd
 
     @classmethod
     def from_dataset(cls, ds) -> "RelationData":
         return cls(ds.indptr, ds.cols, ds.vals, ds.num_features)
 
-
-def _is_dvector_binary(path: str, type_size: int) -> bool:
-    """Whether a file is a binary DVector of the given element size
-    (libFM relation.h:127-140)."""
-    try:
-        with open(path, "rb") as f:
-            head = f.read(8)
-    except OSError:
-        return False
-    if len(head) < 8:
-        return False
-    fid, tsize = struct.unpack("<II", head)
-    return fid == _DVECTOR_FILE_ID and tsize == type_size
+    def save(self, prefix: str) -> None:
+        """Write the block as `<prefix>.x` (its groups are not written)."""
+        binio.write_sparse_binary(
+            prefix + ".x", self.indptr, self.cols, self.vals, self.num_features
+        )
 
 
 @dataclass
@@ -85,11 +87,10 @@ class RelationJoin:
 
     @classmethod
     def load(cls, data: RelationData, path: str, expected_rows: int) -> "RelationJoin":
-        if _is_dvector_binary(path, type_size=4):
-            raise NotImplementedError(
-                f"{path}: a binary join map; binary IO waits for ROADMAP M2b"
-            )
-        row_map = np.loadtxt(path, dtype=np.int64).reshape(-1).astype(np.int32)
+        if binio.is_dvector_binary(path, type_size=4):
+            row_map = binio.read_dvector_binary(path, dtype=np.uint32).astype(np.int32)
+        else:
+            row_map = np.loadtxt(path, dtype=np.int64).reshape(-1).astype(np.int32)
         if len(row_map) != expected_rows:
             raise ValueError(
                 f"{path}: join map has {len(row_map)} rows, expected {expected_rows}"

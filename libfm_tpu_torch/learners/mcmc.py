@@ -321,13 +321,25 @@ def step_metrics(lrn, st, it, pred_test, train_metric, rej, y_test, eval_mask):
         torch.as_tensor(train_metric, dtype=torch.float32, device=pred_test.device),
         *m_this, *m_all, *m_but5, st["alpha"], torch.as_tensor(rej).to(torch.float32),
         *extra,
-    ]).tolist()  # one device-to-host copy per iteration
+    ])
+    if lrn.rlog is None:
+        vals = vals.tolist()  # one device-to-host copy per iteration
+    else:
+        # the hyperpriors ride in the same copy, only for the rlog's columns
+        vals = torch.cat([vals, *(st[key].reshape(-1) for key in HYPER)]).tolist()
     out = dict(
         train=vals[0], this=vals[1:3], all=vals[3:5], but5=vals[5:7],
         alpha=vals[7], rejected=int(vals[8]),
     )
     if classify:
         out["auc"] = vals[9]
+    if lrn.rlog is not None:
+        at = 9 + len(extra)
+        G, k = st["v_mu"].shape
+        out["w_mu"], out["w_lambda"] = vals[at:at + G], vals[at + G:at + 2 * G]
+        at += 2 * G
+        out["v_mu"] = np.reshape(vals[at:at + G * k], (G, k))
+        out["v_lambda"] = np.reshape(vals[at + G * k:at + 2 * G * k], (G, k))
     return out
 
 
@@ -577,8 +589,6 @@ class MCMCLearner:
         device=None,
         init_params=None,
     ):
-        if rlog is not None:
-            raise NotImplementedError("rlog output waits for ROADMAP M7")
         if checkpoint_path is not None:
             raise NotImplementedError("checkpoint/resume waits for ROADMAP M7")
         self.cfg = cfg
@@ -588,7 +598,7 @@ class MCMCLearner:
         self.do_multilevel = do_multilevel
         self.num_eval_cases = num_eval_cases
         self.seed = seed
-        self.rlog = None
+        self.rlog = rlog
         self.verbose = verbose
         self.max_blocks = max_blocks
         self.dtype = dtype or cfg.dtype
@@ -702,6 +712,84 @@ class MCMCLearner:
                 **({"auc_all": float(metrics["auc"])} if "auc" in metrics else {}),
             )
         )
+        if self.rlog is not None:
+            self._log_rlog_row(metrics, dt)
+
+    def _log_rlog_row(self, metrics, dt):
+        """One rlog row (JAX mcmc.py:1280-1312): the (user, cpu, wall)
+        times of the iteration (time_pred stays NaN, as in libFM's MCMC,
+        fm_learn_mcmc_simultaneous.h:202-208), alpha, the hyperpriors
+        (`step_metrics` adds them when there is an rlog) and the test
+        metrics."""
+        m, log = metrics, self.rlog.log
+        t_user, t_cpu, t_wall = dt if isinstance(dt, tuple) else (dt, dt, dt)
+        log("time_learn", t_user)
+        log("time_learn2", t_cpu)
+        log("time_learn4", t_wall)
+        log("alpha", float(m["alpha"]))
+        for g, (mu, lam) in enumerate(zip(m["w_mu"], m["w_lambda"])):
+            log(f"wmu[{g}]", mu)
+            log(f"wlambda[{g}]", lam)
+        v_mu, v_lam = m["v_mu"], m["v_lambda"]
+        for g in range(v_mu.shape[0]):
+            for fc in range(v_mu.shape[1]):
+                log(f"vmu[{g},{fc}]", float(v_mu[g, fc]))
+                log(f"vlambda[{g},{fc}]", float(v_lam[g, fc]))
+        if self.task == TASK_REGRESSION:
+            log("rmse", float(m["all"][0]))
+            log("mae", float(m["all"][1]))
+            log("rmse_mcmc_this", float(m["this"][0]))
+            log("rmse_mcmc_all", float(m["all"][0]))
+            log("rmse_mcmc_all_but5", float(m["but5"][0]))
+        else:
+            log("accuracy", float(m["all"][0]))
+            log("acc_mcmc_this", float(m["this"][0]))
+            log("acc_mcmc_all", float(m["all"][0]))
+            log("acc_mcmc_all_but5", float(m["but5"][0]))
+            log("ll_mcmc_this", float(m["this"][1]))
+            log("ll_mcmc_all", float(m["all"][1]))
+            log("ll_mcmc_all_but5", float(m["but5"][1]))
+            if "auc" in m:
+                log("auc_mcmc_all", float(m["auc"]))
+        self.rlog.new_line()
+
+    def register_log_fields(self):
+        """Declare the rlog's columns (libFM fm_learn_mcmc.h:1127-1157, and
+        the per-group hyperpriors of :444-449, 521-526; auc_mcmc_all is
+        the JAX package's addition)."""
+        if self.rlog is None:
+            return
+        nan = float("nan")
+        add = self.rlog.add_field
+        if self.task == TASK_REGRESSION:
+            for fname in ("rmse", "mae"):
+                add(fname, nan)
+        else:
+            add("accuracy", nan)
+        for fname in ("time_pred", "time_learn", "time_learn2", "time_learn4"):
+            add(fname, nan)
+        add("alpha", nan)
+        if self.task == TASK_REGRESSION:
+            for fname in ("rmse_mcmc_this", "rmse_mcmc_all", "rmse_mcmc_all_but5"):
+                add(fname, nan)
+        else:
+            for fname in ("acc_mcmc_this", "acc_mcmc_all", "acc_mcmc_all_but5",
+                          "ll_mcmc_this", "ll_mcmc_all", "ll_mcmc_all_but5",
+                          "auc_mcmc_all"):
+                add(fname, nan)
+        G = self._num_groups_for_log()
+        for g in range(G):
+            add(f"wmu[{g}]", nan)
+            add(f"wlambda[{g}]", nan)
+        for g in range(G):
+            for fc in range(self.cfg.num_factors):
+                add(f"vmu[{g},{fc}]", nan)
+                add(f"vlambda[{g},{fc}]", nan)
+
+    def _num_groups_for_log(self) -> int:
+        if self.attr_group_np is None:
+            return 1
+        return int(self.attr_group_np.max()) + 1
 
     # ---------------------------------------------------------- inference
     def predict(self, test=None) -> np.ndarray:

@@ -52,8 +52,8 @@ metric between refreshes come from closed-form block-row sums
 its plain PyTorch version.
 
 This engine runs any number of relations beside a main table or none,
-regression and probit classification, MCMC and ALS. A mesh (M13),
-checkpoints and rlog (M7) raise in the learner's constructor.
+regression and probit classification, MCMC and ALS. A mesh (M13)
+and checkpoints (M7) raise in the learner's constructor.
 """
 
 from __future__ import annotations

@@ -53,7 +53,7 @@ or, with bs_vector off or a skewed join, on the exact BS engine
 (learners/mcmc_relational.py). What it does not take raises
 NotImplementedError with the ROADMAP item it waits for: case reordering
 and slabs (M7), the pure linear model (M7), streaming data (M7), a mesh
-(M13), checkpoints and rlog (M7).
+(M13) and checkpoints (M7). With an rlog each iteration writes one row.
 """
 
 from __future__ import annotations

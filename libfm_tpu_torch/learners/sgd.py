@@ -18,8 +18,9 @@ in test mode. On CPU tensors every kernel wrapper runs its plain PyTorch
 version.
 
 Per-layer learn rates (`learn_rates=(r0, r1, r2)`) follow libFM
-libfm.cpp:386-404. Streaming data (`learn_stream`) and rlog output wait
-for ROADMAP M7 "Streaming data" and raise NotImplementedError.
+libfm.cpp:386-404. With an `rlog` (utils.rlog.RLog) each epoch writes
+one row of the JAX learner's fields. Streaming data (`learn_stream`)
+waits for ROADMAP M7 "Streaming data" and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -212,8 +213,6 @@ class SGDLearner:
         verbose: bool = True,
         device=None,
     ):
-        if rlog is not None:
-            raise NotImplementedError(f"rlog output {_NOT_YET}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.task = task
@@ -221,12 +220,27 @@ class SGDLearner:
         self.lrs = tuple(learn_rates) if learn_rates else (learn_rate,) * 3
         self.batch_size = batch_size
         self.seed = seed
+        self.rlog = rlog
         self.verbose = verbose
         self.params: FMParams | None = None
         self.min_target = 0.0
         self.max_target = 0.0
         self._eval = make_eval_fn(cfg, task)
         self.history = []
+        if rlog is not None:
+            self._register_log_fields()
+
+    def _register_log_fields(self):
+        """The rlog columns (JAX sgd.py:332-341)."""
+        nan = float("nan")
+        if self.task == TASK_REGRESSION:
+            self.rlog.add_field("rmse", nan)
+            self.rlog.add_field("mae", nan)
+        else:
+            self.rlog.add_field("accuracy", nan)
+        for f in ("time_pred", "time_learn", "time_learn2", "time_learn4"):
+            self.rlog.add_field(f, nan)
+        self.rlog.add_field("rmse_train", nan)
 
     def init_params(self, params: FMParams | None = None):
         """The learner's own draw (w = 0, V ~ N(init_mean, init_stdev)
@@ -291,10 +305,30 @@ class SGDLearner:
             dt = c1[2] - c0[2]
             m_train = self._eval(self.params, *t_arrs, min_t, max_t)
             m_test = self._eval(self.params, *e_arrs, min_t, max_t)
-            tr, te = torch.stack([m_train[0], m_test[0]]).tolist()
+            if self.rlog is None:
+                tr, te = torch.stack([m_train[0], m_test[0]]).tolist()
+            else:
+                tr, te, mae = torch.stack([m_train[0], m_test[0], m_test[1]]).tolist()
             history.append((tr, te, dt))
             if self.verbose:
                 print(f"#Iter={it:3d}\tTrain={tr:.6g}\tTest={te:.6g}")
+            if self.rlog is not None:
+                c2 = iter_clocks(dev)
+                if self.task == TASK_REGRESSION:
+                    self.rlog.log("rmse", te)
+                    self.rlog.log("mae", mae)
+                else:
+                    self.rlog.log("accuracy", te)
+                self.rlog.log("rmse_train", tr)
+                # libFM logs the user-CPU learn time and the evaluation's
+                # (fm_learn_sgd_element.h:55-74); time_learn2 is its clock()
+                # (process CPU) and time_learn4 the wall seconds, the time
+                # that counts when the work runs on a device
+                self.rlog.log("time_learn", c1[0] - c0[0])
+                self.rlog.log("time_learn2", c1[1] - c0[1])
+                self.rlog.log("time_learn4", dt)
+                self.rlog.log("time_pred", c2[0] - c1[0])
+                self.rlog.new_line()
         self.history = history
         return history
 

@@ -23,8 +23,9 @@ stay on the device. Evaluation uses fm_refresh in test mode. On CPU
 tensors every kernel wrapper runs its plain PyTorch version.
 
 One learn rate, the first of `learn_rates`, drives every layer (JAX
-sgda.py:205). Streaming data (`learn_stream`) and rlog output wait for
-ROADMAP M7 "Streaming data" and raise NotImplementedError.
+sgda.py:205). With an `rlog` each epoch writes one row of the JAX
+learner's fields, `rmse_val` among them. Streaming data (`learn_stream`)
+waits for ROADMAP M7 "Streaming data" and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from libfm_tpu_torch.learners.sgd import (
     _NOT_YET, SGDLearner, _epoch_mode, _packed, sorted_scatter_order,
 )
 from libfm_tpu_torch.models.fm import FMConfig, FMParams
+from libfm_tpu_torch.tasks import TASK_REGRESSION
 from libfm_tpu_torch.utils.timers import iter_clocks
 
 __all__ = ["SGDALearner", "SGDABatches", "make_epoch_fn", "sgda_batches",
@@ -175,6 +177,10 @@ class SGDALearner(SGDLearner):
         self.reg_w = None
         self.reg_v = None
 
+    def _register_log_fields(self):
+        super()._register_log_fields()
+        self.rlog.add_field("rmse_val", float("nan"))
+
     def learn(self, train: Dataset, test: Dataset, validation: Dataset = None):
         self._check_supported(train, test, validation)
         if validation is None:
@@ -226,6 +232,15 @@ class SGDALearner(SGDLearner):
             history.append((tr, te, vl, dt_s))
             if self.verbose:
                 print(f"#Iter={it:3d}\tTrain={tr:.6g}\tTest={te:.6g}")
+            if self.rlog is not None:
+                c2 = iter_clocks(dev)
+                self.rlog.log("rmse" if self.task == TASK_REGRESSION else "accuracy", te)
+                self.rlog.log("rmse_train", tr)
+                self.rlog.log("rmse_val", vl)
+                self.rlog.log("time_learn", c1[0] - c0[0])
+                self.rlog.log("time_learn4", dt_s)
+                self.rlog.log("time_pred", c2[0] - c1[0])
+                self.rlog.new_line()
         self.params = FMParams(w0, P[:, 0].contiguous(), P[:, 1:].contiguous())
         self.reg_w, self.reg_v = reg_w, reg_v
         self.history = history

@@ -1,1 +1,1 @@
-"""Utilities: step clocks."""
+"""Utilities: step clocks, the rlog TSV logger, tracing and memory reports."""

@@ -54,7 +54,8 @@ launch plan at every k in 1-128 (a feature of several pieces, one of a
 CTA, many of one slot), one-hot and valued; slot_update on a block's
 slots in case order, the same bits as in feature order. Two MCMC runs at
 one seed end in the same bits, on the flat vector engine (regression and
-probit), the exact engine and the BS vector engine.
+probit), the exact engine and the BS vector engine; an MCMC run with an
+rlog makes the launches, and ends in the bits, of one without.
 Tolerances as in chip_smoke.py: fp32 sums taken in another order.
 """
 
@@ -2837,3 +2838,36 @@ def test_mcmc_runs_at_one_seed_end_in_the_same_bits(cuda, engine):
         states.append(lr._final_state)
     a, b = states
     assert [key for key in REPRO_KEYS if not torch.equal(a[key], b[key])] == []
+
+
+@pytest.mark.parametrize("engine", ["vector", "vector probit", "exact"])
+def test_mcmc_rlog_adds_no_launch(cuda, engine):
+    """A small MCMC run makes the same launches, and ends in the same bits,
+    with an rlog as without one: the hyperpriors the rlog's columns read
+    ride in the iteration's one device-to-host copy."""
+    import io
+
+    from libfm_tpu_torch.learners.mcmc import MCMCLearner
+    from libfm_tpu_torch.learners.mcmc_vector import MCMCVectorLearner
+    from libfm_tpu_torch.utils.rlog import RLog
+
+    train, test, groups = ctr_like(6, 300, 30000, seed=3)
+    cls = MCMCLearner if engine == "exact" else MCMCVectorLearner
+    cfg = FMConfig(num_features=train.num_features, num_factors=8)
+    task = TASK_CLASSIFICATION if "probit" in engine else 0
+    runs = []
+    for rlog in (None, RLog(io.StringIO())):
+        lr = cls(cfg, num_iter=4, seed=7, verbose=False, device="cuda", attr_group=groups,
+                 task=task, rlog=rlog)
+        lr.register_log_fields()
+        if rlog is not None:
+            rlog.init()
+        kernels.reset_launch_counts()
+        lr.learn(train, test)
+        torch.cuda.synchronize()
+        runs.append((kernels.launch_counts(), lr._final_state))
+    (counts, a), (counts_rlog, b) = runs
+    assert counts == counts_rlog and sum(counts.values()) > 0
+    assert [key for key in REPRO_KEYS if not torch.equal(a[key], b[key])] == []
+    lines = rlog._out.getvalue().splitlines()
+    assert len(lines) == 5 and f"vmu[{int(groups.max())},7]" in lines[0].split("\t")

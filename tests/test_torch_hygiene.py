@@ -61,11 +61,12 @@ def test_port_file_list_is_complete():
             "sgda_step.py", "sgda_lambda.py", "chip_smoke.py", "relation.py",
             "mcmc_rel_vector.py", "rel_refresh.py", "rel_cache.py",
             "rel_sweep.py", "slot_update.py", "coord_draw.py",
-            "mcmc_relational.py"} <= names
+            "mcmc_relational.py", "cli.py", "binary.py", "rlog.py", "profiling.py",
+            "convert.py"} <= names
 
 
 @pytest.mark.parametrize("args", [[], ["--config3-kernels"], ["--config5-kernels"],
-                                  ["--bench-bs"], ["--quality"], ["--exact"]])
+                                  ["--bench-bs"], ["--quality"], ["--exact"], ["--cli"]])
 def test_chip_smoke_without_cuda_fails_and_prints_no_result(args):
     """Without a CUDA device chip_smoke.py exits non-zero before it
     builds or runs anything, and prints nothing on its standard output."""

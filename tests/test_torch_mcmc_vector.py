@@ -145,9 +145,10 @@ def test_constructor_options_outside_the_slice_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP M13"):
         MCMCVectorLearner(cfg, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP M7"):
-        MCMCVectorLearner(cfg, rlog="x.tsv", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
         MCMCVectorLearner(cfg, checkpoint_path="x.npz", device="cpu")
+    # rlog output is in the slice since the CLI's port
+    rlog = object()
+    assert MCMCVectorLearner(cfg, rlog=rlog, device="cpu").rlog is rlog
 
 
 def test_own_init_is_seeded(ml_small):

@@ -87,3 +87,157 @@ def test_init_fm_shapes_and_scale():
     assert abs(float(p.w.std()) - 0.1) < 0.01
     q = tfm.init_fm(cfg, torch.Generator().manual_seed(0))
     assert float(q.w.abs().max()) == 0.0
+
+
+# ---- libFM's text model format (-save_model / -load_model) and
+# predict_dense, against the JAX package's
+
+
+def _params(seed, n, k):
+    rng = np.random.default_rng(seed)
+    w0 = np.float32(rng.normal())
+    w = rng.normal(0, 0.3, n).astype(np.float32)
+    V = rng.normal(0, 0.3, (n, k)).astype(np.float32)
+    V[0, 0], w[1] = -0.0, 1e-30  # formatted as -0 and 1e-30
+    return w0, w, V
+
+
+def _both(w0, w, V):
+    jp = jfm.FMParams(w0=jnp.asarray(w0), w=jnp.asarray(w), v=jnp.asarray(V))
+    tp = tfm.FMParams(w0=torch.tensor(w0), w=torch.tensor(w), v=torch.tensor(V))
+    return jp, tp
+
+
+@pytest.mark.parametrize("use_bias,use_linear,k", [(True, True, 4), (True, False, 3),
+                                                   (False, True, 1), (False, False, 5)])
+def test_model_text_matches_jax(use_bias, use_linear, k, tmp_path):
+    n = 23
+    w0, w, V = _params(k, n, k)
+    jp, tp = _both(w0, w, V)
+    jcfg = jfm.FMConfig(num_features=n, num_factors=k, use_bias=use_bias, use_linear=use_linear)
+    tcfg = tfm.FMConfig(num_features=n, num_factors=k, use_bias=use_bias, use_linear=use_linear)
+    jfm.save_model_text(jp, jcfg, str(tmp_path / "j.txt"))
+    tfm.save_model_text(tp, tcfg, str(tmp_path / "t.txt"))
+    assert (tmp_path / "t.txt").read_bytes() == (tmp_path / "j.txt").read_bytes()
+    got = tfm.load_model_text(tcfg, str(tmp_path / "j.txt"))
+    want = jfm.load_model_text(jcfg, str(tmp_path / "j.txt"))
+    for key in ("w0", "w", "v"):
+        g, wv = getattr(got, key), np.asarray(getattr(want, key))
+        assert g.dtype == torch.float32 and g.device.type == "cpu"
+        np.testing.assert_array_equal(g.numpy(), wv)
+    # the round trip: 6 significant digits
+    np.testing.assert_allclose(got.v.numpy(), V, rtol=5e-6, atol=0)
+
+
+MALFORMED = {
+    "missing_file": None,
+    "short_v_section": lambda t: t.rsplit("\n", 3)[0] + "\n",
+    "one_factor_too_many": lambda t: t[: t.rindex("\n", 0, -1)] + "\n1 2 3 4 5\n",
+    "double_space": lambda t: t[: t.rindex("\n", 0, -1)] + "\n1  2 3 4\n",
+    "not_a_number": lambda t: t.replace("#unary interactions Wj\n", "#unary interactions Wj\nx\n", 1),
+    "empty": lambda t: "",
+}
+
+
+@pytest.mark.parametrize("fault", MALFORMED)
+def test_malformed_model_text_gives_none_as_jax(fault, tmp_path):
+    n, k = 7, 4
+    jp, tp = _both(*_params(1, n, k))
+    jcfg = jfm.FMConfig(num_features=n, num_factors=k)
+    tcfg = tfm.FMConfig(num_features=n, num_factors=k)
+    p = tmp_path / "m.txt"
+    if MALFORMED[fault] is not None:
+        tfm.save_model_text(tp, tcfg, str(p))
+        p.write_text(MALFORMED[fault](p.read_text()))
+    assert jfm.load_model_text(jcfg, str(p)) is None
+    assert tfm.load_model_text(tcfg, str(p)) is None
+
+
+@pytest.mark.parametrize("use_linear,use_bias", [(True, True), (False, False)])
+def test_predict_dense_matches_jax(use_linear, use_bias):
+    n, k = 30, 5
+    jp, tp = _both(*_params(2, n, k))
+    X = np.random.default_rng(3).normal(size=(11, n)).astype(np.float32)
+    X[X < 0.5] = 0.0
+    jcfg = jfm.FMConfig(num_features=n, num_factors=k, use_bias=use_bias, use_linear=use_linear)
+    tcfg = tfm.FMConfig(num_features=n, num_factors=k, use_bias=use_bias, use_linear=use_linear)
+    want = np.asarray(jfm.predict_dense(jp, jnp.asarray(X), jcfg))
+    got = tfm.predict_dense(tp, torch.tensor(X), tcfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---- the rlog (utils/rlog.py) and the learners' columns, against the JAX
+# learners' (built, not run)
+
+
+def test_rlog_rows_match_jax():
+    import io
+    import math
+
+    from libfm_tpu.utils.rlog import RLog as JaxRLog
+    from libfm_tpu_torch.utils.rlog import RLog
+
+    outs = []
+    for cls in (RLog, JaxRLog):
+        buf = io.StringIO()
+        r = cls(buf)
+        r.add_field("a")
+        r.add_field("b", 2.5)
+        with pytest.raises(ValueError, match="already exists"):
+            r.add_field("a")
+        r.init()
+        r.log("a", 1.0 / 3.0)
+        r.new_line()
+        r.log("b", math.nan)
+        r.log("a", "text")
+        r.new_line()
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] == "a\tb\n0.333333\t2.5\ntext\tnan\n"
+
+
+def _headers(task, groups, k=3):
+    """The rlog header of each learner, port and JAX, for one task."""
+    import io
+
+    from libfm_tpu.learners.mcmc import MCMCLearner as JaxExact
+    from libfm_tpu.learners.mcmc_vector import MCMCVectorLearner as JaxVector
+    from libfm_tpu.learners.sgd import SGDLearner as JaxSGD
+    from libfm_tpu.learners.sgda import SGDALearner as JaxSGDA
+    from libfm_tpu.utils.rlog import RLog as JaxRLog
+    from libfm_tpu_torch.learners.mcmc import MCMCLearner
+    from libfm_tpu_torch.learners.mcmc_vector import MCMCVectorLearner
+    from libfm_tpu_torch.learners.sgd import SGDLearner
+    from libfm_tpu_torch.learners.sgda import SGDALearner
+    from libfm_tpu_torch.utils.rlog import RLog
+
+    n = len(groups)
+    out = {}
+    for name, (tcls, jcls) in dict(mcmc=(MCMCVectorLearner, JaxVector),
+                                   exact=(MCMCLearner, JaxExact),
+                                   sgd=(SGDLearner, JaxSGD),
+                                   sgda=(SGDALearner, JaxSGDA)).items():
+        heads = []
+        for cls, cfg, rlog, kw in (
+            (tcls, tfm.FMConfig(num_features=n, num_factors=k), RLog(io.StringIO()),
+             dict(device="cpu")),
+            (jcls, jfm.FMConfig(num_features=n, num_factors=k), JaxRLog(io.StringIO()), {}),
+        ):
+            kw = dict(kw, task=task, rlog=rlog)
+            if name != "sgd":
+                kw["attr_group"] = groups
+            learner = cls(cfg, **kw)
+            if name in ("mcmc", "exact"):
+                learner.register_log_fields()
+            rlog.init()
+            heads.append(rlog._out.getvalue())
+        out[name] = heads
+    return out
+
+
+@pytest.mark.parametrize("task", [0, 1])
+def test_rlog_headers_match_jax_learners(task):
+    groups = np.array([0, 1, 1, 0, 1], np.int32)  # G = 2
+    heads = _headers(task, groups)
+    for name, (got, want) in heads.items():
+        assert got == want, name
+    assert "vmu[1,2]" in heads["mcmc"][0] and "rmse_val" in heads["sgda"][0]
