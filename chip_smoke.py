@@ -16,6 +16,9 @@
     python3 chip_smoke.py --probes            # the probe-shape kernel checks and the
                                               # probe path only
     python3 chip_smoke.py --cli               # the CLI phase only
+    python3 chip_smoke.py --options           # the options phase only (k = 0,
+                                              # checkpoints, predict_new, case
+                                              # reordering)
     python3 chip_smoke.py --quality           # MCMC 24 iterations at #3, #4, #5 against
                                               # bench.py's quality targets, and at
                                               # bench_bs_ctx and bench_bs_c
@@ -220,6 +223,26 @@ What it does, in order (any failed phase exits non-zero):
    at every iteration, the same final bits and the same launches (so an
    rlog adds none); -out against predict() and the rlog's columns
    checked. Prints the phase's seconds.
+4c. Options phase (the learner options). The flat engine's
+   kernels at k = 0, the pure linear model (P = [w], A = [e]), against
+   their plain versions: at config #3 fm_refresh (train mode, test mode
+   timed beside), case_stats (also to float64) and slot_stats on both
+   blocks, schur_draw's scalar conjugate draw (the plain version's bits),
+   dense_update and slot_update on both blocks; at config #4 fm_refresh's
+   probit mode and probit_latent at a stride of one float. Then, each with
+   its launches: k = 0 ALS 3 and MCMC 4 at #3 on the default route
+   (case_stats: both blocks pass the gate at moment width 2), MCMC 2 with
+   case_major_stats=False (slot_stats) and with dense_update=False
+   (slot_update), probit MCMC 3 at #4 and exact MCMC 2 at #3 (coord_draw's
+   w sweep alone), their test RMSE printed; MCMC at #3 (k = 64) and #4
+   saved at iteration 4 and resumed from the file twice to 8, and bench_bs
+   saved at 12 and resumed twice to 24: the two resumes the same bits, each
+   within 1e-4 (5e-3 under probit) of the straight run (mcmc_bs at
+   bench_bs), the file's size and the save and load seconds printed;
+   predict_new after ALS 3 at #3 on the 1M test rows (the same bits as
+   predict()) and at bench_bs chunked (predict_expand_cap 200,000)
+   against unchunked (the same bits); ALS 3 at #3 with case reordering
+   (case_major_stats=False) within 2e-4 of the same run without.
 5. Probe phase. The ported table probes (libfm_tpu_torch.studies
    pallas_gather.main and pallas_scatter.main) at the studies' shapes,
    each against its plain version; prints ns/row.
@@ -229,6 +252,9 @@ What it does, in order (any failed phase exits non-zero):
 
 `--cli` builds the kernels, #3's and bench_bs's data and runs the CLI
 phase alone; it prints the CLI paths' launches as one JSON line.
+`--options` builds the kernels, #3's, #4's and bench_bs's data and runs
+the options phase alone (bench_bs's straight MCMC 24 too); it prints the
+k = 0 rows and the phase's launches as one JSON line.
 `--sgda` runs only SGDA's kernel checks (phase 3's SGDA part) and its two
 paths (phase 4's sgda_1 and sgda_4b, traced under `--profile`).
 `--config4` runs only config #4's kernel checks and its MCMC path twice
@@ -261,6 +287,7 @@ checkout's root.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -397,6 +424,26 @@ QUALITY_TARGETS = {"quality_3": 0.3541, "quality_4": 0.7294, "quality_5": 0.5169
 # -save_model and again with -load_model (regw = regv = 5, as the ALS
 # paths above), ALS 3 at bench_bs through -relation, SGD 2 epochs at #1
 CLI_MCMC_ITERS, CLI_ALS_ITERS, CLI_BS_ITERS, CLI_SGD_EPOCHS = 4, 2, 3, 2
+# the options phase (run_options): the pure linear model (k = 0) at #3,
+# ALS 3 and MCMC 4 on the default route, MCMC 2 with case_major_stats=False
+# and with dense_update=False, exact MCMC 2; probit MCMC 3 at #4 (refreshes
+# at 0 and 2, probit_latent at 1)
+OPT_K0_ALS_ITERS, OPT_K0_MCMC_ITERS, OPT_K0_SHORT_ITERS, OPT_K0_PROBIT_ITERS = 3, 4, 2, 3
+# checkpoints: MCMC saved at iteration 4 and resumed to 8 at #3 and #4, at
+# 12 and resumed to 24 at bench_bs (mcmc_bs the straight run); the resumed
+# readings against the straight run's: JAX's own tolerances
+# (tests/test_checkpoint.py), 1e-4 (vector engines) and 5e-3 under probit;
+# at bench_bs the band its deferred path keeps from the resync path
+# (tests/test_torch_bs_vector.py), 2e-4: the resumed run re-grounds C and
+# SD at 11 and 12, where the straight one carries them to 15
+OPT_CKPT_HALF, OPT_BS_HALF = 4, 12
+OPT_RESUME_TOL, OPT_RESUME_PROBIT_TOL, OPT_RESUME_BS_TOL = 1e-4, 5e-3, 2e-4
+# predict_new at bench_bs after ALS 3: unchunked (the test join's 1.6M
+# entries, under predict_expand_cap) and chunked under this cap
+OPT_BS_ALS_ITERS, OPT_PREDICT_CAP = 3, 200_000
+# case reordering: the ALS readings against the unordered run's (the JAX
+# test's band, tests/test_mcmc_vector.py:345-371)
+OPT_REORDER_TOL = 2e-4
 U32 = 2.0 ** -24  # float32's unit roundoff
 HOT_ROWS = 1024  # the gather-against-streaming line's small table
 FEW_ROWS = 4  # a field of few values (the skewed line)
@@ -436,6 +483,19 @@ EXPECTED["exact_bs_c"] = EXPECTED["exact_bs_ctx"] | {"rel_refresh_probit"}
 EXPECTED["mcmc_4_again"] = EXPECTED["mcmc_4"]
 EXPECTED.update(cli_3=EXPECTED["mcmc"], cli_als_3=EXPECTED["als"], cli_bs=EXPECTED["als_bs"],
                 cli_sgd_1=EXPECTED["sgd_1"])
+# the options phase: k = 0 on the default route (case_stats), the slot
+# statistics, the slot scatter, probit at #4 and the exact engine; the
+# checkpointed chains' and predict_new's paths
+EXPECTED.update(
+    als_k0_3={"fm_refresh", "case_stats", "schur_draw", "dense_update"},
+    mcmc_k0_3={"fm_refresh", "case_stats", "schur_draw", "dense_update"},
+    mcmc_k0_slot_3=EXPECTED["mcmc"], mcmc_k0_scatter_3=EXPECTED["mcmc_scatter"],
+    mcmc_k0_4=EXPECTED["mcmc_4"], exact_k0_3=EXPECTED["exact_3"],
+    **{f"ckpt_{kind}_{c}": EXPECTED[run] for c, run in (
+        ("3", "mcmc"), ("4", "mcmc_4"), ("bs", "mcmc_bs")) for kind in (
+        "straight", "save", "resume", "resume_again") if (kind, c) != ("straight", "bs")},
+    als_pn_3=EXPECTED["als"], als_reorder_3=EXPECTED["als"], als_pn_bs=EXPECTED["als_bs"],
+    predict_new_3={"fm_refresh"}, predict_new_bs={"fm_refresh"})
 EXPECTED.update(quality_3=EXPECTED["mcmc"], quality_4=EXPECTED["mcmc_4"],
                 quality_5=EXPECTED["mcmc_5"], quality_bs_ctx=EXPECTED["mcmc_bs_ctx"],
                 quality_bs_c=EXPECTED["mcmc_bs_c"])
@@ -455,6 +515,10 @@ REL_RESYNC_FIRST_MS = {"read-only": 0.0157, "write": 0.1777}
 #: ... and table_read's at probes P1 and P3 (the one-launch L2 form's
 #: predecessor: partials, then a combine launch)
 TABLE_READ_FIRST_MS = {"P1": 0.0797, "P3": 0.0793}
+#: ... and at k = 0, dense_update's and slot_update's tiled and staged
+#: kernels' k = 0 instances on config #3's 2 blocks, which their k = 0
+#: kernels replaced
+K0_FIRST_MS = {"dense_update": 2.1194, "slot_update": 1.8759}
 #: rows of the table past a one-column slice, which table_read reads on
 #: its l2 form (128 columns: 32 MB, within the 50 MB L2)
 TALL_NSUB = 65_536
@@ -4022,6 +4086,541 @@ def run_exact(args, rec, dev, counts, done, data=None, ctr=None, bs=None, ctx=No
 # ---- the CLI phase: libfm_tpu_torch/cli.py on the card
 
 
+# ---- the learner options: the pure linear model (k = 0), checkpoints,
+# predict_new and case reordering
+
+
+def event_ms(fn) -> float:
+    """Milliseconds of one run of `fn` between two CUDA events (for a plain
+    version that takes seconds, whose host gaps do not matter)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def k0_kernel_checks(args, rec, dev, data, ctr):
+    """The options phase's kernel checks: the flat engine's kernels at
+    k = 0 (the pure linear model: P = [w], A = [e]) against their plain
+    versions on the same inputs, at the shapes the k = 0 paths give them.
+    At config #3 (both blocks pass the case-major gate at k = 0: moment
+    width 2): fm_refresh's train mode (its test mode on the 1M test rows
+    timed beside), case_stats (also against its float64 plain version
+    over each entry's sum of magnitudes) and slot_stats on both blocks,
+    schur_draw's scalar draw (sampling, the mean checked too; the plain
+    version's bits), dense_update and slot_update (the blocks' slots in
+    case order) on both blocks. At config #4: fm_refresh's probit mode and
+    probit_latent on A's residual at a stride of one float. Returns the
+    rows, each with "config" saying where it ran."""
+    import numpy as np
+
+    from libfm_tpu_torch.data.batching import conflict_free_blocks, feature_slots
+    from libfm_tpu_torch.data.vector_layout import padded_rows_layout
+    from libfm_tpu_torch.kernels import case_stats as cs
+    from libfm_tpu_torch.kernels import dense_update as du
+    from libfm_tpu_torch.kernels import fm_refresh as fr
+    from libfm_tpu_torch.kernels import probit_latent as pl
+    from libfm_tpu_torch.kernels import schur_draw as sd
+    from libfm_tpu_torch.kernels import slot_stats as ss
+    from libfm_tpu_torch.kernels import slot_update as su
+    from libfm_tpu_torch.learners.mcmc_vector import DevBlock
+    from libfm_tpu_torch.ops.samplers import probit_latent as draw
+
+    d, GW = 1, ss.gg_width(0)
+    out = []
+
+    def entry(name, replaces, err, tol, ms, plain_ms, nbytes, flops, config, timed,
+              source=None):
+        row = kernel_row(name, replaces, err, tol, ms, plain_ms, nbytes, flops, None, timed,
+                         label=f" (k = 0, {config})", source=source)
+        row["config"] = f"{config}, k = 0"
+        out.append(row)
+        return row
+
+    def padded(ds):
+        return [torch.as_tensor(x, device=dev) for x in
+                padded_rows_layout(ds.indptr, ds.cols, ds.vals)]
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    train, test = data[:2]
+    n, nc = train.num_features, train.num_rows
+    fblocks = conflict_free_blocks(train)
+    blocks = [DevBlock(b, np.zeros(len(b.features), np.int32), nc, dev, 0, True)
+              for b in fblocks]
+    if not all(b.case_major and not b.scatter_update for b in blocks):
+        fail("config #3 at k = 0: a block left the case-major route")
+    ids, vals = padded(train)
+    te_ids, te_vals = padded(test)
+    y = torch.as_tensor(train.target, device=dev)
+    L, (nt, Lt) = ids.shape[1], te_ids.shape
+    P = 0.1 * torch.randn(n, d, generator=g, device=dev)
+    w0 = torch.tensor(3.5, device=dev)
+
+    # ---- fm_refresh (train mode; test mode beside)
+    kw = dict(min_target=1.0, max_target=5.0)
+    A, A_p = torch.empty(nc, d, device=dev), torch.empty(nc, d, device=dev)
+    s_k = fr.fm_refresh(P, ids, vals, w0, y, A, **kw)
+    s_p = fr.fm_refresh_plain(P, ids, vals, w0, y, A_p, **kw)
+    p_k = fr.fm_refresh(P, te_ids, te_vals, w0)
+    p_p = fr.fm_refresh_plain(P, te_ids, te_vals, w0)
+    torch.cuda.synchronize()
+    err = max((A - A_p).abs().max().item(), (p_k - p_p).abs().max().item(),
+              abs(s_k.item() - s_p.item()) / max(1.0, abs(s_p.item())))
+    row = entry("fm_refresh", "libfm_tpu/learners/mcmc_vector.py:1090-1199", err, 1e-4,
+                cuda_ms(lambda: fr.fm_refresh(P, ids, vals, w0, y, A, **kw), args.reps),
+                cuda_ms(lambda: fr.fm_refresh_plain(P, ids, vals, w0, y, A_p, **kw),
+                        args.reps),
+                nbytes=nc * L * 8 + nc * 4 + n * d * 4 + nc * d * 4, flops=nc * (2 * L + 8),
+                config="config #3", timed="one train-mode launch (the refresh)")
+    row["test_mode_ms"] = cuda_ms(lambda: fr.fm_refresh(P, te_ids, te_vals, w0), args.reps)
+    row["test_mode_plain_ms"] = cuda_ms(lambda: fr.fm_refresh_plain(P, te_ids, te_vals, w0),
+                                        args.reps)
+    row["test_mode_bound_ms"] = bound_ms(nt * Lt * 8 + nt * 4 + n * d * 4, 0)[0]
+    print(f"fm_refresh test mode (k = 0): ms={row['test_mode_ms']:.4f} plain_ms="
+          f"{row['test_mode_plain_ms']:.4f} bound_ms={row['test_mode_bound_ms']:.4f} (bytes)")
+    fr.fm_refresh(P, ids, vals, w0, y, A, **kw)
+    del A_p, p_k, p_p
+    E = sum(int(b.slot_case.numel()) for b in blocks)
+    Fsum = sum(b.F for b in blocks)
+
+    def run_stats(fn, GGs, extra):
+        """One iteration's launches of `fn` over both blocks; `extra(b)` the
+        block's own keywords."""
+        def go():
+            for b, G in zip(blocks, GGs):
+                fn(A, P, b.feat_off, b.slot_case, b.slot_val, b.feat_id, GG=G, **extra(b))
+        return go
+
+    def reference(b):
+        """Block b's GG at k = 0 in float64, [aa | ae] = [sum x^2 | sum x e]
+        over its slots, and each entry's sum of magnitudes."""
+        f = torch.repeat_interleave(torch.arange(b.Fd, device=dev),
+                                    b.feat_off[1:] - b.feat_off[:-1])
+        c = b.slot_case.long()
+        real = (c < nc).double()
+        x = b.slot_val.double() * real
+        e = A[c.clamp_max(nc - 1), 0].double() * real
+        sums = [torch.zeros(b.Fd, dtype=torch.float64, device=dev).index_add_(0, f, v)
+                for v in (x * x, x * e, (x * e).abs())]
+        return torch.stack(sums[:2], 1), torch.stack([sums[0], sums[2]], 1)
+
+    # ---- case_stats (the k = 0 route) and slot_stats on both blocks
+    GG_c = [torch.empty(b.F, GW, device=dev) for b in blocks]
+    GG_s = [torch.empty(b.F, GW, device=dev) for b in blocks]
+    GG_p = [torch.empty(b.F, GW, device=dev) for b in blocks]
+    run_stats(cs.case_stats, GG_c, lambda b: dict(onehot=b.onehot, pieces=b.case_plan))()
+    run_stats(ss.slot_stats, GG_s, lambda b: dict(pieces=b.pieces))()
+    # the plain version takes seconds here (a one-hot product over 71,567
+    # features a chunk of cases): timed on its one checked run
+    plain_ms = event_ms(run_stats(cs.case_stats_plain, GG_p, lambda b: dict(onehot=b.onehot)))
+    errs, plain_errs = [], []
+    for b, Gc, Gs, Gp in zip(blocks, GG_c, GG_s, GG_p):
+        errs.append(cs.err_over_magnitudes(Gc, *reference(b)))
+        plain_errs += [col_rel_err(Gc, Gp).item(),
+                       col_rel_err(Gs, ss.slot_stats_plain(A, P, b.feat_off, b.slot_case,
+                                                           b.slot_val, b.feat_id)).item(),
+                       col_rel_err(Gs, Gc).item()]
+    row = entry("case_stats", "libfm_tpu/learners/mcmc_vector.py:1320-1422", max(errs),
+                CASE_STATS_TOL,
+                cuda_ms(run_stats(cs.case_stats, GG_c,
+                                  lambda b: dict(onehot=b.onehot, pieces=b.case_plan)),
+                        args.reps),
+                plain_ms,
+                # each slot's case and e; each feature's offsets, id and GG row
+                nbytes=E * 8 + Fsum * (8 + 4 + GW * 4), flops=E * 32,
+                config="config #3", timed="one iteration's launches: one per block")
+    row["plain_f32_and_slot_stats_rel_err"] = max(plain_errs)
+    print(f"case_stats (k = 0) against float64 over the sums of magnitudes "
+          f"{max(errs):.3g} (tol {CASE_STATS_TOL:g}); against the float32 plain version and "
+          f"slot_stats, per column {max(plain_errs):.3g} (tol 1e-4)")
+    if not max(plain_errs) <= 1e-4:
+        fail(f"case_stats / slot_stats at k = 0 disagree: {max(plain_errs)}")
+    entry("slot_stats", "libfm_tpu/learners/mcmc_vector.py:1277-1289, 1428-1492",
+          max(col_rel_err(Gs, ss.slot_stats_plain(A, P, b.feat_off, b.slot_case, b.slot_val,
+                                                  b.feat_id)).item()
+              for b, Gs in zip(blocks, GG_s)), 1e-4,
+          cuda_ms(run_stats(ss.slot_stats, GG_s, lambda b: dict(pieces=b.pieces)), args.reps),
+          cuda_ms(run_stats(ss.slot_stats_plain, GG_s, lambda b: {}), args.reps, warmup=1),
+          nbytes=E * (8 + d * 4) + Fsum * (4 + 8 + GW * 4), flops=E * 8,
+          config="config #3", timed="one iteration's launches: one per block")
+
+    # ---- schur_draw: the scalar conjugate draw (sampling; the mean too)
+    alpha = torch.tensor(2.0, device=dev)
+    sys_in = []
+    for b, G in zip(blocks, GG_c):
+        sys_in.append((G, P[b.features].contiguous(), torch.full((b.F, d), 5.0, device=dev),
+                       0.01 * torch.randn(b.F, d, generator=g, device=dev),
+                       torch.randn(b.F, d, generator=g, device=dev)))
+    bound, errs = 1e6 * 5.0, []
+    for G, theta, lam, mu, z in sys_in:
+        for samp in (True, False):
+            tk, rk = sd.schur_draw(G, theta, lam, mu, z, alpha, do_sample=samp, bound=bound)
+            tp, rp = sd.schur_draw_plain(G, theta, lam, mu, z, alpha, do_sample=samp,
+                                         bound=bound)
+            torch.cuda.synchronize()
+            if not torch.equal(rk, rp):
+                fail("schur_draw (k = 0): reject flags differ from the plain version")
+            errs.append(((tk - tp).abs().max() / tp.abs().max().clamp_min(1.0)).item())
+
+    def run_draw(fn):
+        def go():
+            for G, theta, lam, mu, z in sys_in:
+                fn(G, theta, lam, mu, z, alpha, do_sample=True, bound=bound)
+        return go
+
+    entry("schur_draw", "libfm_tpu/learners/mcmc_vector.py:1561-1578", max(errs), 1e-6,
+          cuda_ms(run_draw(sd.schur_draw), args.reps),
+          cuda_ms(run_draw(sd.schur_draw_plain), args.reps),
+          nbytes=Fsum * (GW * 4 + 5 * d * 4 + 4), flops=Fsum * 12, config="config #3",
+          timed="one iteration's launches: one per block")
+
+    # ---- dense_update and slot_update (the blocks' slots in case order)
+    tabs = []
+    for G, theta, lam, mu, z in sys_in:
+        tnew, _ = sd.schur_draw(G, theta, lam, mu, z, alpha, do_sample=True, bound=bound)
+        tabs.append(du.update_table(theta, tnew))
+    A_k, A_p = A.clone(), A.clone()
+    for b, tab in zip(blocks, tabs):
+        du.dense_update(A_k, b.up_col, b.up_val, tab)
+        du.dense_update_plain(A_p, b.up_col, b.up_val, tab)
+    torch.cuda.synchronize()
+
+    def run_upd(fn, A_):
+        def go():
+            for b, tab in zip(blocks, tabs):
+                fn(A_, b.up_col, b.up_val, tab)
+        return go
+
+    covered = sum(int((b.up_col != b.F).sum().item()) for b in blocks)
+    tab_bytes = sum((b.F + 1) * (d + 1) * 4 for b in blocks)
+    A_dense = A_k.clone()  # the timed launches below update A_k again
+    entry("dense_update", "libfm_tpu/learners/mcmc_vector.py:1766-1791",
+          (A_k - A_p).abs().max().item(), 1e-4,
+          cuda_ms(run_upd(du.dense_update, A_k), args.reps),
+          cuda_ms(run_upd(du.dense_update_plain, A_p), args.reps),
+          nbytes=len(blocks) * nc * 4 + covered * d * 8 + tab_bytes, flops=covered * 6,
+          config="config #3", timed="one iteration's launches: one per block")
+    lists = []
+    for fb in fblocks:
+        off, sc, sv = feature_slots(fb)
+        lists.append([torch.as_tensor(x, device=dev) for x in su.case_order(
+            sc, sv, np.repeat(np.arange(len(fb.features), dtype=np.int32), np.diff(off)))])
+    S_k, S_p = A.clone(), A.clone()
+    for lst, tab in zip(lists, tabs):
+        su.slot_update(S_k, *lst, tab)
+        su.slot_update_plain(S_p, *lst, tab)
+    torch.cuda.synchronize()
+    err = max(col_rel_err(S_k, S_p).item(), col_rel_err(S_k, A_dense).item())
+
+    def run_slots(fn, A_):
+        def go():
+            for lst, tab in zip(lists, tabs):
+                fn(A_, *lst, tab)
+        return go
+
+    entry("slot_update", "libfm_tpu/learners/mcmc_vector.py:1842-1865", err, 1e-5,
+          cuda_ms(run_slots(su.slot_update, S_k), args.reps),
+          cuda_ms(run_slots(su.slot_update_plain, S_p), args.reps),
+          nbytes=E * (2 * d * 4 + 12) + tab_bytes, flops=E * 6, config="config #3",
+          timed="one iteration's launches (dense_update=False): one per block")
+    print(f"k = 0's own update kernels at config #3 against the tiled and staged kernels' "
+          f"k = 0 instances: dense_update {out[-2]['ms']:.4f} ms (first version "
+          f"{K0_FIRST_MS['dense_update']}), slot_update {out[-1]['ms']:.4f} (first version "
+          f"{K0_FIRST_MS['slot_update']}; PERF.md, on an H100 80GB HBM3 at 700 W)")
+    del A, A_k, A_p, A_dense, S_k, S_p, GG_c, GG_s, GG_p, sys_in, tabs, lists, blocks, fblocks
+    del ids, vals
+
+    # ---- config #4: fm_refresh's probit mode and probit_latent at d = 1
+    train4 = ctr[0]
+    n4, nc4 = train4.num_features, train4.num_rows
+    ids4, vals4 = padded(train4)
+    y4 = torch.as_tensor(train4.target, device=dev)
+    L4 = ids4.shape[1]
+    P4 = 0.1 * torch.randn(n4, d, generator=g, device=dev)
+    w04 = torch.tensor(0.1, device=dev)
+    U = torch.rand(nc4, generator=g, device=dev)
+    cases, errs = {}, []
+    for mode, u in (("sample", U), ("mean", None)):
+        A_k, A_p = torch.empty(nc4, d, device=dev), torch.empty(nc4, d, device=dev)
+        lat_k, lat_p = torch.empty(nc4, device=dev), torch.empty(nc4, device=dev)
+        c_k = fr.fm_refresh(P4, ids4, vals4, w04, y4, A_k, probit=mode, U=u, latent=lat_k)
+        c_p = fr.fm_refresh_plain(P4, ids4, vals4, w04, y4, A_p, probit=mode, U=u,
+                                  latent=lat_p)
+        torch.cuda.synchronize()
+        pred_k = A_k[:, 0] + lat_k
+        lat_ref = draw(pred_k, y4, u)
+        near = ((lat_ref - pred_k).abs() <= LATENT_CHECKED if u is not None
+                else torch.ones_like(y4, dtype=torch.bool))
+        errs.append(max((pred_k - (A_p[:, 0] + lat_p)).abs().max().item(),
+                        ((lat_k - lat_ref).abs() / lat_ref.abs().clamp_min(1.0))[near]
+                        .max().item(),
+                        float(not ((lat_k >= 0) == (y4 >= 0)).all())))
+        cases[mode] = dict(
+            correct_kernel=c_k.item(), correct_plain=c_p.item(),
+            ms=cuda_ms(lambda: fr.fm_refresh(P4, ids4, vals4, w04, y4, A_k, probit=mode, U=u,
+                                             latent=lat_k), args.reps),
+            plain_ms=cuda_ms(lambda: fr.fm_refresh_plain(P4, ids4, vals4, w04, y4, A_p,
+                                                         probit=mode, U=u, latent=lat_p),
+                             args.reps))
+    row = entry("fm_refresh_probit", "libfm_tpu/learners/mcmc_vector.py:1136-1166", max(errs),
+                1e-4, cases["sample"]["ms"], cases["sample"]["plain_ms"],
+                nbytes=nc4 * L4 * 8 + nc4 * 4 * 3 + n4 * d * 4 + nc4 * d * 4,
+                flops=nc4 * (2 * L4 + 48), config="config #4",
+                timed="one probit train-mode launch (sampling)",
+                source="libfm_tpu_torch/csrc/fm_refresh.cu")
+    row["cases"] = cases
+    cases, errs = {}, []
+    for mode, u in (("sample", U), ("mean", None)):
+        A_k, A_p, A_2 = A_k.clone(), A_k.clone(), A_k.clone()
+        l_k, l_p, l_2 = lat_k.clone(), lat_k.clone(), lat_k.clone()
+        out_k = pl.probit_latent(A_k, l_k, y4, u)
+        c_p, se_p, se2_p = pl.probit_latent_plain(A_p, l_p, y4, u)
+        out_2 = pl.probit_latent(A_2, l_2, y4, u)
+        torch.cuda.synchronize()
+        repeat_check(f"probit_latent count and sums, config #4, k = 0 ({mode})", out_k,
+                     out_2, rec)
+        c_k, se_k, se2_k = out_k
+        errs.append(max(((l_k - l_p).abs() / l_p.abs().clamp_min(1.0)).max().item(),
+                        ((A_k[:, 0] - A_p[:, 0]).abs() / A_p[:, 0].abs().clamp_min(1.0))
+                        .max().item(), abs(c_k.item() - c_p.item()),
+                        abs(se_k.item() - se_p.item()) / A_p[:, 0].abs().sum().item(),
+                        abs(se2_k.item() - se2_p.item()) / se2_p.item()))
+        cases[mode] = dict(ms=cuda_ms(lambda: pl.probit_latent(A_k, l_k, y4, u), args.reps),
+                           plain_ms=cuda_ms(lambda: pl.probit_latent_plain(A_p, l_p, y4, u),
+                                            args.reps))
+    # e, and the latents, read and written; y and U read
+    row = entry("probit_latent", "libfm_tpu/learners/mcmc_vector.py:2033-2076", max(errs),
+                1e-5, cases["sample"]["ms"], cases["sample"]["plain_ms"],
+                nbytes=nc4 * 4 * 6, flops=nc4 * 60, config="config #4",
+                timed="one launch (sampling)")
+    row["cases"] = cases
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def checkpoint_clock(times):
+    """Time every checkpoint save and restore of the learners (host clock,
+    the card synchronised), appending ("save" | "load", seconds) to
+    `times`."""
+    from libfm_tpu_torch.learners.mcmc import MCMCLearner
+
+    save, restore = MCMCLearner._save_checkpoint, MCMCLearner._maybe_restore
+
+    def timed(kind, fn):
+        def wrapper(self, *a):
+            t0 = time.perf_counter()
+            out = fn(self, *a)
+            torch.cuda.synchronize()
+            if kind == "save" or out:
+                times.append((kind, time.perf_counter() - t0))
+            return out
+        return wrapper
+
+    MCMCLearner._save_checkpoint = timed("save", save)
+    MCMCLearner._maybe_restore = timed("load", restore)
+    try:
+        yield
+    finally:
+        MCMCLearner._save_checkpoint, MCMCLearner._maybe_restore = save, restore
+
+
+def resume_check(args, rec, counts, tmp, config, data, straight, half, tol, **kw):
+    """A chain saved at iteration `half` (run "ckpt_save_<config>") and
+    resumed from that file twice to the end of the straight run
+    `straight` (runs "ckpt_resume_<config>" and "..._again"): the two
+    resumes must end in the same bits and read the same at every
+    iteration, and lie within `tol` of the straight run's test_this and
+    test_all. Prints the file's size and the save and load seconds."""
+    from libfm_tpu_torch.learners.mcmc_vector import MCMCVectorLearner
+
+    path = os.path.join(tmp, f"{config}.npz")
+    full = len(rec[straight]["history"])
+    times = []
+    with checkpoint_clock(times):
+        _, counts[f"ckpt_save_{config}"] = run_learner(
+            MCMCVectorLearner, f"ckpt_save_{config}", data, args, rec, iters=half,
+            exact=False, learner_kw=dict(checkpoint_path=path, checkpoint_every=half), **kw)
+        size = os.path.getsize(path)
+        runs = []
+        for name in (f"ckpt_resume_{config}", f"ckpt_resume_again_{config}"):
+            learner, counts[name] = run_learner(
+                MCMCVectorLearner, name, data, args, rec, iters=full, exact=False,
+                learner_kw=dict(checkpoint_path=path), **kw)
+            runs.append(learner._final_state)
+    a, b = (rec[f"ckpt_resume{s}_{config}"]["history"] for s in ("", "_again"))
+    base = rec[straight]["history"][half:]
+    if [h["iter"] for h in a] != list(range(half, full)):
+        fail(f"ckpt_resume_{config} did not resume at iteration {half}: "
+             f"{[h['iter'] for h in a]}")
+    same = (all(torch.equal(runs[0][key], runs[1][key]) for key in REPRO_KEYS)
+            and [h["test_all"] for h in a] == [h["test_all"] for h in b])
+    diff = max(abs(h[key] - s[key]) for h, s in zip(a, base, strict=True)
+               for key in ("test_this", "test_all"))
+    out = dict(file_bytes=size, seconds=times, same_bits=same, from_straight=diff, tol=tol)
+    rec[f"ckpt_{config}"] = out
+    print(f"checkpoint at {config}: saved at iteration {half} ({size} bytes; save and load "
+          f"seconds {[(k_, round(s_, 3)) for k_, s_ in times]}), resumed to {full} twice: "
+          f"the same bits {same}; test_this / test_all within {diff:.3g} of the straight "
+          f"run {straight} (tol {tol:g}); test_all {[round(h['test_all'], 6) for h in a]} "
+          f"against {[round(h['test_all'], 6) for h in base]}")
+    if not same:
+        fail(f"{config}: two resumes from one checkpoint end in other bits")
+    if not diff <= tol:
+        fail(f"{config}: the resumed chain lies {diff} from the straight one (> {tol})")
+    os.remove(path)
+    return out
+
+
+def run_options(args, rec, dev, counts, done, data, ctr, bs):
+    """The options phase: the k = 0 kernel checks (returns their rows), then
+    on the card at the configs' full widths, each path's launches into
+    `counts`: k = 0 ALS 3 and MCMC 4 at config #3 on the default route,
+    MCMC 2 there with case_major_stats=False and with dense_update=False,
+    probit MCMC 3 at config #4 and exact MCMC 2 at config #3; a checkpoint
+    at iteration 4 of MCMC at #3 and #4 and at iteration 12 at bench_bs,
+    resumed twice to 8 (24 at bench_bs: the mcmc_bs run is the straight
+    one, where it ran); predict_new after ALS 3 at #3 (against predict(),
+    the same bits) and at bench_bs (chunked against unchunked, the same
+    bits); ALS 3 at #3 with case reordering against the same run without
+    (case_major_stats=False: within 2e-4)."""
+    import tempfile
+
+    import numpy as np
+
+    from libfm_tpu_torch import kernels
+    from libfm_tpu_torch.learners.mcmc import MCMCLearner
+    from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner, MCMCVectorLearner
+
+    t0 = time.perf_counter()
+    table = k0_kernel_checks(args, rec, dev, data, ctr)
+    t0 = done("options: k = 0 kernel checks", t0)
+
+    # ---- the pure linear model's paths
+    k0 = dict(factors=0)
+    routes = (
+        ("als_k0_3", ALSVectorLearner, OPT_K0_ALS_ITERS, dict(regw=5.0, regv=5.0), {}),
+        ("mcmc_k0_3", MCMCVectorLearner, OPT_K0_MCMC_ITERS, {}, {}),
+        ("mcmc_k0_slot_3", MCMCVectorLearner, OPT_K0_SHORT_ITERS, {},
+         dict(case_major_stats=False)),
+        ("mcmc_k0_scatter_3", MCMCVectorLearner, OPT_K0_SHORT_ITERS, {},
+         dict(dense_update=False)),
+    )
+    for name, cls, iters, cfg_kw, learner_kw in routes:
+        stats = "case_stats" if not learner_kw else "slot_stats"
+        update = "slot_update" if "dense_update" in learner_kw else "dense_update"
+        run_learner(cls, name, data, args, rec, iters=iters, learner_kw=learner_kw,
+                    per_iter={stats: 2, "schur_draw": 2, update: 2}, **k0, **cfg_kw)
+        counts[name] = rec[name]["launches"]
+        hist = rec[name]["history"]
+        print(f"{name}: test RMSE (test_all) by iteration "
+              f"{[round(h['test_all'], 6) for h in hist]}; seconds an iteration "
+              f"{[round(h['time'], 6) for h in hist]}")
+        t0 = done(f"options: {name} path", t0)
+    _, counts["mcmc_k0_4"] = run_learner(
+        MCMCVectorLearner, "mcmc_k0_4", ctr, args, rec, iters=OPT_K0_PROBIT_ITERS,
+        groups=ctr[2], task=1,
+        per_iter=dict(case_stats=CTR_FIELDS, schur_draw=CTR_FIELDS, dense_update=CTR_FIELDS),
+        **k0)
+    t0 = done("options: mcmc_k0_4 path", t0)
+    # the w sweep only: one coord_draw launch a block at #3 (no long feature)
+    _, counts["exact_k0_3"] = run_learner(
+        MCMCLearner, "exact_k0_3", data, args, rec, iters=OPT_K0_SHORT_ITERS,
+        want=flat_exact_want(OPT_K0_SHORT_ITERS, 2, 0), **k0)
+    t0 = done("options: exact_k0_3 path", t0)
+
+    # ---- checkpoints: saved, resumed twice, against the straight chain
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        _, counts["ckpt_straight_3"] = run_learner(
+            MCMCVectorLearner, "ckpt_straight_3", data, args, rec, iters=2 * OPT_CKPT_HALF,
+            exact=False)
+        resume_check(args, rec, counts, tmp, "3", data, "ckpt_straight_3", OPT_CKPT_HALF,
+                     OPT_RESUME_TOL)
+        t0 = done("options: checkpoint at config #3", t0)
+        c4 = dict(factors=CTR_FACTORS, groups=ctr[2], task=1)
+        _, counts["ckpt_straight_4"] = run_learner(
+            MCMCVectorLearner, "ckpt_straight_4", ctr, args, rec, iters=2 * OPT_CKPT_HALF,
+            exact=False, **c4)
+        resume_check(args, rec, counts, tmp, "4", ctr, "ckpt_straight_4", OPT_CKPT_HALF,
+                     OPT_RESUME_PROBIT_TOL, **c4)
+        t0 = done("options: checkpoint at config #4", t0)
+        c_bs = dict(factors=BS_FACTORS, num_features=BS_NF)
+        bs_data_ = (bs["train"], bs["test"])
+        if "mcmc_bs" not in rec:
+            _, counts["mcmc_bs"] = run_learner(
+                MCMCVectorLearner, "mcmc_bs", bs_data_, args, rec, iters=BS_MCMC_ITERS,
+                want=bs_want(BS_MCMC_ITERS, bs["blocks"], True), **c_bs)
+        resume_check(args, rec, counts, tmp, "bs", bs_data_, "mcmc_bs", OPT_BS_HALF,
+                     OPT_RESUME_BS_TOL, **c_bs)
+        t0 = done("options: checkpoint at bench_bs", t0)
+
+    # ---- predict_new after ALS: #3 (against predict()), bench_bs (chunked)
+    als3, counts["als_pn_3"] = run_learner(
+        ALSVectorLearner, "als_pn_3", data, args, rec, iters=ALS_ITERS, regw=5.0, regv=5.0,
+        learner_kw=dict(case_major_stats=False))
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    new = als3.predict_new(data[1])
+    pn_seconds = time.perf_counter() - t1
+    counts["predict_new_3"] = kernels.launch_counts()
+    check_launches("predict_new_3", counts["predict_new_3"])
+    same = np.array_equal(new, als3.predict())
+    rec["predict_new_3"] = dict(seconds=pn_seconds, same_bits_as_predict=same,
+                                rows=len(new))
+    print(f"predict_new at config #3 after ALS 3: {len(new)} rows in {pn_seconds:.3f} s "
+          f"({counts['predict_new_3']['fm_refresh']} fm_refresh launches); equal to "
+          f"predict() bit for bit: {same}")
+    if not same:
+        fail("predict_new after ALS differs from predict() at config #3")
+    t0 = done("options: predict_new at config #3", t0)
+    learner, counts["als_pn_bs"] = run_learner(
+        ALSVectorLearner, "als_pn_bs", (bs["train"], bs["test"]), args, rec,
+        iters=OPT_BS_ALS_ITERS, want=bs_want(OPT_BS_ALS_ITERS, bs["blocks"], True),
+        regw=5.0, regv=5.0, factors=BS_FACTORS, num_features=BS_NF)
+    kernels.reset_launch_counts()
+    full = learner.predict_new(bs["test"])
+    learner.predict_expand_cap = OPT_PREDICT_CAP
+    chunked = learner.predict_new(bs["test"])
+    counts["predict_new_bs"] = kernels.launch_counts()
+    check_launches("predict_new_bs", counts["predict_new_bs"])
+    same = np.array_equal(full, chunked)
+    gap = float(np.abs(full - learner.predict()).max())
+    rec["predict_new_bs"] = dict(same_bits_chunked=same, from_predict=gap)
+    print(f"predict_new at bench_bs after ALS {OPT_BS_ALS_ITERS}: chunked (cap "
+          f"{OPT_PREDICT_CAP} entries) equal to unchunked bit for bit: {same}; largest "
+          f"distance from predict() {gap:.3g} (tol 5e-3: the deferred path's test "
+          f"prediction is the tail plus SD)")
+    if not same or not gap <= 5e-3:
+        fail(f"predict_new at bench_bs: chunked the same bits {same}, from predict() {gap}")
+    del learner
+    t0 = done("options: predict_new at bench_bs", t0)
+
+    # ---- case reordering at #3 (the slot path), against als_pn_3
+    learner, counts["als_reorder_3"] = run_learner(
+        ALSVectorLearner, "als_reorder_3", data, args, rec, iters=ALS_ITERS, regw=5.0,
+        regv=5.0,
+        learner_kw=dict(case_major_stats=False), flags=dict(case_reorder=True))
+    if not learner._case_reordered:
+        fail("als_reorder_3: the cases were not reordered")
+    a, b = rec["als_pn_3"]["history"], rec["als_reorder_3"]["history"]
+    diff = max(abs(x[key] - y[key]) for x, y in zip(a, b, strict=True)
+               for key in ("train", "test_this", "test_all"))
+    rec["als_reorder_3"]["from_unordered"] = diff
+    print(f"als_reorder_3: readings within {diff:.3g} of als_pn_3's (tol {OPT_REORDER_TOL:g});"
+          f" seconds an iteration {[round(h['time'], 6) for h in b]} against "
+          f"{[round(h['time'], 6) for h in a]}")
+    if not diff <= OPT_REORDER_TOL:
+        fail(f"case reordering moved the ALS readings by {diff} (> {OPT_REORDER_TOL})")
+    del learner, als3
+    done("options: case reordering at config #3", t0)
+    torch.cuda.empty_cache()
+    return table
+
+
 def cli_run(name, argv, counts):
     """One command line through libfm_tpu_torch.cli.main (the entry point
     of `python -m libfm_tpu_torch.cli`) on the card, its launches added to
@@ -4323,6 +4922,11 @@ def main(argv=None) -> int:
                     "libfm_tpu_torch.cli at configs #3 and #1 and at bench_bs, each "
                     "against the learner run in process); print the launches as one "
                     "JSON line")
+    ap.add_argument("--options", action="store_true",
+                    help="only build the kernels and run the options phase (k = 0 kernel "
+                    "checks and paths at configs #3 and #4, checkpoints resumed at #3, "
+                    "#4 and bench_bs, predict_new, case reordering); print the rows and "
+                    "launches as one JSON line")
     ap.add_argument("--quality", action="store_true",
                     help="only build the kernels and run MCMC to bench.py's 24 "
                     "iterations at configs #3, #4 and #5; print each test_all beside "
@@ -4390,6 +4994,25 @@ def main(argv=None) -> int:
             with open(args.out, "w") as f:
                 json.dump(dict(rec, cli_launches=counts, phase_seconds=phase), f, indent=1)
         print(json.dumps({"card": smi, "cli_launches": {
+            p: {key: v for key, v in c.items() if v} for p, c in counts.items()}}))
+        return 0
+    if args.options:
+        from libfm_tpu_torch.data.synth import movielens_like
+
+        data = movielens_like(USERS, ITEMS, RATINGS, seed=SEED)
+        ctr = ctr_data()
+        bs = bs_data(dev)
+        t0 = done("config #3, #4 and bench_bs data", t0)
+        counts = {}
+        table = run_options(args, rec, dev, counts, done, data, ctr, bs)
+        fill_launches(table, counts)
+        phase["total, from the script's start"] = time.perf_counter() - T_START
+        print(f"phase seconds on {smi}: "
+              f"{ {key: round(v, 2) for key, v in phase.items()} }")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(rec, kernels=table, phase_seconds=phase), f, indent=1)
+        print(json.dumps({"card": smi, "kernels": table, "options_launches": {
             p: {key: v for key, v in c.items() if v} for p, c in counts.items()}}))
         return 0
     if args.bench_bs:
@@ -4534,6 +5157,7 @@ def main(argv=None) -> int:
         t0 = done(f"SGDA {name} path", t0)
     del sgda_runs
     run_cli(args, rec, dev, counts, done, data, bs)
+    table += run_options(args, rec, dev, counts, done, data, ctr, bs)
     del bs
     t0 = time.perf_counter()
     counts["probes"] = run_probes(rec)
@@ -4552,7 +5176,9 @@ def main(argv=None) -> int:
                  "mcmc_4_again", "mcmc_5",
                  "als_bs", "mcmc_bs", "mcmc_bs_resync", "als_bs_ctx", "mcmc_bs_ctx",
                  "als_bs_c", "mcmc_bs_c", "als_exact_3", "exact_3", "exact_4",
-                 "als_exact_bs_ctx", "exact_bs_ctx", "exact_bs_c", "bs_fallback"):
+                 "als_exact_bs_ctx", "exact_bs_ctx", "exact_bs_c", "bs_fallback",
+                 "als_k0_3", "mcmc_k0_3", "mcmc_k0_4", "exact_k0_3", "ckpt_straight_3",
+                 "ckpt_resume_3", "als_reorder_3"):
         print(f"{name} per-iteration seconds on {smi}: "
               f"{[round(h['time'], 6) for h in rec[name]['history']]}")
     for name in SGD_CONFIGS:

@@ -21,10 +21,12 @@ Data files load in libFM's binary formats or its text format
 (`Dataset.load`); `tools/convert.py` makes the binary ones. What the port
 does not take yet is refused before any data loads, with the ROADMAP
 item it waits for: -mesh and -distributed 1 (M13, §1 item 6), -dtype
-other than float32 (§1 item 5), and -cache_size where the JAX package
+other than float32 (§1 item 5), -cache_size where the JAX package
 would stream (a binary .x larger than the budget) or beside -relation
-(§1 item 4). Under -cache_size otherwise the data loads resident, as in
-the JAX package.
+(§1 item 4), and the pure linear model (-dim with k = 0) with -relation,
+-method sgd or sgda (§1 item 2; with mcmc and als on flat data it runs).
+Under -cache_size otherwise the data loads resident, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -169,6 +171,11 @@ def _refusal(args, method: str) -> str | None:
         return "-distributed 1 (multi-host) waits for ROADMAP §1 item 6 (M13)"
     if args.dtype != "float32":
         return f"-dtype {args.dtype} waits for ROADMAP §1 item 5; the port runs float32"
+    if int(_split_list(args.dim)[2]) == 0 and (method in ("sgd", "sgda")
+                                              or _split_list(args.relation)):
+        where = "-relation" if method == "mcmc" else f"-method {method}"
+        return (f"-dim with k = 0 (the pure linear model) with {where} "
+                "waits for ROADMAP §1 item 2 (the kernels' range of k)")
     if args.cache_size and _split_list(args.relation):
         return ("-relation with -cache_size (the bounded relation reader) waits for "
                 "ROADMAP §1 item 4")

@@ -54,6 +54,9 @@
 //   CTA), always in the same order and with compensation, so the result
 //   does not depend on which CTA finishes last. The ticket is reset for
 //   the next call.
+// The pure linear model (k = 0) runs the KP = 4 instance: no column
+// block, one item (the scalars), the moment row [m2 | m x e] (one-hot:
+// the count and the sum of e) and the GG row [aa | ae].
 // What the first version did (PERF.md, 3.229 ms for config #4's 13
 // blocks): one CTA of 256 threads a piece of at most 2,048 slots, ~5,900
 // CTAs a block, most of them for Zipf-tail features of a few slots; two
@@ -568,7 +571,7 @@ extern "C" int case_stats_launch(const float* A, const float* P, const long long
                                  float* scratch, int* ticket, float* GG, int ncta,
                                  int piece_len, int k, int onehot, int use_linear,
                                  long long num_rows, cudaStream_t stream) {
-  if (k < 1 || k > libfm::kMaxK || piece_len < 1 || ncta < 0 ||
+  if (k < 0 || k > libfm::kMaxK || piece_len < 1 || ncta < 0 ||
       (reinterpret_cast<uintptr_t>(cta) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   if (ncta == 0) return (int)cudaSuccess;

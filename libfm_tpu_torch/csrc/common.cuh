@@ -317,8 +317,10 @@ __device__ __forceinline__ float probit_latent(float pred, float y, float u, boo
 
 // The compile-time widths the kernels are built for; the launchers take
 // the one chosen on the host (kernels.padded_width) and check it.
-__host__ __forceinline__ bool valid_padded_width(int kp, int k) {
-  return (kp == 16 || kp == 32 || kp == 64 || kp == 128) && k >= 1 && k <= kp &&
+// kmin = 0 for the flat engine's kernels, which take the pure linear
+// model (k = 0) at the first width; the BS kernels keep k >= 1
+__host__ __forceinline__ bool valid_padded_width(int kp, int k, int kmin = 1) {
+  return (kp == 16 || kp == 32 || kp == 64 || kp == 128) && k >= kmin && k <= kp &&
          (kp == 16 || k > kp / 2);
 }
 

@@ -47,7 +47,11 @@
 // one CTA an SM with 6 stages of 64 cases and 16 consumer warps took
 // 5.40 ms, its tiles passing one after another through one set of
 // consumers; tiles of 64 cases took 3.83 ms where 32 take 3.80. Offsets
-// into A are int64; A must be 16-byte aligned.
+// into A are int64; A must be 16-byte aligned. The pure linear model
+// (k = 0: A = [e], table rows [dw | 0]) takes a kernel of its own, one
+// thread a case (dense_update_k0): the tiled kernel's k <= 32 instance,
+// whose tiles of A are then 128 B, ran it at 2.119 ms for config #3's 2
+// blocks against 0.065 of bytes.
 
 #include "common.cuh"
 
@@ -271,6 +275,25 @@ dense_update_kernel(float* __restrict__ A, const int* __restrict__ col,
   }
 }
 
+// k = 0: per case in the block, e += x dw - x^2 s (s = 0: no factor), in
+// the tiled kernel's order of operations; cases outside it are not
+// written. Bound: bytes, col (and val) read, e read and written.
+constexpr int kK0Threads = 256;
+
+__global__ void __launch_bounds__(kK0Threads)
+    dense_update_k0(float* __restrict__ A, const int* __restrict__ col,
+                    const float* __restrict__ val, const float* __restrict__ tab, long long nc,
+                    int F) {
+  for (long long c = blockIdx.x * (long long)kK0Threads + threadIdx.x; c < nc;
+       c += (long long)gridDim.x * kK0Threads) {
+    const int cb = col[c];
+    if (cb == F) continue;
+    const float x = val != nullptr ? val[c] : 1.0f;
+    const float* t = tab + (long long)cb * table_stride(1);
+    A[c] += x * (t[0] + 0.0f) - (x * x) * t[1];
+  }
+}
+
 template <int NPL>
 int launch(float* A, const int* col, const float* val, const float* tab, long long nc,
            int F, int k, cudaStream_t stream) {
@@ -312,10 +335,16 @@ int launch(float* A, const int* col, const float* val, const float* tab, long lo
 extern "C" int dense_update_launch(float* A, const int* col, const float* val,
                                    const float* tab, long long nc, int F, int k,
                                    cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || (reinterpret_cast<uintptr_t>(A) & 15) != 0 ||
+  if (k < 0 || k > kMaxK || (reinterpret_cast<uintptr_t>(A) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(tab) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   if (nc == 0) return (int)cudaSuccess;
+  if (k == 0) {
+    long long grid = (nc + kK0Threads - 1) / kK0Threads;
+    if (grid > 4096) grid = 4096;
+    dense_update_k0<<<(unsigned)grid, kK0Threads, 0, stream>>>(A, col, val, tab, nc, F);
+    return (int)cudaGetLastError();
+  }
   if (k <= 32) return launch<1>(A, col, val, tab, nc, F, k, stream);
   if (k <= 64) return launch<2>(A, col, val, tab, nc, F, k, stream);
   return launch<4>(A, col, val, tab, nc, F, k, stream);

@@ -46,6 +46,8 @@
 // The error partials are per CTA, each summed in a fixed order; no
 // atomics. A persistent grid of one wave of resident CTAs.
 // Element offsets are int64: nr * (k+1) passes 2^31 at 33M rows.
+// The pure linear model (k = 0, P = [w], A = [e]) runs the k <= 8
+// instance: its factor loops read nothing, pred = w0 + sum w x.
 
 #include "common.cuh"
 
@@ -324,7 +326,7 @@ extern "C" int fm_refresh_launch(const float* P, const int* ids,
                                  int use_bias, float min_t, float max_t, int npart,
                                  int probit, cudaStream_t stream) {
   const bool train = A != nullptr;
-  if (k < 1 || k > kMaxK || L < 0 || probit < 0 || probit > 2 ||
+  if (k < 0 || k > kMaxK || L < 0 || probit < 0 || probit > 2 ||
       (train && ((reinterpret_cast<uintptr_t>(A) & 15) != 0 || npart < 1)) ||
       (probit && (!train || latent == nullptr || (probit == 1 && U == nullptr))))
     return (int)cudaErrorInvalidValue;

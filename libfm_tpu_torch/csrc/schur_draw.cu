@@ -575,12 +575,51 @@ int launch(const float* GG, const float* theta, const float* lam, const float* m
   return (int)cudaGetLastError();
 }
 
+// The pure linear model (k = 0): theta = (w), GG = [aa | ae], and the
+// draw is the JAX engine's scalar conjugate one (draw_chunk's k == 0
+// branch), the l00 part of the rank-1 Schur step with an empty k x k
+// part: prec = alpha aa + lam, mean = (alpha aa w - alpha ae + lam mu) /
+// prec, w' = mean + z / sqrt(prec) (mean under ALS), kept only when
+// |w'| <= bound. One feature a thread, each operation rounded on its own
+// in the plain version's order (schur_draw_plain's k = 0 branch). Bound:
+// bytes, 6 floats in and 1 float and 1 int out a feature.
+constexpr int kScalarThreads = 256;
+
+__global__ void __launch_bounds__(kScalarThreads)
+    scalar_draw_kernel(const float* __restrict__ GG, const float* __restrict__ theta,
+                       const float* __restrict__ lam, const float* __restrict__ mu,
+                       const float* __restrict__ z, const float* __restrict__ alphap,
+                       float* __restrict__ theta_out, int* __restrict__ rej, int num_feats,
+                       int do_sample, float bound) {
+  const int f = blockIdx.x * kScalarThreads + threadIdx.x;
+  if (f >= num_feats) return;
+  const float alpha = *alphap;
+  const float aa = GG[2 * f], ae = GG[2 * f + 1];
+  const float w = theta[f], l = lam[f], m = mu[f];
+  const float alpha_aa = __fmul_rn(alpha, aa);
+  const float prec = __fadd_rn(alpha_aa, l);
+  const float num = __fadd_rn(__fsub_rn(__fmul_rn(alpha_aa, w), __fmul_rn(alpha, ae)),
+                              __fmul_rn(l, m));
+  float x = __fdiv_rn(num, prec);
+  if (do_sample) x = __fadd_rn(x, __fdiv_rn(z[f], __fsqrt_rn(prec)));
+  const bool bad = !(fabsf(x) <= bound);  // also a NaN
+  theta_out[f] = bad ? w : x;
+  rej[f] = bad;
+}
+
 template <bool kUpd>
 int launch_kp(const float* GG, const float* theta, const float* lam, const float* mu,
               const float* z, const float* alphap, float* theta_out, int* rej, int num_feats,
               int k, int kp, int do_sample, float bound, RelUpdate upd, cudaStream_t stream) {
-  if (!libfm::valid_padded_width(kp, k)) return (int)cudaErrorInvalidValue;
+  // the relational form keeps k >= 1 (ROADMAP §1 item 2)
+  if (!libfm::valid_padded_width(kp, k, kUpd ? 1 : 0)) return (int)cudaErrorInvalidValue;
   if (num_feats == 0) return (int)cudaSuccess;
+  if (k == 0) {
+    scalar_draw_kernel<<<(num_feats + kScalarThreads - 1) / kScalarThreads, kScalarThreads, 0,
+                         stream>>>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats,
+                                   do_sample, bound);
+    return (int)cudaGetLastError();
+  }
   switch (kp) {
     case 16:
       return launch<16, kUpd>(GG, theta, lam, mu, z, alphap, theta_out, rej, num_feats, k,
@@ -599,10 +638,11 @@ int launch_kp(const float* GG, const float* theta, const float* lam, const float
 
 }  // namespace
 
-// Persistent grid of warps, one system at a time each. GG [num_feats,
-// T+2k+2]; theta/lam/mu/z/theta_out [num_feats, k+1]; rej [num_feats] (1
-// = draw rejected); alphap points at the device scalar alpha. z is read
-// only when do_sample != 0. kp is the padded width (kernels.padded_width).
+// Persistent grid of warps, one system at a time each (at k = 0 one
+// feature a thread, the scalar draw). GG [num_feats, T+2k+2];
+// theta/lam/mu/z/theta_out [num_feats, k+1]; rej [num_feats] (1 = draw
+// rejected); alphap points at the device scalar alpha. z is read only
+// when do_sample != 0. kp is the padded width (kernels.padded_width).
 extern "C" int schur_draw_launch(const float* GG, const float* theta, const float* lam,
                                  const float* mu, const float* z, const float* alphap,
                                  float* theta_out, int* rej, int num_feats, int k, int kp,

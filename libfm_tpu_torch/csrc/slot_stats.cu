@@ -26,7 +26,9 @@
 //
 // Design (Hopper, fp32 FMA on the CUDA cores):
 // - The width is a template parameter KP in {16, 32, 64, 128}, k <= KP;
-//   hq rows are KP floats in shared memory, the pad columns zero.
+//   hq rows are KP floats in shared memory, the pad columns zero. The
+//   pure linear model (k = 0) runs at KP = 16: every column is padding,
+//   each slot's row gather brings e alone, and the GG row is [aa | ae].
 // - The row gathers are pipelined with cp.async: two stages of 32 slots,
 //   tile t+1 in flight while tile t is consumed (a third stage measured
 //   no faster). Each warp gathers whole slot rows (4-byte pieces: a row is
@@ -396,7 +398,7 @@ extern "C" int slot_stats_launch(const float* A, const float* P, const long long
                                  int* ticket, float* GG, int num_feats, int npieces,
                                  int piece_len, int k, int kp, int num_rows, int use_linear,
                                  cudaStream_t stream) {
-  if (!libfm::valid_padded_width(kp, k) || piece_len < 1 || npieces < num_feats ||
+  if (!libfm::valid_padded_width(kp, k, 0) || piece_len < 1 || npieces < num_feats ||
       (reinterpret_cast<uintptr_t>(order) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   if (num_feats == 0) return (int)cudaSuccess;

@@ -37,6 +37,9 @@
 // slots kSide side by side (lanes over k, the dot products by warp
 // shuffles), in the first version's order of operations for each row,
 // and stores each row straight back to A.
+// The pure linear model (k = 0: A = [e]) takes a kernel of its own, one
+// thread a slot (slot_update_k0): the staged kernel's k <= 32 instance
+// ran it at 1.876 ms for config #3's 2 blocks against 0.108 of bytes.
 // The first version (PERF.md: 5.776 ms at config #3's 2 blocks) took one
 // slot a warp in feature order: three dependent index loads, then a row
 // at a random place, one slot in flight per warp.
@@ -154,9 +157,10 @@ __global__ void __launch_bounds__(kThreads)
     libfm::fence_proxy_async();  // the stage's last reads come before these copies
     if (lane == 0) libfm::mbar_arrive_tx(b, total);
     __syncwarp();
-    if (a_bytes) {
-      libfm::bulk_load(dst, from, a_bytes, b, pol_a);
-      // the last floats of A, past its last whole 16-byte piece
+    if (a_bytes) libfm::bulk_load(dst, from, a_bytes, b, pol_a);
+    if (run ? lane == 0 : lane < kSlots && sl.c >= 0) {
+      // the last floats of A, past its last whole 16-byte piece: a row
+      // that starts there (k <= 2) has no bulk copy at all
       const float* end = (run ? A + (long long)(sl.c + kSlots) * d : A + (long long)sl.c * d + d);
       for (const float* q = rest; q < end; ++q) dst[q - from] = *q;
     }
@@ -232,6 +236,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The pure linear model (k = 0: A = [e], tab rows [dw | 0]): one thread
+// a slot, e += x dw - x^2 s in the staged kernel's order of operations
+// (its dot product over no factor is 0). Bound: bytes, e read and
+// written and the slot's case, value and feature read, 20 B a slot.
+constexpr int kK0Threads = 256;
+
+__global__ void __launch_bounds__(kK0Threads)
+    slot_update_k0(float* __restrict__ A, const int* __restrict__ slot_case,
+                   const float* __restrict__ slot_val, const int* __restrict__ slot_feat,
+                   const float* __restrict__ tab, long long E, int tab_stride) {
+  for (long long s = blockIdx.x * (long long)kK0Threads + threadIdx.x; s < E;
+       s += (long long)gridDim.x * kK0Threads) {
+    const float x = slot_val[s];
+    const float* t = tab + (long long)slot_feat[s] * tab_stride;
+    const float dpred = __fsub_rn(__fmul_rn(x, __fadd_rn(t[0], 0.0f)),
+                                  __fmul_rn(__fmul_rn(x, x), t[1]));
+    float* a = A + slot_case[s];
+    *a = __fadd_rn(*a, dpred);
+  }
+}
+
 template <int NPL>
 int launch(float* A, const int* slot_case, const float* slot_val, const int* slot_feat,
            const float* tab, long long E, int tab_stride, int k, long long num_rows,
@@ -258,10 +283,17 @@ extern "C" int slot_update_launch(float* A, const int* slot_case, const float* s
                                   const int* slot_feat, const float* tab, long long E,
                                   int tab_stride, int k, long long num_rows,
                                   cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || E < 0 || tab_stride < t_stride(k) || tab_stride % 4 != 0 ||
+  if (k < 0 || k > kMaxK || E < 0 || tab_stride < t_stride(k) || tab_stride % 4 != 0 ||
       ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(tab)) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   if (E == 0) return (int)cudaSuccess;
+  if (k == 0) {
+    long long grid = (E + kK0Threads - 1) / kK0Threads;
+    if (grid > 4096) grid = 4096;
+    slot_update_k0<<<(unsigned)grid, kK0Threads, 0, stream>>>(A, slot_case, slot_val, slot_feat,
+                                                              tab, E, tab_stride);
+    return (int)cudaGetLastError();
+  }
   if (k <= 32)
     return launch<1>(A, slot_case, slot_val, slot_feat, tab, E, tab_stride, k, num_rows, stream);
   if (k <= 64)

@@ -18,8 +18,9 @@ ONE segment holds it whole, of a width W < d and W <= 64.
 `single_segment_widths` gives that width from the feature counts alone,
 without building the padded slot arrays; `build_block_layout`, held
 exactly against the JAX package's, is the reference it is tested
-against. `slab_partition` (case-sorted slab gathers) is not ported
-(ROADMAP M7).
+against. `slab_partition` (case-sorted slab gathers) is not ported: the
+port's kernels read A's rows through slot lists, so case reordering
+(learners/mcmc_vector.py `_maybe_reorder_cases`) needs no slabs.
 """
 
 from __future__ import annotations

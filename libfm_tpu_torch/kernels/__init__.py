@@ -207,13 +207,15 @@ def ptr(t) -> int | None:
 PADDED_WIDTHS = (16, 32, 64, 128)
 
 
-def padded_width(k: int) -> int:
-    """The compile-time width a k-factor system runs at in `slot_stats`
-    and `schur_draw`: the smallest of PADDED_WIDTHS that holds k."""
+def padded_width(k: int, min_k: int = 1) -> int:
+    """The compile-time width a k-factor system runs at in `slot_stats`,
+    `schur_draw` and the BS kernels: the smallest of PADDED_WIDTHS that
+    holds k. The flat engine's kernels pass min_k = 0 (the pure linear
+    model runs at the first width); the BS kernels keep k >= 1."""
     for kp in PADDED_WIDTHS:
-        if 1 <= k <= kp:
+        if min_k <= k <= kp:
             return kp
-    raise ValueError(f"k={k}: the CUDA kernels take 1 <= k <= {PADDED_WIDTHS[-1]}")
+    raise ValueError(f"k={k}: these CUDA kernels take {min_k} <= k <= {PADDED_WIDTHS[-1]}")
 
 
 def import_all() -> dict:

@@ -62,10 +62,11 @@ def moment_width(k: int, onehot: bool) -> int:
 
 
 def padded_k(k: int) -> int:
-    """The width the kernel stages a row's factors at: 4, 8, ..., 128."""
-    if not 1 <= k <= 128:
-        raise ValueError(f"k={k}: the CUDA kernels take 1 <= k <= 128")
-    return max(4, 1 << (k - 1).bit_length())
+    """The width the kernel stages a row's factors at: 4, 8, ..., 128 (4
+    at k = 0, whose rows hold no factor)."""
+    if not 0 <= k <= 128:
+        raise ValueError(f"k={k}: the CUDA kernels take 0 <= k <= 128")
+    return max(4, 1 << (k - 1).bit_length()) if k else 4
 
 
 def team_threads(k: int) -> int:
@@ -308,8 +309,8 @@ def case_stats(A, P, feat_off, slot_case, slot_val, feat_id, *, onehot,
     check(slot_case, "slot_case", torch.int32)
     check(slot_val, "slot_val", torch.float32, (E,))
     check(feat_id, "feat_id", torch.int32)
-    if not 1 <= k <= 128:
-        raise ValueError(f"k={k}: the CUDA kernels take 1 <= k <= 128")
+    if not 0 <= k <= 128:
+        raise ValueError(f"k={k}: the CUDA kernels take 0 <= k <= 128")
     plan = CaseStatsPlan(feat_off, k, A.device) if pieces is None else pieces
     if plan.team != team_threads(k) or plan.k != k:
         raise ValueError(f"the plan was made for k={plan.k}, not {k}")

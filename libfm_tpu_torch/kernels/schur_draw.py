@@ -80,8 +80,25 @@ def schur_system(GG, theta, lam, mu, alpha):
     return S, b0, bv, s0, col
 
 
+def scalar_draw_plain(GG, theta, lam, mu, z, alpha, *, do_sample, bound):
+    """schur_draw_plain at k = 0 (the pure linear model): the JAX engine's
+    scalar conjugate draw of w (mcmc_vector.py draw_chunk's k == 0 branch,
+    mcmc_rel_vector.py blocked_theta_draw's), from GG = [aa | ae]."""
+    aa, ae = GG[:, 0], GG[:, 1]
+    w, lam0, mu0 = theta[:, 0], lam[:, 0], mu[:, 0]
+    prec = alpha * aa + lam0
+    new = (alpha * aa * w - alpha * ae + lam0 * mu0) / prec
+    if do_sample:
+        new = new + z[:, 0] / torch.sqrt(prec)
+    ok = new.abs() <= bound  # False for NaN
+    return torch.where(ok, new, w)[:, None], (~ok).int()
+
+
 def schur_draw_plain(GG, theta, lam, mu, z, alpha, *, do_sample, bound):
     """The plain PyTorch version; same contract as `schur_draw`."""
+    if theta.shape[1] == 1:
+        return scalar_draw_plain(GG, theta, lam, mu, z, alpha, do_sample=do_sample,
+                                 bound=bound)
     Fd = theta.shape[0]
     out = torch.empty_like(theta)
     rej = torch.zeros(Fd, dtype=torch.int32, device=theta.device)
@@ -108,7 +125,8 @@ def schur_draw_plain(GG, theta, lam, mu, z, alpha, *, do_sample, bound):
 
 def schur_draw(GG, theta, lam, mu, z, alpha, *, do_sample, bound):
     """Draw (or, with do_sample=False, solve for the mean of) every
-    feature's theta = (w, v) ~ N(Lam^-1 b, Lam^-1).
+    feature's theta = (w, v) ~ N(Lam^-1 b, Lam^-1); at k = 0 the scalar
+    draw of w alone (`scalar_draw_plain`).
 
     GG [Fd, T+2k+2] statistics rows; theta (old), lam, mu [Fd, k+1];
     z [Fd, k+1] standard normal noise (read only when sampling; may be
@@ -133,7 +151,7 @@ def schur_draw(GG, theta, lam, mu, z, alpha, *, do_sample, bound):
     rej = torch.empty(Fd, dtype=torch.int32, device=theta.device)
     KERNEL.launch(
         ptr(GG), ptr(theta), ptr(lam), ptr(mu), ptr(z) if do_sample else None,
-        ptr(alpha), ptr(out), ptr(rej), Fd, k, padded_width(k), int(bool(do_sample)),
+        ptr(alpha), ptr(out), ptr(rej), Fd, k, padded_width(k, min_k=0), int(bool(do_sample)),
         float(bound),
     )
     return out, rej

@@ -80,8 +80,8 @@ def slot_update(A, slot_case, slot_val, slot_feat, tab):
                          f"of 4 (update_table's)")
     check_aligned(A, "A")
     check_aligned(tab, "tab")
-    if not 1 <= d - 1 <= 128:
-        raise ValueError(f"k={d - 1}: the CUDA kernels take 1 <= k <= 128")
+    if not 0 <= d - 1 <= 128:
+        raise ValueError(f"k={d - 1}: the CUDA kernels take 0 <= k <= 128")
     if E:
         KERNEL.launch(ptr(A), ptr(slot_case), ptr(slot_val), ptr(slot_feat), ptr(tab), E,
                       tab.stride(0), d - 1, nc)

@@ -17,6 +17,10 @@ import torch
 
 from libfm_tpu_torch.tasks import TASK_CLASSIFICATION, TASK_REGRESSION
 
+#: where the learners' refusals of a k outside their kernels' range point:
+#: k > 128 on every kernel, k = 0 on the BS, SGD and SGDA kernels
+RANGE_OF_K = "waits for ROADMAP §1 item 2 (the kernels' range of k)"
+
 
 def clamp(pred, min_target, max_target):
     return pred.clamp(min_target, max_target)

@@ -34,7 +34,7 @@ from libfm_tpu_torch.kernels.coord_draw import DrawPlan, coord_draw
 from libfm_tpu_torch.kernels.fm_refresh import fm_refresh
 from libfm_tpu_torch.kernels.probit_latent import capped_squares
 from libfm_tpu_torch.learners import base as _base
-from libfm_tpu_torch.learners.base import rmse_mae
+from libfm_tpu_torch.learners.base import RANGE_OF_K, rmse_mae
 from libfm_tpu_torch.models.fm import FMConfig, FMParams, init_fm
 from libfm_tpu_torch.ops import samplers
 from libfm_tpu_torch.ops.segment import GroupSums
@@ -122,19 +122,21 @@ def draw_theta_hyperpriors(generator, theta, groups, mu_cur, lambda_cur, alpha_0
     return lam_new, mu_new, rej1 + rej2
 
 
-def dispatch_chunks(start, num_iter, refresh_every):
+def dispatch_chunks(start, num_iter, refresh_every, ckpt_every=0):
     """Split iterations [start, num_iter) into chunks whose LAST iteration
     is a refresh point: refresh iff R == 1, it == start, it % R == R-1 or
-    it == num_iter-1. The JAX engine runs one jit dispatch per chunk (and
-    also cuts at checkpoint boundaries, which wait for ROADMAP M7); the
-    port runs the chunk's iterations one by one and refreshes at each
-    chunk's last, so both take the same refresh cadence and the same
-    trajectory."""
+    it == num_iter-1; a checkpoint boundary ((it + 1) % ckpt_every == 0)
+    closes a chunk too, so that a save sees the state right after a
+    refresh. The JAX engine runs one jit dispatch per chunk; the port runs
+    the chunk's iterations one by one and refreshes at each chunk's last,
+    so both take the same refresh cadence and the same trajectory (the
+    first iteration after a restart refreshes, as in JAX)."""
     R = max(1, int(refresh_every))
     chunks = []
     i0 = start
     for it in range(start, num_iter):
-        if R == 1 or it == start or it % R == R - 1 or it == num_iter - 1:
+        if (R == 1 or it == start or it % R == R - 1 or it == num_iter - 1
+                or (ckpt_every and (it + 1) % ckpt_every == 0)):
             chunks.append((i0, it - i0 + 1))
             i0 = it + 1
     return chunks
@@ -265,10 +267,12 @@ def draw_sweep_hyperpriors(lrn, P, group_sums, st):
             lrn.generator, P[:, 0], group_sums, w_mu, w_lambda, *hp,
         )
         rej += r
-    v_lambda, v_mu, r = draw_theta_hyperpriors(
-        lrn.generator, P[:, 1:], group_sums, v_mu, v_lambda, *hp,
-    )
-    return (w_mu, w_lambda, v_mu, v_lambda), rej + r
+    if P.shape[1] > 1:  # no factor to draw for at k = 0 (JAX: `if k > 0`)
+        v_lambda, v_mu, r = draw_theta_hyperpriors(
+            lrn.generator, P[:, 1:], group_sums, v_mu, v_lambda, *hp,
+        )
+        rej += r
+    return (w_mu, w_lambda, v_mu, v_lambda), rej
 
 
 def draw_unobserved(lrn, P, unobserved, attr_group, hyper, bound):
@@ -281,19 +285,23 @@ def draw_unobserved(lrn, P, unobserved, attr_group, hyper, bound):
         return 0
     gen = lrn.generator
     g_u = attr_group[unobserved]
+    k = P.shape[1] - 1
     if lrn.do_sample:
         w_u = samplers.gaussian(gen, w_mu[g_u], torch.sqrt(1.0 / w_lambda[g_u]))
-        v_u = samplers.gaussian(gen, v_mu[g_u], torch.sqrt(1.0 / v_lambda[g_u]))
     else:
         w_u = w_mu[g_u]
-        v_u = v_mu[g_u] + torch.zeros(n_unobs, P.shape[1] - 1, dtype=P.dtype,
-                                      device=P.device)
-    w_u, r1 = samplers.finite_or(w_u, P[unobserved, 0], bound=bound)
-    v_u, r2 = samplers.finite_or(v_u, P[unobserved, 1:], bound=bound)
+    w_u, rej = samplers.finite_or(w_u, P[unobserved, 0], bound=bound)
     if lrn.cfg.use_linear:
         P[unobserved, 0] = w_u
-    P[unobserved, 1:] = v_u
-    return r1 + r2
+    if k:
+        if lrn.do_sample:
+            v_u = samplers.gaussian(gen, v_mu[g_u], torch.sqrt(1.0 / v_lambda[g_u]))
+        else:
+            v_u = v_mu[g_u] + torch.zeros(n_unobs, k, dtype=P.dtype, device=P.device)
+        v_u, r2 = samplers.finite_or(v_u, P[unobserved, 1:], bound=bound)
+        P[unobserved, 1:] = v_u
+        rej = rej + r2
+    return rej
 
 
 def step_metrics(lrn, st, it, pred_test, train_metric, rej, y_test, eval_mask):
@@ -349,7 +357,7 @@ def step_metrics(lrn, st, it, pred_test, train_metric, rej, y_test, eval_mask):
 # learners/mcmc_relational.py)
 # --------------------------------------------------------------------------
 
-#: the CUDA kernels of the refreshes take k <= 128
+#: the CUDA kernels take k <= 128; the flat engines' kernels also k = 0
 MAX_FACTORS_CUDA = 128
 
 
@@ -412,6 +420,15 @@ def draw_block(lrn, kernel, blk, theta, lam, mu, alpha, bound, **caches):
          if lrn.do_sample else None)
     kernel(theta, blk.feat_off, blk.slot_row, blk.slot_val, blk.feat_id, blk.group_id, lam,
            mu, alpha, z, blk.rejected, bound=bound, plan=blk.plan, **caches)
+
+
+def row_width(ds) -> int:
+    """The longest row of `ds` (at least 1); of a relational dataset, of
+    its materialised join, counted without building it."""
+    lens = np.diff(ds.indptr).astype(np.int64)
+    for join in getattr(ds, "relations", None) or ():
+        lens = lens + np.diff(join.data.indptr).astype(np.int64)[join.row_map]
+    return max(1, int(lens.max()) if len(lens) else 1)
 
 
 def padded_rows(ds, device):
@@ -535,20 +552,37 @@ def learn_exact(lrn, train, test):
         rejected.zero_()
         return step_metrics(lrn, st, it, pred_test, train_metric, rej, y_test, eval_mask)
 
-    return run_iterations(lrn, one_step, P, st)
+    def bufs():
+        return dict(P=P, A=A, rejected=rejected, **({"latent": latent} if classify else {}))
+
+    return run_iterations(lrn, "exact", one_step, P, st, bufs)
 
 
-def run_iterations(lrn, one_step, P, st):
-    """The exact engines' loop: `one_step(it)` for every iteration, timed
-    and logged; the final state kept for predict() and get_params()."""
+def run_iterations(lrn, engine, one_step, P, st, bufs, refresh_every=None):
+    """Every engine's loop, from iteration 0 or from the iteration a
+    checkpoint holds: `one_step(it)` at every iteration (the exact
+    engines, which re-predict at each), or with `refresh_every`
+    `one_step(it, refresh)`, refresh at the last iteration of each of
+    `dispatch_chunks`' chunks (the vector engines). Each iteration is
+    timed and logged; with `checkpoint_every` the state is saved after
+    every iteration it divides. `bufs()` returns the engine's tensors the
+    next iteration reads besides the sampler state `st` ({name: tensor},
+    restored in place); `engine` tags the checkpoint. The final state is
+    kept for predict(), predict_new() and get_params()."""
     lrn.history = []
-    for it in range(lrn.num_iter):
-        c0 = iter_clocks(lrn.device)
-        # a named range for torch.profiler traces (chip_smoke.py --profile)
-        with torch.profiler.record_function(f"iteration {it}"):
-            metrics = one_step(it)
-        c1 = iter_clocks(lrn.device)
-        lrn._log_iteration(it, metrics, tuple(b - a for a, b in zip(c0, c1)))
+    start = lrn._maybe_restore(engine, st, bufs())
+    every = lrn.checkpoint_every if lrn.checkpoint_path else 0
+    for i0, L in dispatch_chunks(start, lrn.num_iter, refresh_every or 1, every):
+        for it in range(i0, i0 + L):
+            c0 = iter_clocks(lrn.device)
+            # a named range for torch.profiler traces (chip_smoke.py --profile)
+            with torch.profiler.record_function(f"iteration {it}"):
+                metrics = (one_step(it) if refresh_every is None
+                           else one_step(it, it == i0 + L - 1))
+            c1 = iter_clocks(lrn.device)
+            lrn._log_iteration(it, metrics, tuple(b - a for a, b in zip(c0, c1)))
+        if every and (i0 + L) % every == 0:
+            lrn._save_checkpoint(engine, st, bufs(), i0 + L)
     lrn._final_state = dict(st, w=P[:, 0].clone(), V=P[:, 1:].clone())
     return lrn.history
 
@@ -589,8 +623,6 @@ class MCMCLearner:
         device=None,
         init_params=None,
     ):
-        if checkpoint_path is not None:
-            raise NotImplementedError("checkpoint/resume waits for ROADMAP M7")
         self.cfg = cfg
         self.task = task
         self.num_iter = num_iter
@@ -629,6 +661,11 @@ class MCMCLearner:
         # for the MCMC family (libfm.cpp:262-268, :283)
         self.warm_start = None  # FMParams | None
         self.init_params = init_params
+        # full-state checkpoints (utils/checkpoint.py): saved after every
+        # `checkpoint_every` iterations (0: never), resumed from when the
+        # file exists and matches this run
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = checkpoint_every
 
     def set_regularization(self, reg: list[float], num_groups: int):
         """libFM's reg-arity rules: 0 / 1 / 3 / (1 + 2*num_groups) values
@@ -661,11 +698,11 @@ class MCMCLearner:
         k = self.cfg.num_factors
         why = None
         if not hasattr(train, "indptr") or not hasattr(test, "indptr"):
-            why = "streaming data waits for ROADMAP M7"
-        elif k < 1:
-            why = "the pure linear model (k=0) waits for ROADMAP M7"
+            why = "streaming data waits for ROADMAP §1 item 4"
+        elif k < 1 and getattr(train, "relations", None):
+            why = f"the pure linear model (k=0) on relational (BS) data {RANGE_OF_K}"
         elif self.device.type == "cuda" and k > MAX_FACTORS_CUDA:
-            why = f"the CUDA kernels take k <= {MAX_FACTORS_CUDA}"
+            why = f"k > {MAX_FACTORS_CUDA} on the CUDA kernels {RANGE_OF_K}"
         if why:
             raise NotImplementedError(why)
 
@@ -791,6 +828,72 @@ class MCMCLearner:
             return 1
         return int(self.attr_group_np.max()) + 1
 
+    # ------------------------------------------------------- checkpoints
+    def _ckpt_meta(self, it: int, engine: str) -> dict:
+        return dict(
+            iter=it, engine=engine, seed=self.seed, num_features=self.cfg.num_features,
+            num_factors=self.cfg.num_factors, task=self.task, do_sample=self.do_sample,
+            do_multilevel=self.do_multilevel,
+        )
+
+    def _ckpt_state(self, st, bufs) -> dict:
+        """The tensors a checkpoint holds, by name: the sampler state
+        `st`, the engine's buffers and the generator's state."""
+        return {**{f"st.{key}": v for key, v in st.items()}, **bufs,
+                "generator": self.generator.get_state()}
+
+    def _save_checkpoint(self, engine: str, st, bufs, it: int) -> None:
+        from libfm_tpu_torch.utils import checkpoint as ckpt
+
+        ckpt.save_state(self.checkpoint_path, self._ckpt_state(st, bufs),
+                        self._ckpt_meta(it, engine))
+
+    def _maybe_restore(self, engine: str, st, bufs) -> int:
+        """Resume from `checkpoint_path` when it exists and matches this
+        run; returns the iteration to start at (0: a fresh start). The
+        whole sampler state comes back (the parameters, hyperparameters,
+        caches, prediction sums, probit latents and the generator), the
+        capability libFM disables -save_model for under MCMC
+        (libfm.cpp:123-133): `st`'s entries are replaced, the buffers
+        `bufs` copied into in place. A file of another engine, meta or
+        layout warns and starts fresh."""
+        import os
+
+        from libfm_tpu_torch.utils import checkpoint as ckpt
+
+        path = self.checkpoint_path
+        if not path or not os.path.exists(path):
+            return 0
+        saved, meta = ckpt.restore_state(path)
+        expect = self._ckpt_meta(0, engine)
+        if meta.get("engine") != engine:
+            print(f"WARNING: checkpoint {path} was written by the {meta.get('engine')} "
+                  f"engine, not the {engine} engine; starting fresh.")
+            return 0
+        if any(meta.get(key) != v for key, v in expect.items() if key != "iter"):
+            print(f"WARNING: checkpoint {path} does not match this run's config; "
+                  "starting fresh.")
+            return 0
+        like = self._ckpt_state(st, bufs)
+        if set(saved) != set(like) or any(
+                saved[key].shape != tuple(v.shape) or str(saved[key].dtype)
+                != str(v.dtype).removeprefix("torch.") for key, v in like.items()):
+            print(f"WARNING: checkpoint {path} has a different state structure; "
+                  "starting fresh.")
+            return 0
+        for key, arr in saved.items():
+            t = torch.from_numpy(arr)
+            if key == "generator":
+                self.generator.set_state(t)
+            elif key.startswith("st."):
+                st[key[3:]] = t.to(self.device)
+            else:
+                bufs[key].copy_(t)
+        it = int(meta["iter"])
+        if self.verbose:
+            print(f"Resuming from {path} at iteration {it}")
+        return it
+
     # ---------------------------------------------------------- inference
     def predict(self, test=None) -> np.ndarray:
         """Posterior-mean predictions for the test set passed to learn(),
@@ -809,6 +912,80 @@ class MCMCLearner:
     def get_params(self) -> FMParams:
         st = self._final_state
         return FMParams(w0=st["w0"], w=st["w"], v=st["V"])
+
+    #: entries of a relational dataset's materialised join above which
+    #: predict_new expands and scores it in case-range chunks (~8 bytes an
+    #: entry on the host: ~400 MB at the cap)
+    predict_expand_cap = 50_000_000
+
+    def predict_new(self, ds, batch_size: int = 8192) -> np.ndarray:
+        """Predictions for data NOT passed to learn(), from the final
+        parameters as a point estimate (JAX mcmc.py `predict_new`; libFM's
+        MCMC cannot predict a case after the run, fm_learn_mcmc.h:141-143):
+        `fm_refresh`'s test mode over the padded rows, `batch_size` cases a
+        launch, clamped to the learn-time target range (regression) or
+        linked through the probit CDF and clipped to [0, 1]
+        (classification). Relational data is scored on its materialised
+        join (`expand_join`, the features numbered as the learners number
+        them), in case-range chunks above `predict_expand_cap` entries,
+        which give the same bits. Less accurate than `predict()`, the
+        posterior mean over the run, on the learn-time test set."""
+        if getattr(ds, "relations", None):
+            from libfm_tpu_torch.data.relation import expand_join, expansion_cost
+
+            exp_nnz, _ = expansion_cost(ds)
+            if exp_nnz > self.predict_expand_cap:
+                return self._predict_new_chunked(ds, exp_nnz, batch_size)
+            ds = expand_join(ds)
+        return self._finish(self._scores(ds, batch_size, row_width(ds)))
+
+    def _scores(self, ds, batch_size: int, width: int) -> torch.Tensor:
+        """Raw scores of the flat dataset `ds`, its rows padded to `width`
+        (a chunk's rows pad to the whole dataset's width: each batch is
+        then the unchunked path's, bit for bit)."""
+        if ds.num_features > self.cfg.num_features:
+            raise ValueError(f"dataset has feature ids up to {ds.num_features - 1} but "
+                             f"the model covers {self.cfg.num_features} features")
+        st = self._final_state
+        P = torch.cat([st["w"][:, None], st["V"]], dim=1).contiguous()
+        ids, vals = padded_rows_layout(ds.indptr, ds.cols, ds.vals)
+        pad = ((0, 0), (0, width - ids.shape[1]))
+        ids, vals = np.pad(ids, pad), np.pad(vals, pad)
+        out = [fm_refresh(P, torch.as_tensor(ids[a:a + batch_size], device=self.device),
+                          torch.as_tensor(vals[a:a + batch_size], device=self.device),
+                          st["w0"], use_linear=self.cfg.use_linear,
+                          use_bias=self.cfg.use_bias)
+               for a in range(0, ds.num_rows, batch_size)]
+        return torch.cat(out) if out else torch.zeros(0, device=self.device)
+
+    def _finish(self, scores: torch.Tensor) -> np.ndarray:
+        if self.task == TASK_REGRESSION:
+            return np.clip(scores.cpu().numpy(), self.min_target, self.max_target)
+        return np.clip(samplers.cdf_gaussian(scores).cpu().numpy(), 0.0, 1.0)
+
+    def _predict_new_chunked(self, ds, exp_nnz: int, batch_size: int) -> np.ndarray:
+        """predict_new for relational data whose join exceeds
+        `predict_expand_cap` entries: case ranges of about half the cap
+        each, a whole number of batches, expanded and scored one at a
+        time. Each batch is the unchunked path's, so the scores are its
+        bits (JAX `_predict_new_chunked`)."""
+        from libfm_tpu_torch.data.dataset import Dataset
+        from libfm_tpu_torch.data.relation import RelationJoin, expand_join
+
+        nc = ds.num_rows
+        per_case = max(1, exp_nnz // max(nc, 1))
+        step = max(1, (self.predict_expand_cap // 2) // per_case) // batch_size * batch_size
+        step = min(max(step, batch_size), max(nc, 1))
+        width = row_width(ds)
+        out = []
+        for a in range(0, nc, step):
+            b = min(nc, a + step)
+            lo, hi = ds.indptr[a], ds.indptr[b]
+            sub = Dataset(ds.indptr[a:b + 1] - lo, ds.cols[lo:hi], ds.vals[lo:hi],
+                          ds.target[a:b], ds.num_features)
+            sub.relations = [RelationJoin(r.data, r.row_map[a:b]) for r in ds.relations]
+            out.append(self._scores(expand_join(sub), batch_size, width))
+        return self._finish(torch.cat(out))
 
 
 class ALSLearner(MCMCLearner):

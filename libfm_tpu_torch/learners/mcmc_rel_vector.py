@@ -52,8 +52,10 @@ metric between refreshes come from closed-form block-row sums
 its plain PyTorch version.
 
 This engine runs any number of relations beside a main table or none,
-regression and probit classification, MCMC and ALS. A mesh (M13)
-and checkpoints (M7) raise in the learner's constructor.
+regression and probit classification, MCMC and ALS, and saves and
+resumes checkpoints (the deferred path's C and SD among the state). A
+mesh (ROADMAP §1 item 6) raises in the learner's constructor, and k = 0
+in `learn` (§1 item 2).
 """
 
 from __future__ import annotations
@@ -75,7 +77,6 @@ from libfm_tpu_torch.kernels.slot_update import case_order, slot_update
 from libfm_tpu_torch.learners.mcmc import (
     HYPER,
     attr_groups,
-    dispatch_chunks,
     draw_alpha,
     draw_alpha_from_sum,
     draw_sweep_hyperpriors,
@@ -83,11 +84,11 @@ from libfm_tpu_torch.learners.mcmc import (
     draw_w0,
     initial_state,
     padded_rows,
+    run_iterations,
     step_metrics,
 )
 from libfm_tpu_torch.ops import samplers
 from libfm_tpu_torch.tasks import TASK_CLASSIFICATION
-from libfm_tpu_torch.utils.timers import iter_clocks
 
 #: the cache build pads no case list here, but the routing keeps the JAX
 #: engine's skew gate (`bs_vector_skew` above it goes to the exact engine)
@@ -514,13 +515,17 @@ def learn_relational_vector(learner, train, test):
         return step_metrics(learner, st, it, pred_test, train_metric, rej, y_test,
                             eval_mask)
 
-    learner.history = []
-    for i0, L in dispatch_chunks(0, learner.num_iter, learner.refresh_every):
-        for it in range(i0, i0 + L):
-            c0 = iter_clocks(dev)
-            with torch.profiler.record_function(f"iteration {it}"):
-                metrics = one_step(it, do_refresh=(it == i0 + L - 1))
-            c1 = iter_clocks(dev)
-            learner._log_iteration(it, metrics, tuple(b - a for a, b in zip(c0, c1)))
-    learner._final_state = dict(st, w=P[:, 0].clone(), V=P[:, 1:].clone())
-    return learner.history
+    def bufs():
+        # besides P and A: the test tail, the probit latents and the
+        # deferred path's frozen caches and SD rows
+        out = dict(P=P, A=A)
+        if incr_test:
+            out["tail"] = tail
+        if classify:
+            out["latent"] = latent
+        if deferred:
+            out.update(relc=relc, SD=SD_def)
+        return out
+
+    return run_iterations(learner, "bs_vector", one_step, P, st, bufs,
+                          learner.refresh_every)

@@ -226,4 +226,12 @@ def learn_relational(lrn, train, test):
         rejected.zero_()
         return step_metrics(lrn, st, it, pred_test, train_metric, rej, y_test, eval_mask)
 
-    return run_iterations(lrn, one_step, P, st)
+    def bufs():
+        # besides P and A, each relation's score table and y_b (the y_B
+        # caches the next iteration's draws start from)
+        out = dict(P=P, A=A, rejected=rejected, **({"latent": latent} if classify else {}))
+        for r, (S, y_b) in enumerate(zip(cur["parts"], cur["y_bs"])):
+            out[f"scores.{r}"], out[f"y_b.{r}"] = S, y_b
+        return out
+
+    return run_iterations(lrn, "exact_bs", one_step, P, st, bufs)

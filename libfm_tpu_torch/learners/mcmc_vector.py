@@ -40,20 +40,24 @@ resamples the latents between refreshes too, from pred = e + latent
 iteration's alpha and w0 draws. On CPU tensors each kernel wrapper runs
 its plain PyTorch version.
 
-This slice runs regression and probit classification on one device,
+This engine runs regression and probit classification on one device,
 with case-major statistics, dual draws and the dense update on by
-default as in the JAX engine. The incremental test tail is off by
+default as in the JAX engine, and the pure linear model (k = 0: P = [w],
+each draw the scalar conjugate one). The incremental test tail is off by
 default, as in JAX; set `flat_incr_test = True` on the learner, and it
 steps aside silently where the JAX engine's does (a block on the slot
 scatter, a test case holding two features of one block, a one-hot block
-meeting a test value other than 1). Relational (BS) data is routed as the
-JAX engine routes it (`_route_relational`): thin joins are expanded and
-run here, fat ones on the BS vector engine (learners/mcmc_rel_vector.py)
-or, with bs_vector off or a skewed join, on the exact BS engine
-(learners/mcmc_relational.py). What it does not take raises
-NotImplementedError with the ROADMAP item it waits for: case reordering
-and slabs (M7), the pure linear model (M7), streaming data (M7), a mesh
-(M13) and checkpoints (M7). With an rlog each iteration writes one row.
+meeting a test value other than 1). Case reordering (`case_reorder`) is
+off by default, as in JAX. Checkpoints (`checkpoint_path`,
+`checkpoint_every`) save and resume the whole chain. Relational (BS)
+data is routed as the JAX engine routes it (`_route_relational`): thin
+joins are expanded and run here, fat ones on the BS vector engine
+(learners/mcmc_rel_vector.py) or, with bs_vector off or a skewed join,
+on the exact BS engine (learners/mcmc_relational.py). What it does not
+take raises NotImplementedError with the ROADMAP item it waits for:
+k = 0 on relational data and k > 128 on the card (§1 item 2), streaming
+data (§1 item 4) and a mesh (§1 item 6). With an rlog each iteration
+writes one row.
 """
 
 from __future__ import annotations
@@ -82,7 +86,6 @@ from libfm_tpu_torch.learners.mcmc import (
     HYPER,
     MCMCLearner,
     attr_groups,
-    dispatch_chunks,
     draw_alpha,
     draw_alpha_from_sum,
     draw_sweep_hyperpriors,
@@ -90,6 +93,7 @@ from libfm_tpu_torch.learners.mcmc import (
     draw_w0,
     initial_state,
     padded_rows,
+    run_iterations,
     step_metrics,
 )
 from libfm_tpu_torch.learners.mcmc_rel_vector import (
@@ -100,7 +104,6 @@ from libfm_tpu_torch.learners.mcmc_rel_vector import (
 from libfm_tpu_torch.learners.mcmc_relational import learn_relational
 from libfm_tpu_torch.ops import samplers
 from libfm_tpu_torch.tasks import TASK_CLASSIFICATION
-from libfm_tpu_torch.utils.timers import iter_clocks
 
 #: the JAX engine's case-major chunk (`_cu_chunk`): the case count that
 #: the case-major gate's cost term pads to
@@ -266,7 +269,18 @@ class MCMCVectorLearner(MCMCLearner):
             refresh_every = self.ALS_DEFAULT_REFRESH
         self.refresh_every = refresh_every
         self.case_major_stats = case_major_stats
+        # case reordering (JAX `case_reorder`, off by default there too):
+        # the train cases sorted by the dominant block's feature
+        # (`_maybe_reorder_cases`) where A takes at least
+        # case_reorder_min_bytes; `_case_reordered` says it was done. The
+        # JAX engine then gathers that block's statistics from windows of
+        # A of `slab_cases` cases (a TPU device for dynamic_slice); the
+        # port's kernels read A's rows through slot lists, whose order is
+        # all the reordering changes here, so slab_cases has no effect
         self.case_reorder = False
+        self.case_reorder_min_bytes = 128 << 20
+        self.slab_cases = None
+        self._case_reordered = False
         # the incremental test tail, off by default as in the JAX engine;
         # incr_test says whether the last learn() ran a tail (this one, or
         # the BS engine's)
@@ -283,10 +297,47 @@ class MCMCVectorLearner(MCMCLearner):
         self.bs_incr_test = True
         self.deferred = False
 
-    def _check_supported(self, train, test):
-        if self.case_reorder:
-            raise NotImplementedError("case reordering and slab gathers wait for ROADMAP M7")
-        super()._check_supported(train, test)
+    def _maybe_reorder_cases(self, train):
+        """The train cases sorted by the dominant conflict-free block's
+        feature, as the JAX engine sorts them (`_maybe_reorder_cases`):
+        a stable argsort of each case's feature in that block, cases
+        outside it last, then `train.permuted(perm)`. Returns `train`
+        unchanged when reordering is off, the data streams, A is below
+        `case_reorder_min_bytes`, no block holds a quarter of the entries,
+        or the dominant block would take case-major statistics (the JAX
+        engine's own bound on it). A pure host-side step: every per-case
+        metric is a sum, and the permutation is the data's, so a
+        checkpoint resumes on the same order."""
+        if not self.case_reorder or not hasattr(train, "indptr"):
+            return train
+        nc, k = train.num_rows, self.cfg.num_factors
+        if (nc + 1) * (1 + k) * 4 < self.case_reorder_min_bytes:
+            return train  # A small enough for any order
+        attr_group = self.attr_group_np
+        if attr_group is None:
+            attr_group = np.zeros(self.cfg.num_features, dtype=np.int32)
+        blocks = conflict_free_blocks(train, attr_group=attr_group)
+        if not blocks:
+            return train
+        sizes = [len(b.entry_rows) for b in blocks]
+        bi = int(np.argmax(sizes))
+        dom = blocks[bi]
+        if sizes[bi] < 0.25 * sum(sizes):
+            return train  # no dominant block
+        MW = k * (k + 1) // 2 + 3 * k + 5
+        Fd = len(dom.features)
+        if self.case_major_stats and Fd * MW <= 8_000_000 and float(Fd) * MW * nc <= 2e13:
+            return train  # the JAX engine's case-major bound: no slot path to sort for
+        key = np.full(nc, np.iinfo(np.int64).max, dtype=np.int64)
+        key[dom.entry_rows] = dom.entry_feat
+        perm = np.argsort(key, kind="stable")
+        if self.verbose:
+            print(f"case reorder: sorting {nc} cases by block {bi} "
+                  f"({Fd} features, {sizes[bi]} slots)")
+        self._case_reordered = True
+        if np.array_equal(perm, np.arange(nc)):
+            return train
+        return train.permuted(perm)
 
     def _route_relational(self, train, test):
         """Route block-structure (BS) data as the JAX engine does
@@ -328,6 +379,7 @@ class MCMCVectorLearner(MCMCLearner):
                 # block rows, whose cost does not grow with the join's skew
                 self.incr_test = self.deferred = False
                 return learn_relational(self, train, test)
+        train = self._maybe_reorder_cases(train)
         cfg = self.cfg
         dev = self.device
         gen = self.generator
@@ -528,17 +580,17 @@ class MCMCVectorLearner(MCMCLearner):
             return step_metrics(self, st, it, pred_test, train_metric, rej, y_test,
                                 eval_mask)
 
-        self.history = []
-        for i0, L in dispatch_chunks(0, self.num_iter, self.refresh_every):
-            for it in range(i0, i0 + L):
-                c0 = iter_clocks(dev)
-                # a named range for torch.profiler traces (chip_smoke.py --profile)
-                with torch.profiler.record_function(f"iteration {it}"):
-                    metrics = one_step(it, refresh=(it == i0 + L - 1))
-                c1 = iter_clocks(dev)
-                self._log_iteration(it, metrics, tuple(b - a for a, b in zip(c0, c1)))
-        self._final_state = dict(st, w=P[:, 0].clone(), V=P[:, 1:].clone())
-        return self.history
+        def bufs():
+            # besides P and A: the incremental test tail and the probit
+            # latents (a save follows a refresh, so `carried` is empty)
+            out = dict(P=P, A=A)
+            if incr_te:
+                out["A_te"] = A_te
+            if classify:
+                out["latent"] = latent
+            return out
+
+        return run_iterations(self, "vector", one_step, P, st, bufs, self.refresh_every)
 
 
 class ALSVectorLearner(MCMCVectorLearner):

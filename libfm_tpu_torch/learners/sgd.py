@@ -20,7 +20,8 @@ version.
 Per-layer learn rates (`learn_rates=(r0, r1, r2)`) follow libFM
 libfm.cpp:386-404. With an `rlog` (utils.rlog.RLog) each epoch writes
 one row of the JAX learner's fields. Streaming data (`learn_stream`)
-waits for ROADMAP M7 "Streaming data" and raises NotImplementedError.
+waits for ROADMAP §1 item 4 ("Streaming data") and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from libfm_tpu_torch.kernels.sgd_step import (
 )
 from libfm_tpu_torch.kernels.table_scatter import ScatterScratch, longest_runs, table_scatter
 from libfm_tpu_torch.learners import base
+from libfm_tpu_torch.learners.base import RANGE_OF_K
 from libfm_tpu_torch.models.fm import FMConfig, FMParams, fm_batch_terms, init_fm
 from libfm_tpu_torch.tasks import TASK_REGRESSION
 from libfm_tpu_torch.utils.timers import iter_clocks
@@ -51,7 +53,7 @@ __all__ = [
 
 #: the CUDA kernels take 1 <= k <= 128
 MAX_FACTORS_CUDA = 128
-_NOT_YET = 'waits for ROADMAP M7 "Streaming data"'
+_NOT_YET = 'waits for ROADMAP §1 item 4 ("Streaming data")'
 
 
 def sgd_batch_update(params: FMParams, ids, vals, y, row_mask, cfg: FMConfig,
@@ -260,9 +262,10 @@ class SGDLearner:
             # libFM fm_learn_sgd.h:61-63
             raise ValueError("relations are not supported with SGD")
         k = self.cfg.num_factors
-        if self.device.type == "cuda" and not 1 <= k <= MAX_FACTORS_CUDA:
+        if k < 1 or (self.device.type == "cuda" and k > MAX_FACTORS_CUDA):
             raise NotImplementedError(
-                f"the CUDA kernels take 1 <= k <= {MAX_FACTORS_CUDA}")
+                f"k={k}: the SGD and SGDA kernels take 1 <= k <= {MAX_FACTORS_CUDA}; "
+                f"other k {RANGE_OF_K}")
 
     def _arrays(self, b: BatchedCSR):
         dev = self.device

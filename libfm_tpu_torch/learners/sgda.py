@@ -25,7 +25,8 @@ tensors every kernel wrapper runs its plain PyTorch version.
 One learn rate, the first of `learn_rates`, drives every layer (JAX
 sgda.py:205). With an `rlog` each epoch writes one row of the JAX
 learner's fields, `rmse_val` among them. Streaming data (`learn_stream`)
-waits for ROADMAP M7 "Streaming data" and raises NotImplementedError.
+waits for ROADMAP §1 item 4 ("Streaming data") and raises
+NotImplementedError.
 """
 
 from __future__ import annotations

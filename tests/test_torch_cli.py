@@ -11,7 +11,8 @@ package's (`libfm_tpu.cli`), on the CPU.
   -relation on binary relation files: the #Iter readings, -out and the
   -save_model file within 1e-4;
 - the port's MCMC command line, vector and exact engines, regression and
-  -task c, equal bit for bit to its learner run in process;
+  -task c, equal bit for bit to its learner run in process; so is the
+  pure linear model (-dim 1,1,0) through MCMC and ALS on both engines;
 - help and exit codes, the MCMC model-file guard, the refused options
   (each names its ROADMAP item and writes nothing), the CUDA default and
   -profile.
@@ -234,15 +235,15 @@ def test_als_relation_cli_matches_jax(files, capsys):
     _als_readings_match(res, 1e-4)
 
 
-def _twin(cls, files, task, engine_kw):
+def _twin(cls, files, task, engine_kw, k=4, **learner_kw):
     train, test = Dataset.load(files["train"]), Dataset.load(files["test"])
     if task == "c":
         train.binarize_targets()
         test.binarize_targets()
     n = max(train.num_features, test.num_features)
-    learner = cls(FMConfig(num_features=n, num_factors=4), task=int(task == "c"),
+    learner = cls(FMConfig(num_features=n, num_factors=k), task=int(task == "c"),
                   num_iter=4, num_eval_cases=None, seed=7, attr_group=np.zeros(n, np.int32),
-                  verbose=False, device="cpu", **engine_kw)
+                  verbose=False, device="cpu", **engine_kw, **learner_kw)
     learner.set_regularization([], 1)
     learner.learn(train, test)
     return learner
@@ -277,6 +278,27 @@ def test_mcmc_cli_equals_in_process_learner(engine, task, files):
     last = got._final_state
     _close([log[f"vlambda[0,{f}]"][-1] for f in range(4)], last["v_lambda"][0].numpy(), 0)
     _close(log["wmu[0]"][-1], last["w_mu"][0].item(), 1e-12)
+
+
+@pytest.mark.parametrize("engine", ["vector", "exact"])
+@pytest.mark.parametrize("method", ["mcmc", "als"])
+def test_linear_model_cli_equals_in_process_learner(engine, method, files):
+    """-dim 1,1,0, the pure linear model, on flat data: the same readings
+    and final bits as the learner run in process with k = 0."""
+    runs = []
+    assert cli.main(["-task", "r", "-train", files["train"], "-test", files["test"],
+                     "-method", method, "-engine", engine, "-dim", "1,1,0", "-iter", "4",
+                     "-seed", "7"], device="cpu", runs=runs) == 0
+    got = runs[0]
+    cls, kw = ((MCMCVectorLearner, dict(refresh_every=None)) if engine == "vector"
+               else (MCMCLearner, {}))
+    als = dict(do_sample=False, do_multilevel=False) if method == "als" else {}
+    want = _twin(cls, files, "r", kw, k=0, **als)
+    strip = [{k: v for k, v in h.items() if k != "time"} for h in got.history]
+    assert strip == [{k: v for k, v in h.items() if k != "time"} for h in want.history]
+    assert got._final_state["V"].shape[1] == 0
+    for key in ("w0", "w", "alpha", "pred_sum_all"):
+        assert torch.equal(got._final_state[key], want._final_state[key]), key
 
 
 def test_help_and_exit_codes(capsys):
@@ -335,13 +357,17 @@ REFUSED = {
                        "item 4"),
     "cache_size_als": (["-cache_size", "100", "-train", "{bin}"], "item 4"),  # .xt beside
     "relation_with_cache_size": (["-relation", "{rel}", "-cache_size", "1e12"], "item 4"),
+    "k0_relation": (["-relation", "{rel}", "-dim", "1,1,0"], "item 2"),
+    "k0_sgd": (["-method", "sgd", "-dim", "1,1,0"], "item 2"),
+    "k0_sgda": (["-method", "sgda", "-validation", "{test}", "-dim", "1,1,0"], "item 2"),
 }
 
 
 @pytest.mark.parametrize("case", REFUSED)
 def test_refused_options_name_their_roadmap_item(case, files, capsys):
     extra, item = REFUSED[case]
-    extra = [a.format(bin=_binary_pair(files), rel=files["rel"]) for a in extra]
+    extra = [a.format(bin=_binary_pair(files), rel=files["rel"], test=files["test"])
+             for a in extra]
     outs = {o: str(files["dir"] / f"refused_{case}.{o}") for o in ("out", "rlog", "save_model")}
     argv = ["-task", "r", "-train", files["train"], "-test", files["test"], "-method", "als",
             "-iter", "1"]

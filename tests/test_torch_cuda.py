@@ -55,7 +55,12 @@ CTA, many of one slot), one-hot and valued; slot_update on a block's
 slots in case order, the same bits as in feature order. Two MCMC runs at
 one seed end in the same bits, on the flat vector engine (regression and
 probit), the exact engine and the BS vector engine; an MCMC run with an
-rlog makes the launches, and ends in the bits, of one without.
+rlog makes the launches, and ends in the bits, of one without. The pure
+linear model (k = 0) on the flat engine's seven kernels (fm_refresh in
+every mode, case_stats, slot_stats, schur_draw's scalar draw,
+dense_update, slot_update, probit_latent at a stride of 1) and its ALS
+on each route against the CPU; a checkpoint resumed twice on the card
+(the CUDA generator's state in it), the same bits, on four engines.
 Tolerances as in chip_smoke.py: fp32 sums taken in another order.
 """
 
@@ -85,6 +90,8 @@ from libfm_tpu_torch.tasks import TASK_CLASSIFICATION
 pytestmark = pytest.mark.cuda
 
 KS = [1, 5, 8, 32, 64, 128]
+# the flat engine's kernels also take the pure linear model (k = 0)
+KS_FLAT = [0] + KS
 # case_stats against the float64 plain version, over each entry's sum of
 # magnitudes (as chip_smoke.py holds it)
 CASE_STATS_TOL = 6e-7
@@ -116,7 +123,7 @@ def _to(dev, *xs):
     return [torch.as_tensor(x, device=dev) for x in xs]
 
 
-@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("k", KS_FLAT)
 @pytest.mark.parametrize("use_linear,use_bias", [(True, True), (False, False)])
 def test_fm_refresh_kernel_matches_plain(cuda, k, use_linear, use_bias):
     rng = np.random.default_rng(k)
@@ -144,7 +151,7 @@ def test_fm_refresh_kernel_matches_plain(cuda, k, use_linear, use_bias):
     assert abs(s_k.item() - s_p.item()) <= 1e-4 * max(1.0, s_p.item())
 
 
-@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("k", KS_FLAT)
 @pytest.mark.parametrize("skewed", [False, True])
 @pytest.mark.parametrize("use_linear", [True, False])
 def test_slot_stats_kernel_matches_plain(cuda, k, skewed, use_linear):
@@ -452,7 +459,7 @@ def test_slot_stats_kernel_edge_lists(cuda, k):
         assert (pieces.ticket == 0).all()
 
 
-@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("k", KS_FLAT)
 @pytest.mark.parametrize("onehot", [True, False])
 def test_dense_update_kernel_matches_plain(cuda, k, onehot):
     rng = np.random.default_rng(300 + k)
@@ -487,7 +494,7 @@ def _dense_update_inputs(dev, rng, nc, k, F, covered=None):
     return A, colt, valt, tab
 
 
-@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("k", KS_FLAT)
 @pytest.mark.parametrize("nc", [0, 1, DU_TILE - 3, 5 * DU_TILE, 7 * DU_TILE + 13,
                                 40000 * DU_TILE + 9])
 def test_dense_update_kernel_tiles(cuda, k, nc):
@@ -579,7 +586,7 @@ def test_dense_update_kernel_rejects_unpadded_table(cuda):
 FR_ROWS = [0, 7, 1003, 20011]
 
 
-@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("k", KS_FLAT)
 @pytest.mark.parametrize("L", [1, 2, 5, 13])
 def test_fm_refresh_kernel_tiles(cuda, k, L):
     """Row counts of none, part of one tile, ragged tails and many tiles a
@@ -653,7 +660,9 @@ def test_als_on_cuda_follows_the_cpu_trajectory(cuda):
         assert abs(hc["train"] - hg["train"]) < 1e-4
 
 
-SU_KS = [4, 16, 32, 128]
+# k = 0 takes slot_update_k0; at k = 1 and 2 a row past A's last whole
+# 16-byte piece has no bulk copy (the case-order test's A ends there)
+SU_KS = [0, 1, 2, 4, 16, 32, 128]
 
 
 @pytest.mark.parametrize("k", SU_KS)
@@ -1117,7 +1126,7 @@ def _close(a, b):
 
 # every compiled form (the padded width KP 4-128: a warp a team to 32, a
 # CTA above) at k = 5, 12, 16, 20, 48, 64, 90 and 128
-@pytest.mark.parametrize("k", [5, 12, 16, 20, 48, 64, 90, 128])
+@pytest.mark.parametrize("k", [0, 5, 12, 16, 20, 48, 64, 90, 128])
 @pytest.mark.parametrize("onehot", [True, False])
 @pytest.mark.parametrize("use_linear", [True, False])
 def test_case_stats_kernel_matches_plain(cuda, k, onehot, use_linear):
@@ -1163,7 +1172,7 @@ def test_case_stats_kernel_matches_plain(cuda, k, onehot, use_linear):
     assert cs.err_over_magnitudes(G_k, ref, scale) < CASE_STATS_TOL
 
 
-@pytest.mark.parametrize("k", [8, 16, 64])
+@pytest.mark.parametrize("k", [0, 8, 16, 64])
 @pytest.mark.parametrize("mode", ["sample", "mean"])
 def test_fm_refresh_probit_kernel_matches_plain(cuda, k, mode):
     """Q and pred = e + latent against the plain version within 1e-4; the
@@ -1199,7 +1208,7 @@ def test_fm_refresh_probit_kernel_matches_plain(cuda, k, mode):
     pred_k = A_k[:, 0] + lat_k
     ref = draw(pred_k, y, U)
     near = (ref - pred_k).abs() <= 2.5 if U is not None else torch.ones_like(y, dtype=bool)
-    assert (A_k[:, 1:] - A_p[:, 1:]).abs().max().item() < 1e-4
+    assert k == 0 or (A_k[:, 1:] - A_p[:, 1:]).abs().max().item() < 1e-4
     assert (pred_k - (A_p[:, 0] + lat_p)).abs().max().item() < 1e-4
     assert _close(lat_k[near], ref[near]) < 1e-5
     assert near.float().mean().item() > 0.5
@@ -1207,7 +1216,7 @@ def test_fm_refresh_probit_kernel_matches_plain(cuda, k, mode):
     assert ((lat_k >= 0) == (y >= 0)).all()
 
 
-@pytest.mark.parametrize("k", [1, 16, 128])
+@pytest.mark.parametrize("k", [0, 1, 16, 128])
 @pytest.mark.parametrize("mode", ["sample", "mean"])
 def test_probit_latent_kernel_matches_plain(cuda, k, mode):
     """Predictions e + latent up to |12|, 1.8M cases (the strided e column
@@ -2871,3 +2880,109 @@ def test_mcmc_rlog_adds_no_launch(cuda, engine):
     assert [key for key in REPRO_KEYS if not torch.equal(a[key], b[key])] == []
     lines = rlog._out.getvalue().splitlines()
     assert len(lines) == 5 and f"vmu[{int(groups.max())},7]" in lines[0].split("\t")
+
+
+@pytest.mark.parametrize("do_sample", [True, False])
+def test_schur_draw_kernel_k0_is_the_scalar_draw(cuda, do_sample):
+    """At k = 0 schur_draw is the JAX engine's scalar conjugate draw of w
+    (`scalar_draw_plain`): the plain version's bits on the card (each
+    operation rounded on its own, in its order), a draw past the bound and
+    a NaN rejected with the old w kept, more features than one CTA; its
+    relational form keeps refusing k = 0."""
+    rng = np.random.default_rng(1300 + do_sample)
+    F = 5000
+    GG, theta, lam, mu, z = _to(
+        cuda,
+        np.stack([rng.uniform(0, 50, F), rng.normal(0, 5, F)], axis=1).astype(np.float32),
+        rng.normal(0, 0.1, (F, 1)).astype(np.float32),
+        rng.uniform(0.5, 5, (F, 1)).astype(np.float32),
+        rng.normal(0, 0.1, (F, 1)).astype(np.float32),
+        rng.normal(size=(F, 1)).astype(np.float32),
+    )
+    mu[1] = 1e9  # a mean beyond the bound
+    GG[2, 0] = float("nan")
+    alpha = torch.tensor(1.3, device=cuda)
+    before = kernels.launch_counts()["schur_draw"]
+    t_k, r_k, t_p = _draw_both(GG, theta, lam, mu, z, alpha, do_sample, 100.0)
+    assert kernels.launch_counts()["schur_draw"] == before + 1
+    assert r_k[1].item() == 1 and r_k[2].item() == 1 and int(r_k.sum()) == 2
+    assert torch.equal(t_k, t_p)
+    with pytest.raises(ValueError, match="k=0"):
+        sd.schur_draw_rel(GG, theta, lam, mu, z, alpha, torch.zeros(3, 1, device=cuda),
+                          torch.zeros(F + 1, dtype=torch.int64, device=cuda),
+                          torch.zeros(0, dtype=torch.int32, device=cuda),
+                          torch.zeros(0, device=cuda), do_sample=do_sample, bound=100.0)
+
+
+@pytest.mark.parametrize("route", ["case_major", "slot_stats", "slot_update"])
+def test_als_k0_on_cuda_follows_the_cpu_trajectory(cuda, route):
+    """The pure linear model's ALS on the card (fm_refresh, the statistics
+    of the route, schur_draw's scalar draw, the update of the route)
+    against the CPU from the same w, with exact launches."""
+    train, test = movielens_like(300, 200, 30000, seed=5)
+    n = train.num_features
+    rng = np.random.default_rng(0)
+    init = (np.float32(0.0), rng.normal(0, 0.1, n).astype(np.float32),
+            np.zeros((n, 0), np.float32))
+    flags = dict(case_major=dict(), slot_stats=dict(case_major_stats=False),
+                 slot_update=dict(dense_update=False))[route]
+    cfg = FMConfig(num_features=n, num_factors=0, regw=2.0, regv=2.0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        learner = ALSVectorLearner(cfg, num_iter=6, seed=1, verbose=False, device=dev,
+                                   init_params=init, **flags)
+        kernels.reset_launch_counts()
+        runs[dev] = learner.learn(train, test)
+        counts = kernels.launch_counts()
+    for hc, hg in zip(runs["cpu"], runs["cuda"]):
+        assert abs(hc["test_this"] - hg["test_this"]) < 1e-5
+        assert abs(hc["train"] - hg["train"]) < 1e-5
+    stats = "case_stats" if route == "case_major" else "slot_stats"
+    update = "slot_update" if route == "slot_update" else "dense_update"
+    assert counts[stats] == counts["schur_draw"] == counts[update] == 12
+    # the initial refresh, a test prediction an iteration, the refreshes
+    # at iterations 0 and 5
+    assert counts["fm_refresh"] == 1 + 6 + 2
+
+
+@pytest.mark.parametrize("engine", ["vector", "vector probit", "exact", "bs vector"])
+def test_checkpoint_resumes_on_the_card_the_same_bits(cuda, engine, tmp_path):
+    """A chain saved at iteration 4 on the card (the CUDA generator's
+    state with it) and resumed to 8 twice: the same bits both times,
+    within 1e-4 of the straight run's test_this (5e-3 under probit)."""
+    from libfm_tpu_torch.learners.mcmc import MCMCLearner
+    from libfm_tpu_torch.learners.mcmc_vector import MCMCVectorLearner
+
+    if engine == "bs vector":
+        from test_torch_checkpoint import single_rel_problem
+
+        train, test, n = single_rel_problem()
+        groups = None
+    else:
+        train, test, groups = ctr_like(6, 300, 30000, seed=3)
+        n = train.num_features
+    cls = MCMCLearner if engine == "exact" else MCMCVectorLearner
+    task = TASK_CLASSIFICATION if "probit" in engine else 0
+    path = str(tmp_path / "chain.npz")
+
+    def run(iters, every, ckpt=True):
+        lr = cls(FMConfig(num_features=n, num_factors=8), num_iter=iters, seed=7,
+                 verbose=False, device="cuda", attr_group=groups, task=task,
+                 checkpoint_path=path if ckpt else None, checkpoint_every=every)
+        if engine == "bs vector":
+            lr.expand_max_ratio = 0.0
+        lr.learn(train, test)
+        return lr
+
+    straight = run(8, 0, ckpt=False)
+    run(4, 4)
+    a, b = run(8, 0), run(8, 0)
+    assert [h["iter"] for h in a.history] == list(range(4, 8))
+    assert [key for key in REPRO_KEYS if not torch.equal(a._final_state[key],
+                                                         b._final_state[key])] == []
+    got = np.array([h["test_this"] for h in a.history])
+    want = np.array([h["test_this"] for h in straight.history[4:]])
+    if task:
+        np.testing.assert_allclose(got, want, atol=5e-3)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4)

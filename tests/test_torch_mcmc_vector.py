@@ -11,6 +11,8 @@ ml_small size (movielens_like(120, 90, 8000, seed=3), k=8).
   for one: torch's generators are not JAX's threefry.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from libfm_tpu.learners.mcmc_vector import ALSVectorLearner as JaxALS
 from libfm_tpu.learners.mcmc_vector import MCMCVectorLearner as JaxMCMC
 from libfm_tpu.models.fm import FMConfig as JaxFMConfig
 from libfm_tpu_torch.convert import params_from_jax
+from libfm_tpu_torch.data.relation import RelationData, RelationJoin
 from libfm_tpu_torch.data.synth import movielens_like
 from libfm_tpu_torch.learners.mcmc import dispatch_chunks
 from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner, MCMCVectorLearner
@@ -122,21 +125,31 @@ def test_dispatch_chunks_matches_jax(start, num_iter, R):
     assert dispatch_chunks(start, num_iter, R) == jax_dispatch_chunks(start, num_iter, R)
 
 
-@pytest.mark.parametrize("kwargs,attr,k", [
-    # dual draws (the first case once) are in the slice since kernel K7:
-    # case reordering takes the case's place
-    pytest.param({}, "case_reorder", 4, id="kwargs0-None"),
+@pytest.mark.parametrize("case", [
+    # dual draws (the first case once) are in the slice since kernel K7,
+    # case reordering since the learner options' slice: streaming data
+    # takes the case's place
+    pytest.param("streaming", id="kwargs0-None"),
     # the incremental test tail (the second case once) is in the slice
-    # since kernel K4b: the pure linear model (k=0) takes the case's place
-    pytest.param({}, None, 0, id="kwargs1-flat_incr_test"),
+    # since kernel K4b, the flat pure linear model (k=0) since the learner
+    # options' slice: k = 0 on relational data takes the case's place
+    pytest.param("k0_relational", id="kwargs1-flat_incr_test"),
 ])
-def test_outside_the_slice_raises(ml_small, kwargs, attr, k):
+def test_outside_the_slice_raises(ml_small, case):
     tr, te = ml_small
+    k = 0 if case == "k0_relational" else 4
     learner = MCMCVectorLearner(FMConfig(num_features=tr.num_features, num_factors=k),
-                                num_iter=1, verbose=False, device="cpu", **kwargs)
-    if attr:
-        setattr(learner, attr, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                                num_iter=1, verbose=False, device="cpu")
+    if case == "streaming":
+        tr = types.SimpleNamespace(**{key: getattr(tr, key) for key in (
+            "num_rows", "num_features", "min_target", "max_target", "target")})
+        item = "§1 item 4"
+    else:
+        tr = movielens_like(num_users=120, num_items=90, num_ratings=8000, seed=3)[0]
+        block = RelationData(np.arange(2), np.zeros(1), np.ones(1), 1)
+        tr.relations = [RelationJoin(block, np.zeros(tr.num_rows, np.int32))]
+        item = "§1 item 2"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         learner.learn(tr, te)
 
 
@@ -144,8 +157,11 @@ def test_constructor_options_outside_the_slice_raise():
     cfg = FMConfig(num_features=10, num_factors=4)
     with pytest.raises(NotImplementedError, match="ROADMAP M13"):
         MCMCVectorLearner(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
-        MCMCVectorLearner(cfg, checkpoint_path="x.npz", device="cpu")
+    # checkpoints are in the slice since the learner options' slice
+    # (tests/test_torch_checkpoint.py)
+    learner = MCMCVectorLearner(cfg, checkpoint_path="x.npz", checkpoint_every=2,
+                                device="cpu")
+    assert (learner.checkpoint_path, learner.checkpoint_every) == ("x.npz", 2)
     # rlog output is in the slice since the CLI's port
     rlog = object()
     assert MCMCVectorLearner(cfg, rlog=rlog, device="cpu").rlog is rlog

@@ -408,8 +408,13 @@ def test_out_of_slice_relational_cases_raise():
     assert off.relational_mode == "bs" and np.isfinite(off.history[-1]["test_all"])
     with pytest.raises(NotImplementedError, match="M13"):
         MCMCVectorLearner(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M7"):
-        MCMCVectorLearner(cfg, checkpoint_path="x", device="cpu")
+    # checkpoints are in the slice since the learner options' slice
+    # (tests/test_torch_checkpoint.py); the pure linear model (k = 0) on
+    # relational data is not
+    k0 = MCMCVectorLearner(FMConfig(num_features=nf, num_factors=0), num_iter=1,
+                           verbose=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="§1 item 2"):
+        k0.learn(ttr, tte)
     # rlog and the resident binary block load are in the slice since the
     # CLI's port; the bounded reader of -cache_size is not
     assert MCMCVectorLearner(cfg, rlog=object(), device="cpu").rlog is not None
