@@ -243,6 +243,30 @@ What it does, in order (any failed phase exits non-zero):
    predict()) and at bench_bs chunked (predict_expand_cap 200,000)
    against unchunked (the same bits); ALS 3 at #3 with case reordering
    (case_major_stats=False) within 2e-4 of the same run without.
+4d. Stream phase (out-of-core data). #3's train and test sets written
+   as libFM binary files; the train set's transpose .xt built by the
+   port's tools/transpose.py out of core (a cache of a fifth of its
+   entries: 6 passes), its bytes against Dataset.transpose's, the seconds
+   printed. Then from StreamingDatasets whose windows cut the train set
+   into 9 (the test set into 9): ALS 3 and MCMC 4 with the train set
+   streamed (paths stream_als_3, stream_mcmc_3), MCMC 4 with both sets
+   streamed (stream_test_3) and the exact engine's MCMC 4 (stream_exact_3),
+   each ending in the resident run's bits (P, the sampler state, every
+   reading) with its launches; SGD 1 epoch and SGDA 2 (the lambda step
+   runs from the second) at #1 through learn_stream, SGDA's validation
+   streamed (stream_sgd_1, stream_sgda_1), each the bits of `learn` with
+   its batch kernels' launches (fm_refresh differs: no train metric, one
+   validation launch a batch); bench_bs's ALS 2 through the command line
+   with -relation and -cache_size (stream_bs) equal to the resident
+   command line's run; MCMC 2 at #3 through the command line's entry
+   point in a child process, streamed (-cache_size a tenth of the train
+   .x) and resident, and a third on the ML-100K-sized set (the baseline:
+   the process, CUDA and the kernels with next to no data), each child's
+   peak host RSS (its VmRSS read every 10 ms), its peak traced by
+   tracemalloc (numpy's arrays and Python's objects: the host data) and
+   its own #mem line printed; the data's share of the RSS (a peak less
+   the baseline's). Set-up and per-iteration seconds, streamed beside
+   resident.
 5. Probe phase. The ported table probes (libfm_tpu_torch.studies
    pallas_gather.main and pallas_scatter.main) at the studies' shapes,
    each against its plain version; prints ns/row.
@@ -252,6 +276,9 @@ What it does, in order (any failed phase exits non-zero):
 
 `--cli` builds the kernels, #3's and bench_bs's data and runs the CLI
 phase alone; it prints the CLI paths' launches as one JSON line.
+`--stream` builds the kernels, #3's and bench_bs's data and runs the
+stream phase alone (with the resident ALS 3, MCMC 4 and exact MCMC 4 at
+#3 it compares with); it prints the phase's launches as one JSON line.
 `--options` builds the kernels, #3's, #4's and bench_bs's data and runs
 the options phase alone (bench_bs's straight MCMC 24 too); it prints the
 k = 0 rows and the phase's launches as one JSON line.
@@ -444,6 +471,16 @@ OPT_BS_ALS_ITERS, OPT_PREDICT_CAP = 3, 200_000
 # case reordering: the ALS readings against the unordered run's (the JAX
 # test's band, tests/test_mcmc_vector.py:345-371)
 OPT_REORDER_TOL = 2e-4
+# the stream phase (run_stream): the out-of-core transpose's cache a fifth
+# of #3's train entries (a counting pass and 5 column blocks), the
+# StreamingDatasets' windows a ninth of each set's entries; SGD 1 epoch
+# and SGDA 2 (its lambda step runs from the second) at #1; bench_bs's ALS
+# 2 through the command line with -cache_size 100,000 B; MCMC 2 at #3 in
+# a child process
+# each, -cache_size a tenth of the train .x
+STREAM_CACHE_PARTS, STREAM_WINDOWS = 5, 9
+STREAM_SGD_EPOCHS, STREAM_SGDA_EPOCHS, STREAM_BS_ITERS, STREAM_CHILD_ITERS = 1, 2, 2, 2
+STREAM_BS_CACHE = 100_000
 U32 = 2.0 ** -24  # float32's unit roundoff
 HOT_ROWS = 1024  # the gather-against-streaming line's small table
 FEW_ROWS = 4  # a field of few values (the skewed line)
@@ -496,6 +533,12 @@ EXPECTED.update(
         "straight", "save", "resume", "resume_again") if (kind, c) != ("straight", "bs")},
     als_pn_3=EXPECTED["als"], als_reorder_3=EXPECTED["als"], als_pn_bs=EXPECTED["als_bs"],
     predict_new_3={"fm_refresh"}, predict_new_bs={"fm_refresh"})
+# the stream phase's paths: the resident runs' kernels
+EXPECTED.update(stream_als_3=EXPECTED["als"], stream_mcmc_3=EXPECTED["mcmc"],
+                stream_test_3=EXPECTED["mcmc"], stream_exact_3=EXPECTED["exact_3"],
+                stream_sgd_1=EXPECTED["sgd_1"], resident_sgd_1=EXPECTED["sgd_1"],
+                stream_sgda_1=EXPECTED["sgda_1"], resident_sgda_1=EXPECTED["sgda_1"],
+                stream_bs=EXPECTED["als_bs"], resident_bs=EXPECTED["als_bs"])
 EXPECTED.update(quality_3=EXPECTED["mcmc"], quality_4=EXPECTED["mcmc_4"],
                 quality_5=EXPECTED["mcmc_5"], quality_bs_ctx=EXPECTED["mcmc_bs_ctx"],
                 quality_bs_c=EXPECTED["mcmc_bs_c"])
@@ -2534,8 +2577,8 @@ def sgd_kernel_checks(args, rec, dev, ml, ctr):
         c = SGD_CONFIGS[cname]
         k, d = c["k"], c["k"] + 1
         tb = batch_dataset(ds, c["batch"])
-        if _epoch_mode(ds, tb) != mode:
-            fail(f"{label}: the learner would pick mode {_epoch_mode(ds, tb)}")
+        if _epoch_mode(ds, tb.ids.shape[2]) != mode:
+            fail(f"{label}: the learner would pick mode {_epoch_mode(ds, tb.ids.shape[2])}")
         if cname not in orders:
             sids_np, perm_np = sorted_scatter_order(tb.ids)
             orders[cname] = (sids_np, perm_np, ts.longest_runs(sids_np))
@@ -2748,9 +2791,9 @@ def sgda_kernel_checks(args, rec, dev, runs):
         k, d, lr, task = c["k"], c["k"] + 1, c["lr"], c["task"]
         n, G = trn.num_features, int(groups.max()) + 1
         tb, vb = batch_dataset(trn, c["batch"]), batch_dataset(val, c["batch"])
-        if (_epoch_mode(trn, tb), _epoch_mode(val, vb)) != (mode, mode):
-            fail(f"SGDA {label}: the learner would pick modes {_epoch_mode(trn, tb)} and "
-                 f"{_epoch_mode(val, vb)}")
+        modes = (_epoch_mode(trn, tb.ids.shape[2]), _epoch_mode(val, vb.ids.shape[2]))
+        if modes != (mode, mode):
+            fail(f"SGDA {label}: the learner would pick modes {modes}")
         tr = sgda_batches(tb, n, dev)
         va = [torch.as_tensor(x, device=dev) for x in (vb.ids, vb.vals, vb.y, vb.row_mask)]
         attr = torch.as_tensor(groups, device=dev)
@@ -3956,7 +3999,8 @@ def beside(rec, name, vector, key="test_all"):
           f"an iteration {[round(h['time'], 6) for h in rec[name]['history']]}")
 
 
-def run_exact(args, rec, dev, counts, done, data=None, ctr=None, bs=None, ctx=None):
+def run_exact(args, rec, dev, counts, done, data=None, ctr=None, bs=None, ctx=None,
+              keep=None):
     """The exact engines (K11): the kernel checks (returns their rows) and
     the paths, each with its exact launches into `counts`: ALS 3 and MCMC 4
     iterations at config #3, MCMC 4 (probit) at config #4, ALS 3 and MCMC 4
@@ -4013,9 +4057,12 @@ def run_exact(args, rec, dev, counts, done, data=None, ctr=None, bs=None, ctx=No
     beside(rec, "als_exact_3", "als", "train")
     t0 = done("config #3 exact ALS path", t0)
     sd3 = float(data[1].target.std())
-    _, counts["exact_3"] = run_learner(MCMCLearner, "exact_3", data, args, rec,
-                                       iters=MCMC_ITERS,
-                                       want=flat_exact_want(MCMC_ITERS, sweep3, FACTORS))
+    exact_3, counts["exact_3"] = run_learner(MCMCLearner, "exact_3", data, args, rec,
+                                             iters=MCMC_ITERS,
+                                             want=flat_exact_want(MCMC_ITERS, sweep3, FACTORS))
+    if keep is not None:  # the stream phase's resident run
+        keep["exact_3"] = exact_3
+    del exact_3
     beside(rec, "exact_3", "mcmc")
     got = rec["exact_3"]["history"][-1]["test_all"]
     print(f"exact_3: test_all after {MCMC_ITERS} iterations {got:.6f}, the test targets' "
@@ -4714,12 +4761,13 @@ def cli_rlog(name, path, rows, must):
     return table
 
 
-def run_cli(args, rec, dev, counts, done, data, bs):
+def run_cli(args, rec, dev, counts, done, data, bs, files=None):
     """The CLI phase: `python -m libfm_tpu_torch.cli` as a user runs it,
     through cli.main on the card, on binary files written here (#3's data
-    and bench_bs's relation), each run's launches into `counts` (paths
-    cli_3, cli_als_3, cli_bs, cli_sgd_1) and held against the same learner
-    run in process with the arguments the CLI derives."""
+    and bench_bs's relation; into the directory `files` where given, else
+    a temporary one), each run's launches into `counts` (paths cli_3,
+    cli_als_3, cli_bs, cli_sgd_1) and held against the same learner run in
+    process with the arguments the CLI derives."""
     import tempfile
 
     import numpy as np
@@ -4735,7 +4783,8 @@ def run_cli(args, rec, dev, counts, done, data, bs):
     out = rec["cli_phase"] = {}
     train, test = data[:2]
     n = max(train.num_features, test.num_features, 1)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+    with (contextlib.nullcontext(files) if files
+          else tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")) as tmp:
         # ---- 1. #3's data to binary and back
         ml = os.path.join(tmp, "ml")
         t = time.perf_counter()
@@ -4881,6 +4930,308 @@ def run_cli(args, rec, dev, counts, done, data, bs):
     print(f"cli: the CLI phase took {out['seconds']:.1f} s")
 
 
+def stream_epochs(name, learner, data, counts, rec):
+    """One SGD or SGDA run (`learn` or `learn_stream` on `data`) as path
+    `name`; returns (its history, its launches)."""
+    from libfm_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fn = learner.learn_stream if name.startswith("stream") else learner.learn
+    hist = fn(*data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts[name] = kernels.launch_counts()
+    secs = [h[-1] for h in hist]
+    rec[name] = dict(history=hist, launches=counts[name], learn_seconds=wall,
+                     setup_seconds=wall - sum(secs))
+    print(f"{name}: launches { {k: v for k, v in counts[name].items() if v} }; learn "
+          f"{wall:.2f} s, of which set-up and evaluation {wall - sum(secs):.2f} s; per-epoch "
+          f"s {secs}; test readings {[h[1] for h in hist]}")
+    check_launches(name, counts[name])
+    return hist, counts[name]
+
+
+def stream_same_epochs(name, got, want, got_n, want_n, batch_kernels, fm_refresh):
+    """Fail unless the streamed SGD / SGDA run `got` ends in the bits of
+    the resident `want` (parameters, regularizers, test and validation
+    readings), with the same launches of `batch_kernels` and `fm_refresh`
+    launches of fm_refresh."""
+    keys = [key for key in ("w0", "w", "v")
+            if not torch.equal(getattr(got.params, key), getattr(want.params, key))]
+    keys += [key for key in ("reg_w", "reg_v") if getattr(want, key, None) is not None
+             and not torch.equal(getattr(got, key), getattr(want, key))]
+    same_readings = [h[1:-1] for h in got.history] == [h[1:-1] for h in want.history]
+    wrong = {key: (got_n[key], want_n[key]) for key in batch_kernels if got_n[key] != want_n[key]}
+    if got_n["fm_refresh"] != fm_refresh:
+        wrong["fm_refresh"] = (got_n["fm_refresh"], fm_refresh)
+    print(f"{name}: the resident run's bits: {not keys}; its test (and validation) readings: "
+          f"{same_readings}; launches of {', '.join(batch_kernels)} equal, fm_refresh "
+          f"{got_n['fm_refresh']} (resident {want_n['fm_refresh']}): {not wrong}")
+    if keys or not same_readings:
+        fail(f"{name}: differs from the resident run: {keys}, readings "
+             f"{[h[1:-1] for h in got.history]} against {[h[1:-1] for h in want.history]}")
+    if wrong:
+        fail(f"{name}: launches (made, expected) {wrong}")
+
+
+#: how often cli_child reads its child's resident set, in seconds
+RSS_EVERY = 0.01
+
+
+def cli_child(name, argv, rec):
+    """`libfm_tpu_torch.cli.main(argv -verbosity 1 -rlog F)`, the entry
+    point of `python -m libfm_tpu_torch.cli`, in a child process on the
+    card under tracemalloc. Returns (its wall seconds, its peak resident
+    set in bytes: the largest VmRSS of /proc/<pid>/status, read every
+    RSS_EVERY seconds while it runs, its traced peak in bytes: numpy's
+    arrays and Python's objects, not CUDA's or torch's host memory, its
+    seconds an iteration from the rlog's time_learn4). The child's own
+    #mem line (VmHWM) is kept beside: where the kernel counts the
+    high-water mark of the process it was forked from too (the card's
+    machine does), it reads this script's."""
+    import re
+    import tempfile
+
+    def rss(pid):
+        try:
+            with open(f"/proc/{pid}/status") as f:
+                return next(int(line.split()[1]) * 1024 for line in f
+                            if line.startswith("VmRSS:"))
+        except (OSError, StopIteration):
+            return 0
+
+    traced = ("import sys, tracemalloc\n"
+              "tracemalloc.start()\n"
+              "from libfm_tpu_torch import cli\n"
+              "rc = cli.main(sys.argv[1:])\n"
+              "print(f'#traced_peak_bytes={tracemalloc.get_traced_memory()[1]}')\n"
+              "sys.exit(rc)\n")
+    with tempfile.NamedTemporaryFile(suffix=".tsv") as rlog, \
+            tempfile.TemporaryFile("w+") as out:
+        cmd = [sys.executable, "-c", traced, *argv, "-verbosity", "1", "-rlog", rlog.name]
+        t0 = time.perf_counter()
+        p = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, text=True,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        peak = 0
+        while p.poll() is None:
+            peak = max(peak, rss(p.pid))
+            time.sleep(RSS_EVERY)
+        wall = time.perf_counter() - t0
+        out.seek(0)
+        text = out.read()
+        if p.returncode != 0:
+            fail(f"{name}: the child exited {p.returncode}: {text[-4000:]}")
+        lines = open(rlog.name).read().splitlines()
+    col = lines[0].split("\t").index("time_learn4")
+    iters = [float(line.split("\t")[col]) for line in lines[1:]]
+    hwm = int(re.search(r"#mem host_peak_rss_bytes=(\d+)", text)[1])
+    tpeak = int(re.search(r"#traced_peak_bytes=(\d+)", text)[1])
+    said = [line for line in text.splitlines() if "out-of-core" in line]
+    rec[name] = dict(wall_seconds=wall, peak_rss_bytes=peak, traced_peak_bytes=tpeak,
+                     own_report_bytes=hwm, iteration_seconds=iters, said=said)
+    print(f"{name}: python -m libfm_tpu_torch.cli {' '.join(argv)}: exit 0 in {wall:.2f} s "
+          f"under tracemalloc (process start, loading and set-up {wall - sum(iters):.2f} s); "
+          f"peak host RSS {peak / 2**20:.1f} MiB (VmRSS every {RSS_EVERY} s), traced peak "
+          f"{tpeak / 2**20:.1f} MiB, its own #mem line {hwm / 2**20:.1f} MiB; seconds an "
+          f"iteration {iters}; {said}")
+    if not peak:
+        fail(f"{name}: no VmRSS read of the child")
+    return wall, peak, tpeak, iters
+
+
+def run_stream(args, rec, dev, counts, done, data, bs, resident=None, files=None):
+    """The stream phase: #3's data (and #1's, the same rows; bench_bs's)
+    out of core, each streamed run held against its resident run (the
+    default run's als, mcmc and exact_3 in `resident`, where it ran them),
+    launches into `counts` (paths stream_*). #3's binary files are the CLI
+    phase's where `files` holds them."""
+    import filecmp
+    import tempfile
+
+    import numpy as np
+
+    from libfm_tpu_torch.data import binary as binio
+    from libfm_tpu_torch.data.relation import RelationData
+    from libfm_tpu_torch.data.streaming import StreamingDataset, stream_sparse_binary
+    from libfm_tpu_torch.data.synth import movielens_like
+    from libfm_tpu_torch.learners.mcmc import MCMCLearner
+    from libfm_tpu_torch.learners.mcmc_vector import ALSVectorLearner, MCMCVectorLearner
+    from libfm_tpu_torch.learners.sgd import SGDLearner
+    from libfm_tpu_torch.learners.sgda import SGDALearner
+    from libfm_tpu_torch.models.fm import FMConfig
+    from libfm_tpu_torch.tools.transpose import transpose_streaming
+
+    t_phase = t0 = time.perf_counter()
+    out = rec["stream_phase"] = {}
+    smi = rec["card"]
+    train, test = data[:2]
+    resident = dict(resident or {})
+    with (contextlib.nullcontext(files) if files
+          else tempfile.TemporaryDirectory(prefix="chip_smoke_stream_")) as tmp:
+        # ---- 1. the binary files (the CLI phase's where it wrote them) and
+        # the out-of-core transpose
+        ml = os.path.join(tmp, "ml")
+        t = time.perf_counter()
+        wrote = not os.path.exists(ml + ".test.y")
+        if wrote:
+            train.to_binary(ml + ".train", with_transpose=False)
+            test.to_binary(ml + ".test", with_transpose=False)
+        out["write_seconds"] = time.perf_counter() - t
+        how = (f"written to binary in {out['write_seconds']:.3f} s" if wrote
+               else "in the CLI phase's binary files")
+        cache = -(-train.nnz // STREAM_CACHE_PARTS)
+        t = time.perf_counter()
+        passes = transpose_streaming(ml + ".train.x", ml + ".train.xt", cache)
+        out["transpose_seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        binio.write_sparse_binary(ml + ".ref.xt", *train.transpose(), train.num_rows)
+        out["in_memory_transpose_seconds"] = time.perf_counter() - t
+        same = filecmp.cmp(ml + ".train.xt", ml + ".ref.xt", shallow=False)
+        os.remove(ml + ".ref.xt")
+        out.update(transpose_passes=passes, transpose_cache_entries=cache)
+        print(f"stream: #3's sets {how}; the "
+              f".xt out of core ({cache} entries of cache, {passes} passes over .x) in "
+              f"{out['transpose_seconds']:.3f} s (in memory and written "
+              f"{out['in_memory_transpose_seconds']:.3f} s), the same bytes as "
+              f"Dataset.transpose's: {same}; on {smi}")
+        if not same or passes < 1 + STREAM_CACHE_PARTS:
+            fail(f"stream: the out-of-core transpose (passes {passes}) differs")
+        budget = {s: -(-ds.nnz // STREAM_WINDOWS) for s, ds in (("train", train), ("test", test))}
+
+        def streamed(which):
+            return StreamingDataset(f"{ml}.{which}.x", f"{ml}.{which}.y", budget[which])
+
+        windows = {s: sum(1 for _ in stream_sparse_binary(f"{ml}.{s}.x", budget[s]))
+                   for s in budget}
+        out["windows"] = windows
+        print(f"stream: windows of {budget} entries: {windows}")
+        if min(windows.values()) < 8:
+            fail(f"stream: fewer than 8 windows: {windows}")
+        t0 = done("stream: binary files and the out-of-core transpose", t0)
+
+        # ---- 2. ALS, MCMC, the streamed test set, the exact engine at #3
+        if "als" not in resident:
+            resident["als"], counts["als"] = run_learner(
+                ALSVectorLearner, "als", data, args, rec, iters=ALS_ITERS, regw=5.0, regv=5.0)
+            resident["mcmc"], counts["mcmc"] = run_learner(MCMCVectorLearner, "mcmc", data,
+                                                           args, rec, iters=MCMC_ITERS)
+        if "exact_3" not in resident:
+            resident["exact_3"], counts["exact_3"] = run_learner(
+                MCMCLearner, "exact_3", data, args, rec, iters=MCMC_ITERS, exact=False)
+        for name, cls, want, kw, sets in (
+                ("stream_als_3", ALSVectorLearner, "als", dict(iters=ALS_ITERS, regw=5.0,
+                                                              regv=5.0), ("train",)),
+                ("stream_mcmc_3", MCMCVectorLearner, "mcmc", dict(iters=MCMC_ITERS),
+                 ("train",)),
+                ("stream_test_3", MCMCVectorLearner, "mcmc", dict(iters=MCMC_ITERS),
+                 ("train", "test")),
+                ("stream_exact_3", MCMCLearner, "exact_3", dict(iters=MCMC_ITERS,
+                                                                exact=False), ("train",))):
+            sdata = tuple(streamed(s) if s in sets else ds
+                          for s, ds in (("train", train), ("test", test)))
+            got, counts[name] = run_learner(cls, name, sdata, args, rec, **kw)
+            setup = rec[name]["setup_seconds"]
+            cli_same(name, got, resident[want], counts[name], counts[want], rec)
+            rec[name].update(setup_seconds=setup,
+                             resident_setup_seconds=rec[want]["setup_seconds"])
+            print(f"{name}: set-up {setup:.2f} s streamed, "
+                  f"{rec[want]['setup_seconds']:.2f} s resident ({want}); seconds an "
+                  f"iteration {rec[name]['seconds']} against {rec[name]['in_process_seconds']}; "
+                  f"test_all {[h['test_all'] for h in got.history]}; on {smi}")
+            del got
+            torch.cuda.empty_cache()
+            t0 = done(f"stream: {name}", t0)
+
+        # ---- 3. SGD and SGDA at #1 through learn_stream
+        c = SGD_CONFIGS["sgd_1"]
+        runs = {}
+        for name in ("resident_sgd_1", "stream_sgd_1"):
+            lrn = SGDLearner(FMConfig(num_features=train.num_features, num_factors=c["k"],
+                                      regw=c["regw"], regv=c["regv"]),
+                             task=c["task"], num_iter=STREAM_SGD_EPOCHS, learn_rate=c["lr"],
+                             batch_size=c["batch"], seed=SEED, verbose=False)
+            tr = streamed("train") if name.startswith("stream") else train
+            runs[name] = (lrn, stream_epochs(name, lrn, (tr, test), counts, rec)[1])
+        (r, rn), (g, gn) = runs["resident_sgd_1"], runs["stream_sgd_1"]
+        stream_same_epochs("stream_sgd_1", g, r, gn, rn, ("sgd_step", "table_scatter"),
+                           STREAM_SGD_EPOCHS)
+        del runs, r, g
+        t0 = done("stream: SGD at #1", t0)
+        groups = (np.arange(train.num_features) >= USERS).astype(np.int32)
+        trn, val = train.holdout(HOLDOUT_SEED)
+        trn.to_binary(ml + ".sgda", with_transpose=False)
+        val.to_binary(ml + ".val", with_transpose=False)
+        b_val = -(-val.nnz // STREAM_WINDOWS)
+        runs = {}
+        for name in ("resident_sgda_1", "stream_sgda_1"):
+            lrn = SGDALearner(FMConfig(num_features=train.num_features, num_factors=c["k"]),
+                              attr_group=groups, task=c["task"], num_iter=STREAM_SGDA_EPOCHS,
+                              learn_rate=c["lr"], batch_size=c["batch"], seed=SEED,
+                              verbose=False)
+            sets = ((StreamingDataset(ml + ".sgda.x", ml + ".sgda.y", budget["train"]), test,
+                     StreamingDataset(ml + ".val.x", ml + ".val.y", b_val))
+                    if name.startswith("stream") else (trn, test, val))
+            runs[name] = (lrn, stream_epochs(name, lrn, sets, counts, rec)[1])
+        (r, rn), (g, gn) = runs["resident_sgda_1"], runs["stream_sgda_1"]
+        nv = -(-val.num_rows // c["batch"])
+        stream_same_epochs("stream_sgda_1", g, r, gn, rn,
+                           ("sgda_step", "table_scatter", "sgda_lambda"),
+                           STREAM_SGDA_EPOCHS * (nv + 1))
+        del runs, r, g, trn, val
+        t0 = done("stream: SGDA at #1", t0)
+
+        # ---- 4. bench_bs through -relation with -cache_size
+        bsp = os.path.join(tmp, "bs")
+        join_tr, join_te = bs["train"].relations[0], bs["test"].relations[0]
+        rd = join_tr.data
+        RelationData(rd.indptr, rd.cols, rd.vals, rd.num_features).save(bsp + ".rel")
+        binio.write_dvector_binary(bsp + ".rel.train", join_tr.row_map.astype(np.uint32))
+        binio.write_dvector_binary(bsp + ".rel.test", join_te.row_map.astype(np.uint32))
+        bs["train"].to_binary(bsp + ".train", with_transpose=True)
+        bs["test"].to_binary(bsp + ".test", with_transpose=False)
+        argv = ["-task", "r", "-train", bsp + ".train", "-test", bsp + ".test", "-relation",
+                bsp + ".rel", "-method", "als", "-dim", f"1,1,{BS_FACTORS}", "-iter",
+                str(STREAM_BS_ITERS), "-regular", "0,5,5", "-seed", str(SEED)]
+        want, want_n, _ = cli_run("resident_bs", argv, counts)
+        got, got_n, _ = cli_run("stream_bs", argv + ["-cache_size", str(STREAM_BS_CACHE)],
+                                counts)
+        cli_same("stream_bs", got, want, got_n, want_n, rec)
+        print(f"stream_bs: test_all {[h['test_all'] for h in got.history]}")
+        del got, want
+        t0 = done("stream: bench_bs through -relation -cache_size", t0)
+
+        # ---- 5. peak host RSS: the command line in a child process, at #3
+        # streamed and resident, and on the ML-100K-sized set (the baseline)
+        small = os.path.join(tmp, "small")
+        for suffix, ds in zip((".train", ".test"), movielens_like(seed=SEED)):
+            ds.to_binary(small + suffix, with_transpose=False)
+        xbytes = os.path.getsize(ml + ".train.x")
+
+        def argv(prefix):
+            return ["-task", "r", "-train", prefix + ".train", "-test", prefix + ".test",
+                    "-method", "mcmc", "-dim", f"1,1,{FACTORS}", "-iter",
+                    str(STREAM_CHILD_ITERS), "-seed", str(SEED)]
+
+        base = cli_child("child_baseline", argv(small), out)
+        res = cli_child("child_resident_3", argv(ml), out)
+        got = cli_child("child_stream_3", argv(ml) + ["-cache_size", str(xbytes // 10)], out)
+        if len(out["child_stream_3"]["said"]) != 2:
+            fail(f"child_stream_3: not out of core: {out['child_stream_3']['said']}")
+        out["data_share_bytes"] = dict(resident=res[1] - base[1], stream=got[1] - base[1])
+        mib = lambda b: f"{b / 2**20:.1f}"  # noqa: E731
+        print(f"stream: MCMC {STREAM_CHILD_ITERS} at #3 through the command line, peak host "
+              f"RSS streamed {mib(got[1])} MiB against resident {mib(res[1])}, the baseline "
+              f"{mib(base[1])}; the data's share (a peak less the baseline's) streamed "
+              f"{mib(got[1] - base[1])} MiB against resident {mib(res[1] - base[1])}; traced "
+              f"peak streamed {mib(got[2])} MiB against resident {mib(res[2])}, the baseline "
+              f"{mib(base[2])}; wall under tracemalloc {got[0]:.2f} s against {res[0]:.2f} s; "
+              f"seconds an iteration {got[3]} against {res[3]}; on {smi}")
+        done("stream: the command line's peak host RSS, streamed and resident", t0)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"stream: the stream phase took {out['seconds']:.1f} s on {smi}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=10,
@@ -4926,6 +5277,11 @@ def main(argv=None) -> int:
                     help="only build the kernels and run the options phase (k = 0 kernel "
                     "checks and paths at configs #3 and #4, checkpoints resumed at #3, "
                     "#4 and bench_bs, predict_new, case reordering); print the rows and "
+                    "launches as one JSON line")
+    ap.add_argument("--stream", action="store_true",
+                    help="only build the kernels and run the stream phase (out-of-core "
+                    "data at #3, #1 and bench_bs, each against its resident run, and the "
+                    "command line's peak host RSS streamed and resident); print the "
                     "launches as one JSON line")
     ap.add_argument("--quality", action="store_true",
                     help="only build the kernels and run MCMC to bench.py's 24 "
@@ -4994,6 +5350,24 @@ def main(argv=None) -> int:
             with open(args.out, "w") as f:
                 json.dump(dict(rec, cli_launches=counts, phase_seconds=phase), f, indent=1)
         print(json.dumps({"card": smi, "cli_launches": {
+            p: {key: v for key, v in c.items() if v} for p, c in counts.items()}}))
+        return 0
+    if args.stream:
+        from libfm_tpu_torch.data.synth import movielens_like
+
+        data = movielens_like(USERS, ITEMS, RATINGS, seed=SEED)
+        t0 = done("config #3 data", t0)
+        bs = bs_data(dev)
+        t0 = done("bench_bs data", t0)
+        counts = {}
+        run_stream(args, rec, dev, counts, done, data, bs)
+        phase["total, from the script's start"] = time.perf_counter() - T_START
+        print(f"phase seconds on {smi}: "
+              f"{ {key: round(v, 2) for key, v in phase.items()} }")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(rec, stream_launches=counts, phase_seconds=phase), f, indent=1)
+        print(json.dumps({"card": smi, "stream_launches": {
             p: {key: v for key, v in c.items() if v} for p, c in counts.items()}}))
         return 0
     if args.options:
@@ -5114,13 +5488,13 @@ def main(argv=None) -> int:
     t0 = done("config #5 kernel checks and group sums", t0)
 
     counts = {}
-    _, counts["als"] = run_learner(ALSVectorLearner, "als", data, args, rec,
-                                   regw=5.0, regv=5.0)
+    als_3, counts["als"] = run_learner(ALSVectorLearner, "als", data, args, rec,
+                                       regw=5.0, regv=5.0)
     als = rec["als"]["history"]
     if not als[-1]["train"] < als[0]["train"]:
         fail(f"ALS train RMSE did not fall: {[h['train'] for h in als]}")
     t0 = done("ALS path", t0)
-    _, counts["mcmc"] = run_learner(MCMCVectorLearner, "mcmc", data, args, rec)
+    mcmc_3, counts["mcmc"] = run_learner(MCMCVectorLearner, "mcmc", data, args, rec)
     t0 = done("MCMC path", t0)
     run_k4b_paths(args, rec, data, counts, done)
     t0 = time.perf_counter()
@@ -5145,7 +5519,10 @@ def main(argv=None) -> int:
     t0 = done("config #5 MCMC path", t0)
     bs_table, bs, ctx = run_bench_bs(args, rec, dev, counts, done)
     table += bs_table
-    table += run_exact(args, rec, dev, counts, done, data=data, ctr=ctr, bs=bs, ctx=ctx)
+    kept = dict(als=als_3, mcmc=mcmc_3)  # the stream phase's resident runs
+    del als_3, mcmc_3
+    table += run_exact(args, rec, dev, counts, done, data=data, ctr=ctr, bs=bs, ctx=ctx,
+                       keep=kept)
     del ctx
     t0 = time.perf_counter()
     counts["sgd_1"] = run_sgd("sgd_1", data, args, rec)
@@ -5156,9 +5533,13 @@ def main(argv=None) -> int:
         counts[name] = run_sgda(name, sgda_runs, args, rec)
         t0 = done(f"SGDA {name} path", t0)
     del sgda_runs
-    run_cli(args, rec, dev, counts, done, data, bs)
-    table += run_options(args, rec, dev, counts, done, data, ctr, bs)
-    del bs
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as files:
+        run_cli(args, rec, dev, counts, done, data, bs, files=files)
+        table += run_options(args, rec, dev, counts, done, data, ctr, bs)
+        run_stream(args, rec, dev, counts, done, data, bs, resident=kept, files=files)
+    del bs, kept
     t0 = time.perf_counter()
     counts["probes"] = run_probes(rec)
     done("probe path", t0)
@@ -5178,7 +5559,8 @@ def main(argv=None) -> int:
                  "als_bs_c", "mcmc_bs_c", "als_exact_3", "exact_3", "exact_4",
                  "als_exact_bs_ctx", "exact_bs_ctx", "exact_bs_c", "bs_fallback",
                  "als_k0_3", "mcmc_k0_3", "mcmc_k0_4", "exact_k0_3", "ckpt_straight_3",
-                 "ckpt_resume_3", "als_reorder_3"):
+                 "ckpt_resume_3", "als_reorder_3", "stream_als_3", "stream_mcmc_3",
+                 "stream_test_3", "stream_exact_3"):
         print(f"{name} per-iteration seconds on {smi}: "
               f"{[round(h['time'], 6) for h in rec[name]['history']]}")
     for name in SGD_CONFIGS:

@@ -18,15 +18,20 @@ rules as libFM's:
   (libfm.cpp:326-385), -learn_rate 1 or 3 (libfm.cpp:386-404).
 
 Data files load in libFM's binary formats or its text format
-(`Dataset.load`); `tools/convert.py` makes the binary ones. What the port
-does not take yet is refused before any data loads, with the ROADMAP
-item it waits for: -mesh and -distributed 1 (M13, §1 item 6), -dtype
-other than float32 (§1 item 5), -cache_size where the JAX package
-would stream (a binary .x larger than the budget) or beside -relation
-(§1 item 4), and the pure linear model (-dim with k = 0) with -relation,
--method sgd or sgda (§1 item 2; with mcmc and als on flat data it runs).
-Under -cache_size otherwise the data loads resident, as in the JAX
-package.
+(`Dataset.load`); `tools/convert.py` makes the binary ones. Under
+-cache_size (bytes) a binary `.x` larger than the budget is read out of
+core (`data.streaming.StreamingDataset`, windows of max(1024, budget / 8)
+entries), where the JAX package reads it so: SGD's and SGDA's train set
+(`learn_stream`) and SGDA's validation set; MCMC's and ALS's train set
+where its transpose `.xt` lies beside it (`tools/transpose.py` makes it;
+without it a warning, and the set loads resident) and their test set
+unless -relation is given. With -relation the main table and the relation
+blocks load resident (the BS engines hold them whole). What the port does
+not take yet is refused before any data loads, with the ROADMAP item it
+waits for: -mesh and -distributed 1 (M13, §1 item 6), -dtype other than
+float32 (§1 item 5), and the pure linear model (-dim with k = 0) with
+-relation, -method sgd or sgda (§1 item 2; with mcmc and als on flat
+data it runs).
 """
 
 from __future__ import annotations
@@ -77,10 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
     a(
         "-cache_size",
         default=None,
-        help="host-memory budget in bytes for binary training data "
-        "(libfm.cpp:98). The port loads resident where the data fits the "
-        "budget; streaming a binary .x larger than it waits for ROADMAP "
-        "§1 item 4 and is refused.",
+        help="host-memory budget in bytes for binary data (libfm.cpp:98): "
+        "a binary .x larger than it is read out of core (SGD / SGDA train "
+        "and validation; MCMC / ALS train with its .xt beside it, and test)",
     )
     a("-save_model", default=None)
     a("-load_model", default=None)
@@ -125,23 +129,22 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _would_stream(args, method: str) -> str | None:
-    """The binary file the JAX CLI would stream under -cache_size (its
-    .x larger than the budget), or None where it loads resident."""
+def _streamed(args, prefix: str, need_transpose: bool = False):
+    """A StreamingDataset of `<prefix>.x` / `.y` where -cache_size is given
+    and the binary `.x` is larger than it (and, with `need_transpose`, its
+    `.xt` exists), else None; its windows hold max(1024, budget // 8)
+    entries (JAX cli.py)."""
+    if not args.cache_size or not prefix:
+        return None
     budget = int(float(args.cache_size))
+    xp = prefix + ".x"
+    if not (os.path.exists(xp) and os.path.getsize(xp) > budget):
+        return None
+    if need_transpose and not os.path.exists(prefix + ".xt"):
+        return None
+    from libfm_tpu_torch.data.streaming import StreamingDataset
 
-    def big(prefix):
-        xp = prefix + ".x"
-        return os.path.exists(xp) and os.path.getsize(xp) > budget
-
-    if method in ("sgd", "sgda"):
-        return args.train + ".x" if big(args.train) else None
-    if method == "mcmc":
-        if big(args.train) and os.path.exists(args.train + ".xt"):
-            return args.train + ".x"
-        if big(args.test):
-            return args.test + ".x"
-    return None
+    return StreamingDataset(xp, prefix + ".y", entry_budget=max(1024, budget // 8))
 
 
 def _usage_error(args, method: str) -> str | None:
@@ -176,14 +179,6 @@ def _refusal(args, method: str) -> str | None:
         where = "-relation" if method == "mcmc" else f"-method {method}"
         return (f"-dim with k = 0 (the pure linear model) with {where} "
                 "waits for ROADMAP §1 item 2 (the kernels' range of k)")
-    if args.cache_size and _split_list(args.relation):
-        return ("-relation with -cache_size (the bounded relation reader) waits for "
-                "ROADMAP §1 item 4")
-    if args.cache_size:
-        path = _would_stream(args, method)
-        if path:
-            return (f"-cache_size {args.cache_size}: streaming {path} "
-                    f"({os.path.getsize(path)} B) waits for ROADMAP §1 item 4")
     return None
 
 
@@ -245,18 +240,44 @@ def main(argv=None, device=None, runs: list | None = None) -> int:
                 f"min_target={ds.min_target}\tmax_target={ds.max_target}"
             )
 
-    if args.cache_size and method == "mcmc":
+    def out_of_core(what, ds):
+        if ds is not None:
+            print(f"{what} out-of-core: {ds.x_path} ({os.path.getsize(ds.x_path)} B > "
+                  f"cache_size {int(float(args.cache_size))} B)")
+        return ds
+
+    # -cache_size: the sets the JAX CLI streams (libFM's LargeSparseMatrixHD,
+    # fmatrix.h:165-281; MCMC and ALS read the .xt as libFM reads its data_t
+    # file, libfm.cpp:141-174)
+    rel_names = _split_list(args.relation)
+    stream_train = None
+    if method in ("sgd", "sgda"):
+        stream_train = _streamed(args, args.train)
+    elif args.cache_size:
+        stream_train = _streamed(args, args.train, need_transpose=True)
         xp, xtp = args.train + ".x", args.train + ".xt"
         if os.path.exists(xp) and not os.path.exists(xtp):
-            print(f"WARNING: -cache_size for MCMC/ALS needs the transpose at {xtp}; "
-                  "loading resident.")
-
-    print("Loading train...")
-    train = Dataset.load(args.train)
-    _debug(train, "train")
-    print("Loading test...")
-    test = Dataset.load(args.test)
-    _debug(test, "test")
+            print(f"WARNING: -cache_size for MCMC/ALS needs the transpose at {xtp} (build "
+                  "it with python -m libfm_tpu_torch.tools.transpose); loading resident.")
+    if rel_names and stream_train is not None:
+        # the BS engines join against a resident main table and hold the
+        # relation blocks whole
+        print("NOTE: -relation with -cache_size: the (typically tiny) BS main table "
+              "and the relation tables load resident.")
+        stream_train = None
+    out_of_core("Training", stream_train)
+    if stream_train is None:
+        print("Loading train...")
+        train = Dataset.load(args.train)
+        _debug(train, "train")
+    else:
+        train = stream_train
+    test = (out_of_core("Test set", _streamed(args, args.test))
+            if method == "mcmc" and not rel_names else None)
+    if test is None:
+        print("Loading test...")
+        test = Dataset.load(args.test)
+        _debug(test, "test")
     validation = None
     if args.validation:
         if method != "sgda":
@@ -265,11 +286,15 @@ def main(argv=None, device=None, runs: list | None = None) -> int:
                 "is ignored."
             )
         else:
-            validation = Dataset.load(args.validation)
+            if stream_train is not None:
+                validation = out_of_core("Validation", _streamed(args, args.validation))
+            if validation is None:
+                validation = Dataset.load(args.validation)
 
     relations = []
-    for rn in _split_list(args.relation):
-        rd = RelationData.load(rn)
+    rel_budget = max(1024, int(float(args.cache_size)) // 8) if args.cache_size else None
+    for rn in rel_names:
+        rd = RelationData.load(rn, entry_budget=rel_budget)
         relations.append(rd)
         train.relations.append(RelationJoin.load(rd, rn + ".train", train.num_rows))
         test.relations.append(RelationJoin.load(rd, rn + ".test", test.num_rows))
@@ -386,16 +411,18 @@ def main(argv=None, device=None, runs: list | None = None) -> int:
                 rlog.init()
             _verbosity_dump()
             with maybe_profile():
-                if method == "sgd":
-                    learner.learn(train, test)
-                else:
-                    learner.learn(train, test, validation)
+                learn = learner.learn_stream if stream_train is not None else learner.learn
+                learn(train, test, *([validation] if method == "sgda" else []))
             # the last epoch's metrics are the final parameters' evaluation
-            if learner.history:
-                tr_f, te_f = learner.history[-1][0], learner.history[-1][1]
+            if stream_train is not None:  # no train metric (JAX cli.py)
+                te_f = learner.history[-1][1] if learner.history else learner.evaluate(test)
+                print(f"Final\tTest={te_f:.6g}")
             else:
-                tr_f, te_f = learner.evaluate(train), learner.evaluate(test)
-            print(f"Final\tTrain={tr_f:.6g}\tTest={te_f:.6g}")
+                if learner.history:
+                    tr_f, te_f = learner.history[-1][0], learner.history[-1][1]
+                else:
+                    tr_f, te_f = learner.evaluate(train), learner.evaluate(test)
+                print(f"Final\tTrain={tr_f:.6g}\tTest={te_f:.6g}")
             preds = learner.predict(test) if args.out else None
             params_out = learner.params
         else:  # mcmc and als

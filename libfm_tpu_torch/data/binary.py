@@ -46,8 +46,11 @@ ROW_WINDOW = 1 << 17
 _U32 = np.dtype("<u4")
 
 
-def _row_starts(words: np.ndarray, num_rows: int) -> np.ndarray:
+def _row_starts(words: np.ndarray, num_rows: int, partial: bool = False) -> np.ndarray:
     """int64 [num_rows]: the offset in `words` of each row's size word.
+    With `partial`, `words` may end before the num_rows-th row or inside a
+    row (a buffer of a file read in pieces): the offsets of the rows that
+    lie whole in `words`, at most num_rows of them.
 
     Row r + 1 starts at start_r + 1 + 2 * words[start_r], a chain that a
     loop would walk row by row. Here each window of ROW_WINDOW words is
@@ -57,11 +60,15 @@ def _row_starts(words: np.ndarray, num_rows: int) -> np.ndarray:
     leave the window, and the chain's positions enumerated from the
     coarsest power down. The next window starts where the window's last
     row ends."""
-    starts = np.empty(num_rows, dtype=np.int64)
     total = len(words)
+    if partial:
+        num_rows = min(num_rows, total)  # a row takes one word at least
+    starts = np.empty(num_rows, dtype=np.int64)
     p = r = 0
     while r < num_rows:
         if p >= total:
+            if partial:
+                break
             raise ValueError(f"file ends after {r} of {num_rows} rows")
         seg = words[p : p + ROW_WINDOW].astype(np.int64)
         n = len(seg)
@@ -80,6 +87,10 @@ def _row_starts(words: np.ndarray, num_rows: int) -> np.ndarray:
         r += len(chain)
         last = int(chain[-1])
         p += last + 1 + 2 * int(seg[last])
+    if partial:
+        starts = starts[:r]
+        if r and p > total:  # the last row runs past the buffer
+            starts = starts[:-1]
     return starts
 
 
@@ -136,22 +147,31 @@ def write_sparse_binary(path: str, indptr, cols, vals, num_cols: int) -> None:
     indptr = np.asarray(indptr, dtype=np.int64)
     num_rows = len(indptr) - 1
     num_values = int(indptr[-1])
-    cols = np.ascontiguousarray(cols, dtype="<u4")[:num_values]
-    vals = np.ascontiguousarray(vals, dtype="<f4")[:num_values]
-    sizes = np.diff(indptr)
-    words = np.empty(num_rows + 2 * num_values, dtype=_U32)
-    is_size = np.zeros(len(words), dtype=bool)
-    is_size[np.arange(num_rows, dtype=np.int64) + 2 * indptr[:-1]] = True
-    words[is_size] = sizes
-    pairs = np.empty((num_values, 2), dtype=_U32)
-    pairs[:, 0] = cols
-    pairs[:, 1] = vals.view("<u4")
-    words[~is_size] = pairs.ravel()
     with open(path, "wb") as f:
         f.write(
             _FMATRIX_HEADER.pack(FMATRIX_FILE_ID, 4, num_values, num_rows, int(num_cols))
         )
-        f.write(words.tobytes())
+        f.write(row_words(indptr, cols, vals).tobytes())
+
+
+def row_words(indptr, cols, vals) -> np.ndarray:
+    """The body of the binary sparse-matrix format for CSR rows (indptr
+    from 0): each row's size word followed by its (id, value) pairs, one
+    uint32 array."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    num_rows = len(indptr) - 1
+    num_values = int(indptr[-1])
+    cols = np.ascontiguousarray(cols, dtype="<u4")[:num_values]
+    vals = np.ascontiguousarray(vals, dtype="<f4")[:num_values]
+    words = np.empty(num_rows + 2 * num_values, dtype=_U32)
+    is_size = np.zeros(len(words), dtype=bool)
+    is_size[np.arange(num_rows, dtype=np.int64) + 2 * indptr[:-1]] = True
+    words[is_size] = np.diff(indptr)
+    pairs = np.empty((num_values, 2), dtype=_U32)
+    pairs[:, 0] = cols
+    pairs[:, 1] = vals.view("<u4")
+    words[~is_size] = pairs.ravel()
+    return words
 
 
 def read_dvector_binary(path: str, dtype=None):

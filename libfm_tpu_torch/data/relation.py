@@ -7,10 +7,9 @@ matrix; each dataset holds, per relation, a join map from its rows to the
 block's rows. The joined attribute space offsets each relation's
 features by `attr_offset` (libFM libfm.cpp:213-216).
 
-A block loads from its binary `<prefix>.x` (and `<prefix>.groups`), a join
-map from a binary DVector of uint32 or a text file of one row id a line.
-The bounded reader of `-cache_size` (`entry_budget`) waits for ROADMAP §1
-item 4.
+A block loads whole from its binary `<prefix>.x` (and `<prefix>.groups`),
+under `-cache_size` too; a join map from a binary DVector of uint32 or a
+text file of one row id a line.
 """
 
 from __future__ import annotations
@@ -52,14 +51,12 @@ class RelationData:
 
     @classmethod
     def load(cls, prefix: str, entry_budget: int | None = None) -> "RelationData":
-        """The block of `<prefix>.x`, resident, with the groups of
-        `<prefix>.groups` where that file exists (libFM
-        relation.h:71-113)."""
-        if entry_budget:
-            raise NotImplementedError(
-                f"{prefix}.x: the bounded reader of -cache_size (entry_budget) "
-                "waits for ROADMAP §1 item 4"
-            )
+        """The block of `<prefix>.x`, with the groups of `<prefix>.groups`
+        where that file exists (libFM relation.h:71-113). The block is
+        read whole: the BS engines hold it whole (their premise: block
+        tables are small), so a read in windows would bound nothing.
+        `entry_budget` (-cache_size) is taken for the JAX signature and
+        changes nothing."""
         indptr, cols, vals, _, num_cols = binio.read_sparse_binary(prefix + ".x")
         rd = cls(indptr, cols, vals, num_cols)
         if os.path.exists(prefix + ".groups"):

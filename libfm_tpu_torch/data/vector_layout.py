@@ -195,19 +195,29 @@ def single_segment_widths(counts: np.ndarray, widths: tuple = (32, 256)) -> np.n
     return np.where(nseg == 1, out, 0)
 
 
-def padded_rows_layout(indptr, cols, vals, align: int = 1):
+def padded_rows_layout(indptr, cols, vals, align: int = 1, width: int | None = None):
     """Padded [num_rows, L] (ids, vals) arrays for dense per-case passes
-    (prediction / e-refresh); padding uses id 0 with value 0."""
+    (prediction / e-refresh); padding uses id 0 with value 0. L is the
+    longest row rounded up to `align`, or `width` where given, and then a
+    row keeps its first `width` entries."""
     lengths = np.diff(indptr).astype(np.int64)
     n = len(lengths)
-    L = max(1, int(lengths.max()) if n else 1)
-    L = ((L + align - 1) // align) * align
+    if width is None:
+        L = max(1, int(lengths.max()) if n else 1)
+        L = ((L + align - 1) // align) * align
+    else:
+        L = width
     ids = np.zeros((n, L), dtype=np.int32)
     vs = np.zeros((n, L), dtype=np.float32)
     row = np.repeat(np.arange(n, dtype=np.int64), lengths)
     offs = np.arange(int(indptr[-1]), dtype=np.int64) - np.repeat(
         indptr[:-1], lengths
     )
-    ids[row, offs] = cols
-    vs[row, offs] = vals
+    keep = offs < L
+    if keep.all():
+        ids[row, offs] = cols
+        vs[row, offs] = vals
+    else:
+        ids[row[keep], offs[keep]] = cols[keep]
+        vs[row[keep], offs[keep]] = vals[keep]
     return ids, vs

@@ -14,7 +14,15 @@ factor of V, at a time, drawn in parallel within a conflict-free block
 (`coord_draw`), the caches A = [e | Q] re-predicted every iteration
 (`fm_refresh`). Relational (BS) data runs on the exact BS engine
 (learners/mcmc_relational.py). The vector engines (learners/mcmc_vector.py,
-learners/mcmc_rel_vector.py) run on top of the shared steps.
+learners/mcmc_rel_vector.py) run on top of the shared steps. The flat
+engines take a `data.streaming.StreamingDataset` for the train set, the
+test set or both (`train_blocks`, `padded_rows`): the blocks come from the
+train set's transpose and the rows fill the device chunk by chunk, so the
+run is the resident one's, and the host never holds the whole matrix: at
+most the blocks the transpose's reader has open, the one being built
+into its slot lists, and one window. Where a block holds a large share
+of the entries (at two one-hot fields, every row's user entry), so does
+the host.
 
 ALS is MCMC with do_sample=False, do_multilevel=False — posterior means
 instead of draws (libFM src/libfm/libfm.cpp:135-139).
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from libfm_tpu_torch.data.batching import conflict_free_blocks, feature_slots
+from libfm_tpu_torch.data.streaming import is_stream, stream_blocks
 from libfm_tpu_torch.data.vector_layout import padded_rows_layout
 from libfm_tpu_torch.device import resolve_device
 from libfm_tpu_torch.kernels.coord_draw import DrawPlan, coord_draw
@@ -375,6 +384,7 @@ class CoordBlock:
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
         self.F = len(features)
+        self.num_entries = int(feat_off[-1])
         self.features = t(features, torch.long)
         self.feat_id = t(features, torch.int32)
         self.group_id = t(groups, torch.int32)
@@ -432,9 +442,37 @@ def row_width(ds) -> int:
 
 
 def padded_rows(ds, device):
-    """`fm_refresh`'s (ids, vals) [nc, L] for the cases of `ds`."""
-    ids, vals = padded_rows_layout(ds.indptr, ds.cols, ds.vals)
-    return torch.as_tensor(ids, device=device), torch.as_tensor(vals, device=device)
+    """`fm_refresh`'s (ids, vals) [nc, L] for the cases of `ds`, L its
+    longest row (at least 1). A StreamingDataset fills the same tensors
+    chunk by chunk from its windows, so that the host holds one chunk."""
+    if not is_stream(ds):
+        ids, vals = padded_rows_layout(ds.indptr, ds.cols, ds.vals)
+        return torch.as_tensor(ids, device=device), torch.as_tensor(vals, device=device)
+    L = max(1, ds.max_row_nnz())
+    ids = torch.empty(ds.num_rows, L, dtype=torch.int32, device=device)
+    vals = torch.empty(ds.num_rows, L, dtype=torch.float32, device=device)
+    for a, ci, cv in ds.padded_rows(L):
+        ids[a:a + len(ci)].copy_(torch.from_numpy(ci))
+        vals[a:a + len(cv)].copy_(torch.from_numpy(cv))
+    return ids, vals
+
+
+def train_blocks(train, attr_group_np, build):
+    """`build(block)` for each conflict-free block of the train cases, in
+    `conflict_free_blocks`' order; returns (the built blocks, the
+    observed-feature mask). A StreamingDataset's blocks come from its
+    transpose (`streaming.stream_blocks`): each is built, so uploaded,
+    before the next is read, and the built ones are put in order after."""
+    observed = np.zeros(len(attr_group_np), dtype=bool)
+    src = (stream_blocks(train, attr_group_np) if is_stream(train)
+           else enumerate(conflict_free_blocks(train, attr_group=attr_group_np)))
+    built = []
+    for key, b in src:
+        observed[b.features] = True
+        built.append((key, build(b)))
+        del b
+    built.sort(key=lambda kb: kb[0])
+    return [blk for _, blk in built], observed
 
 
 def exact_layout(train, attr_group_np, max_blocks: int, device):
@@ -444,15 +482,13 @@ def exact_layout(train, attr_group_np, max_blocks: int, device):
     max_blocks one by one and the rest under one lax.scan (a bound on
     XLA's program size), all in the order of a stable sort by entry count,
     descending; the port draws every block in one loop, in that order."""
-    blocks = conflict_free_blocks(train, attr_group=attr_group_np)
-    observed = np.zeros(len(attr_group_np), dtype=bool)
-    for b in blocks:
-        observed[b.features] = True
+    blocks, observed = train_blocks(
+        train, attr_group_np,
+        lambda b: CoordBlock.from_feature_block(b, attr_group_np, device))
     if len(blocks) > max_blocks:
-        order = np.argsort([-len(b.entry_rows) for b in blocks], kind="stable")
+        order = np.argsort([-b.num_entries for b in blocks], kind="stable")
         blocks = [blocks[i] for i in order]
-    return ([CoordBlock.from_feature_block(b, attr_group_np, device) for b in blocks],
-            np.nonzero(~observed)[0].astype(np.int64))
+    return blocks, np.nonzero(~observed)[0].astype(np.int64)
 
 
 def learn_exact(lrn, train, test):
@@ -696,10 +732,11 @@ class MCMCLearner:
     def _check_supported(self, train, test):
         _base.check_num_features(self.cfg, train, test)
         k = self.cfg.num_factors
+        if is_stream(train) and getattr(train, "relations", None):
+            raise ValueError("relational (BS) data needs its main table resident: "
+                             "pass a Dataset, not a StreamingDataset")
         why = None
-        if not hasattr(train, "indptr") or not hasattr(test, "indptr"):
-            why = "streaming data waits for ROADMAP §1 item 4"
-        elif k < 1 and getattr(train, "relations", None):
+        if k < 1 and getattr(train, "relations", None):
             why = f"the pure linear model (k=0) on relational (BS) data {RANGE_OF_K}"
         elif self.device.type == "cuda" and k > MAX_FACTORS_CUDA:
             why = f"k > {MAX_FACTORS_CUDA} on the CUDA kernels {RANGE_OF_K}"

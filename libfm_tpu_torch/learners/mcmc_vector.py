@@ -53,11 +53,16 @@ off by default, as in JAX. Checkpoints (`checkpoint_path`,
 data is routed as the JAX engine routes it (`_route_relational`): thin
 joins are expanded and run here, fat ones on the BS vector engine
 (learners/mcmc_rel_vector.py) or, with bs_vector off or a skewed join,
-on the exact BS engine (learners/mcmc_relational.py). What it does not
-take raises NotImplementedError with the ROADMAP item it waits for:
-k = 0 on relational data and k > 128 on the card (§1 item 2), streaming
-data (§1 item 4) and a mesh (§1 item 6). With an rlog each iteration
-writes one row.
+on the exact BS engine (learners/mcmc_relational.py). The train set, the
+test set or both may be a `data.streaming.StreamingDataset` (out of
+core): the blocks of a streamed train set come from its transpose
+`<x_path>t`, each uploaded before the next is read, and the padded rows
+of a streamed set fill the device chunk by chunk, so that the whole
+matrix is never on the host (a block is: see learners/mcmc.py); the run is then the resident one's, bit for
+bit (the test tail steps aside, as in JAX, and case reordering too). What
+it does not take raises NotImplementedError with the ROADMAP item it
+waits for: k = 0 on relational data and k > 128 on the card (§1 item 2)
+and a mesh (§1 item 6). With an rlog each iteration writes one row.
 """
 
 from __future__ import annotations
@@ -72,6 +77,7 @@ from libfm_tpu_torch.data.batching import (
     split_feature_slots,
 )
 from libfm_tpu_torch.data.relation import expand_join, expansion_cost
+from libfm_tpu_torch.data.streaming import is_stream
 from libfm_tpu_torch.data.vector_layout import single_segment_widths
 from libfm_tpu_torch.kernels.case_stats import CaseStatsPlan, case_stats, moment_width
 from libfm_tpu_torch.kernels.dense_update import dense_update, update_table
@@ -95,6 +101,7 @@ from libfm_tpu_torch.learners.mcmc import (
     padded_rows,
     run_iterations,
     step_metrics,
+    train_blocks,
 )
 from libfm_tpu_torch.learners.mcmc_rel_vector import (
     MAX_SKEW,
@@ -308,7 +315,7 @@ class MCMCVectorLearner(MCMCLearner):
         engine's own bound on it). A pure host-side step: every per-case
         metric is a sum, and the permutation is the data's, so a
         checkpoint resumes on the same order."""
-        if not self.case_reorder or not hasattr(train, "indptr"):
+        if not self.case_reorder or is_stream(train):
             return train
         nc, k = train.num_rows, self.cfg.num_factors
         if (nc + 1) * (1 + k) * 4 < self.case_reorder_min_bytes:
@@ -399,18 +406,18 @@ class MCMCVectorLearner(MCMCLearner):
         attr_group = group_sums.ids
         G = group_sums.num_groups
         nc_train, nc_test = train.num_rows, test.num_rows
-        blocks = []
-        observed = np.zeros(n, dtype=bool)
-        for b in conflict_free_blocks(train, attr_group=attr_group_np):
-            observed[b.features] = True
-            blocks.append(DevBlock(b, attr_group_np[b.features], nc_train, dev, k,
-                                   self.case_major_stats, self.dual_draws, self.widths,
-                                   self.dense_update))
+        # a StreamingDataset's blocks come from its transpose, each built
+        # and uploaded before the next is read (train_blocks)
+        blocks, observed = train_blocks(train, attr_group_np, lambda b: DevBlock(
+            b, attr_group_np[b.features], nc_train, dev, k, self.case_major_stats,
+            self.dual_draws, self.widths, self.dense_update))
         # the incremental test tail (JAX mcmc_vector.py learn, `incr_te`):
         # the test cases' [pred | Q] rows ride in A past the train rows and
         # take every block's update, so an iteration reads its test
-        # prediction from A; it steps aside where the JAX engine's does
+        # prediction from A; it steps aside where the JAX engine's does,
+        # and where either set streams
         incr_te = bool(self.flat_incr_test and nc_test > 0 and blocks
+                       and not is_stream(train) and not is_stream(test)
                        and not any(b.scatter_update for b in blocks))
         if incr_te:
             tails = [tail_columns(b.host_features, b.onehot, test, n) for b in blocks]

@@ -19,9 +19,10 @@ version.
 
 Per-layer learn rates (`learn_rates=(r0, r1, r2)`) follow libFM
 libfm.cpp:386-404. With an `rlog` (utils.rlog.RLog) each epoch writes
-one row of the JAX learner's fields. Streaming data (`learn_stream`)
-waits for ROADMAP §1 item 4 ("Streaming data") and raises
-NotImplementedError.
+one row of the JAX learner's fields. `learn_stream` trains out of core
+from a `data.streaming.StreamingDataset`: each epoch streams the rows in
+bounded windows and uploads one padded batch at a time, the batches the
+resident `learn` makes, through the same two launches each.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 
 from libfm_tpu_torch.data.batching import BatchedCSR, batch_dataset
 from libfm_tpu_torch.data.dataset import Dataset
+from libfm_tpu_torch.data.streaming import is_stream
 from libfm_tpu_torch.device import resolve_device
 from libfm_tpu_torch.kernels.fm_refresh import fm_refresh
 from libfm_tpu_torch.kernels.sgd_step import (
@@ -53,7 +55,6 @@ __all__ = [
 
 #: the CUDA kernels take 1 <= k <= 128
 MAX_FACTORS_CUDA = 128
-_NOT_YET = 'waits for ROADMAP §1 item 4 ("Streaming data")'
 
 
 def sgd_batch_update(params: FMParams, ids, vals, y, row_mask, cfg: FMConfig,
@@ -113,48 +114,81 @@ def make_epoch_fn(cfg: FMConfig, task: int, mode: str = "general"):
     kw = dict(mode=mode, task=task, regw=cfg.regw, regv=cfg.regv,
               use_linear=cfg.use_linear, use_bias=cfg.use_bias, reg0=cfg.reg0)
 
-    def epoch(params, ids, vals, y, row_mask, sids, perm, lrs, min_t, max_t,
-              max_runs=None):
+    def run(P, w0, batches, E, lrs, min_t, max_t):
+        """The batch loop on P and w0, in place: `batches` yields (ids,
+        vals, y, row_mask, sids, order, max_run) on P's device, E = B*L
+        entries a batch."""
         lr0, lr1, lr2 = (float(x) for x in lrs)
-        if max_runs is None:
-            max_runs = longest_runs(sids)
-        runs = [int(r) for r in max_runs]
-        P = _packed(params)
-        w0 = params.w0.clone()
-        nb, B, L = ids.shape
         dev, dt = P.device, P.dtype
-        order = torch.empty_like(perm).scatter_(
-            1, perm.long(), torch.arange(B * L, dtype=perm.dtype, device=dev).expand(nb, -1))
-        upd = torch.empty(B * L, P.shape[1], dtype=dt, device=dev)
+        upd = torch.empty(E, P.shape[1], dtype=dt, device=dev)
         red = torch.empty(2, dtype=dt, device=dev)
         step_scratch = sgd_step_scratch(dev)
-        scatter_scratch = ScatterScratch(B * L, P.shape[1], dev)
-        batches = list(zip(ids.unbind(0), vals.unbind(0), y.unbind(0),
-                           row_mask.unbind(0), sids.unbind(0),
-                           order.reshape(nb, B, L).unbind(0), runs))
+        scatter_scratch = ScatterScratch(E, P.shape[1], dev)
         for b_ids, b_vals, b_y, b_mask, b_sids, b_order, b_run in batches:
             sgd_step(P, b_ids, b_vals, b_y, b_mask, w0, lr1=lr1, lr2=lr2,
                      min_target=min_t, max_target=max_t, order=b_order,
                      lr0=lr0 if cfg.use_bias else None, upd=upd, red=red,
                      scratch=step_scratch, **kw)
             table_scatter(P, b_sids, None, upd, scratch=scatter_scratch, max_run=b_run)
+
+    def epoch(params, ids, vals, y, row_mask, sids, perm, lrs, min_t, max_t,
+              max_runs=None):
+        if max_runs is None:
+            max_runs = longest_runs(sids)
+        runs = [int(r) for r in max_runs]
+        P = _packed(params)
+        w0 = params.w0.clone()
+        nb, B, L = ids.shape
+        order = torch.empty_like(perm).scatter_(
+            1, perm.long(),
+            torch.arange(B * L, dtype=perm.dtype, device=P.device).expand(nb, -1))
+        run(P, w0, zip(ids.unbind(0), vals.unbind(0), y.unbind(0), row_mask.unbind(0),
+                       sids.unbind(0), order.reshape(nb, B, L).unbind(0), runs),
+            B * L, lrs, min_t, max_t)
         return FMParams(w0=w0, w=P[:, 0].contiguous(), v=P[:, 1:].contiguous())
 
+    epoch.run = run
     return epoch
 
 
-def _epoch_mode(train: Dataset, tb: BatchedCSR) -> str:
-    """The epoch specialization for the static batch stack: "pair" for
-    uniform 2-entry one-hot rows (the recommender shape), "onehot" for
-    uniform-L one-hot rows, else "general"."""
-    lengths = np.diff(train.indptr)
-    L = tb.ids.shape[2]
-    uniform = lengths.size > 0 and int(lengths.min()) == int(lengths.max()) == L
-    if not uniform:
-        return "general"
-    if not (train.vals == 1.0).all():
+def _epoch_mode(train, L: int) -> str:
+    """The epoch specialization for the batches of `train` (a Dataset or a
+    StreamingDataset), L entries a row: "pair" for uniform 2-entry one-hot
+    rows (the recommender shape), "onehot" for uniform-L one-hot rows,
+    else "general"."""
+    if is_stream(train):
+        lo, hi, ones = train.row_lengths()
+        if not train.num_rows:
+            return "general"
+    else:
+        lengths = np.diff(train.indptr)
+        if not lengths.size:
+            return "general"
+        lo, hi, ones = int(lengths.min()), int(lengths.max()), bool((train.vals == 1.0).all())
+    if not (lo == hi == L and ones):
         return "general"
     return "pair" if L == 2 else "onehot"
+
+
+def upload_batches(stream, batch_size: int, max_nnz: int, device):
+    """The batches of `stream.iter_batches` (ids, vals, y, row_mask) on
+    `device`, one on the host at a time."""
+    for batch in stream.iter_batches(batch_size, max_nnz):
+        yield tuple(torch.as_tensor(a, device=device) for a in batch)
+
+
+def stream_batches(stream, batch_size: int, max_nnz: int, device):
+    """The batches of `stream.iter_batches`, each with its scatter order,
+    on `device`: (ids, vals, y, row_mask, sids, order, max_run), the
+    tensors `make_epoch_fn`'s loop takes of a resident batch stack. One
+    batch is on the host at a time."""
+    for ids, vals, y, mask in stream.iter_batches(batch_size, max_nnz):
+        sids, perm = sorted_scatter_order(ids[None])
+        order = np.empty_like(perm)
+        order[0, perm[0]] = np.arange(perm.shape[1], dtype=perm.dtype)
+        run = int(longest_runs(sids)[0])
+        yield (*(torch.as_tensor(a, device=device) for a in (
+            ids, vals, y, mask, sids[0], order[0].reshape(ids.shape))), run)
 
 
 def sorted_scatter_order(ids: np.ndarray):
@@ -173,13 +207,30 @@ def make_eval_fn(cfg: FMConfig, task: int):
     of batches: (RMSE, MAE) for regression, (accuracy, 0) for
     classification, as 0-dim tensors. The scores come from fm_refresh in
     test mode over all rows at once; torch does the clamp, error and
-    masked sums."""
+    masked sums. `evaluate.stream(params, batches, min_t, max_t)` does the
+    same over streamed batches."""
 
     def evaluate(params, ids, vals, y, row_mask, min_t, max_t):
         L = ids.shape[-1]
         pred = fm_refresh(_packed(params), ids.reshape(-1, L), vals.reshape(-1, L),
                           params.w0, use_linear=cfg.use_linear,
                           use_bias=cfg.use_bias)
+        return metrics(pred, y, row_mask, min_t, max_t)
+
+    def evaluate_stream(params, batches, min_t, max_t):
+        """evaluate over the batches of `upload_batches` (one fm_refresh
+        launch a batch); the scores are gathered on the device and reduced
+        at once, as evaluate reduces a resident stack's."""
+        P = _packed(params)
+        pred, ys, masks = [], [], []
+        for ids, vals, y, row_mask in batches:
+            pred.append(fm_refresh(P, ids, vals, params.w0, use_linear=cfg.use_linear,
+                                   use_bias=cfg.use_bias))
+            ys.append(y)
+            masks.append(row_mask)
+        return metrics(torch.cat(pred), torch.cat(ys), torch.cat(masks), min_t, max_t)
+
+    def metrics(pred, y, row_mask, min_t, max_t):
         m = row_mask.reshape(-1).to(pred.dtype)
         yv = y.reshape(-1).to(pred.dtype)
         cnt = m.sum().clamp_min(1.0)
@@ -189,7 +240,19 @@ def make_eval_fn(cfg: FMConfig, task: int):
         correct = ((pred >= 0) & (yv >= 0)) | ((pred < 0) & (yv < 0))
         return (correct.to(pred.dtype) * m).sum() / cnt, torch.zeros_like(cnt)
 
+    evaluate.stream = evaluate_stream
     return evaluate
+
+
+def warn_truncated(stream, max_nnz: int, it: int) -> None:
+    """After the first epoch of `learn_stream`: warn with the counts of
+    rows cut at max_nnz entries and of the entries dropped, if any."""
+    if it == 0 and stream.truncated_rows:
+        import warnings
+
+        warnings.warn(f"learn_stream: max_nnz={max_nnz} truncated {stream.truncated_rows} "
+                      f"rows ({stream.truncated_entries} entries dropped); pass "
+                      "max_nnz=None for the lossless default", stacklevel=3)
 
 
 class SGDLearner:
@@ -287,7 +350,7 @@ class SGDLearner:
 
         tb = batch_dataset(train, self.batch_size)
         eb = batch_dataset(test, self.batch_size)
-        epoch = make_epoch_fn(self.cfg, self.task, _epoch_mode(train, tb))
+        epoch = make_epoch_fn(self.cfg, self.task, _epoch_mode(train, tb.ids.shape[2]))
         t_arrs = self._arrays(tb)
         e_arrs = self._arrays(eb)
         sids, perm = sorted_scatter_order(tb.ids)
@@ -336,8 +399,61 @@ class SGDLearner:
         return history
 
     def learn_stream(self, stream, test: Dataset, max_nnz: int | None = None):
-        """Out-of-core SGD over a StreamingDataset."""
-        raise NotImplementedError(f"learn_stream {_NOT_YET}")
+        """Out-of-core SGD (JAX sgd.py `learn_stream`): each epoch is one
+        pass over the StreamingDataset `stream` (libFM trains from its
+        bounded cache of rows, fmatrix.h:165-281), one padded batch on the
+        host at a time and uploaded before its two launches. max_nnz
+        defaults to the longest row, so that each batch is the one
+        `learn` takes (`batch_dataset(train, batch_size)`) and the epoch
+        ends in its bits; a smaller max_nnz cuts longer rows, with a
+        warning that counts them. As in JAX, each epoch reports the test
+        metric only (the train one is NaN) and the history holds (NaN,
+        test metric, epoch seconds)."""
+        self._check_supported(stream, test)
+        if max_nnz is None:
+            max_nnz = max(stream.max_row_nnz(), 1)
+        base.check_num_features(self.cfg, stream, test)
+        if self.params is None:
+            self.init_params()
+        self.min_target = stream.min_target
+        self.max_target = stream.max_target
+        dev = self.device
+        e_arrs = self._arrays(batch_dataset(test, self.batch_size))
+        epoch = make_epoch_fn(self.cfg, self.task, _epoch_mode(stream, max_nnz))
+        min_t, max_t = float(self.min_target), float(self.max_target)
+        E = self.batch_size * max_nnz
+
+        history = []
+        for it in range(self.num_iter):
+            c0 = iter_clocks(dev)
+            with torch.profiler.record_function(f"epoch {it}"):
+                P = _packed(self.params)
+                w0 = self.params.w0.clone()
+                epoch.run(P, w0, stream_batches(stream, self.batch_size, max_nnz, dev), E,
+                          self.lrs, min_t, max_t)
+                self.params = FMParams(w0=w0, w=P[:, 0].contiguous(), v=P[:, 1:].contiguous())
+                c1 = iter_clocks(dev)
+            dt = c1[2] - c0[2]
+            warn_truncated(stream, max_nnz, it)
+            m_test = self._eval(self.params, *e_arrs, min_t, max_t)
+            te, mae = torch.stack(m_test).tolist()
+            c2 = iter_clocks(dev)
+            history.append((float("nan"), te, dt))
+            if self.verbose:
+                print(f"#Iter={it:3d}\tTest={te:.6g}")
+            if self.rlog is not None:
+                if self.task == TASK_REGRESSION:
+                    self.rlog.log("rmse", te)
+                    self.rlog.log("mae", mae)
+                else:
+                    self.rlog.log("accuracy", te)
+                self.rlog.log("time_learn", c1[0] - c0[0])
+                self.rlog.log("time_learn2", c1[1] - c0[1])
+                self.rlog.log("time_learn4", dt)
+                self.rlog.log("time_pred", c2[0] - c1[0])
+                self.rlog.new_line()
+        self.history = history
+        return history
 
     def evaluate(self, ds: Dataset) -> float:
         self._check_supported(ds)

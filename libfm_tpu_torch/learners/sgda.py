@@ -24,9 +24,10 @@ tensors every kernel wrapper runs its plain PyTorch version.
 
 One learn rate, the first of `learn_rates`, drives every layer (JAX
 sgda.py:205). With an `rlog` each epoch writes one row of the JAX
-learner's fields, `rmse_val` among them. Streaming data (`learn_stream`)
-waits for ROADMAP §1 item 4 ("Streaming data") and raises
-NotImplementedError.
+learner's fields, `rmse_val` among them. `learn_stream` trains out of
+core from a `data.streaming.StreamingDataset`, with a resident or a
+streamed validation set: the batches of `learn`, one on the host at a
+time, through the same launches.
 """
 
 from __future__ import annotations
@@ -38,12 +39,13 @@ import torch
 
 from libfm_tpu_torch.data.batching import BatchedCSR, batch_dataset
 from libfm_tpu_torch.data.dataset import Dataset
+from libfm_tpu_torch.data.streaming import is_stream
 from libfm_tpu_torch.kernels.sgda_lambda import sgda_lambda, sgda_lambda_scratch
 from libfm_tpu_torch.kernels.sgda_step import sgda_step, sgda_step_scratch
 from libfm_tpu_torch.kernels.table_scatter import ScatterScratch, longest_runs, table_scatter
 from libfm_tpu_torch.learners import base
 from libfm_tpu_torch.learners.sgd import (
-    _NOT_YET, SGDLearner, _epoch_mode, _packed, sorted_scatter_order,
+    SGDLearner, _epoch_mode, _packed, sorted_scatter_order, upload_batches, warn_truncated,
 )
 from libfm_tpu_torch.models.fm import FMConfig, FMParams
 from libfm_tpu_torch.tasks import TASK_REGRESSION
@@ -130,31 +132,53 @@ def make_epoch_fn(cfg: FMConfig, task: int, mode: str = "general",
     `_epoch_mode`'s choice for each static batch stack."""
     kw = dict(task=task, use_linear=cfg.use_linear, use_bias=cfg.use_bias)
 
+    def run(P, w0, Gc, reg_w, reg_v, attr_group, batches, val_batch, E, lr, min_t, max_t,
+            do_lambda):
+        """The batch loop, in place: `batches` yields (ids, vals, y,
+        row_mask, order, gc_row, sids[:n_real], n_real, max_run) on P's
+        device, E = B*L entries a batch; `val_batch(i)` gives the
+        validation batch (ids, vals, y, row_mask) of the lambda step after
+        batch i."""
+        d, dev, dt = P.shape[1], P.device, P.dtype
+        upd = torch.empty(E, d, dtype=dt, device=dev)
+        red = torch.empty(1, dtype=dt, device=dev)
+        step_scratch = sgda_step_scratch(dev)
+        scatter_scratch = ScatterScratch(E, d, dev)
+        lam_scratch = sgda_lambda_scratch(reg_w.shape[0], d - 1, dev)
+        lims = dict(lr=lr, min_target=min_t, max_target=max_t, **kw)
+        for i, (ids, vals, y, m, order, gc_row, sids, n_real, run) in enumerate(batches):
+            sgda_step(P, ids, vals, y, m, w0, Gc, gc_row, attr_group, reg_w, reg_v,
+                      mode=mode, order=order, upd=upd, red=red, scratch=step_scratch, **lims)
+            table_scatter(P, sids, None, upd[:n_real], scratch=scatter_scratch, max_run=run)
+            if do_lambda:
+                sgda_lambda(P, Gc, *val_batch(i), w0, attr_group, reg_w, reg_v,
+                            mode=val_mode, scratch=lam_scratch, **lims)
+
     def epoch(P, w0, Gc, reg_w, reg_v, attr_group, train: SGDABatches, val, lr, min_t,
               max_t, do_lambda=True):
         nb, B, L = train.ids.shape
-        d, dev, dt = P.shape[1], P.device, P.dtype
-        upd = torch.empty(B * L, d, dtype=dt, device=dev)
-        red = torch.empty(1, dtype=dt, device=dev)
-        step_scratch = sgda_step_scratch(dev)
-        scatter_scratch = ScatterScratch(B * L, d, dev)
-        lam_scratch = sgda_lambda_scratch(reg_w.shape[0], d - 1, dev)
-        lims = dict(lr=lr, min_target=min_t, max_target=max_t, **kw)
-        batches = list(zip(*(a.unbind(0) for a in (*train.arrays, train.order,
-                                                   train.gc_row)),
-                           (s[:m] for s, m in zip(train.sids.unbind(0), train.n_real)),
-                           (upd[:m] for m in train.n_real), train.max_runs))
+        batches = zip(*(a.unbind(0) for a in (*train.arrays, train.order, train.gc_row)),
+                      (s[:m] for s, m in zip(train.sids.unbind(0), train.n_real)),
+                      train.n_real, train.max_runs)
         vbatches = list(zip(*(a.unbind(0) for a in val)))
-        nv = len(vbatches)
-        for i, (ids, vals, y, m, order, gc_row, sids, rows, run) in enumerate(batches):
-            sgda_step(P, ids, vals, y, m, w0, Gc, gc_row, attr_group, reg_w, reg_v,
-                      mode=mode, order=order, upd=upd, red=red, scratch=step_scratch, **lims)
-            table_scatter(P, sids, None, rows, scratch=scatter_scratch, max_run=run)
-            if do_lambda:
-                sgda_lambda(P, Gc, *vbatches[i % nv], w0, attr_group, reg_w, reg_v,
-                            mode=val_mode, scratch=lam_scratch, **lims)
+        run(P, w0, Gc, reg_w, reg_v, attr_group, batches,
+            lambda i: vbatches[i % len(vbatches)], B * L, lr, min_t, max_t, do_lambda)
 
+    epoch.run = run
     return epoch
+
+
+def stream_sgda_batches(stream, batch_size: int, max_nnz: int, n: int, device):
+    """The batches of `stream.iter_batches`, each with its scatter plan
+    (`sgda_scatter_plan`) for n features, on `device`: the tuples
+    `make_epoch_fn`'s loop takes of a resident stack. One batch is on the
+    host at a time."""
+    for ids, vals, y, mask in stream.iter_batches(batch_size, max_nnz):
+        sids, order, gc_row, n_real = sgda_scatter_plan(ids[None], vals[None], n)
+        m = int(n_real[0])
+        run = int(longest_runs(sids[0, :m])) if m else 0
+        yield (*(torch.as_tensor(a, device=device) for a in (
+            ids, vals, y, mask, order[0], gc_row[0], sids[0, :m])), m, run)
 
 
 class SGDALearner(SGDLearner):
@@ -202,8 +226,8 @@ class SGDALearner(SGDLearner):
         tb = batch_dataset(train, self.batch_size)
         vb = batch_dataset(validation, self.batch_size)
         eb = batch_dataset(test, self.batch_size)
-        epoch = make_epoch_fn(cfg, self.task, _epoch_mode(train, tb),
-                              _epoch_mode(validation, vb))
+        epoch = make_epoch_fn(cfg, self.task, _epoch_mode(train, tb.ids.shape[2]),
+                              _epoch_mode(validation, vb.ids.shape[2]))
         t_batches = sgda_batches(tb, n, dev)
         v_arrs, e_arrs = self._arrays(vb), self._arrays(eb)
         attr_group = torch.as_tensor(self.attr_group_np, device=dev)
@@ -249,5 +273,100 @@ class SGDALearner(SGDLearner):
 
     def learn_stream(self, stream, test: Dataset, validation=None,
                      max_nnz: int | None = None):
-        """Out-of-core SGDA over a StreamingDataset."""
-        raise NotImplementedError(f"learn_stream {_NOT_YET}")
+        """Out-of-core SGDA (JAX sgda.py `learn_stream`): the train set
+        streams from the StreamingDataset `stream`, one batch on the host at
+        a time, through the launches of `learn`. `validation` is a resident
+        Dataset or a StreamingDataset; the lambda step after batch i takes
+        validation batch i % (its batches) from the epoch's start
+        (adapt_reg.h:294-311), so a streamed validation set is read in
+        order through one bounded window, from its start again at each
+        epoch. max_nnz defaults to the longest train row: each batch is
+        then `learn`'s and the run ends in its bits. The history holds
+        (NaN, test metric, validation metric, epoch seconds), the
+        validation metric over all its rows (summed, not a mean of batch
+        metrics)."""
+        self._check_supported(stream, test, validation)
+        if validation is None:
+            raise ValueError("SGDA requires a validation set")
+        if max_nnz is None:
+            max_nnz = max(stream.max_row_nnz(), 1)
+        base.check_num_features(self.cfg, stream, test, validation)
+        if self.params is None:
+            self.init_params()
+        p = self.params  # w and the regularizers start at 0 (adapt_reg.h:281-289)
+        self.params = FMParams(p.w0, torch.zeros_like(p.w), p.v)
+        self.min_target = stream.min_target
+        self.max_target = stream.max_target
+        cfg, dev, B = self.cfg, self.device, self.batch_size
+        n, k, G = cfg.num_features, cfg.num_factors, self.num_groups
+        dt = self.params.v.dtype
+
+        val_stream = is_stream(validation)
+        if val_stream:
+            v_nnz = max(validation.max_row_nnz(), 1)
+            val_mode = _epoch_mode(validation, v_nnz)
+
+            def val_batches():
+                """The validation batches in order, round and round."""
+                while True:
+                    empty = True
+                    for vb in upload_batches(validation, B, v_nnz, dev):
+                        empty = False
+                        yield vb
+                    if empty:
+                        raise ValueError("the validation stream holds no row")
+        else:
+            vb = batch_dataset(validation, B)
+            v_arrs = self._arrays(vb)
+            val_mode = _epoch_mode(validation, vb.ids.shape[2])
+            vbatches = list(zip(*(a.unbind(0) for a in v_arrs)))
+        e_arrs = self._arrays(batch_dataset(test, B))
+        epoch = make_epoch_fn(cfg, self.task, _epoch_mode(stream, max_nnz), val_mode)
+        attr_group = torch.as_tensor(self.attr_group_np, device=dev)
+        P = _packed(self.params)
+        w0 = self.params.w0.clone()
+        Gc = torch.zeros(n + 1, k + 1, dtype=dt, device=dev)
+        reg_w = torch.zeros(G, dtype=dt, device=dev)
+        reg_v = torch.zeros(G, k, dtype=dt, device=dev)
+        lr = float(self.lrs[0])
+        min_t, max_t = float(self.min_target), float(self.max_target)
+
+        history = []
+        for it in range(self.num_iter):
+            c0 = iter_clocks(dev)
+            if val_stream:
+                vit = val_batches()  # from the start at each epoch (adapt_reg.h:299)
+
+                def val_batch(i):
+                    return next(vit)
+            else:
+                def val_batch(i):
+                    return vbatches[i % len(vbatches)]
+            with torch.profiler.record_function(f"epoch {it}"):
+                epoch.run(P, w0, Gc, reg_w, reg_v, attr_group,
+                          stream_sgda_batches(stream, B, max_nnz, n, dev), val_batch,
+                          B * max_nnz, lr, min_t, max_t, it > 0)
+                c1 = iter_clocks(dev)
+            dt_s = c1[2] - c0[2]
+            warn_truncated(stream, max_nnz, it)
+            self.params = FMParams(w0, P[:, 0], P[:, 1:])
+            m_val = (self._eval.stream(self.params, upload_batches(validation, B, v_nnz, dev),
+                                       min_t, max_t)
+                     if val_stream else self._eval(self.params, *v_arrs, min_t, max_t))
+            m_test = self._eval(self.params, *e_arrs, min_t, max_t)
+            te, vl = torch.stack([m_test[0], m_val[0]]).tolist()
+            history.append((float("nan"), te, vl, dt_s))
+            if self.verbose:
+                print(f"#Iter={it:3d}\tTest={te:.6g}")
+            if self.rlog is not None:
+                c2 = iter_clocks(dev)
+                self.rlog.log("rmse" if self.task == TASK_REGRESSION else "accuracy", te)
+                self.rlog.log("rmse_val", vl)
+                self.rlog.log("time_learn", c1[0] - c0[0])
+                self.rlog.log("time_learn4", dt_s)
+                self.rlog.log("time_pred", c2[0] - c1[0])
+                self.rlog.new_line()
+        self.params = FMParams(w0, P[:, 0].contiguous(), P[:, 1:].contiguous())
+        self.reg_w, self.reg_v = reg_w, reg_v
+        self.history = history
+        return history

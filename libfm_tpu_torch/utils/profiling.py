@@ -10,7 +10,8 @@ MemoryLog (src/util/memory.h:31-62); here:
 - `device_memory_stats()`: the caching allocator's counters of each CUDA
   device (`torch.cuda.memory_stats`); none without CUDA;
 - `peak_memory_report()` / `print_peak_memory_report()`: the host's peak
-  RSS and those counters, printed one line each.
+  RSS (`host_peak_rss_bytes`, the process's own VmHWM) and those
+  counters, printed one line each.
 
 Per-iteration timing lives in `utils.timers` (iter_clocks feeds the rlog
 time_* fields).
@@ -61,14 +62,30 @@ def device_memory_stats() -> list[dict]:
     return out
 
 
-def peak_memory_report() -> dict:
-    """The host's peak RSS in bytes and the CUDA devices' counters."""
+def host_peak_rss_bytes() -> int:
+    """This process's peak resident set in bytes: VmHWM of
+    /proc/self/status where there is one (Linux), the high-water mark of
+    the process's own memory since it started its program; else
+    ru_maxrss. On Linux ru_maxrss also keeps the mark of the process it
+    was forked from, so a small child of a large parent would read the
+    parent's size."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
     import resource
 
     ru = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     # ru_maxrss is KiB on Linux, bytes on macOS
-    host_peak = int(ru) * (1 if ru > 1 << 34 else 1024)
-    return dict(host_peak_rss_bytes=host_peak, devices=device_memory_stats())
+    return int(ru) * (1 if ru > 1 << 34 else 1024)
+
+
+def peak_memory_report() -> dict:
+    """The host's peak RSS in bytes and the CUDA devices' counters."""
+    return dict(host_peak_rss_bytes=host_peak_rss_bytes(), devices=device_memory_stats())
 
 
 def print_peak_memory_report() -> dict:

@@ -353,10 +353,6 @@ REFUSED = {
     "distributed": (["-distributed", "1"], "item 6"),
     "float64": (["-dtype", "float64"], "item 5"),
     "bfloat16": (["-dtype", "bfloat16"], "item 5"),
-    "cache_size_sgd": (["-method", "sgd", "-cache_size", "100", "-train", "{bin}.train"],
-                       "item 4"),
-    "cache_size_als": (["-cache_size", "100", "-train", "{bin}"], "item 4"),  # .xt beside
-    "relation_with_cache_size": (["-relation", "{rel}", "-cache_size", "1e12"], "item 4"),
     "k0_relation": (["-relation", "{rel}", "-dim", "1,1,0"], "item 2"),
     "k0_sgd": (["-method", "sgd", "-dim", "1,1,0"], "item 2"),
     "k0_sgda": (["-method", "sgda", "-validation", "{test}", "-dim", "1,1,0"], "item 2"),
@@ -377,6 +373,60 @@ def test_refused_options_name_their_roadmap_item(case, files, capsys):
     assert f"ROADMAP §1 {item}" in text and text.startswith("ERROR")
     assert "Loading" not in text
     assert not any(os.path.exists(p) for p in outs.values())
+
+
+def _binary(files, name, with_transpose=False):
+    """The binary pair (and with `with_transpose` the .xt) of the text
+    file files[name], under a prefix of its own."""
+    prefix = str(files["dir"] / f"bin_{name}{'_t' if with_transpose else ''}")
+    if not os.path.exists(prefix + ".x"):
+        Dataset.load(files[name]).to_binary(prefix, with_transpose=with_transpose)
+    return prefix
+
+
+#: -cache_size runs that read a set out of core: (the command line's
+#: method flags and data, the message the streamed run prints)
+STREAMED = {
+    "sgd": (["-method", "sgd", "-train", "{train}"], ["Training out-of-core"]),
+    "sgda": (["-method", "sgda", "-train", "{train}", "-validation", "{validation}",
+              "-meta", "{meta}"], ["Training out-of-core", "Validation out-of-core"]),
+    "als_xt": (["-method", "als", "-train", "{train_t}"], ["Training out-of-core"]),
+    "mcmc_test_set": (["-method", "mcmc", "-test", "{test}"], ["Test set out-of-core"]),
+    "relation": (["-method", "als", "-train", "{rtrain}", "-test", "{rtest}", "-relation",
+                  "{rel}"], ["NOTE: -relation with -cache_size"]),
+}
+
+
+@pytest.mark.parametrize("case", STREAMED)
+def test_cache_size_streams_as_the_resident_run(case, files, capsys):
+    """A set read out of core under -cache_size gives the resident run's
+    -out file and iteration readings (the same batches or blocks, the same
+    bits); SGD and SGDA then print no train metric, as the JAX CLI."""
+    extra, said = STREAMED[case]
+    paths = dict(train=_binary(files, "train"), train_t=_binary(files, "train", True),
+                 test=_binary(files, "test"), validation=_binary(files, "test"),
+                 meta=files["meta"], rtrain=_binary(files, "rtrain", True),
+                 rtest=_binary(files, "rtest"), rel=files["rel"])
+    argv = ["-task", "r", "-train", files["train"], "-test", files["test"], "-dim", "1,1,3",
+            "-iter", "3", "-seed", "3", "-learn_rate", "0.01", "-regular", "0,0,0.01"]
+    argv += [a.format(**paths) for a in extra]
+    outs = {}
+    for budget in (None, "100"):
+        out = str(files["dir"] / f"streamed_{case}_{budget}.out")
+        runs = []
+        capsys.readouterr()
+        assert cli.main(argv + ["-out", out] + (["-cache_size", budget] if budget else []),
+                        device="cpu", runs=runs) == 0
+        text = capsys.readouterr().out
+        outs[budget] = (open(out).read(), [m[0] for m in ITER_RE.findall(text)]
+                        or re.findall(r"^#Iter=\s*\d+\tTest=(\S+)", text, re.M), text)
+        assert all((s in text) == bool(budget) for s in said)
+    (want, want_it, _), (got, got_it, text) = outs[None], outs["100"]
+    assert got == want and len(want.splitlines()) == files["ntest"]
+    if case in ("sgd", "sgda"):
+        assert "Final\tTest=" in text and "Final\tTrain" not in text
+        want_it = [m[2] for m in ITER_RE.findall(outs[None][2])]
+    assert got_it == want_it and len(want_it) == 3
 
 
 def test_cache_size_within_budget_loads_resident(files, capsys):

@@ -2986,3 +2986,31 @@ def test_checkpoint_resumes_on_the_card_the_same_bits(cuda, engine, tmp_path):
         np.testing.assert_allclose(got, want, atol=5e-3)
     else:
         np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_streamed_als_is_the_resident_run_on_the_card(cuda, tmp_path):
+    """chip_smoke.py's stream_als_3 check at a small size: ALS from a
+    StreamingDataset (train in windows of 700 entries, its blocks from the
+    .xt) ends in the resident run's bits (P, the sampler state, every
+    reading) with the same launches, the test tail off."""
+    from libfm_tpu_torch.data.streaming import StreamingDataset
+
+    train, test = movielens_like(num_users=300, num_items=200, num_ratings=20000, seed=5)
+    train.to_binary(str(tmp_path / "tr"), with_transpose=True)
+    runs = []
+    for data in ((train, test), (StreamingDataset(str(tmp_path / "tr.x"),
+                                                  str(tmp_path / "tr.y"), 700), test)):
+        lr = ALSVectorLearner(FMConfig(num_features=train.num_features, num_factors=16,
+                                       regw=5.0, regv=5.0),
+                              num_iter=3, seed=1, verbose=False, device="cuda")
+        lr.flat_incr_test = False
+        kernels.reset_launch_counts()
+        lr.learn(*data)
+        torch.cuda.synchronize()
+        runs.append((lr, kernels.launch_counts()))
+    (res, res_n), (got, got_n) = runs
+    assert got_n == res_n and got_n["schur_draw"] > 0
+    assert ([{key: v for key, v in h.items() if key != "time"} for h in got.history]
+            == [{key: v for key, v in h.items() if key != "time"} for h in res.history])
+    assert [key for key in REPRO_KEYS if not torch.equal(got._final_state[key],
+                                                         res._final_state[key])] == []

@@ -11,7 +11,6 @@ ml_small size (movielens_like(120, 90, 8000, seed=3), k=8).
   for one: torch's generators are not JAX's threefry.
 """
 
-import types
 
 import jax
 import jax.numpy as jnp
@@ -127,9 +126,8 @@ def test_dispatch_chunks_matches_jax(start, num_iter, R):
 
 @pytest.mark.parametrize("case", [
     # dual draws (the first case once) are in the slice since kernel K7,
-    # case reordering since the learner options' slice: streaming data
-    # takes the case's place
-    pytest.param("streaming", id="kwargs0-None"),
+    # case reordering since the learner options' slice, streaming data
+    # since the out-of-core slice (tests/test_torch_streaming.py)
     # the incremental test tail (the second case once) is in the slice
     # since kernel K4b, the flat pure linear model (k=0) since the learner
     # options' slice: k = 0 on relational data takes the case's place
@@ -137,18 +135,12 @@ def test_dispatch_chunks_matches_jax(start, num_iter, R):
 ])
 def test_outside_the_slice_raises(ml_small, case):
     tr, te = ml_small
-    k = 0 if case == "k0_relational" else 4
-    learner = MCMCVectorLearner(FMConfig(num_features=tr.num_features, num_factors=k),
+    learner = MCMCVectorLearner(FMConfig(num_features=tr.num_features, num_factors=0),
                                 num_iter=1, verbose=False, device="cpu")
-    if case == "streaming":
-        tr = types.SimpleNamespace(**{key: getattr(tr, key) for key in (
-            "num_rows", "num_features", "min_target", "max_target", "target")})
-        item = "§1 item 4"
-    else:
-        tr = movielens_like(num_users=120, num_items=90, num_ratings=8000, seed=3)[0]
-        block = RelationData(np.arange(2), np.zeros(1), np.ones(1), 1)
-        tr.relations = [RelationJoin(block, np.zeros(tr.num_rows, np.int32))]
-        item = "§1 item 2"
+    tr = movielens_like(num_users=120, num_items=90, num_ratings=8000, seed=3)[0]
+    block = RelationData(np.arange(2), np.zeros(1), np.ones(1), 1)
+    tr.relations = [RelationJoin(block, np.zeros(tr.num_rows, np.int32))]
+    item = "§1 item 2"
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         learner.learn(tr, te)
 

@@ -380,7 +380,7 @@ def _binarised(train, test):
     return out
 
 
-def test_out_of_slice_relational_cases_raise():
+def test_out_of_slice_relational_cases_raise(tmp_path):
     train, test, nf = _single_rel_problem(seed=9)
     ttr, tte = to_port(train, test)
     cfg = FMConfig(num_features=nf, num_factors=2)
@@ -416,12 +416,20 @@ def test_out_of_slice_relational_cases_raise():
     with pytest.raises(NotImplementedError, match="§1 item 2"):
         k0.learn(ttr, tte)
     # rlog and the resident binary block load are in the slice since the
-    # CLI's port; the bounded reader of -cache_size is not
+    # CLI's port, -cache_size's entry_budget since the out-of-core slice:
+    # at budgets of 1 and of 5 entries the block loads as without one
     assert MCMCVectorLearner(cfg, rlog=object(), device="cpu").rlog is not None
-    with pytest.raises(NotImplementedError, match="item 4"):
-        trelation.RelationData.load("no_such_prefix", entry_budget=1024)
-    with pytest.raises(FileNotFoundError):
-        trelation.RelationData.load("no_such_prefix")
+    block = ttr.relations[0].data
+    block.save(str(tmp_path / "blk"))
+    for budget in (None, 1, 5):
+        got = trelation.RelationData.load(str(tmp_path / "blk"), entry_budget=budget)
+        for key in ("indptr", "cols", "vals"):
+            assert np.array_equal(getattr(got, key), getattr(block, key))
+            assert getattr(got, key).dtype == getattr(block, key).dtype
+        assert got.num_features == block.num_features
+    for budget in (None, 1024):
+        with pytest.raises(FileNotFoundError):
+            trelation.RelationData.load("no_such_prefix", entry_budget=budget)
 
 
 def test_relation_join_load_text_and_binary(tmp_path):

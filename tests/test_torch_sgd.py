@@ -35,6 +35,7 @@ from libfm_tpu.models.fm import FMParams as JaxFMParams
 from libfm_tpu_torch.convert import params_from_jax
 from libfm_tpu_torch.data.batching import batch_dataset
 from libfm_tpu_torch.data.dataset import Dataset
+from libfm_tpu_torch.data.streaming import StreamingDataset
 from libfm_tpu_torch.data.synth import ctr_like, movielens_like
 from libfm_tpu_torch.learners import sgd as tsgd
 from libfm_tpu_torch.models.fm import FMConfig, FMParams
@@ -133,7 +134,7 @@ def test_epoch_matches_jax(which, mode, use_linear, use_bias):
     jtr, ttr, _, _, task = _data(which)
     n = jtr.num_features
     jb, tb = jax_batch_dataset(jtr, 128), batch_dataset(ttr, 128)
-    assert jsgd._epoch_mode(jtr, jb) == tsgd._epoch_mode(ttr, tb) == mode
+    assert jsgd._epoch_mode(jtr, jb) == tsgd._epoch_mode(ttr, tb.ids.shape[2]) == mode
     kw = dict(num_features=n, num_factors=K, reg0=0.02, regw=0.05, regv=0.03,
               use_linear=use_linear, use_bias=use_bias)
     init = _params(n, K, seed=1)
@@ -316,14 +317,22 @@ def test_plain_path_f64_matches_b1_oracle():
     np.testing.assert_allclose(got.v.numpy(), V, rtol=1e-6, atol=1e-9)
 
 
-def test_out_of_slice_options_raise():
+def test_out_of_slice_options_raise(tmp_path):
     cfg = FMConfig(num_features=10, num_factors=2)
     # rlog output is in the slice since the CLI's port (tests/test_torch_cli.py)
     assert tsgd.SGDLearner(cfg, rlog=RLog(io.StringIO()), device="cpu").rlog is not None
     learner = tsgd.SGDLearner(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Streaming data"):
-        learner.learn_stream(None, None)
+    # streaming data is in the slice since the out-of-core slice
+    # (tests/test_torch_streaming.py): rows cut at max_nnz are counted and
+    # warned of, the lossless default cuts none
     tr, te = movielens_like(4, 6, 50, seed=1)
+    tr.to_binary(str(tmp_path / "s"), with_transpose=False)
+    stream = StreamingDataset(str(tmp_path / "s.x"), str(tmp_path / "s.y"), entry_budget=16)
+    with pytest.warns(UserWarning, match=f"truncated {tr.num_rows} rows"):
+        assert len(learner.learn_stream(stream, te, max_nnz=1)) == learner.num_iter
+    assert (stream.truncated_rows, stream.truncated_entries) == (tr.num_rows, tr.nnz - tr.num_rows)
+    tsgd.SGDLearner(cfg, num_iter=1, device="cpu").learn_stream(stream, te)
+    assert stream.truncated_rows == 0
     tr.relations = [object()]
     with pytest.raises(ValueError, match="relations"):
         learner.learn(tr, te)

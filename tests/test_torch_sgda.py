@@ -46,6 +46,7 @@ from libfm_tpu.models.fm import FMParams as JaxFMParams
 from libfm_tpu_torch.convert import params_from_jax
 from libfm_tpu_torch.data.batching import batch_dataset
 from libfm_tpu_torch.data.dataset import Dataset
+from libfm_tpu_torch.data.streaming import StreamingDataset
 from libfm_tpu_torch.data.synth import ctr_like, movielens_like
 from libfm_tpu_torch.kernels.sgda_lambda import sgda_lambda_plain
 from libfm_tpu_torch.kernels import sgd_step as tsgd_step
@@ -592,14 +593,20 @@ def test_sgd_w0_update_rounds_as_jax():
 # ---- what this slice does not take
 
 
-def test_out_of_slice_options_raise(monkeypatch):
+def test_out_of_slice_options_raise(monkeypatch, tmp_path):
     cfg = FMConfig(num_features=10, num_factors=2)
     # rlog output is in the slice since the CLI's port (tests/test_torch_cli.py)
     assert tsgda.SGDALearner(cfg, rlog=RLog(io.StringIO()), device="cpu").rlog is not None
     learner = tsgda.SGDALearner(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Streaming data"):
-        learner.learn_stream(None, None, None)
+    # streaming data is in the slice since the out-of-core slice
+    # (tests/test_torch_streaming.py); it needs a validation set too
     tr, te = movielens_like(4, 6, 50, seed=1)
+    tr.to_binary(str(tmp_path / "s"), with_transpose=False)
+    stream = StreamingDataset(str(tmp_path / "s.x"), str(tmp_path / "s.y"), entry_budget=16)
+    with pytest.raises(ValueError, match="validation"):
+        learner.learn_stream(stream, te)
+    hist = tsgda.SGDALearner(cfg, num_iter=2, device="cpu").learn_stream(stream, te, stream)
+    assert len(hist) == 2 and np.isnan(hist[0][0]) and np.isfinite(hist[-1][1:]).all()
     with pytest.raises(ValueError, match="validation"):
         learner.learn(tr, te)
     tr.relations = [object()]
